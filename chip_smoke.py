@@ -1,0 +1,497 @@
+"""Drive the PyTorch port (``kubetpu_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py [--record PATH]
+
+Phases, one line each, any failure exits non-zero:
+
+1. device: the card's name, and ``nvidia-smi``'s name and power limit;
+2. build: every CUDA kernel of the port, compiled from ``kubetpu_torch/ops/
+   csrc`` with ``nvcc`` (all sources at once);
+3. kernels: each kernel at the flagship serving shapes against its plain
+   PyTorch version, with its time, the plain version's, the least time the
+   card could take (bytes over 3.35 TB/s or operations over 989 TFLOP/s,
+   whichever is larger) and one PyTorch library call's time as a yardstick;
+4. parity: a small f32 model served by the port on the CPU (plain version)
+   and on the card (kernel) — prefill logits within 1e-3, greedy tokens
+   equal;
+5. serve: the flagship decoder (vocab 32000, d 2048, 12 layers, 16 heads,
+   d_ff 5632, bf16, random weights from a seed) behind ``PagedDecodeServer``
+   with staggered requests; every launch counter is zeroed just before and
+   read just after, and each kernel of the path must have run;
+6. profile: ``torch.profiler`` over ten decode steps of eight slots — step
+   time, device busy time, idle share, the top kernels;
+7. the ``kernels`` JSON line, then the result line.
+
+Nothing of JAX or of the ``kubetpu`` package is imported. ``--record PATH``
+also writes every measured number as one JSON file.
+"""
+
+from __future__ import annotations
+
+import copy
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+HBM_BYTES_S = 3.35e12          # H100 SXM device memory rate
+BF16_FLOP_S = 989e12           # H100 SXM dense bf16 tensor-core rate
+BF16_TOL = 2e-2                # bf16 output: a few roundings of |o| < 1
+F32_TOL = 1e-3
+
+
+def line(tag: str, **kv) -> None:
+    print(f"{tag}: " + json.dumps(kv, sort_keys=True), flush=True)
+
+
+def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device time of fn() in ms, from CUDA events around *iters*
+    back-to-back calls after *warmup* calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def phase_device() -> dict:
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    line("device", name=name, count=torch.cuda.device_count(),
+         torch=torch.__version__, cuda=torch.version.cuda)
+    print(smi, flush=True)
+    return {"name": name, "nvidia_smi": smi}
+
+
+def phase_build() -> dict:
+    from kubetpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    _build.build_all(["paged_attention"])
+    secs = time.perf_counter() - t0
+    ptxas = [ln.strip() for log in _build.BUILD_LOGS.values()
+             for ln in log.splitlines() if "registers" in ln or "spill" in ln]
+    line("build", seconds=round(secs, 3), kernels=["paged_attention"],
+         ptxas_lines=len(ptxas))
+    return {"seconds": secs, "ptxas": ptxas}
+
+
+# -- phase 3: paged attention against its plain version ---------------------
+
+def _paged_case(gen, ctx_end, t, window, int8, dtype, h=16, h_kv=16, d=128,
+                ps=16):
+    """Random pages scattered over a shuffled pool; slot b's queries sit at
+    positions ctx_end[b]-t .. ctx_end[b]-1."""
+    from kubetpu_torch.jobs.quant import quantize_kv_chunk
+
+    dev = "cuda"
+    b = len(ctx_end)
+    pages = [(c + ps - 1) // ps for c in ctx_end]
+    max_pages = max(pages)
+    n_pool = sum(pages) + 1
+    perm = torch.randperm(n_pool, generator=gen, device=dev).cpu().numpy()
+    table = np.full((b, max_pages), -1, np.int32)
+    used = 0
+    for i, n in enumerate(pages):
+        table[i, :n] = perm[used:used + n]
+        used += n
+    pos = np.array([c - t for c in ctx_end], np.int32)
+
+    def randn(*shape, dt=dtype):
+        return torch.randn(shape, generator=gen, device=dev, dtype=dt)
+
+    q = randn(b, t, h, d)
+    if int8:
+        kp = quantize_kv_chunk(randn(n_pool, ps, h_kv, d, dt=torch.float32))
+        vp = quantize_kv_chunk(randn(n_pool, ps, h_kv, d, dt=torch.float32))
+    else:
+        kp, vp = randn(n_pool, ps, h_kv, d), randn(n_pool, ps, h_kv, d)
+    return (q, kp, vp, torch.from_numpy(table).to(dev),
+            torch.from_numpy(pos).to(dev), window)
+
+
+def _visible(pos, t, window, s_max):
+    """(B, T, S) bool: key k visible to query t of slot b."""
+    k = torch.arange(s_max, device=pos.device)
+    qp = pos.long()[:, None] + torch.arange(t, device=pos.device)
+    vis = k[None, None, :] <= qp[:, :, None]
+    if window > 0:
+        vis &= qp[:, :, None] - k[None, None, :] < window
+    return vis
+
+
+def _bound(case):
+    """Least time for the function on this data: every input byte it needs
+    (q, the visible keys' K and V rows — and scales for int8 —, table,
+    pos) read once and the output written once, against its operations
+    (4 * D flops per query head per visible key) at the bf16 peak."""
+    q, kp, vp, table, pos, window = case
+    b, t, h, d = q.shape
+    int8 = isinstance(kp, tuple)
+    vals = kp[0] if int8 else kp
+    ps, h_kv = vals.shape[1], vals.shape[2]
+    vis = _visible(pos, t, window, table.shape[1] * ps)
+    keys_any = int(vis.any(dim=1).sum())           # key rows some query needs
+    row_bytes = h_kv * d * vals.element_size() + (h_kv * 4 if int8 else 0)
+    nbytes = (2 * keys_any * row_bytes + 2 * q.numel() * q.element_size()
+              + table.numel() * 4 + pos.numel() * 4)
+    flops = 4 * d * h * int(vis.sum())
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / BF16_FLOP_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
+
+
+def _library(case):
+    """One PyTorch call computing the same function: SDPA over the K/V
+    already gathered into contiguous (B, H, S, D) with the visibility
+    mask. Timed only; the port never calls it."""
+    import torch.nn.functional as F
+
+    from kubetpu_torch.ops.paged_attention import _gather
+
+    q, kp, vp, table, pos, window = case
+    b, t, h, d = q.shape
+    safe = torch.clamp(table, min=0).long()
+    k = _gather(kp, safe).to(q.dtype)
+    v = _gather(vp, safe).to(q.dtype)
+    g = h // k.shape[-2]           # GQA: expand K/V heads up front
+    k = k.reshape(b, -1, k.shape[-2], d).repeat_interleave(g, dim=2)
+    v = v.reshape(b, -1, v.shape[-2], d).repeat_interleave(g, dim=2)
+    k, v = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+    mask = _visible(pos, t, window, k.shape[2])[:, None]
+    qh = q.transpose(1, 2).contiguous()
+    return lambda: F.scaled_dot_product_attention(qh, k, v, attn_mask=mask)
+
+
+def phase_kernels() -> list:
+    from kubetpu_torch.ops import paged_attention as pa
+
+    gen = torch.Generator(device="cuda").manual_seed(1234)
+    ragged = [2048, 1717, 1403, 1111, 877, 530, 301, 96]
+    cases = [
+        ("decode_bf16", _paged_case(gen, ragged, 1, 0, False, torch.bfloat16)),
+        ("decode_int8", _paged_case(gen, ragged, 1, 0, True, torch.bfloat16)),
+        ("decode_window256",
+         _paged_case(gen, ragged, 1, 256, False, torch.bfloat16)),
+        ("chunk_bf16_T256", _paged_case(gen, [1024], 256, 0, False,
+                                        torch.bfloat16)),
+    ]
+    rows = []
+    for name, case in cases:
+        q, kp, vp, table, pos, window = case
+        t = q.shape[1]
+        if t == 1:
+            run = lambda: pa.paged_attention(q[:, 0], kp, vp, table, pos,
+                                             window=window)
+            out = run()[:, None]
+        else:
+            run = lambda: pa.paged_attention_chunk(q, kp, vp, table, pos)
+            out = run()
+        torch.cuda.synchronize()
+        ref = pa.paged_attention_reference(q, kp, vp, table, pos, window)
+        err = float((out.float() - ref.float()).abs().max())
+        ok = bool(torch.isfinite(out).all()) and err <= BF16_TOL
+        ms = cuda_ms(run)
+        plain_ms = cuda_ms(lambda: pa.paged_attention_reference(
+            q, kp, vp, table, pos, window), iters=5, warmup=1)
+        library_ms = cuda_ms(_library(case))
+        bound_ms, bound_by, nbytes, flops = _bound(case)
+        row = dict(case=name, max_abs_err=err, tol=BF16_TOL, ok=ok, ms=ms,
+                   plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                   library_ms=library_ms, bytes=nbytes, flops=flops,
+                   shape=dict(B=q.shape[0], T=t, H=q.shape[2],
+                              D=q.shape[3], window=window,
+                              int8=isinstance(kp, tuple)))
+        line("kernel", **row)
+        rows.append(row)
+        if not ok:
+            raise SystemExit(f"paged_attention {name}: max error {err} "
+                             f"above {BF16_TOL}")
+    return rows
+
+
+# -- phase 4: CPU plain version vs the card's kernel, same small model ------
+
+def phase_parity() -> dict:
+    from kubetpu_torch.jobs import model as model_lib
+    from kubetpu_torch.jobs.decode import forward_chunk_io
+    from kubetpu_torch.jobs.paged import (PagedDecodeServer,
+                                          _paged_prefill_io, init_page_pool)
+    from kubetpu_torch.ops.paged_attention import paged_attention_chunk
+
+    cfg = model_lib.ModelConfig(vocab=512, d_model=256, n_layers=2,
+                                n_heads=4, n_kv_heads=2, d_ff=512,
+                                max_seq=256)
+    cpu_model = model_lib.init_params(torch.Generator().manual_seed(7), cfg,
+                                      device="cpu")
+    models = {"cpu": cpu_model, "cuda": copy.deepcopy(cpu_model).to("cuda")}
+    rng = np.random.default_rng(7)
+    prompt = rng.integers(0, cfg.vocab, 64)
+
+    logits = {}
+    for dev, model in models.items():
+        pools = init_page_pool(cfg, 8, 16, device=dev)
+        row = torch.tensor([3, 1, 6, 0], dtype=torch.int32, device=dev)
+        io = _paged_prefill_io(torch.tensor([3, 1, 6, 0]), row, 16, 0,
+                               attend_chunk=paged_attention_chunk)
+        tokens = torch.from_numpy(prompt[None]).to(dev)
+        logits[dev] = forward_chunk_io(cfg, model, tokens, pools, 0,
+                                       io)[0].cpu()
+    logit_err = float((logits["cpu"] - logits["cuda"]).abs().max())
+    if logit_err > F32_TOL:
+        raise SystemExit(f"parity: prefill logits differ by {logit_err}")
+
+    prompts = [rng.integers(0, cfg.vocab, n).tolist() for n in (5, 40, 23,
+                                                                 70)]
+    mismatches = []
+    out = {}
+    for kv_int8 in (False, True):
+        tokens = {}
+        for dev, model in models.items():
+            server = PagedDecodeServer(cfg, model, n_slots=3, max_seq=256,
+                                       max_new_tokens=16, page_size=16,
+                                       prefill_budget=32, kv_int8=kv_int8,
+                                       device=dev)
+            rids = [server.enqueue(prompts[0])]
+            server.step()
+            rids += [server.enqueue(p) for p in prompts[1:]]
+            server.drain()
+            server.check_invariants()
+            tokens[dev] = [server.result(r) for r in rids]
+        for a, b in zip(tokens["cpu"], tokens["cuda"]):
+            if a == b:
+                continue
+            i = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
+            top2 = torch.topk(model_lib.forward(
+                cpu_model, torch.tensor([a[:i]]), cfg)[0, -1], 2).values
+            gap = float(top2[0] - top2[1])
+            mismatches.append({"kv_int8": kv_int8, "step": i, "gap": gap})
+        out["kv_int8" if kv_int8 else "f32"] = tokens["cuda"]
+    line("parity", prefill_logit_max_err=logit_err, tol=F32_TOL,
+         requests=2 * len(prompts), token_mismatches=mismatches)
+    # a differing greedy token is a fault unless the two top logits tie
+    # within the logits tolerance there
+    bad = [m for m in mismatches if m["gap"] > F32_TOL]
+    if bad:
+        raise SystemExit(f"parity: greedy tokens differ at {bad}")
+    return {"prefill_logit_max_err": logit_err, "mismatches": mismatches}
+
+
+# -- phase 5: the flagship behind the paged server ---------------------------
+
+def phase_serve(smi: str) -> dict:
+    from kubetpu_torch.jobs import model as model_lib
+    from kubetpu_torch.jobs.paged import PagedDecodeServer
+    from kubetpu_torch.ops import paged_attention as pa
+
+    cfg = model_lib.ModelConfig(vocab=32000, d_model=2048, n_layers=12,
+                                n_heads=16, d_ff=5632, max_seq=2048,
+                                dtype=torch.bfloat16)
+    model = model_lib.init_params(
+        torch.Generator(device="cuda").manual_seed(0), cfg, device="cuda")
+    server = PagedDecodeServer(cfg, model, n_slots=8, max_seq=2048,
+                               max_new_tokens=32, page_size=16,
+                               prefill_budget=256, device="cuda")
+    counts = {"steps": 0, "chunks": 0}
+    step_leg, chunk_leg = server._device_step, server._prefill_chunk_device
+
+    def counted_step():
+        counts["steps"] += 1
+        return step_leg()
+
+    def counted_chunk(*args):
+        res = chunk_leg(*args)
+        counts["chunks"] += res is not None
+        return res
+
+    server._device_step = counted_step
+    server._prefill_chunk_device = counted_chunk
+
+    rng = np.random.default_rng(0)
+    # warm-up request (cuBLAS handles, allocator), outside the counted run
+    server.enqueue(rng.integers(0, cfg.vocab, 40).tolist())
+    server.drain()
+
+    lengths = [128, 1024, 256, 896, 384, 768, 512, 640]
+    prompts = [rng.integers(0, cfg.vocab, n).tolist() for n in lengths]
+    counts.update(steps=0, chunks=0)
+    pa.paged_attention.launches = 0            # zero just before the path
+    torch.cuda.synchronize()
+    arrive, first, rids = {}, {}, []
+    decode_s, decode_tokens, decode_steps, steps = 0.0, 0, 0, 0
+    t_start = time.perf_counter()
+    pending = list(prompts)
+    while pending or not server._idle():
+        if pending and (steps % 4 == 0):          # staggered admission
+            for p in pending[:2]:
+                rid = server.enqueue(p)
+                rids.append(rid)
+                arrive[rid] = time.perf_counter()
+            pending = pending[2:]
+        chunks_before = counts["chunks"]
+        t0 = time.perf_counter()
+        out = server.step()                        # routing syncs the device
+        dt = time.perf_counter() - t0
+        now = time.perf_counter()
+        for rid in out:
+            first.setdefault(rid, now)
+        if counts["chunks"] == chunks_before and out:
+            decode_s += dt
+            decode_tokens += sum(len(v) for v in out.values())
+            decode_steps += 1
+        steps += 1
+        if steps > 10_000:
+            raise SystemExit("serve: did not converge")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_start
+    launches = pa.paged_attention.launches    # read just after
+    expected = cfg.n_layers * (counts["steps"] + counts["chunks"])
+    results = [server.result(r) for r in rids]
+    ok_tokens = all(
+        server.finished(r) and len(res) == n + 32
+        and all(0 <= x < cfg.vocab for x in res[n:])
+        for r, res, n in zip(rids, results, lengths))
+    if not ok_tokens:
+        raise SystemExit("serve: a request did not finish with 32 tokens")
+    if launches <= 0 or launches != expected:
+        raise SystemExit(f"serve: paged_attention launches {launches} != "
+                         f"n_layers * (steps + chunks) = {expected}")
+    server.check_invariants()
+
+    # the served first token against a dense forward of the same prompt:
+    # its dense logit must sit within bf16 noise of the dense maximum
+    i = lengths.index(1024)
+    with torch.no_grad():
+        dense = model_lib.forward(
+            model, torch.tensor([prompts[i]], device="cuda"), cfg)[0, -1]
+    served = results[i][lengths[i]]
+    first_gap = float(dense.float().max() - dense.float()[served])
+    finite = bool(torch.isfinite(dense.float()).all())
+    if not finite or first_gap > 0.25:
+        raise SystemExit(f"serve: first token {served} is {first_gap} below "
+                         f"the dense forward's best logit")
+    ttft = sorted((first[r] - arrive[r]) * 1e3 for r in rids)
+    row = dict(card=torch.cuda.get_device_name(0), nvidia_smi=smi,
+               requests=len(rids), prompt_tokens=sum(lengths),
+               new_tokens=32 * len(rids), steps=counts["steps"],
+               prefill_chunks=counts["chunks"], paged_attention_launches=launches,
+               decode_toks_s=decode_tokens / decode_s if decode_s else None,
+               decode_steps=decode_steps,
+               ttft_ms_p50=ttft[len(ttft) // 2], ttft_ms_max=ttft[-1],
+               wall_s=wall, first_token_dense_gap=first_gap,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    line("serve", **row)
+    return row, server
+
+
+def phase_profile(server) -> dict:
+    """Where a decode step's time goes: torch.profiler over 10 steps of 8
+    active slots (256-token prompts), after the counted run. Device busy
+    time is the sum of kernel self times (one stream: kernels never
+    overlap); the idle share is 1 - busy / wall."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(1)
+    vocab = server.cfg.vocab
+    for _ in range(server.n_slots):
+        server.enqueue(rng.integers(0, vocab, 256).tolist())
+    while server._queue or server._prefills:
+        server.step()
+    for _ in range(3):
+        server.step()
+    active = int(server.active.sum())
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(10):
+            server.step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = {}       # device-side events only: CPU ops would count twice
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0.0))
+        kernels[ev.key] = kernels.get(ev.key, 0.0) + us
+    busy = sum(kernels.values())
+    attn = sum(v for k, v in kernels.items() if "paged_attn_kernel" in k)
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
+    row = dict(active_slots=active, steps=10, step_ms=wall_us / 10 / 1e3,
+               device_busy_ms_per_step=busy / 10 / 1e3,
+               idle_share=(1.0 - busy / wall_us) if busy else None,
+               paged_attention_share_of_busy=(attn / busy) if busy else None,
+               kernel_kinds=len(kernels),
+               top_kernels_ms_per_step=[(k[:60], v / 10 / 1e3)
+                                        for k, v in top])
+    line("profile", **row)
+    server.drain()
+    return row
+
+
+def main(argv) -> int:
+    record_path = None
+    if argv[:1] == ["--record"] and len(argv) == 2:
+        record_path = argv[1]
+    elif argv:
+        print("usage: python3 chip_smoke.py [--record PATH]", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs the port on the "
+              "card only", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = phase_device()
+    build = phase_build()
+    kern = phase_kernels()
+    parity = phase_parity()
+    serve, server = phase_serve(dev["nvidia_smi"])
+    prof = phase_profile(server)
+
+    decode = next(r for r in kern if r["case"] == "decode_bf16")
+    kernels = [{
+        "name": "paged_attention", "route": "cuda",
+        "source": "kubetpu_torch/ops/csrc/paged_attention.cu",
+        "replaces": "kubetpu/ops/paged_attention.py:65",
+        "launches": serve["paged_attention_launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in kern),
+        "ms": decode["ms"], "plain_ms": decode["plain_ms"],
+        "bound_ms": decode["bound_ms"], "bound_by": decode["bound_by"],
+        "library_ms": decode["library_ms"],
+        "ok": all(r["ok"] for r in kern),
+    }]
+    record = {"device": dev, "build": build, "kernel_cases": kern,
+              "parity": parity, "serve": serve, "profile": prof,
+              "kernels": kernels}
+    if record_path:
+        os.makedirs(os.path.dirname(os.path.abspath(record_path)),
+                    exist_ok=True)
+        with open(record_path, "w") as f:
+            json.dump(record, f, indent=1)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -29,6 +29,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "chaos: seeded fault-injection soaks over the wire stack"
     )
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device; skips inside the test without one"
+    )
 
 
 import pytest  # noqa: E402
