@@ -7,20 +7,35 @@ Phases, one line each, any failure exits non-zero:
 1. device: the card's name, and ``nvidia-smi``'s name and power limit;
 2. build: every CUDA kernel of the port, compiled from ``kubetpu_torch/ops/
    csrc`` with ``nvcc`` (all sources at once);
-3. kernels: each kernel at the flagship serving shapes against its plain
-   PyTorch version, with its time, the plain version's, the least time the
-   card could take (bytes over 3.35 TB/s or operations over 989 TFLOP/s,
-   whichever is larger) and one PyTorch library call's time as a yardstick;
-4. parity: a small f32 model served by the port on the CPU (plain version)
+3. kernels: the paged-attention kernel at the flagship serving shapes
+   against its plain PyTorch version, with its time, the plain version's,
+   the least time the card could take (bytes over 3.35 TB/s or operations
+   over 989 TFLOP/s, whichever is larger) and one PyTorch library call's
+   time as a yardstick;
+4. flash: the forward, dQ and dK/dV kernels at the flagship training shape
+   (B=4, S=2048, H=16, D=128, bf16; causal, causal with window 256, and
+   non-causal), each against its plain version, with the same timings
+   (SDPA forward and SDPA backward as the library yardsticks);
+5. parity: a small f32 model served by the port on the CPU (plain version)
    and on the card (kernel) — prefill logits within 1e-3, greedy tokens
    equal;
-5. serve: the flagship decoder (vocab 32000, d 2048, 12 layers, 16 heads,
+6. serve: the flagship decoder (vocab 32000, d 2048, 12 layers, 16 heads,
    d_ff 5632, bf16, random weights from a seed) behind ``PagedDecodeServer``
    with staggered requests; every launch counter is zeroed just before and
    read just after, and each kernel of the path must have run;
-6. profile: ``torch.profiler`` over ten decode steps of eight slots — step
+7. profile: ``torch.profiler`` over ten decode steps of eight slots — step
    time, device busy time, idle share, the top kernels;
-7. the ``kernels`` JSON line, then the result line.
+8. train parity: the small f32 model trained three steps on the CPU (plain
+   versions) and on the card (flash kernels) from the same weights and
+   batches — first-step gradients and per-step losses agree;
+9. train: the flagship at full width (max_seq 2048), batch 4 x seq 2048,
+   full remat, flash attention, AdamW: one warm-up step, five timed steps
+   (step time, tokens/s, MFU, peak memory; the flash launch counters are
+   zeroed just before and must read 24 / 12 / 12 per step just after),
+   then ten steps on one repeated batch, whose loss must fall;
+10. train profile: ``torch.profiler`` over one training step — device busy
+   time, idle share, the attention kernels' share, the top kernels;
+11. the ``kernels`` JSON line, then the result line.
 
 Nothing of JAX or of the ``kubetpu`` package is imported. ``--record PATH``
 also writes every measured number as one JSON file.
@@ -81,12 +96,16 @@ def phase_build() -> dict:
     from kubetpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    _build.build_all(["paged_attention"])
+    names = ["paged_attention", "flash_attention"]
+    _build.build_all(names)
     secs = time.perf_counter() - t0
     ptxas = [ln.strip() for log in _build.BUILD_LOGS.values()
              for ln in log.splitlines() if "registers" in ln or "spill" in ln]
-    line("build", seconds=round(secs, 3), kernels=["paged_attention"],
-         ptxas_lines=len(ptxas))
+    spills = [ln for ln in ptxas if "spill" in ln
+              and not (", 0 bytes spill stores" in ln
+                       and ", 0 bytes spill loads" in ln)]
+    line("build", seconds=round(secs, 3), kernels=names,
+         ptxas_lines=len(ptxas), lines_with_spills=len(spills))
     return {"seconds": secs, "ptxas": ptxas}
 
 
@@ -224,7 +243,131 @@ def phase_kernels() -> list:
     return rows
 
 
-# -- phase 4: CPU plain version vs the card's kernel, same small model ------
+# -- phase 4: the flash kernels against their plain versions -----------------
+
+FLASH_SHAPE = dict(B=4, S=2048, H=16, D=128)
+
+
+def _visible_pairs(s: int, causal: bool, window: int) -> int:
+    """(query, key) pairs one head computes: the causal half, the band, or
+    every pair."""
+    if not causal:
+        return s * s
+    if window <= 0:
+        return s * (s + 1) // 2
+    return sum(min(r + 1, window) for r in range(s))
+
+
+def _flash_bound(kind: str, causal: bool, window: int, itemsize: int):
+    """Least time for one call at FLASH_SHAPE: its operations (2 flops per
+    multiply-add, D per visible pair for each product recomputed: 2 in the
+    forward, 3 in dQ, 4 in dK/dV) against its bytes (every (B, S, H, D)
+    input read once and output written once, and the f32 lse / delta rows)."""
+    b, s, h, d = (FLASH_SHAPE[x] for x in "BSHD")
+    products = {"forward": 2, "dq": 3, "dkv": 4}[kind]
+    flops = 2 * d * products * b * h * _visible_pairs(s, causal, window)
+    # forward: q k v out, lse; dQ: q k v dO dq, lse delta; dK/dV: q k v dO
+    # dk dv, lse delta
+    tensors = {"forward": 4, "dq": 5, "dkv": 6}[kind]
+    rows = {"forward": 1, "dq": 2, "dkv": 2}[kind]
+    nbytes = tensors * b * s * h * d * itemsize + rows * b * h * s * 4
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / BF16_FLOP_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
+
+
+def _err_ok(x, ref, tol):
+    """(max |x - ref|, every element within tol + tol * |ref|)."""
+    diff = (x.float() - ref.float()).abs()
+    return (float(diff.max()),
+            bool(torch.isfinite(x).all()
+                 and (diff <= tol + tol * ref.float().abs()).all()))
+
+
+def phase_flash() -> list:
+    import torch.nn.functional as F
+
+    from kubetpu_torch.ops import flash_attention as fa
+
+    b, s, h, d = (FLASH_SHAPE[x] for x in "BSHD")
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    q, k, v, g = (torch.randn((b, s, h, d), generator=gen, device="cuda",
+                              dtype=torch.bfloat16) for _ in range(4))
+    # SDPA's (B, H, S, D) layout, timed only; the port never calls it
+    qt, kt, vt, gt = (x.transpose(1, 2).contiguous() for x in (q, k, v, g))
+    rows = []
+    for case, causal, window in (("causal", True, 0),
+                                 ("window256", True, 256),
+                                 ("noncausal", False, 0)):
+        out, lse = fa.flash_forward(q, k, v, causal, window)
+        delta = fa._delta(out, g)
+        dq = fa._launch_dq(q, k, v, g, lse, delta, causal, window)
+        dk, dv = fa._launch_dkv(q, k, v, g, lse, delta, causal, window)
+        torch.cuda.synchronize()
+        ref_out, ref_lse = fa.flash_forward_reference(q, k, v, causal, window)
+        refs = fa.flash_backward_reference(q, k, v, out, lse, g, causal,
+                                           window)
+        errs = {"forward": [_err_ok(out, ref_out, BF16_TOL),
+                            _err_ok(lse, ref_lse, F32_TOL)],
+                "dq": [_err_ok(dq, refs[0], BF16_TOL)],
+                "dkv": [_err_ok(dk, refs[1], BF16_TOL),
+                        _err_ok(dv, refs[2], BF16_TOL)]}
+        del ref_out, ref_lse, refs
+
+        mask = None
+        if window > 0:
+            pos = torch.arange(s, device="cuda")
+            mask = ((pos[:, None] >= pos[None, :])
+                    & (pos[:, None] - pos[None, :] < window))
+
+        def sdpa(x, y, z):
+            if mask is not None:
+                return F.scaled_dot_product_attention(x, y, z, attn_mask=mask)
+            return F.scaled_dot_product_attention(x, y, z, is_causal=causal)
+
+        lib_fwd = cuda_ms(lambda: sdpa(qt, kt, vt))
+        leaves = [x.detach().requires_grad_(True) for x in (qt, kt, vt)]
+        lib_out = sdpa(*leaves)
+        lib_bwd = cuda_ms(lambda: torch.autograd.grad(
+            lib_out, leaves, gt, retain_graph=True))
+        del lib_out, leaves
+        plain_fwd = cuda_ms(lambda: fa.flash_forward_reference(
+            q, k, v, causal, window), iters=3, warmup=1)
+        plain_bwd = cuda_ms(lambda: fa.flash_backward_reference(
+            q, k, v, out, lse, g, causal, window), iters=3, warmup=1)
+        timed = {
+            "forward": (lambda: fa.flash_forward(q, k, v, causal, window),
+                        plain_fwd, lib_fwd),
+            "dq": (lambda: fa._launch_dq(q, k, v, g, lse, delta, causal,
+                                         window), plain_bwd, lib_bwd),
+            "dkv": (lambda: fa._launch_dkv(q, k, v, g, lse, delta, causal,
+                                           window), plain_bwd, lib_bwd),
+        }
+        for kind, (run, plain_ms, library_ms) in timed.items():
+            bound_ms, bound_by, nbytes, flops = _flash_bound(
+                kind, causal, window, q.element_size())
+            ms = cuda_ms(run, iters=10, warmup=2)
+            row = dict(kernel=kind, case=case,
+                       max_abs_err=max(e for e, _ in errs[kind]),
+                       tol=BF16_TOL, ok=all(o for _, o in errs[kind]),
+                       ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                       bound_by=bound_by, library_ms=library_ms,
+                       bytes=nbytes, flops=flops,
+                       tflop_s=flops / ms / 1e9,
+                       shape=dict(FLASH_SHAPE, causal=causal, window=window,
+                                  dtype="bf16"))
+            line("flash", **row)
+            rows.append(row)
+        torch.cuda.empty_cache()
+    bad = [(r["kernel"], r["case"], r["max_abs_err"]) for r in rows
+           if not r["ok"]]
+    if bad:
+        raise SystemExit(f"flash kernels disagree with their plain versions: "
+                         f"{bad}")
+    return rows
+
+
+# -- phase 5: CPU plain version vs the card's kernel, same small model ------
 
 def phase_parity() -> dict:
     from kubetpu_torch.jobs import model as model_lib
@@ -291,7 +434,7 @@ def phase_parity() -> dict:
     return {"prefill_logit_max_err": logit_err, "mismatches": mismatches}
 
 
-# -- phase 5: the flagship behind the paged server ---------------------------
+# -- phase 6: the flagship behind the paged server ---------------------------
 
 def phase_serve(smi: str) -> dict:
     from kubetpu_torch.jobs import model as model_lib
@@ -445,6 +588,185 @@ def phase_profile(server) -> dict:
     return row
 
 
+# -- phase 8: the training step, CPU plain versions vs the card's kernels ----
+
+TRAIN_TOL = 1e-4     # f32 on both sides: summation order only
+
+
+def _small_cfg(**over):
+    from kubetpu_torch.jobs import model as model_lib
+
+    return model_lib.ModelConfig(vocab=512, d_model=256, n_layers=2,
+                                 n_heads=4, n_kv_heads=2, d_ff=512,
+                                 max_seq=256, **over)
+
+
+def phase_train_parity() -> dict:
+    """Three steps of ``make_train_step(attention="flash")`` on the CPU and
+    on the card, from the same weights and ``SyntheticCorpus`` batches:
+    first-step gradients within TRAIN_TOL of the largest gradient of each
+    leaf, per-step losses within TRAIN_TOL relative."""
+    from kubetpu_torch.jobs import model as model_lib
+    from kubetpu_torch.jobs import train as train_lib
+    from kubetpu_torch.jobs.data import SyntheticCorpus
+
+    cfg = _small_cfg()
+    cpu_state, _ = train_lib.init_state(torch.Generator().manual_seed(11),
+                                        cfg, device="cpu")
+    it = SyntheticCorpus(cfg.vocab, seed=1).batches(2, 200, seed=2)
+    batches = [next(it) for _ in range(3)]   # S = 200: a ragged last tile
+    models = {"cpu": cpu_state.params,
+              "cuda": copy.deepcopy(cpu_state.params).to("cuda")}
+    attn = train_lib._resolve_attention("flash", cfg.window)
+    grads, losses = {}, {}
+    for dev, model in models.items():
+        tokens, targets = (torch.from_numpy(x).long().to(dev)
+                           for x in batches[0])
+        loss = model_lib.next_token_loss(model, tokens, targets, cfg, attn)
+        grads[dev] = [x.cpu() for x in torch.autograd.grad(
+            loss, list(model.parameters()))]
+        opt = train_lib.make_optimizer()
+        state = train_lib.state_from_params(model, opt)
+        step = train_lib.make_train_step(cfg, opt, device=dev)
+        losses[dev] = []
+        for tokens, targets in batches:
+            state, loss = step(state, tokens, targets)
+            losses[dev].append(float(loss))
+    grad_err = max(float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+                   for a, b in zip(grads["cuda"], grads["cpu"]))
+    loss_err = max(abs(a - b) / abs(b)
+                   for a, b in zip(losses["cuda"], losses["cpu"]))
+    row = dict(cfg="vocab 512, d 256, 2 layers, 4 heads / 2 kv, f32",
+               batch=2, seq=200, steps=3, losses_cpu=losses["cpu"],
+               losses_cuda=losses["cuda"], loss_rel_err=loss_err,
+               grad_rel_err=grad_err, tol=TRAIN_TOL)
+    line("train_parity", **row)
+    if not grad_err <= TRAIN_TOL or not loss_err <= TRAIN_TOL:
+        raise SystemExit(f"train parity: gradients {grad_err}, losses "
+                         f"{loss_err} above {TRAIN_TOL}")
+    return row
+
+
+# -- phase 9: the flagship's training step -----------------------------------
+
+def _flagship_train_cfg():
+    from kubetpu_torch.jobs import model as model_lib
+
+    # bench_model.py's flagship; max_seq 2048 (4096 there) is the only cut
+    return model_lib.ModelConfig(vocab=32000, d_model=2048, n_layers=12,
+                                 n_heads=16, d_ff=5632, max_seq=2048,
+                                 dtype=torch.bfloat16, remat=True,
+                                 remat_policy="full")
+
+
+def _flash_counts():
+    from kubetpu_torch.ops import flash_attention as fa
+
+    return (fa.flash_forward.launches, fa.flash_backward.dq_launches,
+            fa.flash_backward.dkv_launches)
+
+
+def _zero_flash_counts():
+    from kubetpu_torch.ops import flash_attention as fa
+
+    fa.flash_forward.launches = 0
+    fa.flash_backward.dq_launches = 0
+    fa.flash_backward.dkv_launches = 0
+
+
+def phase_train(smi: str):
+    from kubetpu_torch.jobs import train as train_lib
+    from kubetpu_torch.jobs.data import SyntheticCorpus
+
+    cfg = _flagship_train_cfg()
+    batch, seq, timed = 4, 2048, 5
+    state, opt = train_lib.init_state(
+        torch.Generator(device="cuda").manual_seed(0), cfg, device="cuda")
+    n_params = sum(p.numel() for p in state.params.parameters())
+    step = train_lib.make_train_step(cfg, opt, attention="flash",
+                                     device="cuda")
+    it = SyntheticCorpus(cfg.vocab, seed=0).batches(batch, seq, seed=1)
+    batches = [next(it) for _ in range(timed + 1)]
+    state, loss = step(state, *batches[0])           # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_flash_counts()                             # zero just before
+    t0 = time.perf_counter()
+    losses = []
+    for b in batches[1:]:
+        state, loss = step(state, *b)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _flash_counts()                         # read just after
+    losses = [float(x) for x in losses]
+    expected = (2 * cfg.n_layers * timed, cfg.n_layers * timed,
+                cfg.n_layers * timed)
+    if counts != expected:
+        raise SystemExit(f"train: flash launches {counts} != {expected} "
+                         "(forward x2 under full remat, dQ, dK/dV per layer)")
+    if not all(np.isfinite(losses)):
+        raise SystemExit(f"train: non-finite losses {losses}")
+    step_s = wall / timed
+    tokens_s = batch * seq / step_s
+    flops_per_token = 6 * n_params + 12 * cfg.n_layers * cfg.d_model * seq
+    peak_mem = torch.cuda.max_memory_allocated() / 1e9
+
+    repeat = batches[1]                              # one batch, ten steps
+    fit = []
+    for _ in range(10):
+        state, loss = step(state, *repeat)
+        fit.append(float(loss))
+    if not fit[-1] < fit[0]:
+        raise SystemExit(f"train: loss on a repeated batch did not fall: "
+                         f"{fit}")
+    row = dict(card=torch.cuda.get_device_name(0), nvidia_smi=smi,
+               params=n_params, batch=batch, seq=seq, remat="full",
+               attention="flash", step_ms=step_s * 1e3, tokens_s=tokens_s,
+               mfu=tokens_s * flops_per_token / BF16_FLOP_S,
+               flops_per_token=flops_per_token, peak_mem_gb=peak_mem,
+               losses=losses, repeated_batch_losses=fit,
+               flash_launches=dict(forward=counts[0], dq=counts[1],
+                                   dkv=counts[2], steps=timed))
+    line("train", **row)
+    return row, state, step, repeat
+
+
+def phase_train_profile(state, step, batch) -> dict:
+    """Where a training step's time goes: torch.profiler over one step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, *batch)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = {}
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0.0))
+        kernels[ev.key] = kernels.get(ev.key, 0.0) + us
+    busy = sum(kernels.values())
+    by = {name: sum(v for k, v in kernels.items() if name in k)
+          for name in ("flash_fwd_kernel", "flash_bwd_dq_kernel",
+                       "flash_bwd_dkv_kernel")}
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:10]
+    row = dict(step_ms=wall_us / 1e3, device_busy_ms=busy / 1e3,
+               idle_share=(1.0 - busy / wall_us) if busy else None,
+               attention_share_of_busy=(sum(by.values()) / busy)
+               if busy else None,
+               flash_ms={k: v / 1e3 for k, v in by.items()},
+               kernel_kinds=len(kernels),
+               top_kernels_ms=[(k[:60], v / 1e3) for k, v in top])
+    line("train_profile", **row)
+    return row
+
+
 def main(argv) -> int:
     record_path = None
     if argv[:1] == ["--record"] and len(argv) == 2:
@@ -462,9 +784,15 @@ def main(argv) -> int:
     dev = phase_device()
     build = phase_build()
     kern = phase_kernels()
+    flash = phase_flash()
     parity = phase_parity()
     serve, server = phase_serve(dev["nvidia_smi"])
     prof = phase_profile(server)
+    del server
+    torch.cuda.empty_cache()
+    train_parity = phase_train_parity()
+    train, state, step, repeat = phase_train(dev["nvidia_smi"])
+    train_prof = phase_train_profile(state, step, repeat)
 
     decode = next(r for r in kern if r["case"] == "decode_bf16")
     kernels = [{
@@ -478,8 +806,32 @@ def main(argv) -> int:
         "library_ms": decode["library_ms"],
         "ok": all(r["ok"] for r in kern),
     }]
+    # the flash kernels at the main path's case (causal); max_abs_err and ok
+    # over all three cases
+    for kind, name, replaces, launches in (
+            ("forward", "flash_forward", "kubetpu/ops/flash_attention.py:41",
+             train["flash_launches"]["forward"]),
+            ("dq", "flash_backward_dq", "kubetpu/ops/flash_attention.py:141",
+             train["flash_launches"]["dq"]),
+            ("dkv", "flash_backward_dkv", "kubetpu/ops/flash_attention.py:195",
+             train["flash_launches"]["dkv"])):
+        rows = [r for r in flash if r["kernel"] == kind]
+        main_row = next(r for r in rows if r["case"] == "causal")
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "kubetpu_torch/ops/csrc/flash_attention.cu",
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
+            "bound_ms": main_row["bound_ms"],
+            "bound_by": main_row["bound_by"],
+            "library_ms": main_row["library_ms"],
+            "ok": all(r["ok"] for r in rows),
+        })
     record = {"device": dev, "build": build, "kernel_cases": kern,
-              "parity": parity, "serve": serve, "profile": prof,
+              "flash_cases": flash, "parity": parity, "serve": serve,
+              "profile": prof, "train_parity": train_parity,
+              "train": train, "train_profile": train_prof,
               "kernels": kernels}
     if record_path:
         os.makedirs(os.path.dirname(os.path.abspath(record_path)),

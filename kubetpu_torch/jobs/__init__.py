@@ -1,2 +1,3 @@
 """The port of ``kubetpu.jobs``: model, sampling, KV quantization, cached
-decode and paged continuous-batching serving."""
+decode, paged continuous-batching serving, and single-card training
+(loss tail, optimizer, train step, synthetic data)."""

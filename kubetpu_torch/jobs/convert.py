@@ -4,7 +4,9 @@ The JAX tree stacks every per-layer weight on a leading ``L`` axis
 (``{"embed", "blocks": {"wq": (L, d, H, hd), ...}, "ln_f", "head"}``); the
 port holds one ``Block`` per layer. ``params_from_numpy`` takes that tree
 already turned into numpy arrays (``jax.tree.map(np.asarray, params)``) —
-so this module needs no JAX — and un-stacks the layer axis.
+so this module needs no JAX — and un-stacks the layer axis;
+``params_to_numpy`` goes the other way, so that tests can hold trained
+weights against the JAX package's.
 """
 
 from __future__ import annotations
@@ -53,3 +55,20 @@ def params_from_numpy(np_tree: Mapping, cfg: ModelConfig, device=None,
             for i, blk in enumerate(model.blocks):
                 put(getattr(blk, name), stacked[i], f"blocks.{name}[{i}]")
     return model
+
+
+def params_to_numpy(model: Transformer) -> dict:
+    """The weights of *model* as the JAX package's tree of numpy arrays:
+    ``{"embed", "blocks": {leaf: (L, ...)}, "ln_f", "head"}``, in float32
+    (numpy has no bfloat16)."""
+    def arr(t: torch.Tensor) -> np.ndarray:
+        return t.detach().float().cpu().numpy()
+
+    return {
+        "embed": arr(model.embed),
+        "blocks": {name: np.stack([arr(getattr(blk, name))
+                                   for blk in model.blocks])
+                   for name in _BLOCK_LEAVES},
+        "ln_f": arr(model.ln_f),
+        "head": arr(model.head),
+    }

@@ -9,6 +9,12 @@ JAX package's layouts (``wq`` is ``(d, H, hd)``, ``wo`` is ``(H, hd, d)``,
 leading axis and runs one ``lax.scan``, the port holds one ``Block`` module
 per layer and loops over them in Python.
 
+Training: ``forward_hidden`` rematerializes each block under
+``cfg.remat`` (``torch.utils.checkpoint``), and ``next_token_loss`` ends in
+the shared loss tail (``lm_loss_tail``: materialized or chunked logits,
+label smoothing, z-loss, per-position weights). ``forward`` alone runs
+without gradients.
+
 Mixture-of-experts blocks are not ported yet: a config with
 ``n_experts > 0`` raises ``NotImplementedError``.
 """
@@ -22,6 +28,7 @@ from typing import Callable, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 # attention core signature: (q, k, v) with shapes (B, S, H, D) -> (B, S, H, D)
 AttnFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
@@ -56,6 +63,18 @@ class ModelConfig:
     max_seq: int = 1024
     rope_theta: float = 10000.0
     dtype: torch.dtype = torch.float32
+    # recompute each block's forward during backward (torch.utils.checkpoint)
+    remat: bool = False
+    # what remat saves: "full" saves nothing inside a block; "dots" saves
+    # every matmul output and recomputes only the elementwise and norm ops
+    remat_policy: str = "full"
+    # 0 = materialize the (B, S, V) logits at the loss; > 0 = stream the LM
+    # head and cross-entropy over sequence chunks of this size (must divide S)
+    loss_chunk: int = 0
+    # uniform label smoothing mass: (1-e)*nll - e*mean(logp) (0 = off)
+    label_smoothing: float = 0.0
+    # PaLM-style z-loss coefficient: + z * logsumexp(logits)^2 (0 = off)
+    z_loss: float = 0.0
     # sliding-window attention: each position sees the previous `window`
     # positions including itself (0 = full causal)
     window: int = 0
@@ -72,6 +91,13 @@ class ModelConfig:
             raise NotImplementedError(
                 "mixture-of-experts blocks (n_experts > 0) are not ported "
                 "to kubetpu_torch yet")
+        if self.loss_chunk < 0:
+            raise ValueError(f"loss_chunk must be >= 0, got {self.loss_chunk}")
+        if not 0.0 <= self.label_smoothing < 1.0:
+            raise ValueError(
+                f"label_smoothing must be in [0, 1), got {self.label_smoothing}")
+        if self.z_loss < 0:
+            raise ValueError(f"z_loss must be >= 0, got {self.z_loss}")
         if self.window < 0:
             raise ValueError(f"window must be >= 0, got {self.window}")
         if self.rope_llama3_scaling is not None:
@@ -86,6 +112,9 @@ class ModelConfig:
                 raise ValueError(
                     "rope_llama3_scaling low_freq_factor == high_freq_factor "
                     "divides by zero in the smoothing band")
+        if self.remat_policy not in ("full", "dots"):
+            raise ValueError(f"remat_policy must be 'full' or 'dots', got "
+                             f"{self.remat_policy!r}")
         if self.n_kv_heads and self.n_heads % self.n_kv_heads:
             raise ValueError(
                 f"n_kv_heads ({self.n_kv_heads}) must divide "
@@ -266,6 +295,38 @@ def _block_with_aux(cfg: ModelConfig, attn_fn: AttnFn,
     return x, 0.0, k, v
 
 
+def _block_output(cfg, attn_fn, positions, x, layer):
+    return _block_with_aux(cfg, attn_fn, positions, x, layer)[0]
+
+
+def _remat_context_fn(cfg: ModelConfig):
+    """``checkpoint``'s ``context_fn`` for ``cfg.remat_policy``: the
+    default (save nothing inside the block) for "full"; for "dots", a
+    selective-checkpoint policy that saves every matmul output and
+    recomputes the rest (the counterpart of XLA's
+    ``dots_with_no_batch_dims_saveable``)."""
+    from torch.utils.checkpoint import noop_context_fn
+
+    if cfg.remat_policy == "full":
+        return noop_context_fn
+    try:
+        from torch.utils.checkpoint import (
+            CheckpointPolicy, create_selective_checkpoint_contexts)
+    except ImportError as e:
+        raise NotImplementedError(
+            "remat_policy='dots' needs torch.utils.checkpoint's selective "
+            "checkpointing (create_selective_checkpoint_contexts)") from e
+    aten = torch.ops.aten
+    dots = {aten.mm.default, aten.bmm.default, aten.addmm.default,
+            aten.baddbmm.default}
+
+    def policy(_ctx, op, *_args, **_kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op in dots
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+
+    return partial(create_selective_checkpoint_contexts, policy)
+
+
 def forward_hidden(params: Transformer, tokens: torch.Tensor,
                    cfg: ModelConfig, attn_fn: Optional[AttnFn] = None,
                    positions: Optional[torch.Tensor] = None):
@@ -278,9 +339,16 @@ def forward_hidden(params: Transformer, tokens: torch.Tensor,
                                  device=tokens.device)
     x = params.embed[tokens]
     aux = 0.0
+    remat = cfg.remat and torch.is_grad_enabled()
     for layer in params.blocks:
-        x, a, _k, _v = _block_with_aux(cfg, attn_fn, positions, x, layer)
-        aux = aux + a
+        if remat:
+            # the dense blocks' aux term is 0.0: only x crosses the boundary
+            x = checkpoint(_block_output, cfg, attn_fn, positions, x, layer,
+                           use_reentrant=False,
+                           context_fn=_remat_context_fn(cfg))
+        else:
+            x, a, _k, _v = _block_with_aux(cfg, attn_fn, positions, x, layer)
+            aux = aux + a
     return rms_norm(x, params.ln_f), aux
 
 
@@ -291,3 +359,92 @@ def forward(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig,
     """Next-token logits: tokens (B, S) int -> (B, S, V)."""
     x, _aux = forward_hidden(params, tokens, cfg, attn_fn, positions)
     return torch.einsum("bsd,dv->bsv", x, params.head)
+
+
+def _position_losses(logits, targets, label_smoothing: float,
+                     z_loss: float) -> torch.Tensor:
+    """Per-position loss in f32 from raw logits, the formula both loss tails
+    share: cross-entropy, label-smoothed as ``(1-e)*nll - e*mean(logp)``,
+    plus the z-loss ``z * logsumexp(logits)^2``."""
+    f32 = logits.float()
+    lse = torch.logsumexp(f32, dim=-1)
+    logp = f32 - lse[..., None]
+    nll = -torch.gather(logp, -1, targets[..., None].long())[..., 0]
+    if label_smoothing > 0:
+        nll = ((1.0 - label_smoothing) * nll
+               - label_smoothing * logp.mean(dim=-1))
+    if z_loss > 0:
+        nll = nll + z_loss * lse.square()
+    return nll
+
+
+def token_cross_entropy(logits, targets, weights=None,
+                        label_smoothing: float = 0.0,
+                        z_loss: float = 0.0) -> torch.Tensor:
+    """Token-level cross-entropy in f32: the unweighted mean, or with
+    *weights* (targets' shape) the weighted mean over nonzero weights."""
+    nll = _position_losses(logits, targets, label_smoothing, z_loss)
+    if weights is None:
+        return nll.mean()
+    w = weights.float()
+    return (nll * w).sum() / torch.clamp(w.sum(), min=1.0)
+
+
+def _chunk_loss(xi, head, ti, wi, label_smoothing, z_loss):
+    logits = torch.einsum("bcd,dv->bcv", xi, head)
+    nll = _position_losses(logits, ti, label_smoothing, z_loss)
+    return (nll * wi).sum(), wi.sum()
+
+
+def chunked_token_cross_entropy(x, head, targets, chunk: int, weights=None,
+                                label_smoothing: float = 0.0,
+                                z_loss: float = 0.0) -> torch.Tensor:
+    """Cross-entropy from hidden states (B, S, D) without the full
+    (B, S, V) logits: one (B, chunk, V) head product and log-softmax per
+    sequence chunk, each checkpointed so that backward recomputes one
+    chunk's logits at a time. ``chunk`` must divide S."""
+    b, s, _d = x.shape
+    if s % chunk:
+        raise ValueError(f"chunk ({chunk}) must divide sequence length ({s})")
+    if weights is None:
+        weights = torch.ones((b, s), dtype=torch.float32, device=x.device)
+    weights = weights.float()
+    nll_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+    w_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c0 in range(0, s, chunk):
+        args = (x[:, c0:c0 + chunk], head, targets[:, c0:c0 + chunk],
+                weights[:, c0:c0 + chunk], label_smoothing, z_loss)
+        if torch.is_grad_enabled():
+            n, w = checkpoint(_chunk_loss, *args, use_reentrant=False)
+        else:
+            n, w = _chunk_loss(*args)
+        nll_sum, w_sum = nll_sum + n, w_sum + w
+    return nll_sum / torch.clamp(w_sum, min=1.0)
+
+
+def lm_loss_tail(x, head, targets, cfg: ModelConfig,
+                 weights=None) -> torch.Tensor:
+    """The loss tail: final-norm hidden states -> mean cross-entropy, as one
+    materialized (B, S, V) logits tensor or the chunked stream
+    (``cfg.loss_chunk``), with the config's label smoothing and z-loss."""
+    if cfg.loss_chunk > 0:
+        return chunked_token_cross_entropy(
+            x, head, targets, cfg.loss_chunk, weights,
+            label_smoothing=cfg.label_smoothing, z_loss=cfg.z_loss)
+    logits = torch.einsum("bsd,dv->bsv", x, head)
+    return token_cross_entropy(logits, targets, weights,
+                               label_smoothing=cfg.label_smoothing,
+                               z_loss=cfg.z_loss)
+
+
+def next_token_loss(params: Transformer, tokens: torch.Tensor,
+                    targets: torch.Tensor, cfg: ModelConfig,
+                    attn_fn: Optional[AttnFn] = None,
+                    positions: Optional[torch.Tensor] = None,
+                    weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean causal LM cross-entropy, differentiable (it does not pass
+    through the gradient-free ``forward``). ``targets`` is ``tokens``
+    shifted by one (the data pipeline's job); ``weights`` (B, S) masks
+    positions out of the mean (pad positions of packed batches)."""
+    x, _aux = forward_hidden(params, tokens, cfg, attn_fn, positions)
+    return lm_loss_tail(x, params.head, targets, cfg, weights)

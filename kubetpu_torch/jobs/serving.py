@@ -28,7 +28,8 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from kubetpu_torch.jobs.model import ModelConfig, Transformer
+from kubetpu_torch.jobs.model import (ModelConfig, Transformer,
+                                      resolve_device)
 from kubetpu_torch.jobs.sampling import row_seed
 
 
@@ -57,7 +58,7 @@ class SlotServerBase:
                  prefill_budget: int = 0, device=None) -> None:
         self.cfg = cfg
         self.params = params
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         if temperature < 0:
             raise ValueError("temperature must be >= 0")
         if top_k is not None and top_k <= 0:

@@ -29,8 +29,9 @@ def test_fresh_import_loads_no_jax_and_no_kubetpu():
     process already holds jax through conftest), leaves jax and kubetpu
     out of sys.modules."""
     mods = _all_modules()
-    assert "kubetpu_torch.jobs.paged" in mods
-    assert "kubetpu_torch.ops.paged_attention" in mods
+    for name in ("jobs.paged", "jobs.train", "jobs.data", "jobs.convert",
+                 "ops.paged_attention", "ops.flash_attention"):
+        assert f"kubetpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -64,12 +65,17 @@ def test_sources_import_neither_jax_nor_kubetpu():
 
 
 def test_entry_points_default_to_the_card_and_raise_without_it():
-    """No device and no CUDA: model construction and the server raise,
-    never continue silently on the CPU."""
+    """No device and no CUDA: model construction, the servers, the train
+    entry points and the flash wrappers raise, never continue silently on
+    the CPU."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default is usable here")
     from kubetpu_torch.jobs.model import ModelConfig, init_params
     from kubetpu_torch.jobs.paged import PagedDecodeServer, init_page_pool
+    from kubetpu_torch.jobs.serving import SlotServerBase
+    from kubetpu_torch.jobs.train import (init_state, make_eval_step,
+                                          make_train_step)
+    from kubetpu_torch.ops import flash_attention as fa
 
     cfg = ModelConfig(vocab=32, d_model=16, n_layers=1, n_heads=2, d_ff=32)
     model = init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
@@ -81,3 +87,19 @@ def test_entry_points_default_to_the_card_and_raise_without_it():
         init_page_pool(cfg, 4, 8)
     with pytest.raises(RuntimeError, match="CUDA"):
         PagedDecodeServer(cfg, model, device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SlotServerBase(cfg, model, n_slots=2, max_seq=16, max_new_tokens=4,
+                       eos_id=None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_state(torch.Generator().manual_seed(0), cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_train_step(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_eval_step(cfg)
+    # the flash wrappers follow their tensors: the plain version on the
+    # CPU, the kernel on the card, and anything else raises
+    meta = torch.empty((1, 4, 2, 8), device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        fa.flash_forward(meta, meta, meta)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        fa.flash_attention(meta, meta, meta)
