@@ -541,14 +541,34 @@ def phase_serve(smi: str) -> dict:
     return row, server
 
 
-def phase_profile(server) -> dict:
-    """Where a decode step's time goes: torch.profiler over 10 steps of 8
-    active slots (256-token prompts), after the counted run. Device busy
-    time is the sum of kernel self times (one stream: kernels never
-    overlap); the idle share is 1 - busy / wall."""
+def _profiled(run):
+    """(wall us, {kernel name: device self time us}) of run() under
+    torch.profiler. Only device-side events are summed (CPU ops would count
+    twice); on one stream kernels never overlap, so their sum is the device
+    busy time and 1 - busy / wall the idle share."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = {}
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0.0))
+        kernels[ev.key] = kernels.get(ev.key, 0.0) + us
+    return wall_us, kernels
+
+
+def phase_profile(server) -> dict:
+    """Where a decode step's time goes: torch.profiler over 10 steps of 8
+    active slots (256-token prompts), after the counted run."""
     rng = np.random.default_rng(1)
     vocab = server.cfg.vocab
     for _ in range(server.n_slots):
@@ -558,21 +578,12 @@ def phase_profile(server) -> dict:
     for _ in range(3):
         server.step()
     active = int(server.active.sum())
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+
+    def ten_steps():
         for _ in range(10):
             server.step()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = {}       # device-side events only: CPU ops would count twice
-    for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:
-            continue
-        us = getattr(ev, "self_device_time_total",
-                     getattr(ev, "self_cuda_time_total", 0.0))
-        kernels[ev.key] = kernels.get(ev.key, 0.0) + us
+
+    wall_us, kernels = _profiled(ten_steps)
     busy = sum(kernels.values())
     attn = sum(v for k, v in kernels.items() if "paged_attn_kernel" in k)
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
@@ -734,23 +745,7 @@ def phase_train(smi: str):
 
 def phase_train_profile(state, step, batch) -> dict:
     """Where a training step's time goes: torch.profiler over one step."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        step(state, *batch)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = {}
-    for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:
-            continue
-        us = getattr(ev, "self_device_time_total",
-                     getattr(ev, "self_cuda_time_total", 0.0))
-        kernels[ev.key] = kernels.get(ev.key, 0.0) + us
+    wall_us, kernels = _profiled(lambda: step(state, *batch))
     busy = sum(kernels.values())
     by = {name: sum(v for k, v in kernels.items() if name in k)
           for name in ("flash_fwd_kernel", "flash_bwd_dq_kernel",

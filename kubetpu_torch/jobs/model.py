@@ -28,7 +28,7 @@ from typing import Callable, Optional
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, noop_context_fn
 
 # attention core signature: (q, k, v) with shapes (B, S, H, D) -> (B, S, H, D)
 AttnFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
@@ -305,8 +305,6 @@ def _remat_context_fn(cfg: ModelConfig):
     selective-checkpoint policy that saves every matmul output and
     recomputes the rest (the counterpart of XLA's
     ``dots_with_no_batch_dims_saveable``)."""
-    from torch.utils.checkpoint import noop_context_fn
-
     if cfg.remat_policy == "full":
         return noop_context_fn
     try:

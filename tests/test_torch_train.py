@@ -175,7 +175,7 @@ def _port_grads(model, cfg, tokens, targets, attention="flash"):
                                   torch.from_numpy(targets).long(), cfg,
                                   attn)
     leaves = list(model.parameters())
-    return loss, torch.autograd.grad(loss, leaves)
+    return loss.detach(), torch.autograd.grad(loss, leaves)
 
 
 def _stack_grads(model, grads):
