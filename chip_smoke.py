@@ -15,7 +15,10 @@ Phases, one line each, any failure exits non-zero:
 4. flash: the forward, dQ and dK/dV kernels at the flagship training shape
    (B=4, S=2048, H=16, D=128, bf16; causal, causal with window 256, and
    non-causal), each against its plain version, with the same timings
-   (SDPA forward and SDPA backward as the library yardsticks);
+   (SDPA forward and SDPA backward as the library yardsticks), the route
+   that ran (the wgmma or SIMT instances), achieved TFLOP/s, and the
+   instance's registers, spill bytes (``nvcc -Xptxas -v``) and shared
+   memory; a spill in a bf16 D=128 wgmma instance fails the phase;
 5. parity: a small f32 model served by the port on the CPU (plain version)
    and on the card (kernel) — prefill logits within 1e-3, greedy tokens
    equal;
@@ -31,7 +34,8 @@ Phases, one line each, any failure exits non-zero:
 9. train: the flagship at full width (max_seq 2048), batch 4 x seq 2048,
    full remat, flash attention, AdamW: one warm-up step, five timed steps
    (step time, tokens/s, MFU, peak memory; the flash launch counters are
-   zeroed just before and must read 24 / 12 / 12 per step just after),
+   zeroed just before and must read 24 / 12 / 12 per step just after, and
+   the wgmma counters 24 forward and 12 dK/dV),
    then ten steps on one repeated batch, whose loss must fall;
 10. train profile: ``torch.profiler`` over one training step — device busy
    time, idle share, the attention kernels' share, the top kernels;
@@ -276,6 +280,36 @@ def _flash_bound(kind: str, causal: bool, window: int, itemsize: int):
             "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
 
 
+def _ptxas(fragment: str) -> dict:
+    """Registers, spill bytes and static shared memory that ``ptxas -v``
+    reported for the one kernel instance whose mangled name holds
+    *fragment*."""
+    import re
+
+    from kubetpu_torch.ops import _build
+
+    lines = _build.BUILD_LOGS.get("flash_attention", "").splitlines()
+    for i, ln in enumerate(lines):
+        if "Function properties for" in ln and fragment in ln:
+            text = " ".join(lines[i + 1:i + 3])
+            nums = {key: re.search(rf"(\d+) {pat}", text)
+                    for key, pat in (("spill_stores", "bytes spill stores"),
+                                     ("spill_loads", "bytes spill loads"),
+                                     ("registers", "registers"),
+                                     ("static_smem", "bytes smem"))}
+            return {k: int(m.group(1)) if m else 0 for k, m in nums.items()}
+    raise SystemExit(f"ptxas: no report for {fragment}")
+
+
+# the instances phase 4 runs at FLASH_SHAPE, bf16 at D = 128: (route,
+# mangled-name fragment, kernel code of kubetpu_flash_smem_bytes)
+_INSTANCES = {
+    "forward": ("wgmma", "flash_fwd_wgmma_kernelI13__nv_bfloat16Li128E", 0),
+    "dq": ("simt", "flash_bwd_dq_kernelI13__nv_bfloat16Li8ELi64E", 1),
+    "dkv": ("wgmma", "flash_bwd_dkv_wgmma_kernelI13__nv_bfloat16Li128E", 2),
+}
+
+
 def _err_ok(x, ref, tol):
     """(max |x - ref|, every element within tol + tol * |ref|)."""
     diff = (x.float() - ref.float()).abs()
@@ -296,14 +330,32 @@ def phase_flash() -> list:
     # SDPA's (B, H, S, D) layout, timed only; the port never calls it
     qt, kt, vt, gt = (x.transpose(1, 2).contiguous() for x in (q, k, v, g))
     rows = []
+    if fa._route(q.dtype, d) != "wgmma":
+        raise SystemExit("flash: the flagship shape must take the wgmma "
+                         "route")
+    builds = {}
+    for kind, (route, fragment, code) in _INSTANCES.items():
+        build = _ptxas(fragment)
+        build["dynamic_smem"] = fa._lib().kubetpu_flash_smem_bytes(
+            code, d, fa._ROUTE_CODE[route])
+        builds[kind] = build
+        if route == "wgmma" and (build["spill_stores"]
+                                 or build["spill_loads"]):
+            raise SystemExit(f"flash {kind}: the bf16 D={d} wgmma instance "
+                             f"spills: {build}")
     for case, causal, window in (("causal", True, 0),
                                  ("window256", True, 256),
                                  ("noncausal", False, 0)):
+        before = (fa.flash_forward.wgmma_launches,
+                  fa.flash_backward.dkv_wgmma_launches)
         out, lse = fa.flash_forward(q, k, v, causal, window)
         delta = fa._delta(out, g)
         dq = fa._launch_dq(q, k, v, g, lse, delta, causal, window)
         dk, dv = fa._launch_dkv(q, k, v, g, lse, delta, causal, window)
         torch.cuda.synchronize()
+        if (fa.flash_forward.wgmma_launches - before[0],
+                fa.flash_backward.dkv_wgmma_launches - before[1]) != (1, 1):
+            raise SystemExit(f"flash {case}: the wgmma route did not run")
         ref_out, ref_lse = fa.flash_forward_reference(q, k, v, causal, window)
         refs = fa.flash_backward_reference(q, k, v, out, lse, g, causal,
                                            window)
@@ -347,7 +399,8 @@ def phase_flash() -> list:
             bound_ms, bound_by, nbytes, flops = _flash_bound(
                 kind, causal, window, q.element_size())
             ms = cuda_ms(run, iters=10, warmup=2)
-            row = dict(kernel=kind, case=case,
+            row = dict(kernel=kind, case=case, route=_INSTANCES[kind][0],
+                       build=builds[kind],
                        max_abs_err=max(e for e, _ in errs[kind]),
                        tol=BF16_TOL, ok=all(o for _, o in errs[kind]),
                        ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
@@ -674,7 +727,8 @@ def _flash_counts():
     from kubetpu_torch.ops import flash_attention as fa
 
     return (fa.flash_forward.launches, fa.flash_backward.dq_launches,
-            fa.flash_backward.dkv_launches)
+            fa.flash_backward.dkv_launches, fa.flash_forward.wgmma_launches,
+            fa.flash_backward.dkv_wgmma_launches)
 
 
 def _zero_flash_counts():
@@ -683,6 +737,8 @@ def _zero_flash_counts():
     fa.flash_forward.launches = 0
     fa.flash_backward.dq_launches = 0
     fa.flash_backward.dkv_launches = 0
+    fa.flash_forward.wgmma_launches = 0
+    fa.flash_backward.dkv_wgmma_launches = 0
 
 
 def phase_train(smi: str):
@@ -711,11 +767,14 @@ def phase_train(smi: str):
     wall = time.perf_counter() - t0
     counts = _flash_counts()                         # read just after
     losses = [float(x) for x in losses]
+    # forward x2 under full remat, dQ, dK/dV per layer; the forward and
+    # dK/dV all through the wgmma instances
     expected = (2 * cfg.n_layers * timed, cfg.n_layers * timed,
+                cfg.n_layers * timed, 2 * cfg.n_layers * timed,
                 cfg.n_layers * timed)
     if counts != expected:
-        raise SystemExit(f"train: flash launches {counts} != {expected} "
-                         "(forward x2 under full remat, dQ, dK/dV per layer)")
+        raise SystemExit(f"train: flash launches (forward, dq, dkv, "
+                         f"forward wgmma, dkv wgmma) {counts} != {expected}")
     if not all(np.isfinite(losses)):
         raise SystemExit(f"train: non-finite losses {losses}")
     step_s = wall / timed
@@ -738,7 +797,8 @@ def phase_train(smi: str):
                flops_per_token=flops_per_token, peak_mem_gb=peak_mem,
                losses=losses, repeated_batch_losses=fit,
                flash_launches=dict(forward=counts[0], dq=counts[1],
-                                   dkv=counts[2], steps=timed))
+                                   dkv=counts[2], forward_wgmma=counts[3],
+                                   dkv_wgmma=counts[4], steps=timed))
     line("train", **row)
     return row, state, step, repeat
 
@@ -747,9 +807,11 @@ def phase_train_profile(state, step, batch) -> dict:
     """Where a training step's time goes: torch.profiler over one step."""
     wall_us, kernels = _profiled(lambda: step(state, *batch))
     busy = sum(kernels.values())
-    by = {name: sum(v for k, v in kernels.items() if name in k)
-          for name in ("flash_fwd_kernel", "flash_bwd_dq_kernel",
-                       "flash_bwd_dkv_kernel")}
+    # both routes: flash_fwd_kernel and flash_fwd_wgmma_kernel, ...
+    by = {kind: sum(v for k, v in kernels.items() if name in k)
+          for kind, name in (("forward", "flash_fwd_"),
+                             ("dq", "flash_bwd_dq_"),
+                             ("dkv", "flash_bwd_dkv_"))}
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:10]
     row = dict(step_ms=wall_us / 1e3, device_busy_ms=busy / 1e3,
                idle_share=(1.0 - busy / wall_us) if busy else None,
@@ -813,7 +875,7 @@ def main(argv) -> int:
         rows = [r for r in flash if r["kernel"] == kind]
         main_row = next(r for r in rows if r["case"] == "causal")
         kernels.append({
-            "name": name, "route": "cuda",
+            "name": name, "route": "cuda", "instances": main_row["route"],
             "source": "kubetpu_torch/ops/csrc/flash_attention.cu",
             "replaces": replaces, "launches": launches,
             "max_abs_err": max(r["max_abs_err"] for r in rows),

@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` for Hopper (``sm_90a``) into ``build/kubetpu_torch/`` at the root of
 the checkout — a directory ``.gitignore`` lists — the first time a kernel is
 needed, then loaded with ``ctypes``. The library's file name carries a hash
-of its source, so an edited kernel is never served from a stale build.
+of its source and of the shared headers (``csrc/*.cuh``), so an edited
+kernel is never served from a stale build.
 Nothing here runs at import time: the CPU tests import every module on a
 machine with no ``nvcc``.
 """
@@ -25,7 +26,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
-# nvcc's output (ptxas register / shared-memory report) per built kernel
+# nvcc's output (ptxas register / shared-memory report) per built kernel,
+# also kept beside the library as lib<name>-<hash>.log and read back when a
+# current build is found
 BUILD_LOGS: Dict[str, str] = {}
 
 
@@ -41,8 +44,14 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    """The build of kernel *name*: its file name hashes ``csrc/<name>.cu``
+    together with every ``csrc/*.cuh`` header, so that an edited header is
+    never served from a stale build either."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_all(names: Iterable[str]) -> None:
@@ -54,6 +63,9 @@ def build_all(names: Iterable[str]) -> None:
     for name in names:
         out = _lib_path(name)
         if out.exists():
+            log = out.with_suffix(".log")
+            if name not in BUILD_LOGS and log.exists():
+                BUILD_LOGS[name] = log.read_text()
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
@@ -67,6 +79,7 @@ def build_all(names: Iterable[str]) -> None:
         if proc.returncode != 0:
             failed.append(f"{name} (exit {proc.returncode}):\n{log}")
             continue
+        out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)
     if failed:
         raise RuntimeError("kernel build failed: " + "\n".join(failed))

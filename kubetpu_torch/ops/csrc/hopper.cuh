@@ -1,0 +1,293 @@
+// Hopper (sm_90a) building blocks for the port's tensor-core kernels:
+// cp.async tile loads into the 128-byte swizzled layout that wgmma reads,
+// shared-memory matrix descriptors, and the warpgroup matrix multiplies
+// (wgmma.mma_async) as inline PTX.
+//
+// Tile layout in shared memory. A tile of R rows x C 16-bit columns (C a
+// multiple of 64) is stored as C / 64 "boxes"; box b holds columns
+// [64 b, 64 b + 64) of every row as R rows of 128 bytes. Inside a box the
+// 16-byte chunk c of row r sits at chunk position c ^ (r % 8): the 128-byte
+// swizzle (CUTLASS's Swizzle<3,4,3>), which lets wgmma read 8 rows of one
+// chunk column without bank conflicts. Every box starts 1024-byte aligned.
+// The same bytes serve as a K-major operand (rows = M or N, columns = the
+// reduction) and as an MN-major one (rows = the reduction).
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <stdint.h>
+
+namespace hopper {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Byte offset of 16-byte chunk c (of C / 8 per row) of row r in a tile of
+// R rows stored as swizzled boxes.
+__device__ __forceinline__ uint32_t swz_offset(int r, int c, int R) {
+  return static_cast<uint32_t>((c >> 3) * R * 128 + r * 128 +
+                               (((c & 7) ^ (r & 7)) << 4));
+}
+
+// 16 bytes from global to shared memory without the register file; with
+// valid == false the destination is filled with zeros (src is not read).
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N committed groups of this thread are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Make this thread's generic-proxy writes to shared memory (cp.async, st)
+// visible to the async proxy that wgmma reads through; a barrier follows.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Load rows [row0, row0 + R) of a (rows, C) 16-bit matrix with row stride
+// ld (elements) into the swizzled tile at dst; rows at or past n_rows are
+// zero-filled. All NT threads of the block take part.
+template <int R, int C, int NT>
+__device__ __forceinline__ void load_tile(uint32_t dst, const void* src,
+                                          size_t ld, int row0, int n_rows) {
+  constexpr int CHUNKS = C / 8;          // 16-byte chunks per row
+  const uint16_t* base = static_cast<const uint16_t*>(src);
+#pragma unroll
+  for (int e = threadIdx.x; e < R * CHUNKS; e += NT) {
+    const int r = e / CHUNKS, c = e % CHUNKS;
+    const bool valid = row0 + r < n_rows;
+    const uint16_t* g =
+        base + (valid ? static_cast<size_t>(row0 + r) * ld + c * 8 : 0);
+    cp_async16(dst + swz_offset(r, c, R), g, valid);
+  }
+}
+
+// wgmma shared-memory matrix descriptor with the 128-byte swizzle: start
+// address, leading and stride byte offsets (all >> 4), layout type 1 (B128)
+// in bits 62-63. K-major operands: lbo unused (16), sbo = 1024 (8 rows of
+// 128 bytes). MN-major operands: lbo = bytes between 64-column boxes,
+// sbo = 1024 (8 reduction rows).
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) |
+         (static_cast<uint64_t>(1) << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keep the compiler from moving reads or writes of accumulator registers
+// across an asynchronous wgmma (CUTLASS's warpgroup_fence_operand).
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Two floats as one register of two 16-bit values, lo in the low half.
+template <bool BF16>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (BF16) {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  } else {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
+}
+
+// Accumulator layout of wgmma m64nNk16 with f32 sums, for thread t of the
+// warpgroup (warp w = t / 32, lane l): d[4 j + e] holds row
+// 16 w + l / 4 + 8 (e / 2) and column 8 j + 2 (l % 4) + e % 2. That is also
+// the layout of the A operand from registers: the k16 step s takes
+// d[8 s .. 8 s + 7] packed in pairs, so P = f(S) feeds the next product
+// without passing through shared memory.
+
+// SS: d (+)= A * B with A (64 x 16) and B (16 x 64) both K-major in shared
+// memory; scale_d = 0 overwrites d.
+template <bool BF16>
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  if constexpr (BF16) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+          "%0, %1, %2, %3, %4, %5, %6, %7, "
+          "%8, %9, %10, %11, %12, %13, %14, %15, "
+          "%16, %17, %18, %19, %20, %21, %22, %23, "
+          "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+            "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+            "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+            "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+            "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+            "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+            "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+            "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(scale_d));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 {"
+          "%0, %1, %2, %3, %4, %5, %6, %7, "
+          "%8, %9, %10, %11, %12, %13, %14, %15, "
+          "%16, %17, %18, %19, %20, %21, %22, %23, "
+          "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+            "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+            "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+            "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+            "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+            "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+            "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+            "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+}
+
+// RS: d += A * B with A (64 x 16) from registers (four packed pairs) and B
+// (16 x N) MN-major in shared memory.
+template <bool BF16>
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  if constexpr (BF16) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+          "%0, %1, %2, %3, %4, %5, %6, %7, "
+          "%8, %9, %10, %11, %12, %13, %14, %15, "
+          "%16, %17, %18, %19, %20, %21, %22, %23, "
+          "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+            "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+            "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+            "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+            "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+            "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+            "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+            "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 {"
+          "%0, %1, %2, %3, %4, %5, %6, %7, "
+          "%8, %9, %10, %11, %12, %13, %14, %15, "
+          "%16, %17, %18, %19, %20, %21, %22, %23, "
+          "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+            "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+            "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+            "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+            "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+            "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+            "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+            "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+}
+
+template <bool BF16>
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  if constexpr (BF16) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+          "%0, %1, %2, %3, %4, %5, %6, %7, "
+          "%8, %9, %10, %11, %12, %13, %14, %15, "
+          "%16, %17, %18, %19, %20, %21, %22, %23, "
+          "%24, %25, %26, %27, %28, %29, %30, %31, "
+          "%32, %33, %34, %35, %36, %37, %38, %39, "
+          "%40, %41, %42, %43, %44, %45, %46, %47, "
+          "%48, %49, %50, %51, %52, %53, %54, %55, "
+          "%56, %57, %58, %59, %60, %61, %62, %63"
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+            "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+            "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+            "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+            "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+            "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+            "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+            "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+            "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+            "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+            "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+            "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+            "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+            "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+            "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+            "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 {"
+          "%0, %1, %2, %3, %4, %5, %6, %7, "
+          "%8, %9, %10, %11, %12, %13, %14, %15, "
+          "%16, %17, %18, %19, %20, %21, %22, %23, "
+          "%24, %25, %26, %27, %28, %29, %30, %31, "
+          "%32, %33, %34, %35, %36, %37, %38, %39, "
+          "%40, %41, %42, %43, %44, %45, %46, %47, "
+          "%48, %49, %50, %51, %52, %53, %54, %55, "
+          "%56, %57, %58, %59, %60, %61, %62, %63"
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+            "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+            "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+            "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+            "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+            "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+            "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+            "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+            "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+            "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+            "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+            "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+            "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+            "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+            "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+            "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+}
+
+}  // namespace hopper

@@ -15,6 +15,14 @@ A CUDA tensor launches the kernels or raises; only CPU tensors take the
 plain versions. ``flash_forward.launches``, ``flash_backward.dq_launches``
 and ``flash_backward.dkv_launches`` count kernel launches; the plain
 versions add nothing to them.
+
+Routes. The forward and dK/dV kernels have two sets of instances, chosen by
+``_route(dtype, head_dim)``: "wgmma" (tensor cores, bf16/f16 operands with
+f32 sums; bf16 and f16 at D 64 or 128) and "simt" (f32 CUDA-core math;
+f32, where TF32 stays off for parity, and the other head dims).
+``flash_forward.wgmma_launches`` and ``flash_backward.dkv_wgmma_launches``
+count the wgmma launches among the totals. The route is dispatch, not a
+fallback: a wgmma instance that fails raises. dQ has one route, SIMT.
 """
 
 from __future__ import annotations
@@ -26,6 +34,15 @@ import torch
 NEG_INF = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 _MAX_HEAD_DIM = 256
+_ROUTE_CODE = {"simt": 0, "wgmma": 1}
+
+
+def _route(dtype: torch.dtype, d: int) -> str:
+    """The instances that run the forward and dK/dV kernels for *dtype* at
+    head dim *d*: "wgmma" for bf16/f16 at D 64 or 128, else "simt"."""
+    if dtype in (torch.bfloat16, torch.float16) and d in (64, 128):
+        return "wgmma"
+    return "simt"
 
 
 def _check_window(causal: bool, window: int) -> None:
@@ -141,12 +158,15 @@ def _lib():
     if not getattr(lib, "_kubetpu_bound", False):
         common = [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int,
                                        ctypes.c_void_p]
-        lib.kubetpu_flash_forward.argtypes = [ctypes.c_void_p] * 5 + common
+        routed = common + [ctypes.c_int]
+        lib.kubetpu_flash_forward.argtypes = [ctypes.c_void_p] * 5 + routed
         lib.kubetpu_flash_backward_dq.argtypes = [ctypes.c_void_p] * 7 + common
         lib.kubetpu_flash_backward_dkv.argtypes = ([ctypes.c_void_p] * 8
-                                                   + common)
+                                                   + routed)
+        lib.kubetpu_flash_smem_bytes.argtypes = [ctypes.c_int] * 3
         for fn in (lib.kubetpu_flash_forward, lib.kubetpu_flash_backward_dq,
-                   lib.kubetpu_flash_backward_dkv):
+                   lib.kubetpu_flash_backward_dkv,
+                   lib.kubetpu_flash_smem_bytes):
             fn.restype = ctypes.c_int
         lib._kubetpu_bound = True
     return lib
@@ -172,14 +192,16 @@ def flash_forward(q, k, v, causal: bool = True, window: int = 0):
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_forward_reference(q, k, v, causal, window)
-    b, s, h, _ = q.shape
+    b, s, h, d = q.shape
+    route = _route(q.dtype, d)
     out = torch.empty_like(q)
     lse = torch.empty((b * h, s, 1), dtype=torch.float32, device=q.device)
     rc = _lib().kubetpu_flash_forward(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), *_dims(q, causal, window))
-    _raise_on(rc, "forward")
+        lse.data_ptr(), *_dims(q, causal, window), _ROUTE_CODE[route])
+    _raise_on(rc, f"forward ({route})")
     flash_forward.launches += 1
+    flash_forward.wgmma_launches += route == "wgmma"
     return out, lse
 
 
@@ -197,13 +219,15 @@ def _launch_dq(q, k, v, g, lse, delta, causal: bool, window: int):
 
 def _launch_dkv(q, k, v, g, lse, delta, causal: bool, window: int):
     """(dK, dV) from the dK/dV kernel (CUDA tensors only)."""
+    route = _route(q.dtype, q.shape[3])
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     rc = _lib().kubetpu_flash_backward_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        *_dims(q, causal, window))
-    _raise_on(rc, "dK/dV")
+        *_dims(q, causal, window), _ROUTE_CODE[route])
+    _raise_on(rc, f"dK/dV ({route})")
     flash_backward.dkv_launches += 1
+    flash_backward.dkv_wgmma_launches += route == "wgmma"
     return dk, dv
 
 
@@ -223,8 +247,10 @@ def flash_backward(q, k, v, out, lse, g, causal: bool = True,
 
 
 flash_forward.launches = 0
+flash_forward.wgmma_launches = 0
 flash_backward.dq_launches = 0
 flash_backward.dkv_launches = 0
+flash_backward.dkv_wgmma_launches = 0
 
 
 class _FlashAttention(torch.autograd.Function):

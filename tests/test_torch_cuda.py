@@ -99,11 +99,14 @@ def test_wrappers_count_launches_and_refuse_bad_inputs(cuda):
 # -- flash attention: forward, dQ and dK/dV kernels --------------------------
 
 # f32: the kernel and the plain version (cuBLAS, TF32 off) differ only in
-# summation order; bf16/f16: both compute in f32 from the same inputs and
-# round once, so they differ by about one rounding of the output
+# summation order; bf16/f16: the SIMT instances compute in f32 from the same
+# inputs and round once; the wgmma instances also round P (and dS) to the
+# input dtype before their second product, as the TPU's one-pass bf16 dot
+# does, which stays within a few roundings of the output
 FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2, torch.float16: 1e-2}
+# windows 24 and 100 cut across the kernels' tiles (32, 64 and 128 rows)
 FLASH_FORMS = {"causal": (True, 0), "window": (True, 24),
-               "noncausal": (False, 0)}
+               "window100": (True, 100), "noncausal": (False, 0)}
 
 
 def _flash_inputs(dev, dtype, b, s, h, d, seed=0):
@@ -112,26 +115,36 @@ def _flash_inputs(dev, dtype, b, s, h, d, seed=0):
             for _ in range(4)]
 
 
+def _flash_counts(fa):
+    return (fa.flash_forward.launches, fa.flash_backward.dq_launches,
+            fa.flash_backward.dkv_launches, fa.flash_forward.wgmma_launches,
+            fa.flash_backward.dkv_wgmma_launches)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
 @pytest.mark.parametrize("form", list(FLASH_FORMS))
 @pytest.mark.parametrize("d", [16, 64, 128, 256])
-def test_flash_kernels_match_plain_versions(cuda, dtype, form, d):
-    """S = 100 is not a multiple of the kernels' tile (32 or 64): the ragged
-    tile is masked. Forward out and lse, dQ, dK and dV each against the
-    plain version on the same inputs."""
+@pytest.mark.parametrize("s", [1, 100, 129, 200, 257, 1000])
+def test_flash_kernels_match_plain_versions(cuda, dtype, form, d, s):
+    """No S here is a multiple of every tile (32, 64 and 128 rows): the
+    ragged tile is masked; S = 1 leaves one row, S = 129 one row past a
+    128-row tile. Forward out and lse, dQ, dK and dV each against
+    the plain version on the same inputs; bf16/f16 at D 64/128 run the wgmma
+    instances of the forward and dK/dV kernels, the rest the SIMT ones."""
     from kubetpu_torch.ops import flash_attention as fa
 
     causal, window = FLASH_FORMS[form]
-    q, k, v, g = _flash_inputs(cuda, dtype, 2, 100, 3, d)
-    before = (fa.flash_forward.launches, fa.flash_backward.dq_launches,
-              fa.flash_backward.dkv_launches)
+    q, k, v, g = _flash_inputs(cuda, dtype, 2, s, 3, d)
+    before = _flash_counts(fa)
     out, lse = fa.flash_forward(q, k, v, causal, window)
     grads = fa.flash_backward(q, k, v, out, lse, g, causal, window)
     torch.cuda.synchronize()
-    assert (fa.flash_forward.launches, fa.flash_backward.dq_launches,
-            fa.flash_backward.dkv_launches) == tuple(x + 1 for x in before)
+    wgmma = int(dtype != torch.float32 and d in (64, 128))
+    assert fa._route(dtype, d) == ("wgmma" if wgmma else "simt")
+    assert _flash_counts(fa) == tuple(
+        x + n for x, n in zip(before, (1, 1, 1, wgmma, wgmma)))
     ref_out, ref_lse = fa.flash_forward_reference(q, k, v, causal, window)
     tol = FLASH_TOL[dtype]
     torch.testing.assert_close(out.float(), ref_out.float(), atol=tol,
@@ -146,18 +159,39 @@ def test_flash_kernels_match_plain_versions(cuda, dtype, form, d):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_noncausal_backward_with_global_residuals(cuda, dtype):
+    """The ring's use of the backward: a non-causal call with an out / lse /
+    cotangent that are not its own (a causal forward's lse, which does not
+    cover the non-causal scores): the clamp holds P at 1 where s > lse, on
+    both routes, as in the plain version."""
+    from kubetpu_torch.ops import flash_attention as fa
+
+    q, k, v, g = _flash_inputs(cuda, dtype, 2, 200, 3, 64, seed=2)
+    out, lse = fa.flash_forward(q, k, v, True, 0)
+    out = (out.float() * 0.5).to(dtype)
+    grads = fa.flash_backward(q, k, v, out, lse, g, causal=False)
+    torch.cuda.synchronize()
+    refs = fa.flash_backward_reference(q, k, v, out, lse, g, causal=False)
+    tol = FLASH_TOL[dtype]
+    for name, x, ref in zip(("dq", "dk", "dv"), grads, refs):
+        assert torch.isfinite(x).all(), name
+        torch.testing.assert_close(x.float(), ref.float(), atol=tol,
+                                   rtol=tol, msg=lambda m: f"{name}: {m}")
+
+
+@pytest.mark.gpu
 def test_flash_autograd_runs_the_kernels_and_refuses_bad_inputs(cuda):
     from kubetpu_torch.ops import flash_attention as fa
 
     q, k, v, g = _flash_inputs(cuda, torch.bfloat16, 2, 80, 4, 64, seed=1)
     q, k, v = (x.requires_grad_(True) for x in (q, k, v))
-    before = (fa.flash_forward.launches, fa.flash_backward.dq_launches,
-              fa.flash_backward.dkv_launches)
+    before = _flash_counts(fa)
     out = fa.flash_attention(q, k, v)
     (out.float() * g.float()).sum().backward()
     torch.cuda.synchronize()
-    assert (fa.flash_forward.launches, fa.flash_backward.dq_launches,
-            fa.flash_backward.dkv_launches) == tuple(x + 1 for x in before)
+    # bf16 at D 64: forward and dK/dV through the wgmma instances
+    assert _flash_counts(fa) == tuple(x + 1 for x in before)
     assert all(torch.isfinite(x.grad).all() for x in (q, k, v))
     qd = q.detach()
     with pytest.raises(ValueError, match="on"):
@@ -166,6 +200,32 @@ def test_flash_autograd_runs_the_kernels_and_refuses_bad_inputs(cuda):
     with pytest.raises(ValueError, match="head dim"):
         fa.flash_forward(wide, wide, wide)
     assert fa.flash_forward.launches == before[0] + 1
+
+
+@pytest.mark.gpu
+def test_wgmma_route_raises_and_never_falls_back(cuda):
+    """A wgmma instance that refuses a call (here a tensor 2 bytes off the
+    16-byte alignment its cp.async loads need) raises; nothing retries it
+    through the SIMT instance or the plain version, and no counter moves."""
+    from kubetpu_torch.ops import flash_attention as fa
+
+    shape = (1, 64, 2, 64)
+    n = 64 * 2 * 64
+    flat = torch.zeros(n + 1, device=cuda, dtype=torch.bfloat16)
+    q = flat[1:].view(shape)
+    assert q.is_contiguous() and q.data_ptr() % 16 == 2
+    k, v = (torch.zeros(shape, device=cuda, dtype=torch.bfloat16)
+            for _ in range(2))
+    before = _flash_counts(fa)
+    with pytest.raises(RuntimeError, match="forward \\(wgmma\\)"):
+        fa.flash_forward(q, k, v)
+    out, lse = fa.flash_forward(k, k, v)
+    with pytest.raises(RuntimeError, match="dK/dV \\(wgmma\\)"):
+        fa._launch_dkv(q, k, v, k, lse, fa._delta(out, k), True, 0)
+    torch.cuda.synchronize()
+    after = _flash_counts(fa)
+    assert after == (before[0] + 1, before[1], before[2], before[3] + 1,
+                     before[4])
 
 
 @pytest.mark.gpu

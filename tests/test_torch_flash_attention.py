@@ -145,3 +145,15 @@ def test_refuses_what_the_kernels_do_not_take():
     out, lse = tflash.flash_forward(q, k, v)
     with pytest.raises(TypeError, match="lse"):
         tflash.flash_backward(q, k, v, out, lse[:, :, 0], q)
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
+                                   torch.bfloat16])
+def test_route_pins_the_instances_for_each_dtype_and_head_dim(dtype, d):
+    """The tensor-core (wgmma) instances take bf16 and f16 at D 64 and 128;
+    f32 (TF32 stays off for parity) and every other head dim take SIMT."""
+    expected = ("wgmma" if dtype != torch.float32 and d in (64, 128)
+                else "simt")
+    assert tflash._route(dtype, d) == expected
+    assert tflash._ROUTE_CODE[expected] == (1 if expected == "wgmma" else 0)
