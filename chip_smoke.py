@@ -7,11 +7,17 @@ Phases, one line each, any failure exits non-zero:
 1. device: the card's name, and ``nvidia-smi``'s name and power limit;
 2. build: every CUDA kernel of the port, compiled from ``kubetpu_torch/ops/
    csrc`` with ``nvcc`` (all sources at once);
-3. kernels: the paged-attention kernel at the flagship serving shapes
-   against its plain PyTorch version, with its time, the plain version's,
-   the least time the card could take (bytes over 3.35 TB/s or operations
-   over 989 TFLOP/s, whichever is larger) and one PyTorch library call's
-   time as a yardstick;
+3. kernels: the paged-attention kernels at the flagship serving shapes,
+   each case's route, grid and splits — decode (bf16, int8, window 256) on
+   the split route, whose split kernel (partials) and combine kernel are
+   each held against their plain versions, and the T=256 chunk on the
+   wgmma route; every call against the plain attention, with its time (a
+   replayed CUDA graph of 20 calls: device time without the host's
+   enqueue; the eager calls' time beside it), the
+   plain version's, the least time the card could take (bytes over 3.35
+   TB/s or operations over 989 TFLOP/s, whichever is larger) and one
+   PyTorch library call's time as a yardstick; registers, spills and shared
+   memory of the instances (a spill in the wgmma chunk instance fails);
 4. flash: the forward, dQ and dK/dV kernels at the flagship training shape
    (B=4, S=2048, H=16, D=128, bf16; causal, causal with window 256, and
    non-causal), each against its plain version, with the same timings
@@ -25,7 +31,9 @@ Phases, one line each, any failure exits non-zero:
 6. serve: the flagship decoder (vocab 32000, d 2048, 12 layers, 16 heads,
    d_ff 5632, bf16, random weights from a seed) behind ``PagedDecodeServer``
    with staggered requests; every launch counter is zeroed just before and
-   read just after, and each kernel of the path must have run;
+   read just after: 12 split and combine launches per decode step, 12
+   wgmma chunk launches (and a combine where a chunk splits its keys) per
+   prefill chunk, and nothing on SIMT;
 7. profile: ``torch.profiler`` over ten decode steps of eight slots — step
    time, device busy time, idle share, the top kernels;
 8. train parity: the small f32 model trained three steps on the CPU (plain
@@ -35,7 +43,7 @@ Phases, one line each, any failure exits non-zero:
    full remat, flash attention, AdamW: one warm-up step, five timed steps
    (step time, tokens/s, MFU, peak memory; the flash launch counters are
    zeroed just before and must read 24 / 12 / 12 per step just after, and
-   the wgmma counters 24 forward and 12 dK/dV),
+   the wgmma counters 24 forward, 12 dQ and 12 dK/dV),
    then ten steps on one repeated batch, whose loss must fall;
 10. train profile: ``torch.profiler`` over one training step — device busy
    time, idle share, the attention kernels' share, the top kernels;
@@ -84,6 +92,30 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters: int = 20) -> float:
+    """Device time of fn() in ms without the host's enqueue time: *iters*
+    calls captured in one CUDA graph (after three eager warm-up calls),
+    replayed, and timed with CUDA events. For the paged calls, whose
+    kernels are shorter than the host's Python work per call."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(5):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (5 * iters)
+
+
 def phase_device() -> dict:
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -105,12 +137,22 @@ def phase_build() -> dict:
     secs = time.perf_counter() - t0
     ptxas = [ln.strip() for log in _build.BUILD_LOGS.values()
              for ln in log.splitlines() if "registers" in ln or "spill" in ln]
-    spills = [ln for ln in ptxas if "spill" in ln
-              and not (", 0 bytes spill stores" in ln
-                       and ", 0 bytes spill loads" in ln)]
+    # the instances that spill: the mangled name of the "Function
+    # properties" line above each spill report that is not all zeros
+    spills = []
+    for log in _build.BUILD_LOGS.values():
+        lines = log.splitlines()
+        for i, ln in enumerate(lines):
+            if ("bytes spill stores" in ln and not (
+                    ", 0 bytes spill stores" in ln
+                    and ", 0 bytes spill loads" in ln)):
+                name = lines[i - 1].split("for ")[-1].strip() if i else ""
+                at = name.find("_kernel")
+                name = name[max(0, name.rfind("_", 0, max(at - 12, 0))):][:80]
+                spills.append(f"{name}: {ln.strip()}")
     line("build", seconds=round(secs, 3), kernels=names,
-         ptxas_lines=len(ptxas), lines_with_spills=len(spills))
-    return {"seconds": secs, "ptxas": ptxas}
+         ptxas_lines=len(ptxas), instances_with_spills=spills)
+    return {"seconds": secs, "ptxas": ptxas, "spills": spills}
 
 
 # -- phase 3: paged attention against its plain version ---------------------
@@ -200,7 +242,87 @@ def _library(case):
     return lambda: F.scaled_dot_product_attention(qh, k, v, attn_mask=mask)
 
 
+def _live_spans(case):
+    """(spans, live spans, live key rows) of the split route on this case's
+    data: a span is live when one of its keys is visible to its slot's
+    query (mapped, at or before pos, inside the band)."""
+    from kubetpu_torch.ops import paged_attention as pa
+
+    q, kp, vp, table, pos, window = case
+    ps = (kp[0] if isinstance(kp, tuple) else kp).shape[1]
+    n = pa._n_splits(table, ps)
+    vis = _visible(pos, 1, window, table.shape[1] * ps)[:, 0]     # (B, S)
+    vis &= torch.repeat_interleave(table >= 0, ps, dim=1)
+    vis = torch.nn.functional.pad(vis, (0, n * pa._SPLIT_KEYS - vis.shape[1]))
+    live = int(vis.reshape(vis.shape[0], n, -1).any(dim=-1).sum())
+    return n, live
+
+
+def _split_bytes(case):
+    """Bytes the split and the combine kernels must move on this data:
+    (split: q, the visible K/V rows, table, pos, and the partials it writes
+    — acc and (m, l) of the live spans, (m, l) of the empty ones; combine:
+    every span's (m, l), the live spans' acc, and the output)."""
+    q = case[0]
+    b, _, h, d = q.shape
+    n, live = _live_spans(case)
+    _, _, fn_bytes, flops = _bound(case)
+    out_bytes = q.numel() * q.element_size()
+    ml_bytes = b * h * n * 8
+    acc_bytes = live * h * d * 4     # live (slot, span) pairs, every head
+    split_bytes = fn_bytes - out_bytes + acc_bytes + ml_bytes
+    combine_bytes = ml_bytes + acc_bytes + out_bytes
+    return split_bytes, combine_bytes, flops
+
+
+def _bytes_bound(nbytes, flops=0):
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / BF16_FLOP_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+# the paged instances phase 3 runs (bf16 q, D = 128): mangled-name
+# fragments of the split kernel over dense and int8 pages (one row a block:
+# the flagship is MHA) and of the wgmma chunk kernel
+_PAGED_INSTANCES = {
+    "split": "paged_split_kernelI13__nv_bfloat16S1_Lb0ELi1ELi1EE",
+    "int8": "paged_split_kernelI13__nv_bfloat16aLb1ELi1ELi1EE",
+    "wgmma": "paged_chunk_wgmma_kernelI13__nv_bfloat16Li128E",
+}
+_PAGED_COUNTERS = ("launches", "split_launches", "combine_launches",
+                   "wgmma_launches")
+# kernel names in profiler keys: every instance of the paged kernels
+_PAGED_KERNELS = ("paged_attn_kernel", "paged_split_kernel",
+                  "paged_combine_kernel", "paged_chunk_wgmma_kernel")
+
+
+def _paged_builds(cases) -> dict:
+    """Registers, spills and shared memory of the paged instances at the
+    cases' shapes; a spill in the bf16 D=128 wgmma chunk instance fails."""
+    from kubetpu_torch.ops import paged_attention as pa
+
+    builds = {}
+    for name, (q, kp, _, table, _, window) in cases:
+        key = ("int8" if isinstance(kp, tuple)
+               else pa._route(q, kp, q.shape[1], window))
+        vals = kp[0] if isinstance(kp, tuple) else kp
+        build = _ptxas(_PAGED_INSTANCES[key], "paged_attention")
+        build["dynamic_smem"] = pa._lib().kubetpu_paged_smem_bytes(
+            1 if key == "wgmma" else 2, vals.shape[3], vals.element_size(),
+            vals.shape[1], table.shape[1], pa._SPLIT_KEYS,
+            q.shape[2] // vals.shape[2])
+        builds[name] = build
+        if key == "wgmma" and (build["spill_stores"] or build["spill_loads"]):
+            raise SystemExit(f"paged {name}: the bf16 wgmma chunk instance "
+                             f"spills: {build}")
+    return builds
+
+
 def phase_kernels() -> list:
+    """The paged kernels at the flagship serving shapes: the decode cases
+    on the split route (the split kernel and the combine kernel each
+    against its plain version, and the call against the plain attention),
+    the chunk case on the wgmma route."""
     from kubetpu_torch.ops import paged_attention as pa
 
     gen = torch.Generator(device="cuda").manual_seed(1234)
@@ -213,10 +335,19 @@ def phase_kernels() -> list:
         ("chunk_bf16_T256", _paged_case(gen, [1024], 256, 0, False,
                                         torch.bfloat16)),
     ]
+    builds = _paged_builds(cases)
     rows = []
     for name, case in cases:
         q, kp, vp, table, pos, window = case
-        t = q.shape[1]
+        b, t, h, d = q.shape
+        h_kv = (kp[0] if isinstance(kp, tuple) else kp).shape[2]
+        route = pa._route(q, kp, t, window)
+        expected = "split" if t == 1 else "wgmma"
+        if route != expected:
+            raise SystemExit(f"paged_attention {name}: route {route}, not "
+                             f"{expected}")
+        counts = (pa.paged_attention.split_launches,
+                  pa.paged_attention.wgmma_launches)
         if t == 1:
             run = lambda: pa.paged_attention(q[:, 0], kp, vp, table, pos,
                                              window=window)
@@ -225,26 +356,92 @@ def phase_kernels() -> list:
             run = lambda: pa.paged_attention_chunk(q, kp, vp, table, pos)
             out = run()
         torch.cuda.synchronize()
+        moved = (pa.paged_attention.split_launches - counts[0],
+                 pa.paged_attention.wgmma_launches - counts[1])
+        if moved != ((1, 0) if t == 1 else (0, 1)):
+            raise SystemExit(f"paged_attention {name}: the {route} route did "
+                             f"not run ({moved})")
         ref = pa.paged_attention_reference(q, kp, vp, table, pos, window)
         err = float((out.float() - ref.float()).abs().max())
         ok = bool(torch.isfinite(out).all()) and err <= BF16_TOL
-        ms = cuda_ms(run)
+        ms = graph_ms(run)
+        eager_ms = cuda_ms(run)
         plain_ms = cuda_ms(lambda: pa.paged_attention_reference(
             q, kp, vp, table, pos, window), iters=5, warmup=1)
         library_ms = cuda_ms(_library(case))
         bound_ms, bound_by, nbytes, flops = _bound(case)
-        row = dict(case=name, max_abs_err=err, tol=BF16_TOL, ok=ok, ms=ms,
-                   plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                   library_ms=library_ms, bytes=nbytes, flops=flops,
-                   shape=dict(B=q.shape[0], T=t, H=q.shape[2],
-                              D=q.shape[3], window=window,
+        row = dict(case=name, route=route,
+                   build=builds[name],
+                   max_abs_err=err, tol=BF16_TOL,
+                   ok=ok, ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
+                   bound_ms=bound_ms,
+                   bound_by=bound_by, library_ms=library_ms, bytes=nbytes,
+                   flops=flops,
+                   shape=dict(B=b, T=t, H=h, H_kv=h_kv, D=d, window=window,
                               int8=isinstance(kp, tuple)))
+        if t == 1:
+            row.update(_split_parts(case))
+            row["ok"] = ok and row.pop("ok_parts")
+        else:
+            n = pa._chunk_splits(q, h_kv)
+            row.update(grid=[-(-t * (h // h_kv) // 64), h_kv, b * n],
+                       key_splits=n)
         line("kernel", **row)
         rows.append(row)
-        if not ok:
-            raise SystemExit(f"paged_attention {name}: max error {err} "
-                             f"above {BF16_TOL}")
+        if not row["ok"]:
+            raise SystemExit(f"paged_attention {name}: disagrees with its "
+                             f"plain version: {row}")
     return rows
+
+
+def _split_parts(case) -> dict:
+    """The split route's two kernels on *case*, each against its plain
+    version on the same inputs and timed alone: the split kernel's
+    partials against ``_split_partials`` (m and l of every span, acc of the
+    live ones: f32 from the same values, within F32_TOL), the combine
+    kernel's output against ``_merge_partials`` of the same partials
+    (within BF16_TOL: one rounding to bf16)."""
+    from kubetpu_torch.ops import paged_attention as pa
+
+    q, kp, vp, table, pos, window = case
+    b, _, h, d = q.shape
+    h_kv = (kp[0] if isinstance(kp, tuple) else kp).shape[2]
+    n, live = _live_spans(case)
+    part, ml = pa._launch_split(q, kp, vp, table, pos, window)
+    out = pa._launch_combine(part, ml, torch.empty_like(q))
+    torch.cuda.synchronize()
+    ref_part, ref_ml = (x[:, 0] for x in pa._split_partials(
+        q, kp, vp, table, pos, window, pa._SPLIT_KEYS))
+    used = ref_ml[..., 1] > 0
+    if not torch.equal(ml[..., 1] > 0, used):
+        raise SystemExit("paged split: live spans differ from the plain "
+                         "version's")
+    split_err, split_ok = _err_ok(
+        torch.cat([ml[used], part[used]], dim=-1),
+        torch.cat([ref_ml[used], ref_part[used]], dim=-1), F32_TOL)
+    empty_ok = bool((ml[~used][:, 0] == -1e30).all()
+                    and (ml[~used][:, 1] == 0).all())
+    comb_err, comb_ok = _err_ok(out[:, 0],
+                                pa._merge_partials(part, ml), BF16_TOL)
+    split_ms = graph_ms(lambda: pa._launch_split(q, kp, vp, table, pos,
+                                                 window))
+    combine_ms = graph_ms(lambda: pa._launch_combine(part, ml, out))
+    split_plain_ms = cuda_ms(lambda: pa._split_partials(
+        q, kp, vp, table, pos, window, pa._SPLIT_KEYS), iters=5, warmup=1)
+    combine_plain_ms = cuda_ms(lambda: pa._merge_partials(part, ml), iters=5,
+                               warmup=1)
+    split_bytes, combine_bytes, flops = _split_bytes(case)
+    s_bound, s_by = _bytes_bound(split_bytes, flops)
+    c_bound, c_by = _bytes_bound(combine_bytes)
+    return dict(grid=[n, h_kv * -(-(h // h_kv) // 16), b], splits=n,
+                live_splits=live, ok_parts=split_ok and empty_ok and comb_ok,
+                split=dict(max_err=split_err, tol=F32_TOL, ms=split_ms,
+                           plain_ms=split_plain_ms, bound_ms=s_bound,
+                           bound_by=s_by, bytes=split_bytes),
+                combine=dict(max_abs_err=comb_err, tol=BF16_TOL,
+                             ms=combine_ms, plain_ms=combine_plain_ms,
+                             bound_ms=c_bound, bound_by=c_by,
+                             bytes=combine_bytes))
 
 
 # -- phase 4: the flash kernels against their plain versions -----------------
@@ -280,15 +477,15 @@ def _flash_bound(kind: str, causal: bool, window: int, itemsize: int):
             "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
 
 
-def _ptxas(fragment: str) -> dict:
+def _ptxas(fragment: str, lib: str = "flash_attention") -> dict:
     """Registers, spill bytes and static shared memory that ``ptxas -v``
-    reported for the one kernel instance whose mangled name holds
-    *fragment*."""
+    reported for the one kernel instance of library *lib* whose mangled
+    name holds *fragment*."""
     import re
 
     from kubetpu_torch.ops import _build
 
-    lines = _build.BUILD_LOGS.get("flash_attention", "").splitlines()
+    lines = _build.BUILD_LOGS.get(lib, "").splitlines()
     for i, ln in enumerate(lines):
         if "Function properties for" in ln and fragment in ln:
             text = " ".join(lines[i + 1:i + 3])
@@ -305,7 +502,7 @@ def _ptxas(fragment: str) -> dict:
 # mangled-name fragment, kernel code of kubetpu_flash_smem_bytes)
 _INSTANCES = {
     "forward": ("wgmma", "flash_fwd_wgmma_kernelI13__nv_bfloat16Li128E", 0),
-    "dq": ("simt", "flash_bwd_dq_kernelI13__nv_bfloat16Li8ELi64E", 1),
+    "dq": ("wgmma", "flash_bwd_dq_wgmma_kernelI13__nv_bfloat16Li128E", 1),
     "dkv": ("wgmma", "flash_bwd_dkv_wgmma_kernelI13__nv_bfloat16Li128E", 2),
 }
 
@@ -347,6 +544,7 @@ def phase_flash() -> list:
                                  ("window256", True, 256),
                                  ("noncausal", False, 0)):
         before = (fa.flash_forward.wgmma_launches,
+                  fa.flash_backward.dq_wgmma_launches,
                   fa.flash_backward.dkv_wgmma_launches)
         out, lse = fa.flash_forward(q, k, v, causal, window)
         delta = fa._delta(out, g)
@@ -354,7 +552,8 @@ def phase_flash() -> list:
         dk, dv = fa._launch_dkv(q, k, v, g, lse, delta, causal, window)
         torch.cuda.synchronize()
         if (fa.flash_forward.wgmma_launches - before[0],
-                fa.flash_backward.dkv_wgmma_launches - before[1]) != (1, 1):
+                fa.flash_backward.dq_wgmma_launches - before[1],
+                fa.flash_backward.dkv_wgmma_launches - before[2]) != (1, 1, 1):
             raise SystemExit(f"flash {case}: the wgmma route did not run")
         ref_out, ref_lse = fa.flash_forward_reference(q, k, v, causal, window)
         refs = fa.flash_backward_reference(q, k, v, out, lse, g, causal,
@@ -525,7 +724,8 @@ def phase_serve(smi: str) -> dict:
     lengths = [128, 1024, 256, 896, 384, 768, 512, 640]
     prompts = [rng.integers(0, cfg.vocab, n).tolist() for n in lengths]
     counts.update(steps=0, chunks=0)
-    pa.paged_attention.launches = 0            # zero just before the path
+    for c in _PAGED_COUNTERS:                  # zero just before the path
+        setattr(pa.paged_attention, c, 0)
     torch.cuda.synchronize()
     arrive, first, rids = {}, {}, []
     decode_s, decode_tokens, decode_steps, steps = 0.0, 0, 0, 0
@@ -554,8 +754,8 @@ def phase_serve(smi: str) -> dict:
             raise SystemExit("serve: did not converge")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t_start
-    launches = pa.paged_attention.launches    # read just after
-    expected = cfg.n_layers * (counts["steps"] + counts["chunks"])
+    launches = {c: getattr(pa.paged_attention, c)   # read just after
+                for c in _PAGED_COUNTERS}
     results = [server.result(r) for r in rids]
     ok_tokens = all(
         server.finished(r) and len(res) == n + 32
@@ -563,9 +763,17 @@ def phase_serve(smi: str) -> dict:
         for r, res, n in zip(rids, results, lengths))
     if not ok_tokens:
         raise SystemExit("serve: a request did not finish with 32 tokens")
-    if launches <= 0 or launches != expected:
-        raise SystemExit(f"serve: paged_attention launches {launches} != "
-                         f"n_layers * (steps + chunks) = {expected}")
+    # one attention call per layer and step or chunk: decode steps on the
+    # split route (split + combine), prefill chunks on the wgmma route (a
+    # combine after each chunk that took a key split)
+    n_dec, n_chunk = (cfg.n_layers * counts[k] for k in ("steps", "chunks"))
+    expected = dict(launches=n_dec + n_chunk, split_launches=n_dec,
+                    wgmma_launches=n_chunk)
+    if (n_dec <= 0 or n_chunk <= 0
+            or {k: launches[k] for k in expected} != expected
+            or not n_dec <= launches["combine_launches"] <= n_dec + n_chunk):
+        raise SystemExit(f"serve: paged launches {launches}, expected "
+                         f"{expected} and {n_dec}..{n_dec + n_chunk} combine")
     server.check_invariants()
 
     # the served first token against a dense forward of the same prompt:
@@ -584,7 +792,7 @@ def phase_serve(smi: str) -> dict:
     row = dict(card=torch.cuda.get_device_name(0), nvidia_smi=smi,
                requests=len(rids), prompt_tokens=sum(lengths),
                new_tokens=32 * len(rids), steps=counts["steps"],
-               prefill_chunks=counts["chunks"], paged_attention_launches=launches,
+               prefill_chunks=counts["chunks"], paged_launches=launches,
                decode_toks_s=decode_tokens / decode_s if decode_s else None,
                decode_steps=decode_steps,
                ttft_ms_p50=ttft[len(ttft) // 2], ttft_ms_max=ttft[-1],
@@ -638,7 +846,8 @@ def phase_profile(server) -> dict:
 
     wall_us, kernels = _profiled(ten_steps)
     busy = sum(kernels.values())
-    attn = sum(v for k, v in kernels.items() if "paged_attn_kernel" in k)
+    attn = sum(v for k, v in kernels.items()
+               if any(n in k for n in _PAGED_KERNELS))
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
     row = dict(active_slots=active, steps=10, step_ms=wall_us / 10 / 1e3,
                device_busy_ms_per_step=busy / 10 / 1e3,
@@ -728,6 +937,7 @@ def _flash_counts():
 
     return (fa.flash_forward.launches, fa.flash_backward.dq_launches,
             fa.flash_backward.dkv_launches, fa.flash_forward.wgmma_launches,
+            fa.flash_backward.dq_wgmma_launches,
             fa.flash_backward.dkv_wgmma_launches)
 
 
@@ -738,6 +948,7 @@ def _zero_flash_counts():
     fa.flash_backward.dq_launches = 0
     fa.flash_backward.dkv_launches = 0
     fa.flash_forward.wgmma_launches = 0
+    fa.flash_backward.dq_wgmma_launches = 0
     fa.flash_backward.dkv_wgmma_launches = 0
 
 
@@ -767,14 +978,15 @@ def phase_train(smi: str):
     wall = time.perf_counter() - t0
     counts = _flash_counts()                         # read just after
     losses = [float(x) for x in losses]
-    # forward x2 under full remat, dQ, dK/dV per layer; the forward and
-    # dK/dV all through the wgmma instances
+    # forward x2 under full remat, dQ, dK/dV per layer; all three through
+    # the wgmma instances
     expected = (2 * cfg.n_layers * timed, cfg.n_layers * timed,
                 cfg.n_layers * timed, 2 * cfg.n_layers * timed,
-                cfg.n_layers * timed)
+                cfg.n_layers * timed, cfg.n_layers * timed)
     if counts != expected:
         raise SystemExit(f"train: flash launches (forward, dq, dkv, "
-                         f"forward wgmma, dkv wgmma) {counts} != {expected}")
+                         f"forward wgmma, dq wgmma, dkv wgmma) {counts} != "
+                         f"{expected}")
     if not all(np.isfinite(losses)):
         raise SystemExit(f"train: non-finite losses {losses}")
     step_s = wall / timed
@@ -798,7 +1010,8 @@ def phase_train(smi: str):
                losses=losses, repeated_batch_losses=fit,
                flash_launches=dict(forward=counts[0], dq=counts[1],
                                    dkv=counts[2], forward_wgmma=counts[3],
-                                   dkv_wgmma=counts[4], steps=timed))
+                                   dq_wgmma=counts[4], dkv_wgmma=counts[5],
+                                   steps=timed))
     line("train", **row)
     return row, state, step, repeat
 
@@ -851,18 +1064,41 @@ def main(argv) -> int:
     train, state, step, repeat = phase_train(dev["nvidia_smi"])
     train_prof = phase_train_profile(state, step, repeat)
 
+    # the paged kernels at the main path's cases: the split and combine
+    # kernels at decode_bf16 (max_abs_err over every decode case), the
+    # chunk kernel at chunk_bf16_T256
     decode = next(r for r in kern if r["case"] == "decode_bf16")
-    kernels = [{
-        "name": "paged_attention", "route": "cuda",
-        "source": "kubetpu_torch/ops/csrc/paged_attention.cu",
-        "replaces": "kubetpu/ops/paged_attention.py:65",
-        "launches": serve["paged_attention_launches"],
-        "max_abs_err": max(r["max_abs_err"] for r in kern),
-        "ms": decode["ms"], "plain_ms": decode["plain_ms"],
-        "bound_ms": decode["bound_ms"], "bound_by": decode["bound_by"],
-        "library_ms": decode["library_ms"],
-        "ok": all(r["ok"] for r in kern),
-    }]
+    chunk = next(r for r in kern if r["case"] == "chunk_bf16_T256")
+    decodes = [r for r in kern if r["route"] == "split"]
+    paged = dict(route="cuda", source="kubetpu_torch/ops/csrc/paged_attention.cu",
+                 replaces="kubetpu/ops/paged_attention.py:65")
+    launches = serve["paged_launches"]
+    kernels = [
+        dict(paged, name="paged_attention_split", instances="split",
+             launches=launches["split_launches"],
+             max_abs_err=max(r["split"]["max_err"] for r in decodes),
+             ms=decode["split"]["ms"], plain_ms=decode["split"]["plain_ms"],
+             bound_ms=decode["split"]["bound_ms"],
+             bound_by=decode["split"]["bound_by"], library_ms=None,
+             call_ms=decode["ms"], call_bound_ms=decode["bound_ms"],
+             call_library_ms=decode["library_ms"],
+             call_max_abs_err=max(r["max_abs_err"] for r in decodes),
+             ok=all(r["ok"] for r in decodes)),
+        dict(paged, name="paged_attention_combine", instances="split",
+             launches=launches["combine_launches"],
+             max_abs_err=max(r["combine"]["max_abs_err"] for r in decodes),
+             ms=decode["combine"]["ms"],
+             plain_ms=decode["combine"]["plain_ms"],
+             bound_ms=decode["combine"]["bound_ms"],
+             bound_by=decode["combine"]["bound_by"], library_ms=None,
+             ok=all(r["ok"] for r in decodes)),
+        dict(paged, name="paged_attention_chunk", instances="wgmma",
+             launches=launches["wgmma_launches"],
+             max_abs_err=chunk["max_abs_err"], ms=chunk["ms"],
+             plain_ms=chunk["plain_ms"], bound_ms=chunk["bound_ms"],
+             bound_by=chunk["bound_by"], library_ms=chunk["library_ms"],
+             ok=chunk["ok"]),
+    ]
     # the flash kernels at the main path's case (causal); max_abs_err and ok
     # over all three cases
     for kind, name, replaces, launches in (

@@ -4,7 +4,8 @@
 // Replaces the TPU kernels of kubetpu/ops/flash_attention.py:
 //   flash_fwd_wgmma_kernel, flash_fwd_kernel
 //                        <- _flash_kernel          (pallas_call in _flash_forward)
-//   flash_bwd_dq_kernel  <- _flash_bwd_dq_kernel   (pallas_call in _flash_backward)
+//   flash_bwd_dq_wgmma_kernel, flash_bwd_dq_kernel
+//                        <- _flash_bwd_dq_kernel   (pallas_call in _flash_backward)
 //   flash_bwd_dkv_wgmma_kernel, flash_bwd_dkv_kernel
 //                        <- _flash_bwd_dkv_kernel  (pallas_call in _flash_backward)
 // and computes the same functions. q, k, v, out, dO, dq, dk and dv are
@@ -38,11 +39,12 @@
 // Two routes, chosen by the wrapper (flash_attention.py::_route) and passed
 // in as `route`; a route that cannot take a call refuses it:
 //
-// wgmma (forward and dK/dV; f16 and bf16 at D = 64 or 128). Products run on
+// wgmma (all three kernels; f16 and bf16 at D = 64 or 128). Products run on
 // the tensor cores as wgmma.mma_async m64nNk16 with 16-bit operands and f32
-// sums (hopper.cuh), as the TPU's default one-pass bf16 dot does: P (and dS)
-// are rounded to the input dtype before their second product; the softmax,
-// lse, clamp, masks and delta stay f32. Tiles arrive by cp.async in
+// sums (hopper.cuh), as the TPU's default one-pass bf16 dot does: P (and dS
+// in dK/dV) are rounded to the input dtype before their second product, dQ
+// carries dS as two 16-bit terms; the softmax, lse, clamp, masks and delta
+// stay f32. Tiles arrive by cp.async in
 // 128-byte-swizzled 16-byte chunks (zero-filled past S), two stages deep,
 // so the next tile loads while this one is used. A block is two
 // warpgroups, each owning 64 rows of the block's tile. The forward
@@ -50,16 +52,21 @@
 // softmax in base 2 on the accumulator fragment (scale * log2 e applied to
 // the f32 scores, never folded into 16-bit Q), P packed into the A-operand
 // registers of O += P V (RS wgmma, V read MN-major); row reductions are two
-// lane shuffles. dK/dV (128 keys, 64-row query tiles) computes the
+// lane shuffles. dQ has the forward's shape (128 query rows, Q and dO
+// loaded once, 64-key K/V tiles): S = Q K^T and dP = dO V^T (SS, one commit
+// group), dS = P (dP - delta) packed in place as two 16-bit terms (hi, and
+// the rest: the ring's clamped P makes |dS| large), dQ += dS K (RS, K
+// MN-major).
+// dK/dV (128 keys, 64-row query tiles) computes the
 // transposed products, M = keys: S^T = K Q^T, dP^T = V dO^T (SS), and
 // dV += P^T dO, dK += dS^T Q (RS, dO and Q read MN-major), so P^T and dS^T
 // never pass through shared memory; lse and delta of the query tile are
 // staged beside it. Only tiles that cross the diagonal, the band's edge or
 // S are masked; a warpgroup skips tiles none of its rows or keys see;
-// causal forward blocks launch longest first.
+// causal forward and dQ blocks launch longest first.
 //
-// SIMT (f32 — TF32 stays off for parity — the head dims 16 and 256, and
-// dQ). Tiles are staged in shared memory as f32 (rows padded to D + 1
+// SIMT (f32 — TF32 stays off for parity — and the head dims 16 and 256).
+// Tiles are staged in shared memory as f32 (rows padded to D + 1
 // floats, so the 16 lanes of a half-warp that read 16 different rows hit 16
 // banks); 256 threads form a 16 x 16 grid, each thread owning a
 // (TILE/16) x (TILE/16) patch of the score tile and (TILE/16) x ceil(D/16)
@@ -520,16 +527,20 @@ constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 constexpr int WG_NT = 256;          // two consumer warpgroups a block
 
+enum Kind { FWD = 0, DQ = 1, DKV = 2 };
+
 // Tile sizes and shared memory of the wgmma instances: the forward holds a
-// 128-row query tile and two stages of 64-row K and V tiles; dK/dV holds a
-// 128-row K and V tile and two stages of 64-row Q and dO tiles with their
-// lse and delta rows. 1024 bytes of slack align the swizzled boxes.
+// 128-row query tile and two stages of 64-row K and V tiles; dQ holds the
+// 128-row Q and dO tiles and two stages of 64-row K and V tiles; dK/dV
+// holds a 128-row K and V tile and two stages of 64-row Q and dO tiles with
+// their lse and delta rows. 1024 bytes of slack align the swizzled boxes.
 constexpr int FWD_BQ = 128, FWD_BK = 64, DKV_BK = 128, DKV_BQ = 64;
 
-constexpr size_t wgmma_smem_bytes(bool fwd, int D) {
-  return fwd ? (size_t)(FWD_BQ + 4 * FWD_BK) * D * 2 + 1024
-             : (size_t)(2 * DKV_BK + 4 * DKV_BQ) * D * 2 +
-                   4 * DKV_BQ * sizeof(float) + 1024;
+constexpr size_t wgmma_smem_bytes(Kind kind, int D) {
+  return kind == FWD  ? (size_t)(FWD_BQ + 4 * FWD_BK) * D * 2 + 1024
+         : kind == DQ ? (size_t)(2 * FWD_BQ + 4 * FWD_BK) * D * 2 + 1024
+                      : (size_t)(2 * DKV_BK + 4 * DKV_BQ) * D * 2 +
+                            4 * DKV_BQ * sizeof(float) + 1024;
 }
 
 __device__ __forceinline__ float quad_max(float x) {
@@ -693,6 +704,167 @@ __global__ void __launch_bounds__(WG_NT, 1) flash_fwd_wgmma_kernel(
       store2(orow + 8 * j, o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
     if (col0 == 0)
       lse[static_cast<size_t>(bh) * S + row] = m[r] * LN2 + logf(lr);
+  }
+}
+
+// -------------------------------------------------- dQ on the tensor cores
+
+// One block per (batch*head, 128 query rows), longest causal tiles first;
+// warpgroup wg owns rows [q0 + 64 wg, q0 + 64 wg + 64), their dQ
+// accumulator (64 x D f32) and their lse and delta in registers. Q and dO
+// are loaded once; per 64-key tile, with M = queries: S = Q K^T and
+// dP = dO V^T (SS, all four K-major, one commit group),
+// P = exp2(min(S scale log2 e - lse log2 e, 0)), dS = P (dP - delta) packed
+// to 16 bits in place as the A operand of dQ += dS K (RS, K MN-major), in
+// two terms (dS rounded, and the rest rounded). The next K/V tile is in
+// flight (cp.async) while this one is used. No atomics.
+template <typename T, int D>
+__global__ void __launch_bounds__(WG_NT, 1) flash_bwd_dq_wgmma_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const T* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, T* __restrict__ dq, int S, int H,
+    int causal, int window, float scale) {
+  constexpr bool BF16 = std::is_same<T, __nv_bfloat16>::value;
+  constexpr int BQ = FWD_BQ, BK = FWD_BK, ND = D / 2;
+  constexpr uint32_t Q_BYTES = BQ * D * 2, KV_BYTES = BK * D * 2;
+  extern __shared__ uint8_t dq_smem[];
+  const uint32_t q_s = (hopper::smem_u32(dq_smem) + 1023u) & ~1023u;
+  const uint32_t do_s = q_s + Q_BYTES;
+  const uint32_t k_s = do_s + Q_BYTES;           // two stages
+  const uint32_t v_s = k_s + 2 * KV_BYTES;       // two stages
+
+  const int bh = blockIdx.x, b = bh / H, h = bh - b * H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;   // longest tiles first
+  const size_t rs = static_cast<size_t>(H) * D;
+  const size_t base = (static_cast<size_t>(b) * S * H + h) * D;
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4;
+  const int lane = threadIdx.x % 32;
+  const int r_lo = q0 + 64 * wg;                  // the warpgroup's rows
+  const int row0 = r_lo + 16 * warp + lane / 4;   // this thread's: +0, +8
+  const int col0 = 2 * (lane % 4);
+
+  int k_lo, k_hi;
+  key_range(q0, BQ, BK, S, causal, window, &k_lo, &k_hi);
+  const int n_kt = (k_hi - k_lo + BK - 1) / BK;
+
+  hopper::load_tile<BQ, D, WG_NT>(q_s, q + base, rs, q0, S);
+  hopper::load_tile<BQ, D, WG_NT>(do_s, dout + base, rs, q0, S);
+  hopper::load_tile<BK, D, WG_NT>(k_s, k + base, rs, k_lo, S);
+  hopper::load_tile<BK, D, WG_NT>(v_s, v + base, rs, k_lo, S);
+  hopper::cp_async_commit();
+
+  // lse (base 2) and delta of the thread's two rows; rows past S see zeros
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    lse2[r] = row < S ? lse[static_cast<size_t>(bh) * S + row] * LOG2E : 0.f;
+    dl[r] = row < S ? delta[static_cast<size_t>(bh) * S + row] : 0.f;
+  }
+  float acc[ND];
+#pragma unroll
+  for (int i = 0; i < ND; ++i) acc[i] = 0.f;
+  const float sl2 = scale * LOG2E;
+  const bool live = r_lo < S;
+
+  for (int it = 0; it < n_kt; ++it) {
+    const int st = it & 1;
+    if (it + 1 < n_kt) {
+      const int kn = k_lo + (it + 1) * BK;
+      hopper::load_tile<BK, D, WG_NT>(k_s + (st ^ 1) * KV_BYTES, k + base, rs,
+                                      kn, S);
+      hopper::load_tile<BK, D, WG_NT>(v_s + (st ^ 1) * KV_BYTES, v + base, rs,
+                                      kn, S);
+    }
+    hopper::cp_async_commit();
+    hopper::cp_async_wait<1>();          // this tile's group has landed
+    hopper::fence_proxy_async();
+    __syncthreads();
+
+    const int k0 = k_lo + it * BK;
+    const bool skip = !live || (causal && k0 > r_lo + 63) ||
+                      (causal && window > 0 && k0 + BK - 1 <= r_lo - window);
+    if (!skip) {
+      const uint32_t ks = k_s + st * KV_BYTES, vs = v_s + st * KV_BYTES;
+      float s[32], dp[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+      hopper::fence_regs(s);
+      hopper::fence_regs(dp);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t col = (kk >> 2), sub = (kk & 3) * 32;
+        hopper::wgmma_ss_n64<BF16>(
+            s, hopper::make_desc(q_s + col * BQ * 128 + wg * 8192 + sub, 16, 1024),
+            hopper::make_desc(ks + col * BK * 128 + sub, 16, 1024), kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t col = (kk >> 2), sub = (kk & 3) * 32;
+        hopper::wgmma_ss_n64<BF16>(
+            dp, hopper::make_desc(do_s + col * BQ * 128 + wg * 8192 + sub, 16, 1024),
+            hopper::make_desc(vs + col * BK * 128 + sub, 16, 1024), kk > 0);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(s);
+      hopper::fence_regs(dp);
+
+      // only tiles across the diagonal, the band's edge or S are masked
+      const bool masked = k0 + BK > S || (causal && k0 + BK - 1 > r_lo) ||
+                          (causal && window > 0 && k0 <= r_lo + 63 - window);
+      // dS as two 16-bit terms, hi = dS rounded and lo = dS - hi rounded:
+      // |dS| reaches tens where a ring step's global lse clamps P at 1,
+      // and one rounding of dS alone then moves dQ by more than a few
+      // roundings of its own
+      uint32_t da[16], da_lo[16];
+#pragma unroll
+      for (int i = 0; i < 32; i += 2) {
+        const int r = (i >> 1) & 1;
+        float d[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float p = exp2f(fminf(s[i + e] * sl2 - lse2[r], 0.f));
+          if (masked && !visible(row0 + 8 * r, k0 + 8 * (i >> 2) + col0 + e,
+                                 S, causal, window))
+            p = 0.f;
+          d[e] = p * (dp[i + e] - dl[r]);
+        }
+        da[i >> 1] = hopper::pack2<BF16>(d[0], d[1]);
+        const float2 h = hopper::unpack2<BF16>(da[i >> 1]);
+        da_lo[i >> 1] = hopper::pack2<BF16>(d[0] - h.x, d[1] - h.y);
+      }
+
+      hopper::fence_regs(acc);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 2 * BK / 16; ++kk) {
+        const uint32_t* x = kk < BK / 16 ? da : da_lo;
+        const int j = kk % (BK / 16);
+        const uint32_t a[4] = {x[4 * j], x[4 * j + 1], x[4 * j + 2],
+                               x[4 * j + 3]};
+        const uint64_t db = hopper::make_desc(ks + j * 2048, BK * 128, 1024);
+        if constexpr (D == 128) hopper::wgmma_rs_n128<BF16>(acc, a, db);
+        else hopper::wgmma_rs_n64<BF16>(acc, a, db);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(acc);
+    }
+    __syncthreads();                     // the stage is free to refill
+  }
+
+  if (!live) return;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= S) continue;
+    T* drow = dq + base + static_cast<size_t>(row) * rs + col0;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      store2(drow + 8 * j, acc[4 * j + 2 * r] * scale,
+             acc[4 * j + 2 * r + 1] * scale);
   }
 }
 
@@ -882,8 +1054,6 @@ __global__ void __launch_bounds__(WG_NT, 1) flash_bwd_dkv_wgmma_kernel(
 
 // --------------------------------------------------------------- launches
 
-enum Kind { FWD = 0, DQ = 1, DKV = 2 };
-
 // The i-th pointer argument as X* (the C interface passes every tensor as
 // a void pointer; outputs among them are written).
 template <typename X>
@@ -953,8 +1123,8 @@ cudaError_t launch_typed(Kind kind, const void* const* p, int B, int S, int H,
   return launch<T, 16, 32>(kind, p, B, S, H, D, causal, window, scale, stream);
 }
 
-// The tensor-core instance of the forward or dK/dV kernel for dtype T (f16
-// or bf16) at head dim D (64 or 128).
+// The tensor-core instance of the forward, dQ or dK/dV kernel for dtype T
+// (f16 or bf16) at head dim D (64 or 128).
 template <typename T, int D>
 cudaError_t launch_wgmma(Kind kind, const void* const* p, int B, int S,
                          int H, int causal, int window, float scale,
@@ -962,7 +1132,7 @@ cudaError_t launch_wgmma(Kind kind, const void* const* p, int B, int S,
   const T* q = arg<const T>(p, 0);
   const T* k = arg<const T>(p, 1);
   const T* v = arg<const T>(p, 2);
-  const size_t smem = wgmma_smem_bytes(kind == FWD, D);
+  const size_t smem = wgmma_smem_bytes(kind, D);
   cudaError_t err;
   if (kind == FWD) {
     auto kern = flash_fwd_wgmma_kernel<T, D>;
@@ -973,6 +1143,15 @@ cudaError_t launch_wgmma(Kind kind, const void* const* p, int B, int S,
     kern<<<grid, WG_NT, smem, stream>>>(q, k, v, arg<T>(p, 3),
                                         arg<float>(p, 4), S, H, causal,
                                         window, scale);
+  } else if (kind == DQ) {
+    auto kern = flash_bwd_dq_wgmma_kernel<T, D>;
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    const dim3 grid(B * H, (S + FWD_BQ - 1) / FWD_BQ);
+    kern<<<grid, WG_NT, smem, stream>>>(
+        q, k, v, arg<const T>(p, 3), arg<const float>(p, 4),
+        arg<const float>(p, 5), arg<T>(p, 6), S, H, causal, window, scale);
   } else {
     auto kern = flash_bwd_dkv_wgmma_kernel<T, D>;
     err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1004,9 +1183,9 @@ cudaError_t launch_wgmma_typed(Kind kind, const void* const* p, int n_ptr,
 }
 
 // route: 0 = the SIMT instances (every dtype, D <= 256), 1 = the wgmma
-// instances (forward and dK/dV only; f16/bf16 at D = 64 or 128). The
-// wrapper picks the route; an instance that cannot take the call refuses
-// it rather than running another.
+// instances (f16/bf16 at D = 64 or 128). The wrapper picks the route; an
+// instance that cannot take the call refuses it rather than running
+// another.
 int dispatch(Kind kind, const void* const* p, int n_ptr, int B, int S, int H,
              int D, int causal, int window, float scale, int dtype, int route,
              void* stream) {
@@ -1037,9 +1216,9 @@ int dispatch(Kind kind, const void* const* p, int n_ptr, int B, int S, int H,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = float16, 2 = bfloat16; route: 0 = SIMT, 1 = wgmma
-// (forward and dK/dV). Every tensor is contiguous; lse and delta are
-// (B*H, S) f32. Each returns a cudaError_t (0 = ok).
+// dtype: 0 = float32, 1 = float16, 2 = bfloat16; route: 0 = SIMT, 1 = wgmma.
+// Every tensor is contiguous; lse and delta are (B*H, S) f32. Each returns a
+// cudaError_t (0 = ok).
 extern "C" int kubetpu_flash_forward(const void* q, const void* k,
                                      const void* v, void* out, void* lse,
                                      int B, int S, int H, int D, int causal,
@@ -1054,7 +1233,8 @@ extern "C" int kubetpu_flash_forward(const void* q, const void* k,
 // 1 = dQ, 2 = dK/dV) on route (0 = SIMT, 1 = wgmma) at head dim D; ptxas
 // reports only static shared memory.
 extern "C" int kubetpu_flash_smem_bytes(int kind, int D, int route) {
-  if (route == 1) return static_cast<int>(wgmma_smem_bytes(kind == FWD, D));
+  if (route == 1)
+    return static_cast<int>(wgmma_smem_bytes(static_cast<Kind>(kind), D));
   const int tile = D <= 128 ? 64 : 32;
   return static_cast<int>(smem_floats(static_cast<Kind>(kind), tile, D) *
                           sizeof(float));
@@ -1065,9 +1245,9 @@ extern "C" int kubetpu_flash_backward_dq(const void* q, const void* k,
                                          const void* lse, const void* delta,
                                          void* dq, int B, int S, int H, int D,
                                          int causal, int window, float scale,
-                                         int dtype, void* stream) {
+                                         int dtype, void* stream, int route) {
   const void* p[] = {q, k, v, dout, lse, delta, dq};
-  return dispatch(DQ, p, 7, B, S, H, D, causal, window, scale, dtype, 0,
+  return dispatch(DQ, p, 7, B, S, H, D, causal, window, scale, dtype, route,
                   stream);
 }
 

@@ -127,6 +127,16 @@ __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
   }
 }
 
+// The two 16-bit values of one register as floats (lo, hi).
+template <bool BF16>
+__device__ __forceinline__ float2 unpack2(uint32_t v) {
+  if constexpr (BF16) {
+    return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&v));
+  } else {
+    return __half22float2(*reinterpret_cast<__half2*>(&v));
+  }
+}
+
 // Accumulator layout of wgmma m64nNk16 with f32 sums, for thread t of the
 // warpgroup (warp w = t / 32, lane l): d[4 j + e] holds row
 // 16 w + l / 4 + 8 (e / 2) and column 8 j + 2 (l % 4) + e % 2. That is also

@@ -16,13 +16,14 @@ plain versions. ``flash_forward.launches``, ``flash_backward.dq_launches``
 and ``flash_backward.dkv_launches`` count kernel launches; the plain
 versions add nothing to them.
 
-Routes. The forward and dK/dV kernels have two sets of instances, chosen by
+Routes. Each of the three kernels has two sets of instances, chosen by
 ``_route(dtype, head_dim)``: "wgmma" (tensor cores, bf16/f16 operands with
 f32 sums; bf16 and f16 at D 64 or 128) and "simt" (f32 CUDA-core math;
 f32, where TF32 stays off for parity, and the other head dims).
-``flash_forward.wgmma_launches`` and ``flash_backward.dkv_wgmma_launches``
-count the wgmma launches among the totals. The route is dispatch, not a
-fallback: a wgmma instance that fails raises. dQ has one route, SIMT.
+``flash_forward.wgmma_launches``, ``flash_backward.dq_wgmma_launches`` and
+``flash_backward.dkv_wgmma_launches`` count the wgmma launches among the
+totals. The route is dispatch, not a fallback: a wgmma instance that fails
+raises.
 """
 
 from __future__ import annotations
@@ -38,8 +39,8 @@ _ROUTE_CODE = {"simt": 0, "wgmma": 1}
 
 
 def _route(dtype: torch.dtype, d: int) -> str:
-    """The instances that run the forward and dK/dV kernels for *dtype* at
-    head dim *d*: "wgmma" for bf16/f16 at D 64 or 128, else "simt"."""
+    """The instances that run the three kernels for *dtype* at head dim *d*:
+    "wgmma" for bf16/f16 at D 64 or 128, else "simt"."""
     if dtype in (torch.bfloat16, torch.float16) and d in (64, 128):
         return "wgmma"
     return "simt"
@@ -160,7 +161,7 @@ def _lib():
                                        ctypes.c_void_p]
         routed = common + [ctypes.c_int]
         lib.kubetpu_flash_forward.argtypes = [ctypes.c_void_p] * 5 + routed
-        lib.kubetpu_flash_backward_dq.argtypes = [ctypes.c_void_p] * 7 + common
+        lib.kubetpu_flash_backward_dq.argtypes = [ctypes.c_void_p] * 7 + routed
         lib.kubetpu_flash_backward_dkv.argtypes = ([ctypes.c_void_p] * 8
                                                    + routed)
         lib.kubetpu_flash_smem_bytes.argtypes = [ctypes.c_int] * 3
@@ -207,13 +208,15 @@ def flash_forward(q, k, v, causal: bool = True, window: int = 0):
 
 def _launch_dq(q, k, v, g, lse, delta, causal: bool, window: int):
     """dQ from the dQ kernel (CUDA tensors only)."""
+    route = _route(q.dtype, q.shape[3])
     dq = torch.empty_like(q)
     rc = _lib().kubetpu_flash_backward_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        *_dims(q, causal, window))
-    _raise_on(rc, "dQ")
+        *_dims(q, causal, window), _ROUTE_CODE[route])
+    _raise_on(rc, f"dQ ({route})")
     flash_backward.dq_launches += 1
+    flash_backward.dq_wgmma_launches += route == "wgmma"
     return dq
 
 
@@ -249,6 +252,7 @@ def flash_backward(q, k, v, out, lse, g, causal: bool = True,
 flash_forward.launches = 0
 flash_forward.wgmma_launches = 0
 flash_backward.dq_launches = 0
+flash_backward.dq_wgmma_launches = 0
 flash_backward.dkv_launches = 0
 flash_backward.dkv_wgmma_launches = 0
 

@@ -102,19 +102,24 @@ def test_noncausal_backward_with_global_residuals(d):
                                    rtol=2e-4)
 
 
+def _counts():
+    return (tflash.flash_forward.launches, tflash.flash_forward.wgmma_launches,
+            tflash.flash_backward.dq_launches,
+            tflash.flash_backward.dq_wgmma_launches,
+            tflash.flash_backward.dkv_launches,
+            tflash.flash_backward.dkv_wgmma_launches)
+
+
 def test_cpu_takes_the_plain_version_and_counts_no_launch():
     q, k, v, g = (torch.from_numpy(x) for x in _inputs(16, seed=3))
-    before = (tflash.flash_forward.launches,
-              tflash.flash_backward.dq_launches,
-              tflash.flash_backward.dkv_launches)
+    before = _counts()
     out, lse = tflash.flash_forward(q, k, v, True, 8)
     ref_out, ref_lse = tflash.flash_forward_reference(q, k, v, True, 8)
     assert torch.equal(out, ref_out) and torch.equal(lse, ref_lse)
     grads = tflash.flash_backward(q, k, v, out, lse, g, True, 8)
     refs = tflash.flash_backward_reference(q, k, v, out, lse, g, True, 8)
     assert all(torch.equal(a, b) for a, b in zip(grads, refs))
-    assert (tflash.flash_forward.launches, tflash.flash_backward.dq_launches,
-            tflash.flash_backward.dkv_launches) == before
+    assert _counts() == before
 
 
 def test_bf16_keeps_the_dtype():
@@ -151,8 +156,9 @@ def test_refuses_what_the_kernels_do_not_take():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
                                    torch.bfloat16])
 def test_route_pins_the_instances_for_each_dtype_and_head_dim(dtype, d):
-    """The tensor-core (wgmma) instances take bf16 and f16 at D 64 and 128;
-    f32 (TF32 stays off for parity) and every other head dim take SIMT."""
+    """The tensor-core (wgmma) instances of all three kernels (forward, dQ
+    and dK/dV) take bf16 and f16 at D 64 and 128; f32 (TF32 stays off for
+    parity) and every other head dim take SIMT."""
     expected = ("wgmma" if dtype != torch.float32 and d in (64, 128)
                 else "simt")
     assert tflash._route(dtype, d) == expected
