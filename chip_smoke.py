@@ -8,16 +8,18 @@ Phases, one line each, any failure exits non-zero:
 2. build: every CUDA kernel of the port, compiled from ``kubetpu_torch/ops/
    csrc`` with ``nvcc`` (all sources at once);
 3. kernels: the paged-attention kernels at the flagship serving shapes,
-   each case's route, grid and splits — decode (bf16, int8, window 256) on
-   the split route, whose split kernel (partials) and combine kernel are
-   each held against their plain versions, and the T=256 chunk on the
-   wgmma route; every call against the plain attention, with its time (a
-   replayed CUDA graph of 20 calls: device time without the host's
-   enqueue; the eager calls' time beside it), the
-   plain version's, the least time the card could take (bytes over 3.35
-   TB/s or operations over 989 TFLOP/s, whichever is larger) and one
-   PyTorch library call's time as a yardstick; registers, spills and shared
-   memory of the instances (a spill in the wgmma chunk instance fails);
+   each case's route, grid and splits — decode (bf16, int8, window 256, and
+   window 512 over the windowed server's ring table) on the split route,
+   whose split kernel (partials) and combine kernel are each held against
+   their plain versions; the T=256 chunk and the storm's 64-token chunk at
+   a 1024-token prefix hit on the wgmma route, and the same hit chunk over
+   int8 pages on the SIMT route; every call against the plain attention,
+   with its time (a replayed CUDA graph of 20 calls: device time without
+   the host's enqueue; the eager calls' time beside it), the plain
+   version's, the least time the card could take (bytes over 3.35 TB/s or
+   operations over 989 TFLOP/s, whichever is larger) and one PyTorch
+   library call's time as a yardstick; registers, spills and shared memory
+   of the instances (a spill in the wgmma chunk instance fails);
 4. flash: the forward, dQ and dK/dV kernels at the flagship training shape
    (B=4, S=2048, H=16, D=128, bf16; causal, causal with window 256, and
    non-causal), each against its plain version, with the same timings
@@ -27,7 +29,9 @@ Phases, one line each, any failure exits non-zero:
    memory; a spill in a bf16 D=128 wgmma instance fails the phase;
 5. parity: a small f32 model served by the port on the CPU (plain version)
    and on the card (kernel) — prefill logits within 1e-3, greedy tokens
-   equal;
+   equal; then shared-prefix reuse (f32 and int8 pools) and window 8 on the
+   ring table: greedy tokens and reuse stats equal exactly, the pool oracle
+   after every drain;
 6. serve: the flagship decoder (vocab 32000, d 2048, 12 layers, 16 heads,
    d_ff 5632, bf16, random weights from a seed) behind ``PagedDecodeServer``
    with staggered requests; every launch counter is zeroed just before and
@@ -36,18 +40,33 @@ Phases, one line each, any failure exits non-zero:
    prefill chunk, and nothing on SIMT;
 7. profile: ``torch.profiler`` over ten decode steps of eight slots — step
    time, device busy time, idle share, the top kernels;
-8. train parity: the small f32 model trained three steps on the CPU (plain
+8. prefix: shared-prefix reuse on the flagship's server (a 1024-token
+   system prompt + 64-token tails, one seed then 15 requests; reuse off,
+   on, and on over an int8 pool) and the host tier (4 families x 3 rounds
+   through a one-family tree with a 1 GiB host tier, against a warm tree of
+   all four): one line an arm with the server's TTFT p50/p99, prefill
+   tokens computed and saved, hit rate, tier hits / fills / spills / bytes,
+   decode tokens/s and the paged launches. Gates: the pool oracle after
+   every drain, 15 x 1024 tokens saved, the host arm's tokens equal to the
+   warm tree's, the hits' first-token logits within 0.25 of the cold arm's;
+9. window: the flagship with window 512 (rings of 33 pages), 8 prompts of
+   640-1024 tokens, 256 new tokens each. Gates: pages in use never above
+   8 x 33, first-token logits within 0.25 of the dense windowed forward,
+   no windowed chunk on a kernel;
+10. train parity: the small f32 model trained three steps on the CPU (plain
    versions) and on the card (flash kernels) from the same weights and
    batches — first-step gradients and per-step losses agree;
-9. train: the flagship at full width (max_seq 2048), batch 4 x seq 2048,
+11. train: the flagship at full width (max_seq 2048), batch 4 x seq 2048,
    full remat, flash attention, AdamW: one warm-up step, five timed steps
    (step time, tokens/s, MFU, peak memory; the flash launch counters are
    zeroed just before and must read 24 / 12 / 12 per step just after, and
    the wgmma counters 24 forward, 12 dQ and 12 dK/dV),
    then ten steps on one repeated batch, whose loss must fall;
-10. train profile: ``torch.profiler`` over one training step — device busy
+12. train profile: ``torch.profiler`` over one training step — device busy
    time, idle share, the attention kernels' share, the top kernels;
-11. the ``kernels`` JSON line, then the result line.
+13. the ``kernels`` JSON line (launches: the paged kernels' over phases 6,
+   8 and 9, the flash kernels' over phase 11's timed steps), then the
+   result line.
 
 Nothing of JAX or of the ``kubetpu`` package is imported. ``--record PATH``
 also writes every measured number as one JSON file.
@@ -158,20 +177,25 @@ def phase_build() -> dict:
 # -- phase 3: paged attention against its plain version ---------------------
 
 def _paged_case(gen, ctx_end, t, window, int8, dtype, h=16, h_kv=16, d=128,
-                ps=16):
+                ps=16, ring=0):
     """Random pages scattered over a shuffled pool; slot b's queries sit at
-    positions ctx_end[b]-t .. ctx_end[b]-1."""
+    positions ctx_end[b]-t .. ctx_end[b]-1. With *ring* each slot's logical
+    pages alias onto its own ring of that many physical pages (lp ->
+    ring[lp % ring]), the windowed server's table."""
     from kubetpu_torch.jobs.quant import quantize_kv_chunk
 
     dev = "cuda"
     b = len(ctx_end)
     pages = [(c + ps - 1) // ps for c in ctx_end]
     max_pages = max(pages)
-    n_pool = sum(pages) + 1
+    n_pool = (b * ring if ring else sum(pages)) + 1
     perm = torch.randperm(n_pool, generator=gen, device=dev).cpu().numpy()
     table = np.full((b, max_pages), -1, np.int32)
     used = 0
     for i, n in enumerate(pages):
+        if ring:
+            table[i, :n] = perm[i * ring:(i + 1) * ring][np.arange(n) % ring]
+            continue
         table[i, :n] = perm[used:used + n]
         used += n
     pos = np.array([c - t for c in ctx_end], np.int32)
@@ -283,14 +307,17 @@ def _bytes_bound(nbytes, flops=0):
 
 # the paged instances phase 3 runs (bf16 q, D = 128): mangled-name
 # fragments of the split kernel over dense and int8 pages (one row a block:
-# the flagship is MHA) and of the wgmma chunk kernel
+# the flagship is MHA), of the wgmma chunk kernel, and of the SIMT kernel
+# over int8 pages (the int8 pool's chunks); with the code of each route in
+# kubetpu_paged_smem_bytes
 _PAGED_INSTANCES = {
-    "split": "paged_split_kernelI13__nv_bfloat16S1_Lb0ELi1ELi1EE",
-    "int8": "paged_split_kernelI13__nv_bfloat16aLb1ELi1ELi1EE",
-    "wgmma": "paged_chunk_wgmma_kernelI13__nv_bfloat16Li128E",
+    "split": ("paged_split_kernelI13__nv_bfloat16S1_Lb0ELi1ELi1EE", 2),
+    "int8": ("paged_split_kernelI13__nv_bfloat16aLb1ELi1ELi1EE", 2),
+    "wgmma": ("paged_chunk_wgmma_kernelI13__nv_bfloat16Li128E", 1),
+    "simt_int8": ("paged_attn_kernelI13__nv_bfloat16aLb1ELi1ELi16EE", 0),
 }
 _PAGED_COUNTERS = ("launches", "split_launches", "combine_launches",
-                   "wgmma_launches")
+                   "wgmma_launches", "simt_launches")
 # kernel names in profiler keys: every instance of the paged kernels
 _PAGED_KERNELS = ("paged_attn_kernel", "paged_split_kernel",
                   "paged_combine_kernel", "paged_chunk_wgmma_kernel")
@@ -303,12 +330,14 @@ def _paged_builds(cases) -> dict:
 
     builds = {}
     for name, (q, kp, _, table, _, window) in cases:
-        key = ("int8" if isinstance(kp, tuple)
-               else pa._route(q, kp, q.shape[1], window))
+        key = pa._route(q, kp, q.shape[1], window)
+        if isinstance(kp, tuple):
+            key = "int8" if key == "split" else "simt_int8"
         vals = kp[0] if isinstance(kp, tuple) else kp
-        build = _ptxas(_PAGED_INSTANCES[key], "paged_attention")
+        fragment, code = _PAGED_INSTANCES[key]
+        build = _ptxas(fragment, "paged_attention")
         build["dynamic_smem"] = pa._lib().kubetpu_paged_smem_bytes(
-            1 if key == "wgmma" else 2, vals.shape[3], vals.element_size(),
+            code, vals.shape[3], vals.element_size(),
             vals.shape[1], table.shape[1], pa._SPLIT_KEYS,
             q.shape[2] // vals.shape[2])
         builds[name] = build
@@ -322,7 +351,10 @@ def phase_kernels() -> list:
     """The paged kernels at the flagship serving shapes: the decode cases
     on the split route (the split kernel and the combine kernel each
     against its plain version, and the call against the plain attention),
-    the chunk case on the wgmma route."""
+    among them the windowed server's decode over a ring table; the chunk
+    cases on the wgmma route (T=256 mid-prompt, and the storm's 64-token
+    tail at a 1024-token prefix hit) and the int8 pool's prefix-hit chunk
+    on the SIMT route."""
     from kubetpu_torch.ops import paged_attention as pa
 
     gen = torch.Generator(device="cuda").manual_seed(1234)
@@ -334,6 +366,15 @@ def phase_kernels() -> list:
          _paged_case(gen, ragged, 1, 256, False, torch.bfloat16)),
         ("chunk_bf16_T256", _paged_case(gen, [1024], 256, 0, False,
                                         torch.bfloat16)),
+        # the windowed phase's decode: window 512 over rings of 33 pages
+        ("decode_window512_ring",
+         _paged_case(gen, [1280, 1200, 1100, 1024, 900, 800, 700, 641], 1,
+                     512, False, torch.bfloat16, ring=33)),
+        # the prefix phase's hit chunk: a 64-token tail at pos 1024
+        ("chunk_bf16_prefix_T64", _paged_case(gen, [1088], 64, 0, False,
+                                              torch.bfloat16)),
+        ("chunk_int8_prefix_T64", _paged_case(gen, [1088], 64, 0, True,
+                                              torch.bfloat16)),
     ]
     builds = _paged_builds(cases)
     rows = []
@@ -342,12 +383,14 @@ def phase_kernels() -> list:
         b, t, h, d = q.shape
         h_kv = (kp[0] if isinstance(kp, tuple) else kp).shape[2]
         route = pa._route(q, kp, t, window)
-        expected = "split" if t == 1 else "wgmma"
+        expected = ("split" if t == 1 else
+                    "simt" if isinstance(kp, tuple) else "wgmma")
         if route != expected:
             raise SystemExit(f"paged_attention {name}: route {route}, not "
                              f"{expected}")
         counts = (pa.paged_attention.split_launches,
-                  pa.paged_attention.wgmma_launches)
+                  pa.paged_attention.wgmma_launches,
+                  pa.paged_attention.simt_launches)
         if t == 1:
             run = lambda: pa.paged_attention(q[:, 0], kp, vp, table, pos,
                                              window=window)
@@ -357,8 +400,10 @@ def phase_kernels() -> list:
             out = run()
         torch.cuda.synchronize()
         moved = (pa.paged_attention.split_launches - counts[0],
-                 pa.paged_attention.wgmma_launches - counts[1])
-        if moved != ((1, 0) if t == 1 else (0, 1)):
+                 pa.paged_attention.wgmma_launches - counts[1],
+                 pa.paged_attention.simt_launches - counts[2])
+        if moved != {"split": (1, 0, 0), "wgmma": (0, 1, 0),
+                     "simt": (0, 0, 1)}[route]:
             raise SystemExit(f"paged_attention {name}: the {route} route did "
                              f"not run ({moved})")
         ref = pa.paged_attention_reference(q, kp, vp, table, pos, window)
@@ -382,10 +427,12 @@ def phase_kernels() -> list:
         if t == 1:
             row.update(_split_parts(case))
             row["ok"] = ok and row.pop("ok_parts")
-        else:
+        elif route == "wgmma":
             n = pa._chunk_splits(q, h_kv)
             row.update(grid=[-(-t * (h // h_kv) // 64), h_kv, b * n],
                        key_splits=n)
+        else:
+            row.update(grid=[-(-t * (h // h_kv) // 16), h_kv, b])
         line("kernel", **row)
         rows.append(row)
         if not row["ok"]:
@@ -683,7 +730,57 @@ def phase_parity() -> dict:
     bad = [m for m in mismatches if m["gap"] > F32_TOL]
     if bad:
         raise SystemExit(f"parity: greedy tokens differ at {bad}")
-    return {"prefill_logit_max_err": logit_err, "mismatches": mismatches}
+    served = _parity_servers(cfg, models, rng)
+    return {"prefill_logit_max_err": logit_err, "mismatches": mismatches,
+            "servers": served}
+
+
+def _parity_servers(cfg, models, rng) -> dict:
+    """The server's new paths on both devices: shared-prefix reuse (a cold
+    seed, then hits two at a time, chunked prefill, f32 and int8 pools)
+    and window 8 on the ring table (ring of 2 pages, prompts up to 70
+    tokens). Greedy tokens on the card must equal the CPU's exactly, and
+    the pool oracle must hold after every drain."""
+    import dataclasses
+
+    from kubetpu_torch.jobs.paged import PagedDecodeServer
+
+    head = rng.integers(0, cfg.vocab, 48).tolist()
+    waves = [[head + rng.integers(0, cfg.vocab, 5).tolist()]]
+    waves += [[head + rng.integers(0, cfg.vocab, n).tolist() for n in pair]
+              for pair in ((3, 17), (1, 30))]
+    window_waves = [[rng.integers(0, cfg.vocab, n).tolist()
+                     for n in (5, 40, 23, 70)]]
+    runs = {
+        "prefix_f32": (cfg, dict(prefix_cache_pages=32), waves),
+        "prefix_int8": (cfg, dict(prefix_cache_pages=32, kv_int8=True),
+                        waves),
+        "window8": (dataclasses.replace(cfg, window=8), {}, window_waves),
+    }
+    out = {}
+    for name, (run_cfg, kw, run_waves) in runs.items():
+        tokens, stats = {}, {}
+        for dev, model in models.items():
+            server = PagedDecodeServer(run_cfg, model, n_slots=3,
+                                       max_seq=256, max_new_tokens=16,
+                                       page_size=16, prefill_budget=32,
+                                       device=dev, **kw)
+            tokens[dev] = []
+            for wave in run_waves:
+                rids = [server.enqueue(p) for p in wave]
+                server.drain()
+                server.check_invariants()
+                tokens[dev] += [server.pop_result(r) for r in rids]
+            stats[dev] = server.prefix_cache_stats()
+        equal = tokens["cpu"] == tokens["cuda"]
+        out[name] = dict(requests=len(tokens["cuda"]), tokens_equal=equal,
+                         stats_equal=stats["cpu"] == stats["cuda"],
+                         requests_hit=stats["cuda"].get("requests_hit"))
+        if not equal or stats["cpu"] != stats["cuda"]:
+            raise SystemExit(f"parity {name}: the card's tokens or reuse "
+                             f"stats differ from the CPU's: {out[name]}")
+    line("parity_servers", **out)
+    return out
 
 
 # -- phase 6: the flagship behind the paged server ---------------------------
@@ -701,20 +798,7 @@ def phase_serve(smi: str) -> dict:
     server = PagedDecodeServer(cfg, model, n_slots=8, max_seq=2048,
                                max_new_tokens=32, page_size=16,
                                prefill_budget=256, device="cuda")
-    counts = {"steps": 0, "chunks": 0}
-    step_leg, chunk_leg = server._device_step, server._prefill_chunk_device
-
-    def counted_step():
-        counts["steps"] += 1
-        return step_leg()
-
-    def counted_chunk(*args):
-        res = chunk_leg(*args)
-        counts["chunks"] += res is not None
-        return res
-
-    server._device_step = counted_step
-    server._prefill_chunk_device = counted_chunk
+    counts = _instrument(server)
 
     rng = np.random.default_rng(0)
     # warm-up request (cuBLAS handles, allocator), outside the counted run
@@ -723,7 +807,7 @@ def phase_serve(smi: str) -> dict:
 
     lengths = [128, 1024, 256, 896, 384, 768, 512, 640]
     prompts = [rng.integers(0, cfg.vocab, n).tolist() for n in lengths]
-    counts.update(steps=0, chunks=0)
+    counts.update(steps=0, chunks=0, prefill_tokens=0)
     for c in _PAGED_COUNTERS:                  # zero just before the path
         setattr(pa.paged_attention, c, 0)
     torch.cuda.synchronize()
@@ -768,7 +852,7 @@ def phase_serve(smi: str) -> dict:
     # combine after each chunk that took a key split)
     n_dec, n_chunk = (cfg.n_layers * counts[k] for k in ("steps", "chunks"))
     expected = dict(launches=n_dec + n_chunk, split_launches=n_dec,
-                    wgmma_launches=n_chunk)
+                    wgmma_launches=n_chunk, simt_launches=0)
     if (n_dec <= 0 or n_chunk <= 0
             or {k: launches[k] for k in expected} != expected
             or not n_dec <= launches["combine_launches"] <= n_dec + n_chunk):
@@ -800,6 +884,252 @@ def phase_serve(smi: str) -> dict:
                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     line("serve", **row)
     return row, server
+
+
+# -- phases 8 and 9: shared-prefix reuse and windowed serving at full width --
+
+LOGIT_TOL = 0.25     # bf16 noise in a logit after 12 layers (phase 6's gate)
+
+
+def _instrument(server) -> dict:
+    """Count the server's decode steps, prefill chunks and prefill tokens
+    computed, and keep each prompt's first-token logits (the row the final
+    chunk samples from), by wrapping its legs."""
+    st = {"steps": 0, "chunks": 0, "prefill_tokens": 0, "first_logits": {}}
+    step_leg, chunk_leg = server._device_step, server._prefill_chunk_device
+    sampler, seen = server._sampler, {}
+
+    def counted_step():
+        st["steps"] += 1
+        return step_leg()
+
+    def spied_sampler(r, *args):
+        if r.dim() == 1:
+            seen["r"] = r.float().clone()
+        return sampler(r, *args)
+
+    def counted_chunk(prompt, slot, pos, take, final):
+        res = chunk_leg(prompt, slot, pos, take, final)
+        if res is not None:
+            st["chunks"] += 1
+            st["prefill_tokens"] += take
+            if final:
+                st["first_logits"][tuple(prompt)] = seen.pop("r")
+        return res
+
+    server._device_step = counted_step
+    server._prefill_chunk_device = counted_chunk
+    server._sampler = spied_sampler
+    return st
+
+
+def _drive(server, waves, launches) -> dict:
+    """Enqueue each wave and step until the server is idle, the pool oracle
+    after every drain. The paged launch counters are zeroed just before
+    and read just after the run and added to *launches* (the main path's
+    totals). Returns the results, the decode tokens/s over the steps that
+    ran no prefill chunk, the wall time and the peak of pages in use."""
+    from kubetpu_torch.ops import paged_attention as pa
+
+    st = server._smoke_stats
+    results, peak = [], 0
+    decode_s, decode_tokens = 0.0, 0
+    torch.cuda.synchronize()
+    for c in _PAGED_COUNTERS:
+        setattr(pa.paged_attention, c, 0)
+    t_start = time.perf_counter()
+    for wave in waves:
+        rids = [server.enqueue(p) for p in wave]
+        while not server._idle():
+            chunks = st["chunks"]
+            t0 = time.perf_counter()
+            out = server.step()
+            dt = time.perf_counter() - t0
+            peak = max(peak, server.pages_in_use())
+            if st["chunks"] == chunks and out:
+                decode_s += dt
+                decode_tokens += sum(len(v) for v in out.values())
+        server.check_invariants()
+        results += [server.pop_result(r) for r in rids]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_start
+    counts = {c: getattr(pa.paged_attention, c) for c in _PAGED_COUNTERS}
+    for c, n in counts.items():
+        launches[c] = launches.get(c, 0) + n
+    return dict(results=results, wall_s=wall, peak_pages=peak,
+                decode_toks_s=decode_tokens / decode_s if decode_s else None,
+                paged_launches=counts)
+
+
+def _arm_row(server, run, smi, **extra) -> dict:
+    """The line of one arm: server-recorded TTFT, prefill work, reuse and
+    tier counters, decode tokens/s and the paged launches."""
+    ttft = server.metrics_summary()["ttft"]
+    reuse = server.prefix_cache_stats()
+    tier = server.tier_stats()
+    st = server._smoke_stats
+    row = dict(card=torch.cuda.get_device_name(0), nvidia_smi=smi,
+               requests=len(run["results"]), ttft_p50_ms=ttft["p50_ms"],
+               ttft_p99_ms=ttft["p99_ms"], ttft_count=ttft["count"],
+               prefill_tokens_computed=st["prefill_tokens"],
+               prefill_chunks=st["chunks"], decode_steps=st["steps"],
+               decode_toks_s=run["decode_toks_s"], wall_s=run["wall_s"],
+               peak_pages_in_use=run["peak_pages"],
+               paged_launches=run["paged_launches"])
+    if reuse.get("enabled"):
+        row.update(prefill_tokens_saved=reuse["prefill_tokens_saved"],
+                   hit_rate=reuse["hit_rate"],
+                   requests_hit=reuse["requests_hit"],
+                   tier_hits=tier["hits"], tier_fills=tier["fills"],
+                   tier_spills=tier["spills"], tier_bytes=tier["bytes"])
+    row.update(extra)
+    return row
+
+
+def _flagship_server(model, cfg, **kw):
+    from kubetpu_torch.jobs.paged import PagedDecodeServer
+
+    server = PagedDecodeServer(cfg, model, n_slots=8, max_seq=2048,
+                               page_size=16, prefill_budget=256,
+                               device="cuda", **kw)
+    server.warmup()
+    server._smoke_stats = _instrument(server)
+    return server
+
+
+def _logit_gap(a: dict, b: dict, prompts) -> float:
+    """Largest |difference| between two runs' first-token logits over
+    *prompts*."""
+    return max(float((a[tuple(p)] - b[tuple(p)]).abs().max())
+               for p in prompts)
+
+
+def phase_prefix(model, cfg, smi, launches) -> dict:
+    """Shared-prefix reuse at full width (bench_model.py:662's storm at
+    realistic lengths): a 1024-token system prompt and a unique 64-token
+    tail, one cold seeding request, then 15 at once, 32 new tokens each;
+    reuse off, on, and on over an int8 pool (whose chunks run on the SIMT
+    route). Then the host tier (bench_model.py:737's shape): 4
+    families of 1024-token prompts with 16-token tails, round-robined 3
+    rounds one request at a time, through an HBM tree sized for one family
+    with a 1 GiB host tier, against a warm HBM tree that holds all four.
+    Gates: the pool oracle after every drain; the host arm's tokens equal
+    the warm-HBM arm's (a fill is a byte copy); the on arm's first-token
+    logits within LOGIT_TOL of the off arm's."""
+    rng = np.random.default_rng(5)
+    sys_prompt = rng.integers(1, cfg.vocab, 1024).tolist()
+    storm = [sys_prompt + rng.integers(1, cfg.vocab, 64).tolist()
+             for _ in range(16)]
+    waves = [storm[:1], storm[1:]]
+    rows, firsts, tokens = {}, {}, {}
+    n_pages = 8 * 128 + 128
+    for arm, kw in (("storm_off", dict(prefix_cache_pages=0)),
+                    ("storm_on", dict(prefix_cache_pages=128)),
+                    ("storm_on_int8", dict(prefix_cache_pages=128,
+                                           kv_int8=True))):
+        server = _flagship_server(model, cfg, max_new_tokens=32,
+                                  n_pages=n_pages, **kw)
+        run = _drive(server, waves, launches)
+        firsts[arm] = server._smoke_stats["first_logits"]
+        tokens[arm] = run["results"]
+        rows[arm] = _arm_row(server, run, smi)
+        del server
+        torch.cuda.empty_cache()
+    # the hits' first-token logits against the cold arm's, and the share
+    # of equal generated tokens
+    for arm in ("storm_on", "storm_on_int8"):
+        gen_pairs = [(a[1024 + 64:], b[1024 + 64:]) for a, b in
+                     zip(tokens[arm], tokens["storm_off"])]
+        rows[arm].update(
+            first_logit_max_diff=_logit_gap(firsts[arm], firsts["storm_off"],
+                                            storm[1:]),
+            logit_tol=LOGIT_TOL if arm == "storm_on" else None,
+            equal_token_share=sum(x == y for a, b in gen_pairs
+                                  for x, y in zip(a, b))
+            / sum(len(a) for a, _ in gen_pairs))
+    for arm, row in rows.items():
+        line("prefix", arm=arm, **row)
+    saved = rows["storm_on"]["prefill_tokens_saved"]
+    if saved != 15 * 1024 or rows["storm_on"]["requests_hit"] != 15:
+        raise SystemExit(f"prefix: the storm saved {saved} tokens, not "
+                         f"15 x 1024")
+    for arm in ("storm_on", "storm_on_int8"):
+        if not all(bool(torch.isfinite(x).all())
+                   for x in firsts[arm].values()):
+            raise SystemExit(f"prefix {arm}: non-finite first-token logits")
+    if not rows["storm_on"]["first_logit_max_diff"] <= LOGIT_TOL:
+        raise SystemExit(f"prefix: hit first-token logits differ from the "
+                         f"cold arm's by {rows['storm_on']}")
+    if rows["storm_on_int8"]["paged_launches"]["simt_launches"] <= 0:
+        raise SystemExit("prefix: the int8 arm ran no SIMT chunk")
+
+    families = [rng.integers(1, cfg.vocab, 1024).tolist() for _ in range(4)]
+    tier_prompts = [fam + rng.integers(1, cfg.vocab, 16).tolist()
+                    for _ in range(3) for fam in families]
+    tier_waves = [[p] for p in tier_prompts]
+    for arm, kw in (("tier_host", dict(prefix_cache_pages=64,
+                                       host_tier_bytes=1 << 30)),
+                    # all four families and every request's tail page
+                    ("tier_warm_hbm", dict(prefix_cache_pages=4 * 64 + 16))):
+        server = _flagship_server(model, cfg, max_new_tokens=32,
+                                  n_pages=8 * 128 + 4 * 64 + 16, **kw)
+        run = _drive(server, tier_waves, launches)
+        tokens[arm] = run["results"]
+        rows[arm] = _arm_row(server, run, smi)
+        line("prefix", arm=arm, **rows[arm])
+        del server
+        torch.cuda.empty_cache()
+    host = rows["tier_host"]
+    if tokens["tier_host"] != tokens["tier_warm_hbm"]:
+        raise SystemExit("prefix: the host tier's tokens differ from the "
+                         "warm HBM tree's")
+    if not (host["tier_spills"]["host"] > 0 and host["tier_fills"]["host"] > 0
+            and host["requests_hit"] == 8):
+        raise SystemExit(f"prefix: the host tier did not spill and fill "
+                         f"back every return: {host}")
+    return rows
+
+
+def phase_window(model, cfg, smi, launches) -> dict:
+    """Windowed serving at full width: the flagship with window 512 on the
+    ring table (33 pages a slot), 8 requests of 640-1024-token prompts and
+    256 new tokens each, so every ring wraps during prefill and again in
+    decode. Gates: the pool oracle after the drain; pages in use never
+    above 8 x 33; each first token's logits within LOGIT_TOL of the
+    port's dense windowed forward of the prompt."""
+    import dataclasses
+
+    from kubetpu_torch.jobs import model as model_lib
+
+    wcfg = dataclasses.replace(cfg, window=512)
+    rng = np.random.default_rng(9)
+    lengths = [640, 1024, 700, 960, 768, 896, 832, 1000]
+    prompts = [rng.integers(1, cfg.vocab, n).tolist() for n in lengths]
+    server = _flagship_server(model, wcfg, max_new_tokens=256)
+    ring = server._ring_pages
+    run = _drive(server, [prompts], launches)
+    firsts = server._smoke_stats["first_logits"]
+    with torch.no_grad():
+        gap = max(float((model_lib.forward(
+            model, torch.tensor([p], device="cuda"), wcfg)[0, -1].float()
+            - firsts[tuple(p)]).abs().max()) for p in prompts)
+    unwindowed = sum(server._pages_needed(n + 256 + 1) for n in lengths)
+    row = _arm_row(server, run, smi, ring_pages=ring,
+                   pages_bound=server.n_slots * ring,
+                   unwindowed_worst_pages=unwindowed,
+                   first_logit_max_diff_vs_dense=gap, logit_tol=LOGIT_TOL)
+    line("window", **row)
+    if ring != 33 or run["peak_pages"] > server.n_slots * ring:
+        raise SystemExit(f"window: {run['peak_pages']} pages in use, above "
+                         f"{server.n_slots} x {ring}")
+    if not all(len(r) == n + 256 for r, n in zip(run["results"], lengths)):
+        raise SystemExit("window: a request did not finish with 256 tokens")
+    if not gap <= LOGIT_TOL:
+        raise SystemExit(f"window: first-token logits {gap} off the dense "
+                         f"windowed forward's")
+    if run["paged_launches"]["wgmma_launches"]:
+        raise SystemExit("window: a windowed chunk took the chunk kernel")
+    return row
 
 
 def _profiled(run):
@@ -861,7 +1191,7 @@ def phase_profile(server) -> dict:
     return row
 
 
-# -- phase 8: the training step, CPU plain versions vs the card's kernels ----
+# -- phase 10: the training step, CPU plain versions vs the card's kernels ---
 
 TRAIN_TOL = 1e-4     # f32 on both sides: summation order only
 
@@ -920,7 +1250,7 @@ def phase_train_parity() -> dict:
     return row
 
 
-# -- phase 9: the flagship's training step -----------------------------------
+# -- phase 11: the flagship's training step ----------------------------------
 
 def _flagship_train_cfg():
     from kubetpu_torch.jobs import model as model_lib
@@ -1058,7 +1388,14 @@ def main(argv) -> int:
     parity = phase_parity()
     serve, server = phase_serve(dev["nvidia_smi"])
     prof = phase_profile(server)
+    model, cfg = server.params, server.cfg
     del server
+    torch.cuda.empty_cache()
+    # the paged launches of every main-path phase: serve, prefix, window
+    paged_launches = dict(serve["paged_launches"])
+    prefix = phase_prefix(model, cfg, dev["nvidia_smi"], paged_launches)
+    window = phase_window(model, cfg, dev["nvidia_smi"], paged_launches)
+    del model
     torch.cuda.empty_cache()
     train_parity = phase_train_parity()
     train, state, step, repeat = phase_train(dev["nvidia_smi"])
@@ -1066,16 +1403,19 @@ def main(argv) -> int:
 
     # the paged kernels at the main path's cases: the split and combine
     # kernels at decode_bf16 (max_abs_err over every decode case), the
-    # chunk kernel at chunk_bf16_T256
-    decode = next(r for r in kern if r["case"] == "decode_bf16")
-    chunk = next(r for r in kern if r["case"] == "chunk_bf16_T256")
+    # chunk kernel at chunk_bf16_T256 (max_abs_err over both wgmma cases),
+    # the SIMT kernel at the int8 pool's prefix-hit chunk
+    case = {r["case"]: r for r in kern}
+    decode = case["decode_bf16"]
+    chunk = case["chunk_bf16_T256"]
+    simt = case["chunk_int8_prefix_T64"]
     decodes = [r for r in kern if r["route"] == "split"]
+    chunks = [r for r in kern if r["route"] == "wgmma"]
     paged = dict(route="cuda", source="kubetpu_torch/ops/csrc/paged_attention.cu",
                  replaces="kubetpu/ops/paged_attention.py:65")
-    launches = serve["paged_launches"]
     kernels = [
         dict(paged, name="paged_attention_split", instances="split",
-             launches=launches["split_launches"],
+             launches=paged_launches["split_launches"],
              max_abs_err=max(r["split"]["max_err"] for r in decodes),
              ms=decode["split"]["ms"], plain_ms=decode["split"]["plain_ms"],
              bound_ms=decode["split"]["bound_ms"],
@@ -1085,7 +1425,7 @@ def main(argv) -> int:
              call_max_abs_err=max(r["max_abs_err"] for r in decodes),
              ok=all(r["ok"] for r in decodes)),
         dict(paged, name="paged_attention_combine", instances="split",
-             launches=launches["combine_launches"],
+             launches=paged_launches["combine_launches"],
              max_abs_err=max(r["combine"]["max_abs_err"] for r in decodes),
              ms=decode["combine"]["ms"],
              plain_ms=decode["combine"]["plain_ms"],
@@ -1093,11 +1433,18 @@ def main(argv) -> int:
              bound_by=decode["combine"]["bound_by"], library_ms=None,
              ok=all(r["ok"] for r in decodes)),
         dict(paged, name="paged_attention_chunk", instances="wgmma",
-             launches=launches["wgmma_launches"],
-             max_abs_err=chunk["max_abs_err"], ms=chunk["ms"],
+             launches=paged_launches["wgmma_launches"],
+             max_abs_err=max(r["max_abs_err"] for r in chunks),
+             ms=chunk["ms"],
              plain_ms=chunk["plain_ms"], bound_ms=chunk["bound_ms"],
              bound_by=chunk["bound_by"], library_ms=chunk["library_ms"],
-             ok=chunk["ok"]),
+             ok=all(r["ok"] for r in chunks)),
+        dict(paged, name="paged_attention_chunk_simt", instances="simt",
+             launches=paged_launches["simt_launches"],
+             max_abs_err=simt["max_abs_err"], ms=simt["ms"],
+             plain_ms=simt["plain_ms"], bound_ms=simt["bound_ms"],
+             bound_by=simt["bound_by"], library_ms=simt["library_ms"],
+             ok=simt["ok"]),
     ]
     # the flash kernels at the main path's case (causal); max_abs_err and ok
     # over all three cases
@@ -1123,7 +1470,9 @@ def main(argv) -> int:
         })
     record = {"device": dev, "build": build, "kernel_cases": kern,
               "flash_cases": flash, "parity": parity, "serve": serve,
-              "profile": prof, "train_parity": train_parity,
+              "profile": prof, "prefix": prefix, "window": window,
+              "main_path_paged_launches": paged_launches,
+              "train_parity": train_parity,
               "train": train, "train_profile": train_prof,
               "kernels": kernels}
     if record_path:

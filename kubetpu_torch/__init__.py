@@ -11,3 +11,5 @@ run on the card by default. Without CUDA they raise unless the caller
 passes ``device="cpu"``, which the tests do; on the CPU every hand-written
 kernel's wrapper takes its plain PyTorch version.
 """
+
+__version__ = "0.1.0"

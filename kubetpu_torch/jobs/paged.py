@@ -17,15 +17,20 @@ written in place before the attention reads them, on the same stream; the
 JAX package's functional ``.at[].set`` returns a new pool per layer, the
 in-place write saves that copy every step.
 
-Not ported yet (later slices): the prefix cache and host tier, the
-windowed ring table (``cfg.window > 0`` raises), ``pool_frac``, meshes,
-snapshot/restore for migration, LoRA and the obs registry.
+Windowed configs run on a per-slot ring of physical pages, shared-prefix
+reuse maps cached pages read-only through the radix tree of
+``prefix_cache``, and the host DRAM tier keeps evicted prefixes as CPU
+tensors (``PagedDecodeServer``).
+
+Not ported yet (later slices): ``overlap``, meshes, snapshot/restore for
+migration and the peer span's wire encoding (ROADMAP queue 1 item 6),
+``paged_forward_chunk`` and speculation (item 7), LoRA.
 """
 
 from __future__ import annotations
 
 from functools import partial
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -33,6 +38,7 @@ import torch
 from kubetpu_torch.jobs import model as model_lib
 from kubetpu_torch.jobs.decode import _attend_cached, _layer, forward_chunk_io
 from kubetpu_torch.jobs.model import ModelConfig, Transformer, resolve_device
+from kubetpu_torch.jobs.prefix_cache import RadixPrefixCache
 from kubetpu_torch.jobs.quant import quantize_kv_chunk
 from kubetpu_torch.jobs.sampling import (chosen_logprob, make_slot_sampler,
                                          row_seed)
@@ -256,18 +262,43 @@ class PagedDecodeServer(SlotServerBase):
     lifecycle, with cache memory proportional to live tokens.
 
     ``n_pages`` provisions the shared pool (default: half the dense
-    equivalent). A decoding request holds its worst case (prompt +
-    max_new_tokens + 1), so it never starves mid-flight, and a request whose
-    worst case exceeds the whole pool is refused up front. With
-    ``prefill_budget > 0`` prompts stream in as page-aligned chunks and a
-    mid-prefill slot holds pages only for the tokens written so far; the
-    final chunk upgrades the reservation to the decode worst case.
+    equivalent), scaled by ``pool_frac`` (this replica's share of a card).
+    A decoding request holds its worst case (prompt + max_new_tokens + 1),
+    so it never starves mid-flight, and a request whose worst case exceeds
+    the whole pool is refused up front. With ``prefill_budget > 0`` prompts
+    stream in as page-aligned chunks and a mid-prefill slot holds pages
+    only for the tokens written so far; the final chunk upgrades the
+    reservation to the decode worst case.
 
-    The attention of both legs goes through the paged-attention kernel on
-    the card and through its plain version on the CPU; there is no switch.
-    ``device`` defaults to the card and raises without CUDA; *params* must
-    already live on it. Windowed configs (``cfg.window > 0``) need the ring
-    page table, which is not ported yet."""
+    Windowed configs (``cfg.window > 0``) map each slot's logical pages
+    onto a physical RING of ``ceil(window / ps) + 1`` pages (logical page
+    lp -> ring[lp % ring]): the token overwritten at position p sits at
+    p - ring * ps <= p - window - 1, outside every later band, so a slot
+    costs O(window) pages however long it runs. Windowed prefill chunks
+    gather the pool before they write (the chunk's pages would evict the
+    window's tail), so they never take the chunk kernel.
+
+    ``prefix_cache_pages > 0`` turns on shared-prefix reuse
+    (``prefix_cache.RadixPrefixCache``): an admission maps the longest
+    cached full-page prefix read-only as the slot's leading table rows and
+    starts prefill past it (capped one token short of the prompt: the last
+    token must be forwarded to sample); a retiring slot donates its full
+    prompt pages to the tree; under pool pressure evictable tree pages are
+    reclaimed before an admission is refused. ``host_tier_bytes > 0`` adds
+    the host DRAM tier: evicted spans are copied to host buffers instead of
+    dropped and filled back on a later match. ``export_prefix_span`` /
+    ``inject_prefix`` move a span between replicas in the stored numpy
+    layout of the JAX package (f32 and int8 pools).
+
+    The attention of both legs goes through the paged-attention kernels on
+    the card and through their plain version on the CPU; there is no
+    switch. ``device`` defaults to the card and raises without CUDA;
+    *params* must already live on it.
+
+    Not ported yet: ``overlap``, the SLO engine and the profiler, live
+    migration (freeze, ``snapshot_slot`` / ``restore_slot``; with the wire,
+    ROADMAP queue 1 item 6), ``mesh``, LoRA, ``paged_forward_chunk`` and
+    speculation (item 7)."""
 
     def __init__(self, cfg: ModelConfig, params: Transformer,
                  n_slots: int = 8, max_seq: int = 512,
@@ -276,13 +307,25 @@ class PagedDecodeServer(SlotServerBase):
                  temperature: float = 0.0, top_k: Optional[int] = None,
                  top_p: Optional[float] = None, seed: int = 0,
                  kv_int8: bool = False, prefill_budget: int = 0,
-                 device=None) -> None:
+                 queue_ttl: Optional[float] = None,
+                 prefix_cache_pages: int = 0, pool_frac: float = 1.0,
+                 host_tier_bytes: int = 0, device=None) -> None:
         device = resolve_device(device)
-        if cfg.window > 0:
-            raise NotImplementedError(
-                "windowed serving (cfg.window > 0) needs the ring page "
-                "table, not ported to kubetpu_torch yet (ROADMAP queue 1, "
-                "item 5: paged serving)")
+        if not 0.0 < pool_frac <= 1.0:
+            raise ValueError("pool_frac must be in (0, 1]")
+        if prefix_cache_pages < 0:
+            raise ValueError("prefix_cache_pages must be >= 0 (0 = off)")
+        if host_tier_bytes < 0:
+            raise ValueError("host_tier_bytes must be >= 0 (0 = off)")
+        if host_tier_bytes and not prefix_cache_pages:
+            raise ValueError(
+                "host_tier_bytes needs prefix_cache_pages > 0 — the host "
+                "tier spills FROM the HBM prefix tree")
+        if prefix_cache_pages and cfg.window > 0:
+            raise ValueError(
+                "prefix_cache_pages is incompatible with windowed serving: "
+                "the ring table aliases logical pages onto a per-slot "
+                "physical ring, which cannot be shared across slots")
         for p in params.parameters():
             if p.device.type != device.type:
                 raise ValueError(f"params live on {p.device}, the server "
@@ -290,12 +333,16 @@ class PagedDecodeServer(SlotServerBase):
         super().__init__(cfg, params, n_slots, max_seq, max_new_tokens,
                          eos_id, temperature=temperature, top_k=top_k,
                          top_p=top_p, seed=seed,
-                         prefill_budget=prefill_budget, device=device)
+                         prefill_budget=prefill_budget, queue_ttl=queue_ttl,
+                         device=device)
         self.page_size = page_size
         self._min_bucket = page_size
         self.max_pages_per_slot = (max_seq + page_size - 1) // page_size
-        self.pool_pages = n_pages or (
-            n_slots * self.max_pages_per_slot + 1) // 2
+        self._ring_pages = (self._pages_needed(cfg.window) + 1
+                            if cfg.window > 0 else 0)
+        self.pool_frac = float(pool_frac)
+        base_pages = n_pages or (n_slots * self.max_pages_per_slot + 1) // 2
+        self.pool_pages = max(1, int(base_pages * self.pool_frac))
         self.kv_int8 = kv_int8
         self.k_pages, self.v_pages = init_page_pool(
             cfg, self.pool_pages, page_size, kv_int8=kv_int8, device=device)
@@ -305,6 +352,79 @@ class PagedDecodeServer(SlotServerBase):
         self._table_dev: Optional[torch.Tensor] = None   # device mirror
         self._sampler = make_slot_sampler()
         self._attend = partial(paged_attention, window=cfg.window)
+        # windowed chunks keep the gather-before-write order of the gather
+        # path: the chunk kernel writes first, which a ring cannot afford
+        self._attend_chunk = paged_attention_chunk if cfg.window == 0 else None
+        self.obs.gauge_fn("kubetpu_serving_pool_pages",
+                          lambda: self.pool_pages)
+        self.obs.gauge_fn("kubetpu_serving_pages_in_use",
+                          lambda: self.pages_in_use())
+        self.obs.gauge_fn("kubetpu_serving_pages_free",
+                          lambda: len(self._free))
+        self.obs.gauge_fn("kubetpu_serving_pool_frac",
+                          lambda: self.pool_frac)
+        # shared-prefix reuse: per slot, how many leading table rows are
+        # shared (read-only) mappings, the pinned deepest-match node, and
+        # the prompt to publish at retirement
+        self.prefix_cache_pages = int(prefix_cache_pages)
+        self.host_tier_bytes = int(host_tier_bytes)
+        self._prefix_cache = (
+            RadixPrefixCache(page_size, self.prefix_cache_pages,
+                             host_budget_bytes=self.host_tier_bytes)
+            if self.prefix_cache_pages else None)
+        self._slot_shared = [0] * n_slots
+        self._slot_pin = [None] * n_slots
+        self._slot_prompt: List[Optional[List[int]]] = [None] * n_slots
+        # (matched, start, host tokens) of the slot's last _prefill_start,
+        # committed to the reuse counters when the admission completes
+        self._slot_pending_stats: List[Optional[Tuple[int, int, int]]] = (
+            [None] * n_slots)
+        if self._prefix_cache is not None:
+            self._c_hit_tokens = self.obs.counter(
+                "kubetpu_prefix_hit_tokens_total",
+                "full-page prefix tokens found cached at admission")
+            self._c_saved_tokens = self.obs.counter(
+                "kubetpu_prefill_tokens_saved_total",
+                "prompt tokens whose prefill was skipped via mapped "
+                "shared pages")
+            self._c_req_hit = self.obs.counter(
+                "kubetpu_prefix_requests_total", result="hit")
+            self._c_req_miss = self.obs.counter(
+                "kubetpu_prefix_requests_total", result="miss")
+            self._c_evicted = self.obs.counter(
+                "kubetpu_prefix_evicted_pages_total")
+            self._c_inserted = self.obs.counter(
+                "kubetpu_prefix_inserted_pages_total")
+            self.obs.gauge_fn("kubetpu_prefix_tree_pages",
+                              lambda: self._prefix_cache.total_pages)
+            self.obs.gauge_fn("kubetpu_prefix_tree_nodes",
+                              lambda: self._prefix_cache.n_nodes())
+            # per tier: pages hit at admission, pages filled back into the
+            # pool, pages spilled out of it, bytes moved across each tier
+            # boundary, and prefill tokens saved
+            self._c_tier_hits = {
+                t: self.obs.counter("kubetpu_prefix_tier_hits_total",
+                                    tier=t)
+                for t in ("hbm", "host", "peer")}
+            self._c_tier_fills = {
+                t: self.obs.counter("kubetpu_prefix_tier_fills_total",
+                                    tier=t)
+                for t in ("host", "peer")}
+            self._c_tier_spills = {
+                "host": self.obs.counter(
+                    "kubetpu_prefix_tier_spills_total", tier="host")}
+            self._c_tier_bytes = {
+                t: self.obs.counter("kubetpu_prefix_tier_bytes_total",
+                                    tier=t)
+                for t in ("hbm", "host", "peer")}
+            self._c_tier_saved = {
+                t: self.obs.counter(
+                    "kubetpu_prefix_tier_tokens_saved_total", tier=t)
+                for t in ("hbm", "host", "peer")}
+            self.obs.gauge_fn("kubetpu_prefix_host_bytes",
+                              lambda: self._prefix_cache.host_bytes)
+            self.obs.gauge_fn("kubetpu_prefix_host_nodes",
+                              lambda: len(self._prefix_cache.host_nodes()))
 
     # -- page accounting -----------------------------------------------------
 
@@ -319,9 +439,26 @@ class PagedDecodeServer(SlotServerBase):
 
     def _alloc_pages(self, slot: int, upto_tokens: int) -> bool:
         """Map pages so *slot* can hold *upto_tokens* tokens; False (nothing
-        mapped) when the pool cannot cover them."""
+        mapped) when the pool cannot cover them. A windowed slot maps its
+        physical ring once and aliases every logical page onto it. With a
+        prefix cache, pool pressure first reclaims evictable tree pages;
+        shared rows already mapped count toward ``have``."""
         need = self._pages_needed(upto_tokens)
+        if self._ring_pages:
+            if (self._table[slot] >= 0).any():
+                return True        # the ring already covers every page
+            phys_need = min(need, self._ring_pages)
+            if phys_need > len(self._free):
+                return False
+            ring = [self._free.pop() for _ in range(phys_need)]
+            for lp in range(need):
+                self._table[slot, lp] = ring[lp % phys_need]
+            self._table_dev = None
+            return True
         have = int((self._table[slot] >= 0).sum())
+        short = (need - have) - len(self._free)
+        if short > 0 and self._prefix_cache is not None:
+            self._tree_reclaim(short, reason="pool_pressure")
         if need - have > len(self._free):
             return False
         if need > have:
@@ -330,13 +467,21 @@ class PagedDecodeServer(SlotServerBase):
             self._table_dev = None
         return True
 
-    def _release_pages(self, slot: int) -> None:
-        """Unmap the slot's table; its pages return to the free list."""
+    def _release_pages(self, slot: int, keep=()) -> None:
+        """Unmap the slot's table; slot-owned pages return to the free list,
+        each physical page once (a ring aliases them). The leading shared
+        rows are tree property and *keep* pages were just donated to the
+        tree: cleared from the table, never freed here."""
+        shared = self._slot_shared[slot]
+        freed = set()
         for lp in range(self.max_pages_per_slot):
             phys = int(self._table[slot, lp])
-            if phys >= 0:
+            if (phys >= 0 and phys not in freed and lp >= shared
+                    and phys not in keep):
                 self._free.append(phys)
+                freed.add(phys)
             self._table[slot, lp] = -1
+        self._slot_shared[slot] = 0
         self._table_dev = None
 
     def _table_on_device(self) -> torch.Tensor:
@@ -351,46 +496,489 @@ class PagedDecodeServer(SlotServerBase):
     def _check_prompt(self, prompt: List[int]) -> None:
         super()._check_prompt(prompt)
         need = self._pages_needed(self._worst_case_tokens(len(prompt)))
+        if self._ring_pages:
+            need = min(need, self._ring_pages)
         if need > self.pool_pages:
             raise ValueError(
                 f"request needs {need} pages worst-case but the pool has "
                 f"only {self.pool_pages} — raise n_pages or lower "
                 f"max_new_tokens")
 
+    def _note_admitted(self, slot: int, prompt: List[int]) -> None:
+        # the prompt is published at retirement, and only once its prefill
+        # completed (a parked prefill's half-written pages never are); the
+        # reuse counters commit once per completed admission, not per try
+        self._slot_prompt[slot] = list(prompt)
+        pending = self._slot_pending_stats[slot]
+        if pending is not None:
+            matched, start, host_tokens = pending
+            if start > 0:
+                self._c_req_hit.inc()
+                self._c_hit_tokens.inc(matched)
+                self._c_saved_tokens.inc(start)
+                # tokens promoted from the host tier during this admission
+                # are host-tier savings; the rest was already in HBM
+                ps = self.page_size
+                self._c_tier_hits["host"].inc(host_tokens // ps)
+                self._c_tier_saved["host"].inc(host_tokens)
+                self._c_tier_hits["hbm"].inc((start - host_tokens) // ps)
+                self._c_tier_saved["hbm"].inc(start - host_tokens)
+            else:
+                self._c_req_miss.inc()
+            self._slot_pending_stats[slot] = None
+
     def _on_retire(self, slot: int) -> None:
-        self._release_pages(slot)
+        published = self._publish_prefix(slot)
+        self._release_pages(slot, keep=published)
+        if self._slot_pin[slot] is not None:
+            self._prefix_cache.release(self._slot_pin[slot])
+            self._slot_pin[slot] = None
+        self._slot_prompt[slot] = None
+        self._slot_pending_stats[slot] = None   # parked prefill: no commit
+
+    # -- shared-prefix reuse -------------------------------------------------
+
+    def _prefill_start(self, prompt: List[int], slot: int) -> int:
+        """Match the longest cached full-page prefix (host-tier spans are
+        filled back first), map its pages read-only as the slot's leading
+        table rows, pin the deepest matched node for the slot's lifetime,
+        and return where prefill starts. The match is capped one token
+        short of the prompt: the last token's page is recomputed into a
+        private page, never written into a shared one (the COW rule)."""
+        if self._prefix_cache is None:
+            return 0
+        ps = self.page_size
+        host_tokens = self._fill_host_prefix(prompt)
+        matched, pages, node = self._prefix_cache.match(prompt)
+        start = min(matched, ((len(prompt) - 1) // ps) * ps)
+        if start <= 0:
+            self._slot_pending_stats[slot] = (matched, 0, 0)
+            return 0
+        use = start // ps
+        self._table[slot, :use] = np.asarray(pages[:use], np.int32)
+        self._table_dev = None
+        self._slot_shared[slot] = use
+        self._prefix_cache.pin(node)
+        self._slot_pin[slot] = node
+        self._slot_pending_stats[slot] = (matched, start,
+                                          min(host_tokens, start))
+        self.events.emit("prefix_hit", slot=slot, matched_tokens=matched,
+                         prefill_start=start, pages=use,
+                         host_filled_tokens=min(host_tokens, start))
+        return start
+
+    def _prefix_unmap(self, slot: int) -> None:
+        """Roll back a ``_prefill_start`` mapping after a failed monolithic
+        admission: the request returns to the queue, the slot reads as
+        empty."""
+        self._release_pages(slot)   # shared rows cleared, nothing freed
+        if self._slot_pin[slot] is not None:
+            self._prefix_cache.release(self._slot_pin[slot])
+            self._slot_pin[slot] = None
+        self._slot_pending_stats[slot] = None
+
+    def _publish_prefix(self, slot: int):
+        """Donate the retiring slot's full prompt pages to the tree (they
+        already hold the prompt's KV: host bookkeeping only), evicting LRU
+        branches to make budget room. Returns the donated pages."""
+        prompt = self._slot_prompt[slot]
+        if self._prefix_cache is None or not prompt:
+            return ()
+        ps = self.page_size
+        full = len(prompt) // ps
+        if full <= 0:
+            return ()
+        tokens = prompt[:full * ps]
+        pages = [int(self._table[slot, j]) for j in range(full)]
+        if any(p < 0 for p in pages):   # defensive: never publish holes
+            return ()
+        tree = self._prefix_cache
+        need = tree.missing_pages(tokens)
+        over = tree.total_pages + need - tree.max_pages
+        if over > 0:
+            self._tree_reclaim(over, reason="budget")
+        consumed = tree.insert(tokens, pages)
+        if consumed:
+            self._c_inserted.inc(len(consumed))
+            self.events.emit("prefix_publish", slot=slot,
+                             pages=len(consumed))
+        return consumed
+
+    # -- tiered KV cache: HBM -> host DRAM -> peer replicas ------------------
+
+    def _tree_reclaim(self, n_pages: int, reason: str) -> List[int]:
+        """Evict >= *n_pages* from the tree into the free list. With the
+        host tier on, victims spill: their stored-layout KV is copied to
+        host buffers before the pages free. A barrier leg off the decode
+        step: the spill copy is its designed device->host sync."""
+        tree = self._prefix_cache
+        gather = None
+        if self.host_tier_bytes > 0:
+            def gather(phys):
+                payload = self._gather_phys_pages(phys)
+                self._c_tier_bytes["host"].inc(
+                    sum(a.nbytes for a in payload.values()))
+                return payload
+        before = tree.spilled_pages
+        reclaimed = tree.evict(n_pages, gather=gather)
+        spilled = tree.spilled_pages - before
+        if spilled:
+            self._c_tier_spills["host"].inc(spilled)
+            self.events.emit("prefix_spill", pages=spilled, reason=reason)
+        if reclaimed:
+            self._free.extend(reclaimed)
+            self._c_evicted.inc(len(reclaimed))
+            self.events.emit("prefix_evict", pages=len(reclaimed),
+                             reason=reason)
+        return reclaimed
+
+    def _fill_host_prefix(self, prompt: List[int]) -> int:
+        """Promote host-tier spans covering *prompt* back into the pool,
+        top-down along the match path, so the HBM match that follows sees
+        them. Best effort: a span that gets no room stays host and the
+        match stops shorter. Returns the tokens promoted now."""
+        tree = self._prefix_cache
+        if tree is None or self.host_tier_bytes <= 0:
+            return 0
+        _, segs = tree.match_tiered(prompt)
+        filled_tokens = 0
+        for node, _jp in segs:
+            if node.host is None:
+                continue
+            if not self._fill_host_node(node):
+                break
+            filled_tokens += len(node.tokens)
+        return filled_tokens
+
+    def _fill_host_node(self, node) -> bool:
+        """Fill one host-tier node back into the pool: make tree budget and
+        pool room (reclaiming evictable tree pages first), pop pages,
+        upload the host buffers and commit with ``tree.promote``. The node
+        is pinned across the reclaim so it cannot be dropped from under the
+        path being rebuilt. False = no room; the node stays host."""
+        tree = self._prefix_cache
+        n = len(node.tokens) // self.page_size
+        tree.pin(node)
+        try:
+            over = tree.total_pages + n - tree.max_pages
+            if over > 0:
+                self._tree_reclaim(over, reason="fill_budget")
+            if tree.total_pages + n > tree.max_pages:
+                return False
+            if n > len(self._free):
+                self._tree_reclaim(n - len(self._free),
+                                   reason="fill_pressure")
+            if n > len(self._free):
+                return False
+            nbytes = sum(a.nbytes for a in node.host.values())
+            phys = [self._free.pop() for _ in range(n)]
+            self._upload_host_pages(node.host, phys)
+            tree.promote(node, phys)
+            self._c_tier_fills["host"].inc(n)
+            self._c_tier_bytes["host"].inc(nbytes)
+            self.events.emit("prefix_fill", tier="host", pages=n)
+            return True
+        finally:
+            tree.release(node)
+
+    def _page_field_names(self) -> Tuple[str, ...]:
+        return (("k_q", "k_s", "v_q", "v_s") if self.kv_int8
+                else ("k", "v"))
+
+    def _pool_fields(self):
+        """(pool tensor, field name) pairs in ``_page_field_names`` order."""
+        pools = ((self.k_pages, ("k_q", "k_s") if self.kv_int8 else ("k",)),
+                 (self.v_pages, ("v_q", "v_s") if self.kv_int8 else ("v",)))
+        for pool, names in pools:
+            yield from zip(pool if isinstance(pool, tuple) else (pool,),
+                           names)
+
+    def _gather_phys_pages(self, phys_list) -> dict:
+        """CPU copies of physical pool pages in their stored dtype and
+        layout (page axis 1; int8 pools as the quantized values and scales,
+        never dequantized): the spill's and the export's one designed
+        device->host sync."""
+        phys = torch.as_tensor(np.asarray(phys_list, np.int64),
+                               device=self.device)
+        return {name: pool[:, phys].cpu() for pool, name in self._pool_fields()}
+
+    def _upload_host_pages(self, pages: dict, phys_list) -> None:
+        """Write a stored-layout page dict of CPU tensors into the pool at
+        physical pages *phys_list*: the fill's and the inject's designed
+        host->device copy."""
+        phys = torch.as_tensor(np.asarray(phys_list, np.int64),
+                               device=self.device)
+        for pool, name in self._pool_fields():
+            pool[:, phys] = pages[name].to(self.device, pool.dtype)
+
+    def _check_numpy_span(self) -> None:
+        """Peer spans travel as numpy in the JAX package's stored layout,
+        which numpy can hold for f32 and int8 pools only."""
+        if not self.kv_int8 and self.k_pages.dtype != torch.float32:
+            raise NotImplementedError(
+                f"peer prefix spans of a {self.k_pages.dtype} pool need the "
+                f"wire's encoding (numpy has no such dtype): ROADMAP queue "
+                f"1 item 6, onto the wire")
+
+    def prefix_local_pages(self, prompt: List[int]) -> int:
+        """Full pages of *prompt* this server covers across both local
+        tiers (HBM + host): the replica's peer-fetch gate. Host
+        bookkeeping only."""
+        if self._prefix_cache is None or not prompt:
+            return 0
+        matched, _segs = self._prefix_cache.match_tiered(prompt)
+        return matched // self.page_size
+
+    def export_prefix_span(self, prompt: List[int],
+                           from_page: int = 0) -> Optional[dict]:
+        """This server's cached coverage of *prompt* for a peer replica:
+        ``{matched_tokens, from_page, n_pages, pages}`` with ``pages`` the
+        numpy arrays of logical pages ``[from_page, n_pages)`` in the
+        stored layout (page axis 1), or None when coverage does not reach
+        past *from_page*. Host-tier spans ship from their buffers, HBM
+        spans pay the gather. Read-only (LRU stamps aside)."""
+        if self._prefix_cache is None or not prompt or from_page < 0:
+            return None
+        self._check_numpy_span()
+        matched, segs = self._prefix_cache.match_tiered(prompt)
+        n_pages = matched // self.page_size
+        if n_pages <= from_page:
+            return None
+        parts = []
+        for node, jp in segs:
+            if node.host is not None:
+                parts.append({k: v[:, :jp] for k, v in node.host.items()})
+            else:
+                parts.append(self._gather_phys_pages(node.pages[:jp]))
+        out = {name: np.ascontiguousarray(torch.cat(
+            [p[name] for p in parts], dim=1)[:, from_page:n_pages].numpy())
+            for name in self._page_field_names()}
+        self._c_tier_bytes["peer"].inc(
+            sum(a.nbytes for a in out.values()))
+        self.events.emit("prefix_export", pages=n_pages - from_page,
+                         from_page=from_page)
+        return {
+            "matched_tokens": n_pages * self.page_size,
+            "from_page": int(from_page),
+            "n_pages": int(n_pages),
+            "pages": out,
+        }
+
+    def inject_prefix(self, tokens: List[int], pages: dict,
+                      from_page: int = 0) -> int:
+        """Adopt a peer-fetched span (numpy, stored layout, logical pages
+        ``[from_page, n)`` of *tokens*) into the local tree: make tree
+        budget and pool room, upload the uncovered pages and insert. Local
+        coverage that receded below *from_page* leaves a hole: refused
+        (returns 0; the caller prefills cold). Idempotent: spans the tree
+        already covers consume nothing. Returns pages adopted."""
+        tree = self._prefix_cache
+        if tree is None or not tokens or from_page < 0:
+            return 0
+        self._check_numpy_span()
+        ps = self.page_size
+        n = len(tokens) // ps
+        if n <= from_page:
+            return 0
+        tokens = [int(t) for t in tokens[:n * ps]]
+        for name in self._page_field_names():
+            arr = pages.get(name)
+            if arr is None or arr.shape[1] != n - from_page:
+                raise ValueError(
+                    f"injected span field {name!r} covers "
+                    f"{None if arr is None else arr.shape[1]} pages, "
+                    f"want {n - from_page}")
+        # promote local host-tier coverage first: insert adopts host nodes
+        # by consuming donated pages, and a donated page below from_page
+        # carries no peer bytes
+        self._fill_host_prefix(tokens)
+        hbm_cov = tree.match(tokens)[0] // ps
+        if hbm_cov < from_page:
+            return 0            # coverage receded under the fetch: hole
+        need = tree.missing_pages(tokens)
+        if need <= 0:
+            return 0
+        over = tree.total_pages + need - tree.max_pages
+        if over > 0:
+            self._tree_reclaim(over, reason="inject_budget")
+        if tree.total_pages + need > tree.max_pages:
+            return 0
+        if need > len(self._free):
+            self._tree_reclaim(need - len(self._free),
+                               reason="inject_pressure")
+        if need > len(self._free):
+            return 0
+        # donate real pool pages only past the local HBM coverage; upload
+        # those columns, insert, free whatever was not consumed
+        alloc = [self._free.pop() for _ in range(n - hbm_cov)]
+        col0 = hbm_cov - from_page
+        if alloc:
+            self._upload_host_pages(
+                {name: torch.from_numpy(np.ascontiguousarray(arr[:, col0:]))
+                 for name, arr in pages.items()}, alloc)
+        donated = [-1] * hbm_cov + alloc
+        consumed = tree.insert(tokens, donated)
+        assert all(p >= 0 for p in consumed), \
+            "inject consumed a placeholder page"
+        for p in alloc:
+            if p not in consumed:
+                self._free.append(p)
+        if consumed:
+            self._c_inserted.inc(len(consumed))
+            self._c_tier_hits["peer"].inc(len(consumed))
+            self._c_tier_fills["peer"].inc(len(consumed))
+            self._c_tier_saved["peer"].inc(len(consumed) * ps)
+            self._c_tier_bytes["peer"].inc(sum(
+                arr[:, col0:].nbytes for arr in pages.values()))
+            self.events.emit("prefix_inject", pages=len(consumed),
+                             from_page=int(from_page))
+        return len(consumed)
+
+    def tier_stats(self) -> dict:
+        """Per-tier reuse stats: pages hit / filled / spilled, bytes moved,
+        tokens saved per tier, and host-tier occupancy (the
+        ``kubetpu_prefix_tier_*`` series as a dict). Host counters only."""
+        if self._prefix_cache is None:
+            return {"enabled": False}
+        tree = self._prefix_cache
+        return {
+            "enabled": True,
+            "host_tier_bytes": self.host_tier_bytes,
+            "host_bytes": tree.host_bytes,
+            "host_nodes": len(tree.host_nodes()),
+            "spilled_pages": tree.spilled_pages,
+            "hits": {t: int(c.value)
+                     for t, c in self._c_tier_hits.items()},
+            "fills": {t: int(c.value)
+                      for t, c in self._c_tier_fills.items()},
+            "spills": {t: int(c.value)
+                       for t, c in self._c_tier_spills.items()},
+            "bytes": {t: int(c.value)
+                      for t, c in self._c_tier_bytes.items()},
+            "tokens_saved": {t: int(c.value)
+                             for t, c in self._c_tier_saved.items()},
+        }
+
+    def prefix_cache_stats(self) -> dict:
+        """Host-side reuse stats: requests hit/miss, hit rate, tokens
+        matched/saved, tree pages/nodes, evicted and inserted pages, host
+        tier occupancy — the ``kubetpu_prefix_*`` series as a dict."""
+        if self._prefix_cache is None:
+            return {"enabled": False}
+        hits = int(self._c_req_hit.value)
+        misses = int(self._c_req_miss.value)
+        total = hits + misses
+        return {
+            "enabled": True,
+            "requests_hit": hits,
+            "requests_miss": misses,
+            "hit_rate": (hits / total) if total else 0.0,
+            "hit_tokens": int(self._c_hit_tokens.value),
+            "prefill_tokens_saved": int(self._c_saved_tokens.value),
+            "tree_pages": self._prefix_cache.total_pages,
+            "tree_nodes": self._prefix_cache.n_nodes(),
+            "evicted_pages": int(self._c_evicted.value),
+            "inserted_pages": int(self._c_inserted.value),
+            "host_bytes": self._prefix_cache.host_bytes,
+            "host_nodes": len(self._prefix_cache.host_nodes()),
+            "spilled_pages": self._prefix_cache.spilled_pages,
+        }
 
     def load_info(self) -> dict:
+        """The base snapshot plus the pool's pressure signals and, with the
+        prefix cache on, its hit rate, tree size and tier counters. Host
+        counters only."""
         info = super().load_info()
         info["pool_pages"] = self.pool_pages
         info["pages_free"] = len(self._free)
         info["pages_in_use"] = self.pages_in_use()
+        if self.pool_frac < 1.0:
+            info["pool_frac"] = self.pool_frac
+        if self._prefix_cache is not None:
+            stats = self.prefix_cache_stats()
+            info["prefix_hit_rate"] = stats["hit_rate"]
+            info["prefix_tree_pages"] = stats["tree_pages"]
+            if self.host_tier_bytes > 0:
+                tier = self.tier_stats()
+                info["tier_host_bytes"] = tier["host_bytes"]
+                info["tier_host_nodes"] = tier["host_nodes"]
+                info["tier_hits"] = tier["hits"]
+                info["tier_fills"] = tier["fills"]
+                info["tier_spills"] = tier["spills"]
         return info
 
     def check_invariants(self) -> None:
         """The pool accounting oracle: every physical page is owned by
-        exactly one of {the free list, one slot's table}; a slot holding
-        pages is decoding or mid-prefill. AssertionError on a violation."""
+        exactly one of {the free list, one slot's private mapping, the
+        prefix tree}; a ring slot maps each of its pages many times, shared
+        rows point only at tree-owned pages, a slot holding pages is
+        decoding or mid-prefill, node refcounts equal the live pins, and
+        the tree's own structure checks out. AssertionError on a
+        violation."""
         free = list(self._free)
         free_set = set(free)
         assert len(free) == len(free_set), "free list holds a page twice"
         assert free_set <= set(range(self.pool_pages)), \
             "free list holds an out-of-range page"
-        owned = set()
+        tree_pages = (self._prefix_cache.owned_pages()
+                      if self._prefix_cache is not None else set())
+        assert not (free_set & tree_pages), "page both free and tree-owned"
+        slot_owned = set()
         for slot in range(self.n_slots):
+            shared = self._slot_shared[slot]
             row = [int(p) for p in self._table[slot] if p >= 0]
             if row:
                 assert self.active[slot] or slot in self._prefills, \
                     f"idle slot {slot} still maps pages {row}"
-            for phys in row:
-                assert phys not in owned, \
-                    f"page {phys} mapped by two slots"
+            private = set()
+            for lp in range(self.max_pages_per_slot):
+                phys = int(self._table[slot, lp])
+                if phys < 0:
+                    continue
+                if lp < shared:
+                    assert phys in tree_pages, (
+                        f"slot {slot} shared row {lp} -> page {phys} "
+                        f"not tree-owned")
+                    continue
+                if phys in private:
+                    assert self._ring_pages, \
+                        f"slot {slot} maps page {phys} twice off a ring"
+                    continue
+                assert phys not in slot_owned, \
+                    f"page {phys} mapped privately by two slots"
+                assert phys not in tree_pages, (
+                    f"slot {slot} private row {lp} -> tree-owned page "
+                    f"{phys}")
                 assert phys not in free_set, \
                     f"page {phys} both mapped and free"
-                owned.add(phys)
-        assert len(free_set) + len(owned) == self.pool_pages, (
-            f"pages leaked: free {len(free_set)} + slots {len(owned)} != "
-            f"pool {self.pool_pages}")
+                private.add(phys)
+            if self._ring_pages:
+                assert len(private) <= self._ring_pages, (
+                    f"slot {slot} maps {len(private)} pages, its ring is "
+                    f"{self._ring_pages}")
+            slot_owned |= private
+        assert len(free_set) + len(slot_owned) + len(tree_pages) \
+            == self.pool_pages, (
+                f"pages leaked or double-owned: free {len(free_set)} + "
+                f"slots {len(slot_owned)} + tree {len(tree_pages)} != "
+                f"pool {self.pool_pages}")
+        if self._prefix_cache is not None:
+            self._prefix_cache.check()
+            pins: dict = {}
+            for slot in range(self.n_slots):
+                node = self._slot_pin[slot]
+                if node is not None:
+                    pins[id(node)] = pins.get(id(node), 0) + 1
+                    assert self._slot_shared[slot] > 0, (
+                        f"slot {slot} pins a node but maps no shared "
+                        f"pages")
+                else:
+                    assert self._slot_shared[slot] == 0, (
+                        f"slot {slot} maps shared pages without a pin")
+            for node in self._prefix_cache.nodes():
+                assert node.refcount == pins.get(id(node), 0), (
+                    f"node refcount {node.refcount} != "
+                    f"{pins.get(id(node), 0)} live pins")
 
     # -- device legs ---------------------------------------------------------
 
@@ -418,18 +1006,39 @@ class PagedDecodeServer(SlotServerBase):
         return min(n, self.max_pages_per_slot)
 
     def _admit_device(self, prompt: List[int], slot: int):
-        """Whole-prompt prefill as one final chunk."""
-        return self._prefill_chunk_device(prompt, slot, 0, len(prompt), True)
+        """Whole-prompt prefill as one final chunk, starting at the prefix
+        match; a failed admission unmaps the shared prefix too (nothing may
+        stay mutated)."""
+        start = self._prefill_start(prompt, slot)
+        res = self._prefill_chunk_device(prompt, slot, start,
+                                         len(prompt) - start, True)
+        if res is None and start:
+            self._prefix_unmap(slot)
+        return res
+
+    def _chunk_io(self, write_row: np.ndarray, row: np.ndarray, n_gather):
+        """The paged prefill strategy of one chunk: *write_row* the chunk
+        pages' physical pages (-1 = dropped), *row* the slot's table."""
+        write_phys = torch.from_numpy(
+            np.where(write_row >= 0, write_row, self.pool_pages).astype(
+                np.int64))
+        return _paged_prefill_io(
+            write_phys, self._upload(row[:n_gather].astype(np.int32)),
+            self.page_size, self.cfg.window, attend_chunk=self._attend_chunk)
 
     @torch.no_grad()
     def _prefill_chunk_device(self, prompt: List[int], slot: int, pos: int,
                               take: int, final: bool):
         """One page-aligned prefill chunk through the pool, with
         chunk-granular page reservation (the final chunk reserves the
-        decode worst case). None when the pool cannot cover it (nothing
-        mapped), True for a non-final chunk, the first token and its
-        logprob (device scalars) for the final one."""
-        upto = self._worst_case_tokens(len(prompt)) if final else pos + take
+        decode worst case; a ring slot maps its whole ring up front). None
+        when the pool cannot cover it (nothing mapped), True for a
+        non-final chunk, the first token and its logprob (device scalars)
+        for the final one."""
+        if self._ring_pages or final:
+            upto = self._worst_case_tokens(len(prompt))
+        else:
+            upto = pos + take
         if not self._alloc_pages(slot, upto):
             return None
         ps = self.page_size
@@ -440,17 +1049,24 @@ class PagedDecodeServer(SlotServerBase):
         row = self._table[slot]
         write_row = row[p0:p0 + n_write].astype(np.int64)
         # pad-only pages (no real token) are dropped: a pad write must never
-        # land on an unreserved page
+        # land on an unreserved page nor win an aliased ring page
         last_real = (pos + take - 1) // ps - p0
         write_row[last_real + 1:] = -1
-        write_phys = torch.from_numpy(
-            np.where(write_row >= 0, write_row, self.pool_pages))
-        n_gather = self._gather_prefix(pos + bucket)
-        io = _paged_prefill_io(write_phys,
-                               self._upload(np.ascontiguousarray(
-                                   row[:n_gather])),
-                               ps, self.cfg.window,
-                               attend_chunk=paged_attention_chunk)
+        if self._ring_pages:
+            # one scatter must not carry a physical page twice (undefined
+            # winner on the card): keep the LAST logical occurrence of each
+            # ring page; the earlier aliases are outside every later band
+            seen = set()
+            for i in range(len(write_row) - 1, -1, -1):
+                p = int(write_row[i])
+                if p < 0:
+                    continue
+                if p in seen:
+                    write_row[i] = -1
+                else:
+                    seen.add(p)
+        io = self._chunk_io(write_row, row,
+                            self._gather_prefix(pos + bucket))
         tokens = self._upload(np.asarray([chunk], np.int64))
         logits, _ = forward_chunk_io(self.cfg, self.params, tokens,
                                      (self.k_pages, self.v_pages), pos, io)
@@ -484,3 +1100,34 @@ class PagedDecodeServer(SlotServerBase):
         self.pos += self.active
         self.last = nxt
         return nxt, lp
+
+    @torch.no_grad()
+    def warmup(self) -> None:
+        """Flush the prefix tree and the host tier (the dummy prefills
+        scribble on pool pages, tree-owned ones included, and a host buffer
+        that outlived them could fill stale KV later), then run a dummy
+        prefill chunk for every prompt bucket and one masked decode step,
+        so every kernel is built and loaded and the allocator holds its
+        blocks before the first request. Only valid on an idle server."""
+        if self._prefix_cache is not None:
+            self._free.extend(self._prefix_cache.clear())
+        n = self._pages_needed(self.max_seq)
+        row = np.full((self.max_pages_per_slot,), -1, np.int64)
+        row[:n] = np.arange(n) % self.pool_pages
+
+        def prefill_dummy(padded):
+            io = self._chunk_io(row[:self._pages_needed(len(padded))], row,
+                                self._gather_prefix(len(padded)))
+            forward_chunk_io(self.cfg, self.params,
+                             self._upload(np.zeros((1, len(padded)),
+                                                   np.int64)),
+                             (self.k_pages, self.v_pages), 0, io)
+
+        self._warmup_buckets(prefill_dummy)
+        zeros = np.zeros((self.n_slots,), np.int32)
+        paged_forward_one(self.cfg, self.params, self.last, self.k_pages,
+                          self.v_pages, self._table_on_device(),
+                          self._upload(zeros), attend=self._attend,
+                          write_enable=self._upload(zeros.astype(bool)))
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)

@@ -16,21 +16,32 @@ numpy; the last emitted tokens stay on the device between steps. A
 subclass provides the device legs: ``_admit_device``,
 ``_prefill_chunk_device`` and ``_device_step``.
 
-Not ported yet (later slices): ``overlap``, ``queue_ttl``, the obs registry
-and latency metrics, the SLO engine, the profiler, warmup, and
-freeze/migration.
+Observability is host bookkeeping only: one ``obs.registry.Registry`` per
+server (latency summaries for admission stall, step, prefill chunk, TTFT,
+inter-token latency and queue wait; occupancy gauges evaluated at render),
+rendered by ``metrics_text()`` with the JAX package's series names, and a
+bounded ``EventLog`` of admissions, retirements, cancels and expiries.
+``queue_ttl`` bounds a queued request's wait: past it the request finishes
+empty with a reason.
+
+Not ported yet (later slices): ``overlap``, the SLO engine, the profiler,
+and freeze/migration.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from kubetpu_torch.core.metrics import LatencyRecorder
 from kubetpu_torch.jobs.model import (ModelConfig, Transformer,
                                       resolve_device)
 from kubetpu_torch.jobs.sampling import row_seed
+from kubetpu_torch.obs.events import EventLog
+from kubetpu_torch.obs.registry import Registry, install_process_gauges
 
 
 class SlotServerBase:
@@ -46,7 +57,8 @@ class SlotServerBase:
       ``pos`` (``final`` samples the first token);
     - ``_device_step() -> (tokens, logprobs)`` device tensors (n_slots,):
       one decode step for all slots;
-    - optional hook ``_on_retire(slot)``: release the slot's resources.
+    - optional hooks ``_prefill_start(prompt, slot)``, ``_note_admitted(
+      slot, prompt)``, ``_note_emitted(slot)`` and ``_on_retire(slot)``.
     """
 
     _min_bucket = 1
@@ -55,7 +67,8 @@ class SlotServerBase:
                  max_seq: int, max_new_tokens: int, eos_id: Optional[int],
                  temperature: float = 0.0, top_k: Optional[int] = None,
                  top_p: Optional[float] = None, seed: int = 0,
-                 prefill_budget: int = 0, device=None) -> None:
+                 prefill_budget: int = 0, queue_ttl: Optional[float] = None,
+                 device=None) -> None:
         self.cfg = cfg
         self.params = params
         self.device = resolve_device(device)
@@ -95,8 +108,32 @@ class SlotServerBase:
         self._emitted: Dict[int, List[int]] = {}
         self._logprobs: Dict[int, List[float]] = {}
         self._done: Dict[int, bool] = {}
-        self._queue: List[Tuple[int, List[int]]] = []
+        # admission queue entries: (rid, prompt, deadline or None); a queued
+        # prompt past its deadline is expired (finished empty, reason kept)
+        if queue_ttl is not None and queue_ttl < 0:
+            raise ValueError("queue_ttl must be >= 0 (None = no deadline)")
+        self.queue_ttl = queue_ttl
+        self._queue: List[Tuple[int, List[int], Optional[float]]] = []
+        self._expired: Dict[int, str] = {}     # rid -> reason
         self._pending_first: Dict[int, tuple] = {}     # slot -> device scalars
+        # observability: every latency this server records lives in one
+        # registry (``metrics_text``); occupancy gauges are evaluated at
+        # render, so the hot loop pays nothing for them
+        self.obs = Registry()
+        install_process_gauges(self.obs, "serving")
+        self.events = EventLog(component="serving")
+        self._metrics = LatencyRecorder(
+            registry=self.obs, metric="kubetpu_serving_latency_seconds")
+        self.obs.gauge_fn("kubetpu_serving_active_slots",
+                          lambda: int(self.active.sum()))
+        self.obs.gauge_fn("kubetpu_serving_slots", lambda: self.n_slots)
+        self.obs.gauge_fn("kubetpu_serving_queue_depth",
+                          lambda: len(self._queue))
+        self.obs.gauge_fn("kubetpu_serving_inflight_prefills",
+                          lambda: len(self._prefills))
+        self._arrive: Dict[int, float] = {}    # rid -> arrival perf stamp
+        self._last_emit: Dict[int, float] = {}  # rid -> last emission stamp
+        self._qw_recorded: set = set()         # rids with a queue_wait sample
 
     def _upload(self, a: np.ndarray) -> torch.Tensor:
         """A copy of host array *a* on the server's device, without waiting
@@ -149,18 +186,26 @@ class SlotServerBase:
         self.last[slot] = tok
         self.active[slot] = True
         self._slot_rid[slot] = rid
+        self._note_admitted(slot, prompt)
 
     def _try_admit(self, rid: int, prompt: List[int], slot: int,
                    defer: bool = False) -> bool:
-        """Monolithic admission: whole-prompt prefill. With ``defer`` the
-        first token stays on the device until the step's routing."""
+        """Monolithic admission: whole-prompt prefill, timed as admission
+        stall. With ``defer`` the first token stays on the device until the
+        step's routing."""
+        t0 = time.perf_counter()
         self._bind_slot(rid, slot)
         admitted = self._admit_device(prompt, slot)
         if admitted is None:
             return False
+        self._record_queue_wait(rid, t0)
         self._activate(rid, slot, prompt, admitted)
         self._prompts[rid] = list(prompt)
         self._done[rid] = False
+        # admit before any first-token retire: a request finishing on its
+        # first token still logs admit -> retire in causal order
+        self.events.emit("admit", rid=rid, slot=slot,
+                         prompt_tokens=len(prompt), path="monolithic")
         if defer:
             self._emitted[rid] = []
             self._logprobs[rid] = []
@@ -169,7 +214,9 @@ class SlotServerBase:
             first, first_lp = admitted
             self._emitted[rid] = [int(first)]
             self._logprobs[rid] = [float(first_lp)]
+            self._obs_tokens(rid, 1)
             self._retire_if_done(slot)
+        self._metrics.record("admission_stall", time.perf_counter() - t0)
         return True
 
     def _normalize_sampling(
@@ -204,26 +251,97 @@ class SlotServerBase:
             return None
         rid = self._next_rid
         self._rid_sampling[rid] = self._normalize_sampling(sampling)
+        self._arrive[rid] = time.perf_counter()
         if not self._try_admit(rid, prompt, free[0]):
             del self._rid_sampling[rid]
+            del self._arrive[rid]
             return None
         self._next_rid += 1
         return rid
 
-    def enqueue(self, prompt: List[int],
-                sampling: Optional[dict] = None) -> int:
+    def enqueue(self, prompt: List[int], sampling: Optional[dict] = None,
+                ttl: Optional[float] = None) -> int:
         """Non-blocking admission: host bookkeeping only; the request enters
-        a slot at a later ``step``. Always returns a request id."""
+        a slot at a later ``step``. Always returns a request id. *ttl*
+        (seconds, default the server's ``queue_ttl``) bounds the queue wait:
+        past it the request finishes with no tokens and
+        ``expire_reason(rid)`` says why."""
         self._check_prompt(prompt)
         rid = self._next_rid
         self._next_rid += 1
         self._rid_sampling[rid] = self._normalize_sampling(sampling)
+        self._arrive[rid] = time.perf_counter()
         self._prompts[rid] = list(prompt)
         self._emitted[rid] = []
         self._logprobs[rid] = []
         self._done[rid] = False
-        self._queue.append((rid, list(prompt)))
+        if ttl is None:
+            ttl = self.queue_ttl
+        deadline = None if ttl is None else time.monotonic() + ttl
+        self._queue.append((rid, list(prompt), deadline))
         return rid
+
+    def queued(self) -> int:
+        """Requests enqueued but not yet admitted to a slot."""
+        return len(self._queue)
+
+    def expire_reason(self, rid: int) -> Optional[str]:
+        """Why a request was expired ("queue_ttl"), or None for requests
+        that were admitted (or are still waiting)."""
+        return self._expired.get(rid)
+
+    def _expire_queue(self) -> None:
+        """Drop queued requests past their deadline: they finish empty
+        with a counted reason."""
+        if not self._queue:
+            return
+        now = time.monotonic()
+        keep = []
+        for rid, prompt, deadline in self._queue:
+            if deadline is not None and now >= deadline:
+                self._done[rid] = True
+                self._expired[rid] = "queue_ttl"
+                self._rid_sampling.pop(rid, None)
+                self._arrive.pop(rid, None)  # no tokens ever: no TTFT
+                self._metrics.record("queue_expired", now - deadline)
+                self.events.emit("queue_expired", rid=rid)
+            else:
+                keep.append((rid, prompt, deadline))
+        if len(keep) != len(self._queue):
+            self._queue = keep
+
+    def _record_queue_wait(self, rid: int, now: float) -> None:
+        """One queue_wait sample per request, at its first admission start
+        (a prefill parked back into the queue records no second one)."""
+        arrived = self._arrive.get(rid)
+        if arrived is None or rid in self._qw_recorded:
+            return
+        self._qw_recorded.add(rid)
+        self._metrics.record("queue_wait", now - arrived)
+
+    def _obs_tokens(self, rid: int, n: int) -> None:
+        """One emission event for *rid* (*n* tokens): the first records
+        TTFT (arrival -> first token, host wall time), later ones the
+        inter-token latency, normalized by the event's token count."""
+        now = time.perf_counter()
+        last = self._last_emit.get(rid)
+        if last is None:
+            arrived = self._arrive.get(rid)
+            if arrived is not None:
+                self._metrics.record("ttft", now - arrived)
+        elif n > 0:
+            self._metrics.record("itl", (now - last) / n)
+        self._last_emit[rid] = now
+
+    def metrics_summary(self) -> dict:
+        """{op: {p50_ms, p90_ms, p99_ms, count}} for admission_stall, step,
+        prefill_chunk, ttft, itl, queue_wait (and queue_expired once a TTL
+        has expired a request): the histograms ``metrics_text`` renders."""
+        return self._metrics.summary()
+
+    def metrics_text(self) -> str:
+        """Prometheus exposition of this server's registry."""
+        return self.obs.render()
 
     def step(self) -> Dict[int, List[int]]:
         """Admit and advance prefills (under the token budget when set),
@@ -232,12 +350,14 @@ class SlotServerBase:
         prefill's first and this step's decode."""
         self._schedule_prefills()
         handle = None
+        t0 = time.perf_counter()
         if self.active.any():
             tokens, lps = self._device_step()
             handle = (tokens, lps, self.active.copy(), list(self._slot_rid))
         out = self._materialize_pending()
         if handle is not None:
             self._route_step(handle, out)
+            self._metrics.record("step", time.perf_counter() - t0)
         return out
 
     def _route_step(self, handle, out: Dict[int, List[int]]) -> None:
@@ -257,17 +377,40 @@ class SlotServerBase:
             tok = int(tokens[slot])
             self._emitted[rid].append(tok)
             self._logprobs[rid].append(float(lps[slot]))
+            self._note_emitted(slot)
             out.setdefault(rid, []).append(tok)
+            self._obs_tokens(rid, 1)
             self._retire_if_done(slot)
+
+    def _warmup_buckets(self, prefill_dummy) -> None:
+        """Call *prefill_dummy(padded_prompt)* for every power-of-two prompt
+        bucket from ``_min_bucket`` to ``max_seq``, padded as a served final
+        chunk is. Only valid while no request is in the server: the dummy
+        prefill scribbles on slot 0's state."""
+        assert (not self.active.any() and not self._queue
+                and not self._prefills), (
+            "warmup() must run before serving: it scribbles on slot 0's "
+            "device state (and, for the paged server, on pool pages a "
+            "mid-prefill slot may have mapped)")
+        bucket = self._min_bucket
+        while True:
+            dummy = [0] * min(bucket, self.max_seq)
+            prefill_dummy(
+                dummy + [0] * (self._chunk_bucket(0, len(dummy), True)
+                               - len(dummy)))
+            if bucket >= self.max_seq:
+                break
+            bucket *= 2
 
     def _drain_queue_into_slots(self) -> None:
         """Monolithic admission of queued requests into free slots, first
         token deferred."""
+        self._expire_queue()
         while self._queue:
             free = self._free_slots()
             if not free:
                 break
-            rid, prompt = self._queue[0]
+            rid, prompt, _deadline = self._queue[0]
             if not self._try_admit(rid, prompt, free[0], defer=True):
                 break              # resources exhausted: retry next step
             self._queue.pop(0)
@@ -304,6 +447,7 @@ class SlotServerBase:
         """Spend up to ``prefill_budget`` prompt tokens this step: resume
         in-flight chunked prefills (FIFO), then start queued requests in
         free slots. ``prefill_budget == 0`` is the monolithic path."""
+        self._expire_queue()
         if self.prefill_budget <= 0:
             self._drain_queue_into_slots()
             return
@@ -319,8 +463,8 @@ class SlotServerBase:
             free = self._free_slots()
             if not free:
                 break
-            rid, prompt = self._queue.pop(0)
-            self._begin_prefill(rid, prompt, free[0])
+            rid, prompt, deadline = self._queue.pop(0)
+            self._begin_prefill(rid, prompt, free[0], deadline)
             used = self._advance_prefill(free[0], budget)
             budget -= used
             progressed = progressed or used > 0
@@ -332,17 +476,27 @@ class SlotServerBase:
                 and not self.active.any()):
             for slot in list(self._prefill_fifo[1:])[::-1]:
                 st = self._prefills[slot]
-                self._queue.insert(0, (st["rid"], st["prompt"]))
+                # parked with its original deadline: parking must not grant
+                # a TTL'd request immortality
+                self._queue.insert(0, (st["rid"], st["prompt"],
+                                       st["deadline"]))
                 self._abort_prefill(slot)
 
-    def _begin_prefill(self, rid: int, prompt: List[int], slot: int) -> None:
+    def _begin_prefill(self, rid: int, prompt: List[int], slot: int,
+                       deadline: Optional[float] = None) -> None:
         """Occupy *slot* with a chunked prefill; resources are claimed chunk
-        by chunk in ``_advance_prefill``."""
+        by chunk in ``_advance_prefill``. Progress starts at
+        ``_prefill_start`` (0 unless the subclass holds the prefix's KV);
+        *deadline* is kept only so deadlock parking re-queues the request
+        with its clock."""
         self._bind_slot(rid, slot)
+        self._record_queue_wait(rid, time.perf_counter())
         self._slot_rid[slot] = rid
         self._done[rid] = False
-        self._prefills[slot] = {"rid": rid, "prompt": list(prompt),
-                                "done": 0}
+        self._prefills[slot] = {
+            "rid": rid, "prompt": list(prompt),
+            "done": self._prefill_start(prompt, slot), "t": 0.0,
+            "deadline": deadline}
         self._prefill_fifo.append(slot)
 
     def _abort_prefill(self, slot: int) -> None:
@@ -362,16 +516,23 @@ class SlotServerBase:
         remaining = len(st["prompt"]) - st["done"]
         take = self._chunk_take(budget, st["done"], remaining)
         final = take >= remaining
+        t0 = time.perf_counter()
         res = self._prefill_chunk_device(st["prompt"], slot, st["done"],
                                          take, final)
         if res is None:
             return 0
+        dt = time.perf_counter() - t0
+        st["t"] += dt
         st["done"] += take
+        self._metrics.record("prefill_chunk", dt)
         if final:
             self._activate(st["rid"], slot, st["prompt"], res)
             self._pending_first[slot] = res
+            self._metrics.record("admission_stall", st["t"])
             self._prefills.pop(slot)
             self._prefill_fifo.remove(slot)
+            self.events.emit("admit", rid=st["rid"], slot=slot,
+                             prompt_tokens=len(st["prompt"]), path="chunked")
         return take
 
     def _prefill_chunk_device(self, prompt: List[int], slot: int, pos: int,
@@ -396,6 +557,7 @@ class SlotServerBase:
             self._emitted[rid] = [tok] + self._emitted[rid]
             self._logprobs[rid] = [float(lp)] + self._logprobs[rid]
             out.setdefault(rid, []).append(tok)
+            self._obs_tokens(rid, 1)
             self._retire_if_done(slot)
         self._pending_first.clear()
         return out
@@ -409,6 +571,8 @@ class SlotServerBase:
 
     def _retire(self, slot: int) -> None:
         rid = self._slot_rid[slot]
+        self.events.emit("retire", rid=rid, slot=slot,
+                         emitted=len(self._emitted.get(rid, ())))
         self._done[rid] = True
         self.active[slot] = False           # slot immediately reusable
         self._slot_rid[slot] = None
@@ -423,16 +587,18 @@ class SlotServerBase:
         ``pop_result``. False for unknown or finished ids."""
         if self._done.get(rid, False) or rid not in self._prompts:
             return False
-        for i, (qrid, _p) in enumerate(self._queue):
+        for i, (qrid, _p, _d) in enumerate(self._queue):
             if qrid == rid:
                 self._queue.pop(i)
                 self._done[rid] = True
                 self._rid_sampling.pop(rid, None)
+                self.events.emit("cancel", rid=rid, queued=True)
                 return True
         for slot in range(self.n_slots):
             if self._slot_rid[slot] == rid:
                 # a deferred first token must not reach the next occupant
                 self._pending_first.pop(slot, None)
+                self.events.emit("cancel", rid=rid, queued=False)
                 self._retire(slot)
                 self._rid_sampling.pop(rid, None)
                 return True
@@ -440,17 +606,47 @@ class SlotServerBase:
 
     # hooks ------------------------------------------------------------------
 
+    def _prefill_start(self, prompt: List[int], slot: int) -> int:
+        """Position prefill starts at for a fresh admission into *slot*: 0
+        unless a subclass already holds the prefix's KV (the paged server's
+        prefix cache maps shared pages and returns the matched, page-aligned
+        token count). Called once per admission attempt, after
+        ``_bind_slot``, before any device leg; whatever it maps is released
+        in ``_on_retire``."""
+        return 0
+
+    def _note_admitted(self, slot: int, prompt: List[int]) -> None:
+        pass
+
+    def _note_emitted(self, slot: int) -> None:
+        pass
+
     def _on_retire(self, slot: int) -> None:
         pass
 
     def load_info(self) -> dict:
-        """Host-side occupancy counters (no device sync)."""
+        """The cheap load snapshot a router polls: host occupancy counters
+        and recent-window latency percentiles (no device sync, no render).
+        No slot is ever frozen for migration here (not ported), so
+        ``migrating_slots`` reads 0."""
         return {
             "n_slots": self.n_slots,
             "active_slots": int(self.active.sum()),
+            "migrating_slots": 0,
             "queue_depth": len(self._queue),
             "inflight_prefills": len(self._prefills),
+            "queue_wait_p99_ms": self._metrics.recent_percentile(
+                "queue_wait", 99) * 1e3,
+            "ttft_p50_ms": self._metrics.recent_percentile(
+                "ttft", 50) * 1e3,
+            "itl_p99_ms": self._metrics.recent_percentile(
+                "itl", 99) * 1e3,
         }
+
+    def tier_stats(self) -> dict:
+        """Tiered-KV-cache stats: the base loop has no cache tiers; the
+        paged server reports its per-tier counters."""
+        return {"enabled": False}
 
     # -- results -------------------------------------------------------------
 
@@ -474,6 +670,10 @@ class SlotServerBase:
         del self._done[rid]
         self._rid_sampling.pop(rid, None)
         self._logprobs.pop(rid, None)
+        self._expired.pop(rid, None)
+        self._arrive.pop(rid, None)
+        self._last_emit.pop(rid, None)
+        self._qw_recorded.discard(rid)
         return out
 
     def _idle(self) -> bool:

@@ -1,0 +1,147 @@
+"""Bounded structured event log (port of ``kubetpu/obs/events.py:56-160``).
+
+A bounded ring of events
+
+    {"ts": <epoch seconds>, "seq": <per-log monotonic int>,
+     "kind": "admit" | "retire" | "prefix_hit" | ...,
+     "component": "serving" | None, "trace_id": <32-hex or absent>,
+     ...free-form flat fields...}
+
+recorded by the serving lifecycle (admission, retire, queue expiry,
+cancel) and the paged server's prefix cache (hit, publish, evict, spill,
+fill). Bounded (a deque ring with a ``dropped`` counter), cheap (one lock,
+one dict append: never a device sync), and trace-linked: ``emit`` reads
+``current_trace_id()``. The optional JSONL sink of the JAX package's log
+tees every event to a file.
+
+Stdlib only.
+"""
+
+from __future__ import annotations
+
+import contextvars
+import json
+import threading
+import time
+from collections import deque
+from typing import Dict, List, Optional, Tuple
+
+# (trace_id, span_id) of the span running in this context, the context
+# variable of the JAX package's ``obs/trace.py``. The port opens no spans
+# yet (the tracer comes with the wire, ROADMAP queue 1 item 6), so an
+# event carries a trace id only where a caller has set one.
+_trace_ctx: contextvars.ContextVar[Optional[Tuple[str, str]]] = (
+    contextvars.ContextVar("kubetpu_trace_ctx", default=None))
+
+
+def current_trace_id() -> Optional[str]:
+    cur = _trace_ctx.get()
+    return cur[0] if cur else None
+
+
+class EventLog:
+    """Bounded ring of structured events + optional JSONL sink."""
+
+    def __init__(self, capacity: int = 4096,
+                 component: Optional[str] = None) -> None:
+        if capacity <= 0:
+            raise ValueError("capacity must be positive")
+        self._lock = threading.Lock()
+        self._sink_lock = threading.Lock()
+        self._events: deque = deque(maxlen=capacity)
+        self._seq = 0
+        self.dropped = 0
+        self.component = component
+        self._sink = None
+        self._sink_path: Optional[str] = None
+
+    def emit(self, kind: str, component: Optional[str] = None,
+             **fields) -> dict:
+        """Record one event; free-form *fields* ride flat in the dict
+        (values must be JSON-serializable — coerced to ``str`` when not).
+        The current trace id (if a span is active) is captured so the
+        event cross-links to its trace. Returns the event."""
+        ev: Dict[str, object] = {
+            "ts": time.time(),
+            "kind": str(kind),
+        }
+        comp = component or self.component
+        if comp:
+            ev["component"] = comp
+        tid = current_trace_id()
+        if tid:
+            ev["trace_id"] = tid
+        for k, v in fields.items():
+            ev[k] = v if isinstance(
+                v, (str, int, float, bool, type(None))) else str(v)
+        with self._lock:
+            ev["seq"] = self._seq
+            self._seq += 1
+            if len(self._events) == self._events.maxlen:
+                self.dropped += 1
+            self._events.append(ev)
+            sink = self._sink
+        if sink is not None:
+            line = json.dumps(ev) + "\n"
+            with self._sink_lock:
+                if self._sink is not sink:   # closed/replaced concurrently
+                    return ev
+                try:
+                    sink.write(line)
+                    sink.flush()
+                except OSError:
+                    # a full/unwritable sink must never take the workload
+                    # down; the ring keeps recording
+                    self._sink = None
+                    self._sink_path = None
+                    try:
+                        sink.close()
+                    except OSError:
+                        pass
+        return ev
+
+    def events(self, kind: Optional[str] = None,
+               limit: Optional[int] = None) -> List[dict]:
+        """Events oldest-first, optionally filtered by *kind* and
+        truncated to the LAST *limit*."""
+        with self._lock:
+            out = list(self._events)
+        if kind is not None:
+            out = [e for e in out if e.get("kind") == kind]
+        if limit is not None and limit >= 0:
+            out = out[-limit:] if limit else []   # [-0:] is everything
+        return out
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._events)
+
+    def counts(self) -> Dict[str, int]:
+        """{kind: occurrences in the ring}."""
+        out: Dict[str, int] = {}
+        for e in self.events():
+            out[e["kind"]] = out.get(e["kind"], 0) + 1
+        return out
+
+    def to_jsonl(self, kind: Optional[str] = None,
+                 limit: Optional[int] = None) -> str:
+        """The ring as JSON Lines."""
+        evs = self.events(kind=kind, limit=limit)
+        return "".join(json.dumps(e) + "\n" for e in evs)
+
+    def set_sink(self, path: Optional[str]) -> None:
+        """Tee every future event to *path* (append); None closes."""
+        new_sink = open(path, "a", encoding="utf-8") if path else None
+        with self._sink_lock:
+            if self._sink is not None:
+                try:
+                    self._sink.close()
+                except OSError:
+                    pass
+            self._sink_path = path
+            self._sink = new_sink
+
+    def clear(self) -> None:
+        with self._lock:
+            self._events.clear()
+            self.dropped = 0

@@ -299,6 +299,15 @@ __global__ void __launch_bounds__(NT) paged_attn_kernel(
   }
 }
 
+// Dynamic shared memory of the SIMT kernel at head dim D: the block's
+// queries, a K tile (rows padded by one float), a V tile, the scores, the
+// rows' running max and sum, and the tile's key ids.
+__host__ __device__ constexpr size_t simt_smem_bytes(int D) {
+  return sizeof(float) *
+             (ROWS * D + KT * (D + 1) + KT * D + ROWS * KT + 2 * ROWS) +
+         sizeof(int) * KT;
+}
+
 template <typename QT, typename KVT, bool INT8, int DPT, int VEC>
 cudaError_t launch_one(const void* q, const void* k, const void* v,
                        const void* ksc, const void* vsc, const void* table,
@@ -306,9 +315,7 @@ cudaError_t launch_one(const void* q, const void* k, const void* v,
                        int Hkv, int D, int ps, int max_pages, int window,
                        float scale, cudaStream_t stream) {
   auto kern = paged_attn_kernel<QT, KVT, INT8, DPT, VEC>;
-  const size_t smem =
-      sizeof(float) * (ROWS * D + KT * (D + 1) + KT * D + ROWS * KT + 2 * ROWS)
-      + sizeof(int) * KT;
+  const size_t smem = simt_smem_bytes(D);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1076,13 +1083,14 @@ extern "C" int kubetpu_paged_combine(const void* part, const void* ml,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Dynamic shared memory in bytes of one block: route 1 = the wgmma chunk
-// instance at head dim D, 2 = the split instance for elem-byte page values
-// at page size ps, split_keys and GQA groups of g; ptxas reports only
-// static shared memory.
+// Dynamic shared memory in bytes of one block: route 0 = the SIMT instance
+// at head dim D, 1 = the wgmma chunk instance at head dim D, 2 = the split
+// instance for elem-byte page values at page size ps, split_keys and GQA
+// groups of g; ptxas reports only static shared memory.
 extern "C" int kubetpu_paged_smem_bytes(int route, int D, int elem, int ps,
                                         int max_pages, int split_keys,
                                         int g) {
+  if (route == 0) return static_cast<int>(simt_smem_bytes(D));
   if (route == 1) return static_cast<int>(chunk_smem_bytes(D, max_pages));
   if (route == 2)
     return static_cast<int>(split_smem_bytes(D, elem, ps, split_keys, g));

@@ -31,7 +31,9 @@ Routes, chosen by ``_route(q, k_pages_l, t, window)``:
   ``paged_attention.wgmma_launches`` counts it. Where its 64-row blocks
   would leave SMs idle it cuts each row's keys into up to 4 shares
   (``_chunk_splits``) and the combine kernel merges them.
-- "simt" (every other call): the f32 CUDA-core kernel.
+- "simt" (every other call: f32 and int8 chunks, windowed chunks, head
+  dims other than 64/128): the f32 CUDA-core kernel;
+  ``paged_attention.simt_launches`` counts it.
 
 The route is dispatch, not a fallback: an instance that refuses a call
 raises, and nothing retries it on another route.
@@ -355,6 +357,7 @@ def _kernel(q, k_pages_l, v_pages_l, table, pos, window: int):
             int(ksc is not None),
             torch.cuda.current_stream(q.device).cuda_stream)
         _raise_on(rc, "(simt)")
+        paged_attention.simt_launches += 1
     paged_attention.launches += 1
     return out
 
@@ -386,3 +389,4 @@ paged_attention.launches = 0
 paged_attention.split_launches = 0
 paged_attention.combine_launches = 0
 paged_attention.wgmma_launches = 0
+paged_attention.simt_launches = 0

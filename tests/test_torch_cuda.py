@@ -57,7 +57,7 @@ def _case(dev, dtype, int8, b, t, h, h_kv, d, ps, ctx_end, holes=True,
 
 
 _PAGED_COUNTERS = ("launches", "split_launches", "combine_launches",
-                   "wgmma_launches")
+                   "wgmma_launches", "simt_launches")
 
 
 def _paged_counts():
@@ -69,8 +69,8 @@ def _expected_moves(case, route):
     wgmma chunk kernel is followed by a combine where it splits keys."""
     if route == "wgmma":
         kp = case[1]
-        return (1, 0, int(pa._chunk_splits(case[0], kp.shape[2]) > 1), 1)
-    return {"split": (1, 1, 1, 0), "simt": (1, 0, 0, 0)}[route]
+        return (1, 0, int(pa._chunk_splits(case[0], kp.shape[2]) > 1), 1, 0)
+    return {"split": (1, 1, 1, 0, 0), "simt": (1, 0, 0, 0, 1)}[route]
 
 
 def _run_paged(case, window, route):
@@ -174,6 +174,127 @@ def test_split_and_wgmma_routes_match_plain_version(cuda, name):
         tol = 1e-5 if dtype == torch.float32 else 2e-2
         torch.testing.assert_close(out.float(), ref.float(), atol=tol,
                                    rtol=tol)
+
+
+def _pool(gen, dev, dtype, int8, n_pool, ps, h_kv, d):
+    def randn():
+        return torch.randn((n_pool, ps, h_kv, d), generator=gen)
+
+    if int8:
+        return (quantize_kv_chunk(randn().to(dev)),
+                quantize_kv_chunk(randn().to(dev)))
+    return randn().to(dev, dtype), randn().to(dev, dtype)
+
+
+def _ring_case(dev, dtype, int8, h, h_kv, d, ps, window, ctx_end, seed=0):
+    """Decode at ctx_end[i]-1 over the windowed server's ring table: slot
+    i's logical pages all alias onto its own ring of ceil(window/ps) + 1
+    physical pages (lp -> ring[lp % ring]), mapped up to its worst case;
+    the last slot is unmapped."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    ring = -(-window // ps) + 1
+    b = len(ctx_end)
+    max_pages = max(-(-c // ps) for c in ctx_end) + 3
+    perm = torch.randperm(b * ring + 1, generator=gen)
+    table = torch.full((b, max_pages), -1, dtype=torch.int32)
+    for i in range(b - 1):
+        rp = perm[i * ring:(i + 1) * ring]
+        table[i] = rp[torch.arange(max_pages) % ring]
+    pos = torch.tensor([c - 1 for c in ctx_end], dtype=torch.int32)
+    q = torch.randn((b, 1, h, d), generator=gen).to(dev, dtype)
+    kp, vp = _pool(gen, dev, dtype, int8, b * ring + 1, ps, h_kv, d)
+    return q, kp, vp, table.to(dev), pos.to(dev)
+
+
+_RING_CASES = {
+    # (dtype, int8, H, H_kv, D, ps, window, ctx_end)
+    "bf16_w512_ps16": (torch.bfloat16, False, 16, 16, 128, 16, 512,
+                       [2000, 1024, 513, 300, 1]),
+    "bf16_w24_ps16": (torch.bfloat16, False, 8, 2, 128, 16, 24,
+                      [700, 33, 17, 1]),
+    "f32_w8_ps4": (torch.float32, False, 4, 2, 64, 4, 8, [90, 9, 5, 1]),
+    "int8_w100_ps12": (torch.float16, True, 8, 2, 64, 12, 100,
+                       [1303, 260, 101, 1]),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(_RING_CASES))
+def test_split_route_over_a_ring_aliased_table(cuda, name):
+    """The windowed decode of the ring table: the call against the plain
+    attention and the plain split route, and the split kernel's partials
+    against ``_split_partials`` (spans whose keys all lie outside the band
+    stay empty although their pages are mapped)."""
+    dtype, int8, h, h_kv, d, ps, window, ctx = _RING_CASES[name]
+    case = _ring_case(cuda, dtype, int8, h, h_kv, d, ps, window, ctx)
+    out = _run_paged(case, window, "split")
+    assert torch.all(out[-1] == 0)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(
+        out.float(), pa.paged_attention_split_reference(
+            *case, window).float(), atol=tol, rtol=tol)
+    q, kp, vp, table, pos = case
+    part, ml = pa._launch_split(q, kp, vp, table, pos, window)
+    torch.cuda.synchronize()
+    ref_part, ref_ml = (x[:, 0] for x in pa._split_partials(
+        q, kp, vp, table, pos, window, pa._SPLIT_KEYS))
+    used = ref_ml[..., 1] > 0
+    assert torch.equal(ml[..., 1] > 0, used)
+    assert int(used.sum()) < used.numel()
+    torch.testing.assert_close(ml[used], ref_ml[used], atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(part[used], ref_part[used], atol=1e-3,
+                               rtol=1e-3)
+    assert (ml[~used][:, 0] == -1e30).all() and (ml[~used][:, 1] == 0).all()
+
+
+def _shared_case(dev, dtype, int8, t, h, h_kv, d, ps, shared, tails, seed=0):
+    """A prefill chunk at a prefix hit: every slot's table leads with the
+    same *shared* physical pages (the tree's rows, read by all), then its
+    own pages; slot i's T queries start at pos = shared * ps and its
+    context ends tails[i] tokens later."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    b = len(tails)
+    own = [-(-tl // ps) for tl in tails]
+    n_pool = shared + sum(own) + 1
+    perm = torch.randperm(n_pool, generator=gen)
+    table = torch.full((b, shared + max(own) + 1), -1, dtype=torch.int32)
+    used = shared
+    for i, n in enumerate(own):
+        table[i, :shared] = perm[:shared]
+        table[i, shared:shared + n] = perm[used:used + n]
+        used += n
+    pos = torch.full((b,), shared * ps, dtype=torch.int32)
+    q = torch.randn((b, t, h, d), generator=gen).to(dev, dtype)
+    kp, vp = _pool(gen, dev, dtype, int8, n_pool, ps, h_kv, d)
+    return q, kp, vp, table.to(dev), pos.to(dev)
+
+
+_SHARED_CASES = {
+    # (dtype, int8, T, H, H_kv, D, ps, shared pages, tails): the flagship's
+    # 1024-token system prompt and a 64-token tail; two slots at once
+    "wgmma_bf16_flagship": (torch.bfloat16, False, 64, 16, 16, 128, 16, 64,
+                            [64, 64]),
+    "wgmma_f16_gqa": (torch.float16, False, 37, 8, 2, 64, 8, 5, [37, 37]),
+    "simt_int8": (torch.bfloat16, True, 48, 8, 2, 128, 16, 64, [48, 48]),
+    "simt_f32": (torch.float32, False, 21, 4, 2, 64, 8, 3, [21, 21]),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(_SHARED_CASES))
+def test_chunk_routes_at_a_prefix_hit_offset(cuda, name):
+    """The wgmma and SIMT chunk routes with pos > 0 over tables whose
+    leading rows are shared by both slots: against the plain version, and
+    each slot's output equals the slot run alone."""
+    dtype, int8, t, h, h_kv, d, ps, shared, tails = _SHARED_CASES[name]
+    case = _shared_case(cuda, dtype, int8, t, h, h_kv, d, ps, shared, tails)
+    route = name.split("_")[0]
+    out = _run_paged(case, 0, route)
+    q, kp, vp, table, pos = case
+    alone = pa.paged_attention_chunk(q[1:], kp, vp, table[1:], pos[1:])
+    torch.cuda.synchronize()
+    torch.testing.assert_close(alone.float(), out[1:].float(), atol=2e-2,
+                               rtol=2e-2)
 
 
 @pytest.mark.gpu

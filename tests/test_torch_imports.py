@@ -30,7 +30,9 @@ def test_fresh_import_loads_no_jax_and_no_kubetpu():
     out of sys.modules."""
     mods = _all_modules()
     for name in ("jobs.paged", "jobs.train", "jobs.data", "jobs.convert",
-                 "ops.paged_attention", "ops.flash_attention"):
+                 "jobs.prefix_cache", "ops.paged_attention",
+                 "ops.flash_attention", "obs", "obs.registry", "obs.events",
+                 "core", "core.metrics"):
         assert f"kubetpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"

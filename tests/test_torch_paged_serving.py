@@ -120,7 +120,8 @@ def test_pool_exhaustion_parks_without_corruption(both):
 
 
 def test_lifecycle_surface(both):
-    """cancel, pop_result, logprobs, load_info and the window refusal."""
+    """cancel, pop_result, logprobs, load_info and the refusal of a prefix
+    cache over a windowed config (its ring cannot be shared)."""
     _, _, cfg, model = both
     server = PagedDecodeServer(cfg, model, n_slots=1, max_seq=64,
                                max_new_tokens=6, page_size=8, device="cpu")
@@ -137,9 +138,9 @@ def test_lifecycle_surface(both):
     assert server.pop_result(ra)[:6] == PROMPTS[0]
     with pytest.raises(KeyError):
         server.pop_result(ra)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="window"):
         PagedDecodeServer(dataclasses.replace(cfg, window=8), model,
-                          device="cpu")
+                          prefix_cache_pages=8, device="cpu")
 
 
 @pytest.mark.parametrize("kv_int8", [False, True], ids=["f32", "int8"])
