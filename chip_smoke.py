@@ -12,14 +12,15 @@ Phases, one line each, any failure exits non-zero:
    window 512 over the windowed server's ring table) on the split route,
    whose split kernel (partials) and combine kernel are each held against
    their plain versions; the T=256 chunk and the storm's 64-token chunk at
-   a 1024-token prefix hit on the wgmma route, and the same hit chunk over
-   int8 pages on the SIMT route; every call against the plain attention,
+   a 1024-token prefix hit on the wgmma route, over bf16 pages and over
+   int8 pages (the int8 instance), and the parity phase's f32 chunk on the
+   SIMT route; every call against the plain attention,
    with its time (a replayed CUDA graph of 20 calls: device time without
    the host's enqueue; the eager calls' time beside it), the plain
    version's, the least time the card could take (bytes over 3.35 TB/s or
    operations over 989 TFLOP/s, whichever is larger) and one PyTorch
    library call's time as a yardstick; registers, spills and shared memory
-   of the instances (a spill in the wgmma chunk instance fails);
+   of the instances (a spill in a wgmma chunk instance fails);
 4. flash: the forward, dQ and dK/dV kernels at the flagship training shape
    (B=4, S=2048, H=16, D=128, bf16; causal, causal with window 256, and
    non-causal), each against its plain version, with the same timings
@@ -31,7 +32,8 @@ Phases, one line each, any failure exits non-zero:
    and on the card (kernel) — prefill logits within 1e-3, greedy tokens
    equal; then shared-prefix reuse (f32 and int8 pools) and window 8 on the
    ring table: greedy tokens and reuse stats equal exactly, the pool oracle
-   after every drain;
+   after every drain. Its chunks are the SIMT kernel's path: the paged
+   counters are zeroed before and read after, and SIMT must have run;
 6. serve: the flagship decoder (vocab 32000, d 2048, 12 layers, 16 heads,
    d_ff 5632, bf16, random weights from a seed) behind ``PagedDecodeServer``
    with staggered requests; every launch counter is zeroed just before and
@@ -46,9 +48,13 @@ Phases, one line each, any failure exits non-zero:
    through a one-family tree with a 1 GiB host tier, against a warm tree of
    all four): one line an arm with the server's TTFT p50/p99, prefill
    tokens computed and saved, hit rate, tier hits / fills / spills / bytes,
-   decode tokens/s and the paged launches. Gates: the pool oracle after
-   every drain, 15 x 1024 tokens saved, the host arm's tokens equal to the
-   warm tree's, the hits' first-token logits within 0.25 of the cold arm's;
+   decode tokens/s and the paged launches; after every timed arm, one
+   profiled step of four hits on a fresh reuse-on server over a bf16 and
+   over an int8 pool, and the kernels the int8 step spends its extra time
+   in. Gates: the pool oracle after every drain, 15 x 1024 tokens saved,
+   the host arm's tokens equal to the warm tree's, both on arms'
+   first-token logits within 0.25 of the cold arm's, the int8 arm's
+   chunks all on the int8 wgmma instance (none on SIMT);
 9. window: the flagship with window 512 (rings of 33 pages), 8 prompts of
    640-1024 tokens, 256 new tokens each. Gates: pages in use never above
    8 x 33, first-token logits within 0.25 of the dense windowed forward,
@@ -64,9 +70,10 @@ Phases, one line each, any failure exits non-zero:
    then ten steps on one repeated batch, whose loss must fall;
 12. train profile: ``torch.profiler`` over one training step — device busy
    time, idle share, the attention kernels' share, the top kernels;
-13. the ``kernels`` JSON line (launches: the paged kernels' over phases 6,
-   8 and 9, the flash kernels' over phase 11's timed steps), then the
-   result line.
+13. the ``kernels`` JSON line, 8 kernels (launches: the paged split,
+   combine and wgmma chunk kernels' — dense and int8 instances — over
+   phases 6, 8 and 9, the SIMT chunk's over phase 5, the flash kernels'
+   over phase 11's timed steps), then the result line.
 
 Nothing of JAX or of the ``kubetpu`` package is imported. ``--record PATH``
 also writes every measured number as one JSON file.
@@ -87,6 +94,7 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_S = 3.35e12          # H100 SXM device memory rate
 BF16_FLOP_S = 989e12           # H100 SXM dense bf16 tensor-core rate
+F32_FLOP_S = 67e12             # H100 SXM f32 rate outside the tensor cores
 BF16_TOL = 2e-2                # bf16 output: a few roundings of |o| < 1
 F32_TOL = 1e-3
 
@@ -227,7 +235,8 @@ def _bound(case):
     """Least time for the function on this data: every input byte it needs
     (q, the visible keys' K and V rows — and scales for int8 —, table,
     pos) read once and the output written once, against its operations
-    (4 * D flops per query head per visible key) at the bf16 peak."""
+    (4 * D flops per query head per visible key) at the peak for q's type
+    (the bf16/f16 tensor-core rate; f32 outside the tensor cores)."""
     q, kp, vp, table, pos, window = case
     b, t, h, d = q.shape
     int8 = isinstance(kp, tuple)
@@ -239,7 +248,8 @@ def _bound(case):
     nbytes = (2 * keys_any * row_bytes + 2 * q.numel() * q.element_size()
               + table.numel() * 4 + pos.numel() * 4)
     flops = 4 * d * h * int(vis.sum())
-    t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / BF16_FLOP_S
+    peak = F32_FLOP_S if q.dtype == torch.float32 else BF16_FLOP_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / peak
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
 
@@ -305,19 +315,20 @@ def _bytes_bound(nbytes, flops=0):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-# the paged instances phase 3 runs (bf16 q, D = 128): mangled-name
-# fragments of the split kernel over dense and int8 pages (one row a block:
-# the flagship is MHA), of the wgmma chunk kernel, and of the SIMT kernel
-# over int8 pages (the int8 pool's chunks); with the code of each route in
-# kubetpu_paged_smem_bytes
+# the paged instances phase 3 runs: mangled-name fragments of the split
+# kernel over dense and int8 pages (bf16 q, D = 128, one row a block: the
+# flagship is MHA), of the wgmma chunk kernel over dense and int8 pages
+# (bf16, D = 128), and of the SIMT kernel at the parity phase's f32 D = 64
+# chunks; with the code of each route in kubetpu_paged_smem_bytes
 _PAGED_INSTANCES = {
     "split": ("paged_split_kernelI13__nv_bfloat16S1_Lb0ELi1ELi1EE", 2),
     "int8": ("paged_split_kernelI13__nv_bfloat16aLb1ELi1ELi1EE", 2),
-    "wgmma": ("paged_chunk_wgmma_kernelI13__nv_bfloat16Li128E", 1),
-    "simt_int8": ("paged_attn_kernelI13__nv_bfloat16aLb1ELi1ELi16EE", 0),
+    "wgmma": ("paged_chunk_wgmma_kernelI13__nv_bfloat16Li128ELb0EE", 1),
+    "wgmma_int8": ("paged_chunk_wgmma_kernelI13__nv_bfloat16Li128ELb1EE", 3),
+    "simt": ("paged_attn_kernelIffLb0ELi1ELi4EE", 0),
 }
 _PAGED_COUNTERS = ("launches", "split_launches", "combine_launches",
-                   "wgmma_launches", "simt_launches")
+                   "wgmma_launches", "wgmma_int8_launches", "simt_launches")
 # kernel names in profiler keys: every instance of the paged kernels
 _PAGED_KERNELS = ("paged_attn_kernel", "paged_split_kernel",
                   "paged_combine_kernel", "paged_chunk_wgmma_kernel")
@@ -325,14 +336,15 @@ _PAGED_KERNELS = ("paged_attn_kernel", "paged_split_kernel",
 
 def _paged_builds(cases) -> dict:
     """Registers, spills and shared memory of the paged instances at the
-    cases' shapes; a spill in the bf16 D=128 wgmma chunk instance fails."""
+    cases' shapes; a spill in a bf16 D=128 wgmma chunk instance (dense or
+    int8 pages) fails."""
     from kubetpu_torch.ops import paged_attention as pa
 
     builds = {}
     for name, (q, kp, _, table, _, window) in cases:
         key = pa._route(q, kp, q.shape[1], window)
         if isinstance(kp, tuple):
-            key = "int8" if key == "split" else "simt_int8"
+            key = {"split": "int8", "wgmma": "wgmma_int8"}[key]
         vals = kp[0] if isinstance(kp, tuple) else kp
         fragment, code = _PAGED_INSTANCES[key]
         build = _ptxas(fragment, "paged_attention")
@@ -341,8 +353,9 @@ def _paged_builds(cases) -> dict:
             vals.shape[1], table.shape[1], pa._SPLIT_KEYS,
             q.shape[2] // vals.shape[2])
         builds[name] = build
-        if key == "wgmma" and (build["spill_stores"] or build["spill_loads"]):
-            raise SystemExit(f"paged {name}: the bf16 wgmma chunk instance "
+        if key.startswith("wgmma") and (build["spill_stores"]
+                                        or build["spill_loads"]):
+            raise SystemExit(f"paged {name}: the bf16 {key} chunk instance "
                              f"spills: {build}")
     return builds
 
@@ -353,8 +366,8 @@ def phase_kernels() -> list:
     against its plain version, and the call against the plain attention),
     among them the windowed server's decode over a ring table; the chunk
     cases on the wgmma route (T=256 mid-prompt, and the storm's 64-token
-    tail at a 1024-token prefix hit) and the int8 pool's prefix-hit chunk
-    on the SIMT route."""
+    tail at a 1024-token prefix hit), over dense and over int8 pages; and
+    the SIMT route at the parity phase's f32 chunk shape."""
     from kubetpu_torch.ops import paged_attention as pa
 
     gen = torch.Generator(device="cuda").manual_seed(1234)
@@ -375,6 +388,13 @@ def phase_kernels() -> list:
                                               torch.bfloat16)),
         ("chunk_int8_prefix_T64", _paged_case(gen, [1088], 64, 0, True,
                                               torch.bfloat16)),
+        ("chunk_int8_T256", _paged_case(gen, [1024], 256, 0, True,
+                                        torch.bfloat16)),
+        # the parity phase's chunks (f32, D 64, 4 heads on 2 kv heads, page
+        # 16, budget 32): the SIMT route
+        ("chunk_f32_parity_T32", _paged_case(gen, [70, 40, 64], 32, 0, False,
+                                             torch.float32, h=4, h_kv=2,
+                                             d=64)),
     ]
     builds = _paged_builds(cases)
     rows = []
@@ -382,15 +402,16 @@ def phase_kernels() -> list:
         q, kp, vp, table, pos, window = case
         b, t, h, d = q.shape
         h_kv = (kp[0] if isinstance(kp, tuple) else kp).shape[2]
+        int8 = isinstance(kp, tuple)
         route = pa._route(q, kp, t, window)
         expected = ("split" if t == 1 else
-                    "simt" if isinstance(kp, tuple) else "wgmma")
+                    "simt" if q.dtype == torch.float32 else "wgmma")
         if route != expected:
             raise SystemExit(f"paged_attention {name}: route {route}, not "
                              f"{expected}")
-        counts = (pa.paged_attention.split_launches,
-                  pa.paged_attention.wgmma_launches,
-                  pa.paged_attention.simt_launches)
+        kernel_counters = ("split_launches", "wgmma_launches",
+                           "wgmma_int8_launches", "simt_launches")
+        counts = [getattr(pa.paged_attention, c) for c in kernel_counters]
         if t == 1:
             run = lambda: pa.paged_attention(q[:, 0], kp, vp, table, pos,
                                              window=window)
@@ -399,16 +420,17 @@ def phase_kernels() -> list:
             run = lambda: pa.paged_attention_chunk(q, kp, vp, table, pos)
             out = run()
         torch.cuda.synchronize()
-        moved = (pa.paged_attention.split_launches - counts[0],
-                 pa.paged_attention.wgmma_launches - counts[1],
-                 pa.paged_attention.simt_launches - counts[2])
-        if moved != {"split": (1, 0, 0), "wgmma": (0, 1, 0),
-                     "simt": (0, 0, 1)}[route]:
+        moved = tuple(getattr(pa.paged_attention, c) - n
+                      for c, n in zip(kernel_counters, counts))
+        if moved != {"split": (1, 0, 0, 0),
+                     "wgmma": (0, 0, 1, 0) if int8 else (0, 1, 0, 0),
+                     "simt": (0, 0, 0, 1)}[route]:
             raise SystemExit(f"paged_attention {name}: the {route} route did "
                              f"not run ({moved})")
         ref = pa.paged_attention_reference(q, kp, vp, table, pos, window)
         err = float((out.float() - ref.float()).abs().max())
-        ok = bool(torch.isfinite(out).all()) and err <= BF16_TOL
+        tol = F32_TOL if q.dtype == torch.float32 else BF16_TOL
+        ok = bool(torch.isfinite(out).all()) and err <= tol
         ms = graph_ms(run)
         eager_ms = cuda_ms(run)
         plain_ms = cuda_ms(lambda: pa.paged_attention_reference(
@@ -417,13 +439,13 @@ def phase_kernels() -> list:
         bound_ms, bound_by, nbytes, flops = _bound(case)
         row = dict(case=name, route=route,
                    build=builds[name],
-                   max_abs_err=err, tol=BF16_TOL,
+                   max_abs_err=err, tol=tol,
                    ok=ok, ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
                    bound_ms=bound_ms,
                    bound_by=bound_by, library_ms=library_ms, bytes=nbytes,
                    flops=flops,
                    shape=dict(B=b, T=t, H=h, H_kv=h_kv, D=d, window=window,
-                              int8=isinstance(kp, tuple)))
+                              int8=int8, dtype=str(q.dtype)[6:]))
         if t == 1:
             row.update(_split_parts(case))
             row["ok"] = ok and row.pop("ok_parts")
@@ -669,10 +691,14 @@ def phase_flash() -> list:
 # -- phase 5: CPU plain version vs the card's kernel, same small model ------
 
 def phase_parity() -> dict:
+    """The small f32 model on the CPU and on the card. Its chunks (f32 q)
+    are the SIMT kernel's path: the paged counters are zeroed just before
+    and read just after, and the SIMT kernel must have run."""
     from kubetpu_torch.jobs import model as model_lib
     from kubetpu_torch.jobs.decode import forward_chunk_io
     from kubetpu_torch.jobs.paged import (PagedDecodeServer,
                                           _paged_prefill_io, init_page_pool)
+    from kubetpu_torch.ops import paged_attention as pa
     from kubetpu_torch.ops.paged_attention import paged_attention_chunk
 
     cfg = model_lib.ModelConfig(vocab=512, d_model=256, n_layers=2,
@@ -684,6 +710,9 @@ def phase_parity() -> dict:
     rng = np.random.default_rng(7)
     prompt = rng.integers(0, cfg.vocab, 64)
 
+    torch.cuda.synchronize()
+    for c in _PAGED_COUNTERS:                  # zero just before the path
+        setattr(pa.paged_attention, c, 0)
     logits = {}
     for dev, model in models.items():
         pools = init_page_pool(cfg, 8, 16, device=dev)
@@ -731,8 +760,15 @@ def phase_parity() -> dict:
     if bad:
         raise SystemExit(f"parity: greedy tokens differ at {bad}")
     served = _parity_servers(cfg, models, rng)
+    torch.cuda.synchronize()
+    launches = {c: getattr(pa.paged_attention, c)   # read just after
+                for c in _PAGED_COUNTERS}
+    line("parity_launches", paged_launches=launches)
+    if launches["simt_launches"] <= 0:
+        raise SystemExit(f"parity: no chunk ran on the SIMT kernel: "
+                         f"{launches}")
     return {"prefill_logit_max_err": logit_err, "mismatches": mismatches,
-            "servers": served}
+            "servers": served, "paged_launches": launches}
 
 
 def _parity_servers(cfg, models, rng) -> dict:
@@ -852,7 +888,8 @@ def phase_serve(smi: str) -> dict:
     # combine after each chunk that took a key split)
     n_dec, n_chunk = (cfg.n_layers * counts[k] for k in ("steps", "chunks"))
     expected = dict(launches=n_dec + n_chunk, split_launches=n_dec,
-                    wgmma_launches=n_chunk, simt_launches=0)
+                    wgmma_launches=n_chunk, wgmma_int8_launches=0,
+                    simt_launches=0)
     if (n_dec <= 0 or n_chunk <= 0
             or {k: launches[k] for k in expected} != expected
             or not n_dec <= launches["combine_launches"] <= n_dec + n_chunk):
@@ -1004,18 +1041,52 @@ def _logit_gap(a: dict, b: dict, prompts) -> float:
                for p in prompts)
 
 
+def _chunk_step_profile(model, cfg, seed, prompts, **kw) -> dict:
+    """Where a prefill-chunk step's time goes: a fresh reuse-on server
+    (*kw*: its pool) serves *seed* (the cold request that fills the tree),
+    then torch.profiler covers the one step that admits *prompts* (prefix
+    hits of it, enqueued together, so the step runs each one's tail chunk,
+    then a decode step of the slots they fill)."""
+    server = _flagship_server(model, cfg, max_new_tokens=32, **kw)
+    rid = server.enqueue(seed)
+    server.drain()
+    server.pop_result(rid)
+    rids = [server.enqueue(p) for p in prompts]
+    chunks = server._smoke_stats["chunks"]
+    wall_us, kernels, counts = _profiled(server.step)
+    n_chunks = server._smoke_stats["chunks"] - chunks
+    server.drain()
+    server.check_invariants()
+    for r in rids:
+        server.pop_result(r)
+    del server
+    torch.cuda.empty_cache()
+    busy = sum(kernels.values())
+    attn = sum(v for k, v in kernels.items()
+               if any(n in k for n in _PAGED_KERNELS))
+    return dict(chunks=n_chunks, step_ms=wall_us / 1e3,
+                device_busy_ms=busy / 1e3,
+                idle_share=(1.0 - busy / wall_us) if busy else None,
+                paged_attention_ms=attn / 1e3, kernel_kinds=len(kernels),
+                **counts, kernels_ms={k: v / 1e3 for k, v in kernels.items()})
+
+
 def phase_prefix(model, cfg, smi, launches) -> dict:
     """Shared-prefix reuse at full width (bench_model.py:662's storm at
     realistic lengths): a 1024-token system prompt and a unique 64-token
     tail, one cold seeding request, then 15 at once, 32 new tokens each;
-    reuse off, on, and on over an int8 pool (whose chunks run on the SIMT
-    route). Then the host tier (bench_model.py:737's shape): 4
-    families of 1024-token prompts with 16-token tails, round-robined 3
-    rounds one request at a time, through an HBM tree sized for one family
-    with a 1 GiB host tier, against a warm HBM tree that holds all four.
-    Gates: the pool oracle after every drain; the host arm's tokens equal
-    the warm-HBM arm's (a fill is a byte copy); the on arm's first-token
-    logits within LOGIT_TOL of the off arm's."""
+    reuse off, on, and on over an int8 pool (whose chunks run on the wgmma
+    route's int8 instance). Then the host tier (bench_model.py:737's
+    shape): 4 families of 1024-token prompts with 16-token tails,
+    round-robined 3 rounds one request at a time, through an HBM tree
+    sized for one family with a 1 GiB host tier, against a warm HBM tree
+    that holds all four. Last, after every timed arm, one step of four
+    hits is profiled on a bf16 and on an int8 pool
+    (``_chunk_step_profile``): where the int8 pool's step time goes beside
+    the bf16 one's. Gates: the pool oracle after every drain; the host
+    arm's tokens equal the warm-HBM arm's (a fill is a byte copy); both on
+    arms' first-token logits within LOGIT_TOL of the off arm's; the int8
+    arm's chunks all on the int8 wgmma instance, none on SIMT."""
     rng = np.random.default_rng(5)
     sys_prompt = rng.integers(1, cfg.vocab, 1024).tolist()
     storm = [sys_prompt + rng.integers(1, cfg.vocab, 64).tolist()
@@ -1023,10 +1094,10 @@ def phase_prefix(model, cfg, smi, launches) -> dict:
     waves = [storm[:1], storm[1:]]
     rows, firsts, tokens = {}, {}, {}
     n_pages = 8 * 128 + 128
+    reuse = {"storm_on": dict(prefix_cache_pages=128),
+             "storm_on_int8": dict(prefix_cache_pages=128, kv_int8=True)}
     for arm, kw in (("storm_off", dict(prefix_cache_pages=0)),
-                    ("storm_on", dict(prefix_cache_pages=128)),
-                    ("storm_on_int8", dict(prefix_cache_pages=128,
-                                           kv_int8=True))):
+                    *reuse.items()):
         server = _flagship_server(model, cfg, max_new_tokens=32,
                                   n_pages=n_pages, **kw)
         run = _drive(server, waves, launches)
@@ -1043,7 +1114,7 @@ def phase_prefix(model, cfg, smi, launches) -> dict:
         rows[arm].update(
             first_logit_max_diff=_logit_gap(firsts[arm], firsts["storm_off"],
                                             storm[1:]),
-            logit_tol=LOGIT_TOL if arm == "storm_on" else None,
+            logit_tol=LOGIT_TOL,
             equal_token_share=sum(x == y for a, b in gen_pairs
                                   for x, y in zip(a, b))
             / sum(len(a) for a, _ in gen_pairs))
@@ -1057,11 +1128,14 @@ def phase_prefix(model, cfg, smi, launches) -> dict:
         if not all(bool(torch.isfinite(x).all())
                    for x in firsts[arm].values()):
             raise SystemExit(f"prefix {arm}: non-finite first-token logits")
-    if not rows["storm_on"]["first_logit_max_diff"] <= LOGIT_TOL:
-        raise SystemExit(f"prefix: hit first-token logits differ from the "
-                         f"cold arm's by {rows['storm_on']}")
-    if rows["storm_on_int8"]["paged_launches"]["simt_launches"] <= 0:
-        raise SystemExit("prefix: the int8 arm ran no SIMT chunk")
+        if not rows[arm]["first_logit_max_diff"] <= LOGIT_TOL:
+            raise SystemExit(f"prefix {arm}: hit first-token logits differ "
+                             f"from the cold arm's by {rows[arm]}")
+    int8_launches = rows["storm_on_int8"]["paged_launches"]
+    if (int8_launches["simt_launches"] or int8_launches["wgmma_launches"]
+            or int8_launches["wgmma_int8_launches"] <= 0):
+        raise SystemExit(f"prefix: the int8 arm's chunks must all run on the "
+                         f"int8 wgmma instance: {int8_launches}")
 
     families = [rng.integers(1, cfg.vocab, 1024).tolist() for _ in range(4)]
     tier_prompts = [fam + rng.integers(1, cfg.vocab, 16).tolist()
@@ -1087,6 +1161,36 @@ def phase_prefix(model, cfg, smi, launches) -> dict:
             and host["requests_hit"] == 8):
         raise SystemExit(f"prefix: the host tier did not spill and fill "
                          f"back every return: {host}")
+
+    # after every timed arm: one step of four hits on each pool (prompts
+    # from their own generator, so the arms' prompts stay as they were)
+    hit_rng = np.random.default_rng(6)
+    hits = [sys_prompt + hit_rng.integers(1, cfg.vocab, 64).tolist()
+            for _ in range(4)]
+    profiles = {arm: _chunk_step_profile(model, cfg, storm[0], hits,
+                                         n_pages=n_pages, **kw)
+                for arm, kw in reuse.items()}
+    # the int8 step beside the bf16 one: every kernel's device time, and
+    # the kernels the int8 step spends the most extra time in (a paged
+    # kernel's instances under one name, so the two pools' compare)
+    bf16, int8 = ({next((n for n in _PAGED_KERNELS if n in k), k): v
+                   for k, v in profiles[a]["kernels_ms"].items()}
+                  for a in ("storm_on", "storm_on_int8"))
+    extra_ms = {k: int8.get(k, 0.0) - bf16.get(k, 0.0)
+                for k in set(bf16) | set(int8)}
+    for arm, prof in profiles.items():
+        top = sorted(prof["kernels_ms"].items(), key=lambda kv: -kv[1])[:10]
+        line("prefix_profile", arm=arm,
+             top_kernels_ms=[(k[:70], v) for k, v in top],
+             **{k: v for k, v in prof.items() if k != "kernels_ms"})
+    diffs = {f"{k}_int8_minus_bf16": profiles["storm_on_int8"][k]
+             - profiles["storm_on"][k]
+             for k in ("step_ms", "device_busy_ms", "device_kernels",
+                       "cpu_ops")}
+    line("prefix_profile_int8_extra", **diffs,
+         top_extra_kernels_ms=[(k[:70], v) for k, v in sorted(
+             extra_ms.items(), key=lambda kv: -kv[1])[:10]])
+    rows["profiles"] = profiles
     return rows
 
 
@@ -1127,16 +1231,19 @@ def phase_window(model, cfg, smi, launches) -> dict:
     if not gap <= LOGIT_TOL:
         raise SystemExit(f"window: first-token logits {gap} off the dense "
                          f"windowed forward's")
-    if run["paged_launches"]["wgmma_launches"]:
+    if (run["paged_launches"]["wgmma_launches"]
+            or run["paged_launches"]["wgmma_int8_launches"]):
         raise SystemExit("window: a windowed chunk took the chunk kernel")
     return row
 
 
 def _profiled(run):
-    """(wall us, {kernel name: device self time us}) of run() under
-    torch.profiler. Only device-side events are summed (CPU ops would count
-    twice); on one stream kernels never overlap, so their sum is the device
-    busy time and 1 - busy / wall the idle share."""
+    """(wall us, {kernel name: device self time us}, {"device_kernels": the
+    kernels run, "cpu_ops": the host-side operator calls, nested ones
+    included}) of run() under torch.profiler. Only device-side events are
+    summed (CPU ops would count twice); on one stream kernels never
+    overlap, so their sum is the device busy time and 1 - busy / wall the
+    idle share."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1148,13 +1255,16 @@ def _profiled(run):
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = {}
+    counts = {"device_kernels": 0, "cpu_ops": 0}
     for ev in prof.key_averages():
         if ev.device_type != DeviceType.CUDA:
+            counts["cpu_ops"] += ev.count
             continue
         us = getattr(ev, "self_device_time_total",
                      getattr(ev, "self_cuda_time_total", 0.0))
         kernels[ev.key] = kernels.get(ev.key, 0.0) + us
-    return wall_us, kernels
+        counts["device_kernels"] += ev.count
+    return wall_us, kernels, counts
 
 
 def phase_profile(server) -> dict:
@@ -1174,7 +1284,7 @@ def phase_profile(server) -> dict:
         for _ in range(10):
             server.step()
 
-    wall_us, kernels = _profiled(ten_steps)
+    wall_us, kernels, counts = _profiled(ten_steps)
     busy = sum(kernels.values())
     attn = sum(v for k, v in kernels.items()
                if any(n in k for n in _PAGED_KERNELS))
@@ -1184,6 +1294,8 @@ def phase_profile(server) -> dict:
                idle_share=(1.0 - busy / wall_us) if busy else None,
                paged_attention_share_of_busy=(attn / busy) if busy else None,
                kernel_kinds=len(kernels),
+               device_kernels_per_step=counts["device_kernels"] / 10,
+               cpu_ops_per_step=counts["cpu_ops"] / 10,
                top_kernels_ms_per_step=[(k[:60], v / 10 / 1e3)
                                         for k, v in top])
     line("profile", **row)
@@ -1348,7 +1460,7 @@ def phase_train(smi: str):
 
 def phase_train_profile(state, step, batch) -> dict:
     """Where a training step's time goes: torch.profiler over one step."""
-    wall_us, kernels = _profiled(lambda: step(state, *batch))
+    wall_us, kernels, counts = _profiled(lambda: step(state, *batch))
     busy = sum(kernels.values())
     # both routes: flash_fwd_kernel and flash_fwd_wgmma_kernel, ...
     by = {kind: sum(v for k, v in kernels.items() if name in k)
@@ -1361,7 +1473,7 @@ def phase_train_profile(state, step, batch) -> dict:
                attention_share_of_busy=(sum(by.values()) / busy)
                if busy else None,
                flash_ms={k: v / 1e3 for k, v in by.items()},
-               kernel_kinds=len(kernels),
+               kernel_kinds=len(kernels), **counts,
                top_kernels_ms=[(k[:60], v / 1e3) for k, v in top])
     line("train_profile", **row)
     return row
@@ -1403,14 +1515,21 @@ def main(argv) -> int:
 
     # the paged kernels at the main path's cases: the split and combine
     # kernels at decode_bf16 (max_abs_err over every decode case), the
-    # chunk kernel at chunk_bf16_T256 (max_abs_err over both wgmma cases),
-    # the SIMT kernel at the int8 pool's prefix-hit chunk
+    # chunk kernel's dense instance at chunk_bf16_T256 (max_abs_err over
+    # both dense wgmma cases), its int8 instance at the int8 storm arm's
+    # prefix-hit chunk (T=256 beside it), the SIMT kernel at the parity
+    # phase's f32 chunk (the one path it still runs on, whose launches it
+    # reports)
     case = {r["case"]: r for r in kern}
     decode = case["decode_bf16"]
     chunk = case["chunk_bf16_T256"]
-    simt = case["chunk_int8_prefix_T64"]
+    chunk8, chunk8_t256 = (case[k] for k in ("chunk_int8_prefix_T64",
+                                             "chunk_int8_T256"))
+    simt = case["chunk_f32_parity_T32"]
     decodes = [r for r in kern if r["route"] == "split"]
-    chunks = [r for r in kern if r["route"] == "wgmma"]
+    chunks = [r for r in kern if r["route"] == "wgmma"
+              and not r["shape"]["int8"]]
+    chunks8 = [r for r in kern if r["route"] == "wgmma" and r["shape"]["int8"]]
     paged = dict(route="cuda", source="kubetpu_torch/ops/csrc/paged_attention.cu",
                  replaces="kubetpu/ops/paged_attention.py:65")
     kernels = [
@@ -1439,12 +1558,22 @@ def main(argv) -> int:
              plain_ms=chunk["plain_ms"], bound_ms=chunk["bound_ms"],
              bound_by=chunk["bound_by"], library_ms=chunk["library_ms"],
              ok=all(r["ok"] for r in chunks)),
+        dict(paged, name="paged_attention_chunk_int8", instances="wgmma_int8",
+             launches=paged_launches["wgmma_int8_launches"],
+             max_abs_err=max(r["max_abs_err"] for r in chunks8),
+             ms=chunk8["ms"], plain_ms=chunk8["plain_ms"],
+             bound_ms=chunk8["bound_ms"], bound_by=chunk8["bound_by"],
+             library_ms=chunk8["library_ms"],
+             t256_ms=chunk8_t256["ms"], t256_bound_ms=chunk8_t256["bound_ms"],
+             t256_plain_ms=chunk8_t256["plain_ms"],
+             t256_library_ms=chunk8_t256["library_ms"],
+             ok=all(r["ok"] for r in chunks8)),
         dict(paged, name="paged_attention_chunk_simt", instances="simt",
-             launches=paged_launches["simt_launches"],
-             max_abs_err=simt["max_abs_err"], ms=simt["ms"],
-             plain_ms=simt["plain_ms"], bound_ms=simt["bound_ms"],
-             bound_by=simt["bound_by"], library_ms=simt["library_ms"],
-             ok=simt["ok"]),
+             launches=parity["paged_launches"]["simt_launches"],
+             launches_from="parity", max_abs_err=simt["max_abs_err"],
+             ms=simt["ms"], plain_ms=simt["plain_ms"],
+             bound_ms=simt["bound_ms"], bound_by=simt["bound_by"],
+             library_ms=simt["library_ms"], ok=simt["ok"]),
     ]
     # the flash kernels at the main path's case (causal); max_abs_err and ok
     # over all three cases

@@ -203,12 +203,20 @@ def _paged_prefill_io(write_phys, gather_row, ps: int, window: int,
     same values."""
     n_write = write_phys.shape[0]
 
-    def split(pages_l, new):
-        """(pool write payload, contiguous attend payload) for the chunk."""
+    def pool_payload(pages_l, new):
+        """The chunk's K or V as the pool stores it (int8 pools quantize)."""
         if isinstance(pages_l, tuple):
-            n8, ns = quantize_kv_chunk(new)
-            return (n8, ns), n8.float() * ns
-        return new.to(pages_l.dtype), new
+            return quantize_kv_chunk(new)
+        return new.to(pages_l.dtype)
+
+    def split(pages_l, new):
+        """(pool write payload, contiguous attend payload) for the chunk on
+        the gather path; an int8 chunk attends its dequantized values."""
+        payload = pool_payload(pages_l, new)
+        if isinstance(pages_l, tuple):
+            n8, ns = payload
+            return payload, n8.float() * ns
+        return payload, new
 
     kept = None     # (chunk pages kept, their physical pages), on the pool
 
@@ -229,8 +237,8 @@ def _paged_prefill_io(write_phys, gather_row, ps: int, window: int,
     if attend_chunk is not None:
         def io(q, k, v, cache, pos):
             k_l, v_l = cache
-            scatter(k_l, split(k_l, k)[0])
-            scatter(v_l, split(v_l, v)[0])
+            scatter(k_l, pool_payload(k_l, k))
+            scatter(v_l, pool_payload(v_l, v))
             pos_t = torch.full((1,), pos, dtype=torch.int32, device=q.device)
             return attend_chunk(q, k_l, v_l, gather_row[None], pos_t), cache
 

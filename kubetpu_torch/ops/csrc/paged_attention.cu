@@ -10,7 +10,9 @@
 // (Hkv, g)-major order). Pages hold bf16, f16 or f32 values, or int8 values
 // with f32 scales (P, ps, Hkv, 1) that are dequantized as
 // float(value) * scale — convert, then scale, in f32, the order the JAX
-// gather core uses, which keeps int8 greedy decode token-exact. The output
+// gather core uses, which keeps int8 greedy decode token-exact (the wgmma
+// chunk instance applies the same scales to its f32 fragments instead,
+// below). The output
 // is acc / max(l, 1e-30) in q's dtype, and a row that sees no key writes 0.
 //
 // What bounds it on an H100: bytes. Decode (T = 1) reads every visible K/V
@@ -41,8 +43,9 @@
 // l = sum l_i e^(m_i - m), acc = sum acc_i e^(m_i - m) (acc read only where
 // l_i > 0), out = acc / max(l, 1e-30) — an all-empty row gives 0, not NaN.
 //
-// wgmma (prefill chunk, T > 1, window 0; dense bf16/f16 pages at D 64 or
-// 128). The flash forward's design (flash_attention.cu) on gathered tiles:
+// wgmma (prefill chunk, T > 1, window 0; bf16/f16 q at D 64 or 128, over
+// dense pages in q's dtype or int8 pages). The flash forward's design
+// (flash_attention.cu) on gathered tiles:
 // one warpgroup owns 64 query rows (row r = t * g + j, gathered row by row
 // with cp.async into the 128-byte-swizzled layout; 64-row blocks, not 128,
 // so a 256-token chunk of 16 heads gives 64 blocks); each 64-key K and V
@@ -56,9 +59,23 @@
 // is mapped and k <= pos + r / g; only tiles across the first row's
 // diagonal or holding an unmapped page are masked. cp.async rather than
 // TMA: every row of a tile has its own address.
+// Over int8 pages (the INT8 instance) a key row is D bytes, half a 16-bit
+// row: the int8 rows and each key's K and V scale are gathered with
+// cp.async into a staging ring four tiles deep (three in flight); when a
+// stage lands the warpgroup converts it to q's 16-bit type (exact: every
+// integer in [-127, 127] is a bf16 and an f16) into the swizzled K and V
+// tiles the descriptors read, one of each. The scales are applied to the
+// f32 fragments, not to the tiles: each score column is multiplied by its
+// key's K scale before scale * log2 e and the mask, and each p by its
+// key's V scale before P is packed for O += P V, while l sums the unscaled
+// p. So the only rounding added to the exact dequantized values is the one
+// the dense route has too, P to 16 bits; (q . k8) s_k differs from the
+// JAX package's q . (k8 s_k) in f32 summation order only.
 //
-// SIMT (every other call: T > 1 with f32 or int8 pages, other head dims,
-// or a window). One block owns (slot, kv head, tile of ROWS query rows) and
+// SIMT (every other call: T > 1 with f32 q or head dims other than 64 and
+// 128; T = 1 at head dims that are not multiples of 16, the only calls
+// that bring it a window — the chunk entry point passes none). One block
+// owns (slot, kv head, tile of ROWS query rows) and
 // loops over the keys its rows can see, KT keys a step staged through the
 // page table (dequantized on the way) in shared memory as f32; the running
 // max, normalizer and accumulator stay in registers; all math f32 on CUDA
@@ -640,11 +657,56 @@ constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 constexpr int WG = 128;             // one warpgroup a block
 constexpr int CQ = 64, CK = 64;     // query rows a block, keys a tile
-constexpr int CNS = 2;              // K/V tile stages in flight
+constexpr int CNS = 2;              // 16-bit K/V tile stages (dense pages)
+// int8 staging stages (int8 pages): two tiles in flight, while two blocks
+// still fit an SM (2 x 101.6 KB at a 128-page table; a T = 256 chunk's
+// 256 blocks must run in one wave on 132 SMs)
+constexpr int CNS8 = 3;
 
-__host__ __device__ constexpr size_t chunk_smem_bytes(int D, int max_pages) {
-  return static_cast<size_t>(CQ + 2 * CNS * CK) * D * 2 + 1024 + CNS * CK +
-         sizeof(int) * max_pages;
+// Dynamic shared memory of the chunk kernel: the Q tile, the 16-bit K and
+// V tiles (CNS stages, or one of each over int8 pages), for int8 pages the
+// staging ring of int8 K and V rows and their f32 scales, each stage's key
+// visibility, the slot's page ids, and 1024 bytes to align the tiles.
+__host__ __device__ constexpr size_t chunk_smem_bytes(int D, int max_pages,
+                                                      bool int8) {
+  return int8 ? static_cast<size_t>(CQ + 2 * CK) * D * 2 + 1024 +
+                    CNS8 * (2 * CK * D + 2 * CK * sizeof(float) + CK) +
+                    sizeof(int) * max_pages
+              : static_cast<size_t>(CQ + 2 * CNS * CK) * D * 2 + 1024 +
+                    CNS * CK + sizeof(int) * max_pages;
+}
+
+// Four int8 values (one 32-bit word, lowest byte first) as two registers
+// of two 16-bit values, exact for |x| <= 127, without the conversion
+// unit's quarter-rate I2F: each byte is biased to u = x ^ 0x80 = x + 128.
+// f16: the half 0x6400 | u is 1024 + u, and one packed subtraction of 1152
+// leaves x. bf16: the float 0x4B0000uu is 2^23 + u, minus 2^23 + 128 is x,
+// and a float holding an integer of at most 8 significant bits is exactly
+// its upper 16 bits as a bf16.
+template <bool BF16>
+__device__ __forceinline__ uint2 i8x4_to_16(uint32_t w) {
+  const uint32_t u = w ^ 0x80808080u;
+  if constexpr (BF16) {
+    uint32_t f[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      f[j] = __float_as_uint(
+          __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 + j)) -
+          8388736.f);
+    return make_uint2(__byte_perm(f[0], f[1], 0x7632),
+                      __byte_perm(f[2], f[3], 0x7632));
+  } else {
+    const __half2 bias = __halves2half2(__ushort_as_half(0x6480),
+                                        __ushort_as_half(0x6480));
+    uint32_t h[2] = {__byte_perm(u, 0x64646464u, 0x4140),
+                     __byte_perm(u, 0x64646464u, 0x4342)};
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const __half2 x = __hsub2(*reinterpret_cast<__half2*>(&h[j]), bias);
+      h[j] = *reinterpret_cast<const uint32_t*>(&x);
+    }
+    return make_uint2(h[0], h[1]);
+  }
 }
 
 __device__ __forceinline__ float quad_max(float x) {
@@ -662,26 +724,38 @@ __device__ __forceinline__ float quad_sum(float x) {
 // with r0 + r = t * g + j, head kh * g + j, at position pos + t. With
 // n_split = 1 the block writes out; with n_split > 1 it takes its share of
 // the rows' key tiles and writes the unnormalised partial (part, ml as the
-// split kernel's, per row (b, t, head)) for paged_combine_kernel.
-template <typename T, int D>
+// split kernel's, per row (b, t, head)) for paged_combine_kernel. INT8:
+// the pages are int8 with f32 scales (ksc, vsc), converted in shared
+// memory (see the header).
+template <typename T, int D, bool INT8>
 __global__ void __launch_bounds__(WG, 1) paged_chunk_wgmma_kernel(
     const T* __restrict__ q,           // (B, Tq, H, D)
-    const T* __restrict__ kp,          // (P, ps, Hkv, D)
-    const T* __restrict__ vp,
+    const std::conditional_t<INT8, int8_t, T>* __restrict__ kp,  // (P, ps, Hkv, D)
+    const std::conditional_t<INT8, int8_t, T>* __restrict__ vp,
+    const float* __restrict__ ksc,     // (P, ps, Hkv, 1) when INT8
+    const float* __restrict__ vsc,
     const int* __restrict__ table, const int* __restrict__ pos_arr,
     T* __restrict__ out, float* __restrict__ part, float* __restrict__ ml,
     int Tq, int H, int Hkv, int ps, int max_pages, int n_split,
     float scale) {
   constexpr bool BF16 = std::is_same<T, __nv_bfloat16>::value;
-  constexpr int ND = D / 2, CHK = D / 8;           // 16-byte chunks a row
+  constexpr int ND = D / 2;
+  // 16-byte chunks of a page row, and page elements a chunk
+  constexpr int CHK = INT8 ? D / 16 : D / 8, EPC = INT8 ? 16 : 8;
+  constexpr int NS = INT8 ? CNS8 : CNS;            // tiles in flight + 1
+  constexpr int NB = INT8 ? 1 : CNS;               // 16-bit K and V tiles
   constexpr uint32_t Q_BYTES = CQ * D * 2, KV_BYTES = CK * D * 2;
+  constexpr uint32_t ST8_BYTES = INT8 ? NS * 2 * CK * D : 0;
   extern __shared__ __align__(16) uint8_t chunk_smem[];
   const uint32_t base_u32 = hopper::smem_u32(chunk_smem);
   const uint32_t q_s = (base_u32 + 1023u) & ~1023u;
-  const uint32_t k_s = q_s + Q_BYTES;              // CNS stages
-  const uint32_t v_s = k_s + CNS * KV_BYTES;       // CNS stages
-  uint8_t* kvis_s = chunk_smem + (v_s + CNS * KV_BYTES - base_u32);  // [CNS][CK]
-  int* page_s = reinterpret_cast<int*>(kvis_s + CNS * CK);
+  const uint32_t k_s = q_s + Q_BYTES;              // NB tiles
+  const uint32_t v_s = k_s + NB * KV_BYTES;        // NB tiles
+  const uint32_t st8 = v_s + NB * KV_BYTES;        // [NS][K, V][CK][D] int8
+  float* sc_s = reinterpret_cast<float*>(          // [NS][K, V][CK] scales
+      chunk_smem + (st8 + ST8_BYTES - base_u32));
+  uint8_t* kvis_s = reinterpret_cast<uint8_t*>(sc_s + (INT8 ? NS * 2 * CK : 0));
+  int* page_s = reinterpret_cast<int*>(kvis_s + NS * CK);   // [NS][CK] above
 
   const int b = blockIdx.z / n_split, split = blockIdx.z % n_split;
   const int kh = blockIdx.y, g = H / Hkv, rows = Tq * g;
@@ -710,8 +784,8 @@ __global__ void __launch_bounds__(WG, 1) paged_chunk_wgmma_kernel(
     return;
   }
 
-  for (int e = threadIdx.x; e < CQ * CHK; e += WG) {
-    const int r = e / CHK, c = e % CHK, rr = r0 + r;
+  for (int e = threadIdx.x; e < CQ * (D / 8); e += WG) {
+    const int r = e / (D / 8), c = e % (D / 8), rr = r0 + r;
     const int t = rr / g, j = rr - t * g;
     const bool valid = rr < rows;
     const T* src = valid ? q + ((static_cast<size_t>(b) * Tq + t) * H + kh * g +
@@ -725,8 +799,9 @@ __global__ void __launch_bounds__(WG, 1) paged_chunk_wgmma_kernel(
   __syncthreads();
 
   // K and V rows of keys [k0, k0 + CK) into stage st, gathered through the
-  // page table; returns whether one of this thread's keys up to k_end is
-  // unmapped
+  // page table (16-bit rows straight into the swizzled tiles; int8 rows and
+  // their scales into the staging ring); returns whether one of this
+  // thread's keys up to k_end is unmapped
   auto load = [&](int st, int k0) {
     bool hole = false;
     for (int e = threadIdx.x; e < CK * CHK; e += WG) {
@@ -734,12 +809,23 @@ __global__ void __launch_bounds__(WG, 1) paged_chunk_wgmma_kernel(
       const bool in = k <= k_end && k < k_cap;
       const int pg = in ? page_s[k / ps] : -1;
       const bool valid = pg >= 0;
-      const size_t off =
-          ((static_cast<size_t>(max(pg, 0)) * ps + k % ps) * Hkv + kh) * D +
-          c * 8;
-      const uint32_t dst = hopper::swz_offset(i, c, CK);
-      hopper::cp_async16(k_s + st * KV_BYTES + dst, kp + off, valid);
-      hopper::cp_async16(v_s + st * KV_BYTES + dst, vp + off, valid);
+      const size_t row =
+          (static_cast<size_t>(max(pg, 0)) * ps + k % ps) * Hkv + kh;
+      const size_t off = row * D + c * EPC;
+      if constexpr (INT8) {
+        const uint32_t dst = st8 + st * 2 * CK * D + i * D + c * 16;
+        hopper::cp_async16(dst, kp + off, valid);
+        hopper::cp_async16(dst + CK * D, vp + off, valid);
+        if (c == 0) {
+          float* sc = sc_s + st * 2 * CK;
+          hopper::cp_async4(hopper::smem_u32(sc + i), ksc + row, valid);
+          hopper::cp_async4(hopper::smem_u32(sc + CK + i), vsc + row, valid);
+        }
+      } else {
+        const uint32_t dst = hopper::swz_offset(i, c, CK);
+        hopper::cp_async16(k_s + st * KV_BYTES + dst, kp + off, valid);
+        hopper::cp_async16(v_s + st * KV_BYTES + dst, vp + off, valid);
+      }
       if (c == 0) {
         kvis_s[st * CK + i] = valid;
         hole |= k <= k_end && !valid;
@@ -748,10 +834,28 @@ __global__ void __launch_bounds__(WG, 1) paged_chunk_wgmma_kernel(
     return hole;
   };
 
-  // tiles 0 .. CNS - 2 in flight; bit st of holes: stage st's tile has one
+  // the int8 rows of stage st as q's 16-bit type into the K and V tiles:
+  // one staged 16-byte chunk (16 values) makes two chunks of the tile
+  auto convert = [&](int st) {
+    const uint8_t* src = chunk_smem + (st8 - base_u32) + st * 2 * CK * D;
+    for (int e = threadIdx.x; e < 2 * CK * CHK; e += WG) {
+      const int kv = e / (CK * CHK), i = (e / CHK) % CK, c = e % CHK;
+      const uint4 w =
+          *reinterpret_cast<const uint4*>(src + kv * CK * D + i * D + c * 16);
+      uint8_t* tile = chunk_smem + ((kv ? v_s : k_s) - base_u32);
+      const uint2 a = i8x4_to_16<BF16>(w.x), b = i8x4_to_16<BF16>(w.y);
+      const uint2 x = i8x4_to_16<BF16>(w.z), y = i8x4_to_16<BF16>(w.w);
+      *reinterpret_cast<uint4*>(tile + hopper::swz_offset(i, 2 * c, CK)) =
+          make_uint4(a.x, a.y, b.x, b.y);
+      *reinterpret_cast<uint4*>(tile + hopper::swz_offset(i, 2 * c + 1, CK)) =
+          make_uint4(x.x, x.y, y.x, y.y);
+    }
+  };
+
+  // tiles 0 .. NS - 2 in flight; bit st of holes: stage st's tile has one
   int holes = 0;
 #pragma unroll
-  for (int st = 0; st < CNS - 1; ++st) {
+  for (int st = 0; st < NS - 1; ++st) {
     if (st < n_kt) holes |= load(st, (kt_lo + st) * CK) << st;
     hopper::cp_async_commit();
   }
@@ -766,17 +870,24 @@ __global__ void __launch_bounds__(WG, 1) paged_chunk_wgmma_kernel(
   const float sl2 = scale * LOG2E;
 
   for (int it = 0; it < n_kt; ++it) {
-    const int st = it % CNS, k0 = (kt_lo + it) * CK;
-    if (it + CNS - 1 < n_kt) {           // the stage freed last iteration
-      const int sn = (it + CNS - 1) % CNS;
-      holes = (holes & ~(1 << sn)) | (load(sn, k0 + (CNS - 1) * CK) << sn);
+    const int st = it % NS, k0 = (kt_lo + it) * CK;
+    if (it + NS - 1 < n_kt) {            // the stage freed last iteration
+      const int sn = (it + NS - 1) % NS;
+      holes = (holes & ~(1 << sn)) | (load(sn, k0 + (NS - 1) * CK) << sn);
     }
     hopper::cp_async_commit();
-    hopper::cp_async_wait<CNS - 1>();    // this tile's group has landed
+    hopper::cp_async_wait<NS - 1>();     // this tile's group has landed
+    if constexpr (INT8) {
+      __syncthreads();                   // every thread's share of it too
+      convert(st);
+    }
     hopper::fence_proxy_async();
     const bool hole = __syncthreads_or((holes >> st) & 1);
 
-    const uint32_t ks = k_s + st * KV_BYTES, vs = v_s + st * KV_BYTES;
+    const uint32_t ks = k_s + (INT8 ? 0 : st * KV_BYTES);
+    const uint32_t vs = v_s + (INT8 ? 0 : st * KV_BYTES);
+    const float* ksc_t = sc_s + st * 2 * CK;   // INT8: this tile's scales
+    const float* vsc_t = ksc_t + CK;
     float s[32];
 #pragma unroll
     for (int i = 0; i < 32; ++i) s[i] = 0.f;
@@ -799,7 +910,8 @@ __global__ void __launch_bounds__(WG, 1) paged_chunk_wgmma_kernel(
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
       const int r = (i >> 1) & 1, kl = 8 * (i >> 2) + col0 + (i & 1);
-      float x = s[i] * sl2;
+      // int8: the key's K scale on its score column, before anything else
+      float x = (INT8 ? s[i] * ksc_t[kl] : s[i]) * sl2;
       if (masked && !(k0 + kl <= qpos[r] && kvis_s[st * CK + kl])) x = NEG_INF;
       s[i] = x;
       mx[r] = fmaxf(mx[r], x);
@@ -818,8 +930,14 @@ __global__ void __launch_bounds__(WG, 1) paged_chunk_wgmma_kernel(
       const int r = (i >> 1) & 1;
       const float p0 = s[i] == NEG_INF ? 0.f : exp2f(s[i] - m[r]);
       const float p1 = s[i + 1] == NEG_INF ? 0.f : exp2f(s[i + 1] - m[r]);
-      l[r] += p0 + p1;
-      pa[i >> 1] = hopper::pack2<BF16>(p0, p1);
+      l[r] += p0 + p1;                   // unscaled p
+      if constexpr (INT8) {              // p times its key's V scale
+        const float2 vs2 = *reinterpret_cast<const float2*>(
+            vsc_t + 8 * (i >> 2) + col0);
+        pa[i >> 1] = hopper::pack2<BF16>(p0 * vs2.x, p1 * vs2.y);
+      } else {
+        pa[i >> 1] = hopper::pack2<BF16>(p0, p1);
+      }
     }
 #pragma unroll
     for (int i = 0; i < ND; ++i) o[i] *= corr[(i >> 1) & 1];
@@ -904,21 +1022,23 @@ cudaError_t launch_split(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int D, bool INT8>
 cudaError_t launch_chunk(const void* q, const void* k, const void* v,
-                         const void* table, const void* pos, void* out,
-                         float* part, float* ml, int B, int Tq, int H,
-                         int Hkv, int ps, int max_pages, int n_split,
-                         float scale, cudaStream_t stream) {
-  auto kern = paged_chunk_wgmma_kernel<T, D>;
-  const size_t smem = chunk_smem_bytes(D, max_pages);
+                         const void* ksc, const void* vsc, const void* table,
+                         const void* pos, void* out, float* part, float* ml,
+                         int B, int Tq, int H, int Hkv, int ps, int max_pages,
+                         int n_split, float scale, cudaStream_t stream) {
+  using KVT = std::conditional_t<INT8, int8_t, T>;
+  auto kern = paged_chunk_wgmma_kernel<T, D, INT8>;
+  const size_t smem = chunk_smem_bytes(D, max_pages, INT8);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((Tq * (H / Hkv) + CQ - 1) / CQ, Hkv, B * n_split);
   kern<<<grid, WG, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const int*>(table),
+      static_cast<const T*>(q), static_cast<const KVT*>(k),
+      static_cast<const KVT*>(v), static_cast<const float*>(ksc),
+      static_cast<const float*>(vsc), static_cast<const int*>(table),
       static_cast<const int*>(pos), static_cast<T*>(out), part, ml, Tq, H,
       Hkv, ps, max_pages, n_split, scale);
   return cudaGetLastError();
@@ -926,20 +1046,28 @@ cudaError_t launch_chunk(const void* q, const void* k, const void* v,
 
 template <typename T>
 cudaError_t launch_chunk_typed(const void* q, const void* k, const void* v,
+                               const void* ksc, const void* vsc,
                                const void* table, const void* pos, void* out,
                                float* part, float* ml, int B, int Tq, int H,
                                int Hkv, int D, int ps, int max_pages,
-                               int n_split, float scale,
+                               int n_split, float scale, bool int8,
                                cudaStream_t stream) {
   // cp.async moves 16-byte chunks: q, pages and out must be 16-byte aligned
+  // (int8 scales move 4 bytes at a time)
   for (const void* p : {q, k, v, static_cast<const void*>(out)})
     if (reinterpret_cast<uintptr_t>(p) % 16 != 0)
       return cudaErrorMisalignedAddress;
+  if (int8 && (reinterpret_cast<uintptr_t>(ksc) % 4 != 0 ||
+               reinterpret_cast<uintptr_t>(vsc) % 4 != 0))
+    return cudaErrorMisalignedAddress;
+#define KUBETPU_ARGS q, k, v, ksc, vsc, table, pos, out, part, ml, B, Tq, H, \
+                     Hkv, ps, max_pages, n_split, scale, stream
   if (D == 64)
-    return launch_chunk<T, 64>(q, k, v, table, pos, out, part, ml, B, Tq, H,
-                               Hkv, ps, max_pages, n_split, scale, stream);
-  return launch_chunk<T, 128>(q, k, v, table, pos, out, part, ml, B, Tq, H,
-                              Hkv, ps, max_pages, n_split, scale, stream);
+    return int8 ? launch_chunk<T, 64, true>(KUBETPU_ARGS)
+                : launch_chunk<T, 64, false>(KUBETPU_ARGS);
+  return int8 ? launch_chunk<T, 128, true>(KUBETPU_ARGS)
+              : launch_chunk<T, 128, false>(KUBETPU_ARGS);
+#undef KUBETPU_ARGS
 }
 
 bool bad_shape(int B, int T, int H, int Hkv, int D, int ps, int max_pages) {
@@ -984,30 +1112,33 @@ extern "C" int kubetpu_paged_attention(
   return static_cast<int>(err);
 }
 
-// The chunk form on the tensor cores (T > 1, window 0, dense f16/bf16
-// pages, D 64 or 128). n_split = 1 writes out; n_split > 1 cuts each row's
-// key tiles into n_split shares and writes f32 partials part (B, T, H,
-// n_split, D) and ml (B, T, H, n_split, 2) for kubetpu_paged_combine.
+// The chunk form on the tensor cores (T > 1, window 0, f16/bf16 q, D 64 or
+// 128) over pages in q's dtype, or with kv_int8 over int8 pages with f32
+// scales k_scale / v_scale (P, ps, Hkv, 1). n_split = 1 writes out;
+// n_split > 1 cuts each row's key tiles into n_split shares and writes f32
+// partials part (B, T, H, n_split, D) and ml (B, T, H, n_split, 2) for
+// kubetpu_paged_combine.
 extern "C" int kubetpu_paged_chunk_wgmma(
-    const void* q, const void* k, const void* v, const void* table,
-    const void* pos, void* out, void* part, void* ml, int B, int T, int H,
-    int Hkv, int D, int ps, int max_pages, int n_split, float scale,
-    int dtype, void* stream) {
+    const void* q, const void* k, const void* v, const void* k_scale,
+    const void* v_scale, const void* table, const void* pos, void* out,
+    void* part, void* ml, int B, int T, int H, int Hkv, int D, int ps,
+    int max_pages, int n_split, float scale, int dtype, int kv_int8,
+    void* stream) {
   if (bad_shape(B, T, H, Hkv, D, ps, max_pages) || T < 2 || n_split < 1 ||
       static_cast<long long>(B) * n_split > 65535 ||
       (dtype != 1 && dtype != 2) || (D != 64 && D != 128) ||
-      (n_split > 1 && (part == nullptr || ml == nullptr)))
+      (n_split > 1 && (part == nullptr || ml == nullptr)) ||
+      (kv_int8 && (k_scale == nullptr || v_scale == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* pt = static_cast<float*>(part);
   float* m = static_cast<float*>(ml);
+#define KUBETPU_ARGS q, k, v, k_scale, v_scale, table, pos, out, pt, m, B, T, \
+                     H, Hkv, D, ps, max_pages, n_split, scale, kv_int8 != 0, s
   return static_cast<int>(
-      dtype == 1 ? launch_chunk_typed<__half>(q, k, v, table, pos, out, pt, m,
-                                              B, T, H, Hkv, D, ps, max_pages,
-                                              n_split, scale, s)
-                 : launch_chunk_typed<__nv_bfloat16>(
-                       q, k, v, table, pos, out, pt, m, B, T, H, Hkv, D, ps,
-                       max_pages, n_split, scale, s));
+      dtype == 1 ? launch_chunk_typed<__half>(KUBETPU_ARGS)
+                 : launch_chunk_typed<__nv_bfloat16>(KUBETPU_ARGS));
+#undef KUBETPU_ARGS
 }
 
 // The decode form's first pass: q is (B, H, D), one query per slot at
@@ -1084,14 +1215,16 @@ extern "C" int kubetpu_paged_combine(const void* part, const void* ml,
 }
 
 // Dynamic shared memory in bytes of one block: route 0 = the SIMT instance
-// at head dim D, 1 = the wgmma chunk instance at head dim D, 2 = the split
+// at head dim D, 1 = the wgmma chunk instance at head dim D over dense
+// pages (3: over int8 pages) for a max_pages-wide table, 2 = the split
 // instance for elem-byte page values at page size ps, split_keys and GQA
 // groups of g; ptxas reports only static shared memory.
 extern "C" int kubetpu_paged_smem_bytes(int route, int D, int elem, int ps,
                                         int max_pages, int split_keys,
                                         int g) {
   if (route == 0) return static_cast<int>(simt_smem_bytes(D));
-  if (route == 1) return static_cast<int>(chunk_smem_bytes(D, max_pages));
+  if (route == 1 || route == 3)
+    return static_cast<int>(chunk_smem_bytes(D, max_pages, route == 3));
   if (route == 2)
     return static_cast<int>(split_smem_bytes(D, elem, ps, split_keys, g));
   return -1;

@@ -26,14 +26,19 @@ Routes, chosen by ``_route(q, k_pages_l, t, window)``:
   ``paged_attention.split_launches`` and ``.combine_launches`` count the
   two. ``paged_attention_split_reference`` is its plain version, for the
   tests.
-- "wgmma" (the chunk form, T > 1 without a window over dense bf16/f16 pages
-  at D 64 or 128): the tensor-core chunk kernel;
-  ``paged_attention.wgmma_launches`` counts it. Where its 64-row blocks
-  would leave SMs idle it cuts each row's keys into up to 4 shares
-  (``_chunk_splits``) and the combine kernel merges them.
-- "simt" (every other call: f32 and int8 chunks, windowed chunks, head
-  dims other than 64/128): the f32 CUDA-core kernel;
-  ``paged_attention.simt_launches`` counts it.
+- "wgmma" (the chunk form, T > 1 without a window, bf16/f16 q at D 64 or
+  128, over dense pages in q's dtype or int8 pages): the tensor-core chunk
+  kernel; ``paged_attention.wgmma_launches`` counts its dense instances,
+  ``.wgmma_int8_launches`` its int8 ones (which convert the int8 tiles to
+  q's dtype in shared memory and apply the scales to the f32 scores and
+  weights). Where its 64-row blocks would leave SMs idle it cuts each
+  row's keys into up to 4 shares (``_chunk_splits``) and the combine
+  kernel merges them.
+- "simt" (every other call: chunks at f32 q or at head dims other than
+  64/128, and decode at head dims that are not multiples of 16): the f32
+  CUDA-core kernel; ``paged_attention.simt_launches`` counts it. The
+  chunk entry point passes no window, so windowed chunks reach no
+  kernel.
 
 The route is dispatch, not a fallback: an instance that refuses a call
 raises, and nothing retries it on another route.
@@ -114,13 +119,14 @@ def _gather(pages_l, safe):
 def _route(q, k_pages_l, t: int, window: int) -> str:
     """The instances that run a call with *t* queries per slot: "split" for
     one query (T = 1) at a head dim that is a multiple of 16, "wgmma" for
-    T > 1 without a window over dense bf16/f16 pages at D 64 or 128, else
+    T > 1 without a window at bf16/f16 q and D 64 or 128, over dense or
+    int8 pages (*k_pages_l* picks the instance, not the route), else
     "simt"."""
     d = q.shape[-1]
     if t == 1:
         return "split" if d % 16 == 0 else "simt"
-    if (window == 0 and not isinstance(k_pages_l, tuple)
-            and q.dtype in (torch.bfloat16, torch.float16) and d in (64, 128)):
+    if (window == 0 and q.dtype in (torch.bfloat16, torch.float16)
+            and d in (64, 128)):
         return "wgmma"
     return "simt"
 
@@ -230,7 +236,7 @@ def _lib():
         lib.kubetpu_paged_attention.argtypes = (
             [ptr] * 8 + [i] * 8 + [ctypes.c_float, i, i, ptr])
         lib.kubetpu_paged_chunk_wgmma.argtypes = (
-            [ptr] * 8 + [i] * 8 + [ctypes.c_float, i, ptr])
+            [ptr] * 10 + [i] * 8 + [ctypes.c_float, i, i, ptr])
         lib.kubetpu_paged_split.argtypes = (
             [ptr] * 9 + [i] * 7 + [ctypes.c_float, i, i, i, ptr])
         lib.kubetpu_paged_combine.argtypes = [ptr] * 3 + [i] * 4 + [ptr]
@@ -271,11 +277,14 @@ def _chunk_splits(q, h_kv: int) -> int:
     return max(1, min(4, 2 * _SM_COUNT[dev] // blocks))
 
 
-def _launch_chunk(q, k_pages, v_pages, table, pos):
-    """out (B, T, H, D): the wgmma chunk kernel, and with a key split the
-    combine kernel after it (CUDA tensors only)."""
+def _launch_chunk(q, k_pages_l, v_pages_l, table, pos):
+    """out (B, T, H, D): the wgmma chunk kernel (its int8 instance over an
+    int8 pool), and with a key split the combine kernel after it (CUDA
+    tensors only)."""
+    kv, ksc = _pages(k_pages_l)
+    vv, vsc = _pages(v_pages_l)
     b, t, h, d = q.shape
-    h_kv = k_pages.shape[2]
+    h_kv = kv.shape[2]
     n = _chunk_splits(q, h_kv)
     out = torch.empty_like(q)
     part = ml = None
@@ -285,14 +294,19 @@ def _launch_chunk(q, k_pages, v_pages, table, pos):
         ml = torch.empty((b, t, h, n, 2), dtype=torch.float32,
                          device=q.device)
     rc = _lib().kubetpu_paged_chunk_wgmma(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        q.data_ptr(), kv.data_ptr(), vv.data_ptr(),
+        ksc.data_ptr() if ksc is not None else None,
+        vsc.data_ptr() if vsc is not None else None,
         table.data_ptr(), pos.data_ptr(), out.data_ptr(),
         part.data_ptr() if n > 1 else None, ml.data_ptr() if n > 1 else None,
-        b, t, h, h_kv, d, k_pages.shape[1], table.shape[1], n,
-        float(d ** -0.5), _DTYPE_CODE[q.dtype],
+        b, t, h, h_kv, d, kv.shape[1], table.shape[1], n,
+        float(d ** -0.5), _DTYPE_CODE[q.dtype], int(ksc is not None),
         torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(rc, "(wgmma)")
-    paged_attention.wgmma_launches += 1
+    if ksc is None:
+        paged_attention.wgmma_launches += 1
+    else:
+        paged_attention.wgmma_int8_launches += 1
     if n > 1:
         _launch_combine(part, ml, out)
     return out
@@ -389,4 +403,5 @@ paged_attention.launches = 0
 paged_attention.split_launches = 0
 paged_attention.combine_launches = 0
 paged_attention.wgmma_launches = 0
+paged_attention.wgmma_int8_launches = 0
 paged_attention.simt_launches = 0

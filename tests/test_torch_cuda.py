@@ -57,7 +57,7 @@ def _case(dev, dtype, int8, b, t, h, h_kv, d, ps, ctx_end, holes=True,
 
 
 _PAGED_COUNTERS = ("launches", "split_launches", "combine_launches",
-                   "wgmma_launches", "simt_launches")
+                   "wgmma_launches", "wgmma_int8_launches", "simt_launches")
 
 
 def _paged_counts():
@@ -66,11 +66,13 @@ def _paged_counts():
 
 def _expected_moves(case, route):
     """How each of _PAGED_COUNTERS moves for one call on *route*: the
-    wgmma chunk kernel is followed by a combine where it splits keys."""
+    wgmma chunk kernel (its dense or its int8 instance, by the pool) is
+    followed by a combine where it splits keys."""
     if route == "wgmma":
-        kp = case[1]
-        return (1, 0, int(pa._chunk_splits(case[0], kp.shape[2]) > 1), 1, 0)
-    return {"split": (1, 1, 1, 0, 0), "simt": (1, 0, 0, 0, 1)}[route]
+        kv, ksc = pa._pages(case[1])
+        combine = int(pa._chunk_splits(case[0], kv.shape[2]) > 1)
+        return (1, 0, combine, int(ksc is None), int(ksc is not None), 0)
+    return {"split": (1, 1, 1, 0, 0, 0), "simt": (1, 0, 0, 0, 0, 1)}[route]
 
 
 def _run_paged(case, window, route):
@@ -102,16 +104,16 @@ def _run_paged(case, window, route):
                          ids=["gqa4_d128", "mha_d64", "mqa_d256"])
 def test_kernel_matches_plain_version(cuda, dtype, form, geom):
     """Every form on its route: decode (plain, windowed, int8) on the split
-    route; dense bf16/f16 chunks at D 64/128 on the wgmma route; f32 and
-    int8 chunks and D 256 chunks on SIMT."""
+    route; bf16/f16 chunks at D 64/128 on the wgmma route, over dense and
+    int8 pages; f32 chunks and D 256 chunks on SIMT."""
     h, h_kv, d, ps = geom
     t = 37 if form.startswith("chunk") else 1
     ctx = [200, 77, 1 + t, 150] if t > 1 else [200, 77, 1, 150]
     case = _case(cuda, dtype, "int8" in form, 4, t, h, h_kv, d, ps, ctx)
     window = 24 if form == "window" else 0
     route = ("split" if t == 1 else
-             "wgmma" if form == "chunk" and dtype != torch.float32
-             and d in (64, 128) else "simt")
+             "wgmma" if dtype != torch.float32 and d in (64, 128)
+             else "simt")
     out = _run_paged(case, window, route)
     assert torch.all(out[-1] == 0)
 
@@ -151,6 +153,17 @@ _ROUTE_CASES = {
                             [1000, 530, 1, 270], 300),
     "window_int8": (torch.bfloat16, True, 4, 1, 8, 8, 128, 16,
                     [1000, 530, 1, 270], 200),
+    # int8 chunks on the wgmma route's int8 instance: T 2 and 9 (one
+    # 64-row block a kv head, 4 key shares) and T 256 (2 shares at g 1,
+    # 4 at g 4); f16 at g 4 over 12-token pages, and bf16
+    "int8_chunk_T2_g4_ps12": (torch.float16, True, 4, 2, 8, 2, 64, 12,
+                              [1303, 260, 101, 40], 0),
+    "int8_chunk_T9_g4_ps12": (torch.float16, True, 4, 9, 8, 2, 128, 12,
+                              [1303, 260, 101, 40], 0),
+    "int8_chunk_T256_g4_ps12": (torch.float16, True, 2, 256, 8, 2, 128, 12,
+                                [1024, 300], 0),
+    "int8_chunk_T256_bf16_g1": (torch.bfloat16, True, 2, 256, 16, 16, 128,
+                                16, [1024, 300], 0),
 }
 
 
@@ -275,8 +288,14 @@ _SHARED_CASES = {
     "wgmma_bf16_flagship": (torch.bfloat16, False, 64, 16, 16, 128, 16, 64,
                             [64, 64]),
     "wgmma_f16_gqa": (torch.float16, False, 37, 8, 2, 64, 8, 5, [37, 37]),
-    "simt_int8": (torch.bfloat16, True, 48, 8, 2, 128, 16, 64, [48, 48]),
+    "wgmma_int8": (torch.bfloat16, True, 48, 8, 2, 128, 16, 64, [48, 48]),
+    "wgmma_int8_flagship": (torch.bfloat16, True, 64, 16, 16, 128, 16, 64,
+                            [64, 64]),
     "simt_f32": (torch.float32, False, 21, 4, 2, 64, 8, 3, [21, 21]),
+    # int8 pools on the SIMT route: f32 q, and a head dim of 256
+    "simt_int8_f32": (torch.float32, True, 21, 4, 2, 64, 8, 3, [21, 21]),
+    "simt_int8_d256": (torch.bfloat16, True, 48, 4, 1, 256, 16, 8,
+                       [48, 48]),
 }
 
 
@@ -461,6 +480,13 @@ def test_wgmma_route_raises_and_never_falls_back(cuda):
     kp_off = flat[1:].view(kp.shape)
     with pytest.raises(RuntimeError, match="split"):
         pa.paged_attention(q[:, 0].contiguous(), kp_off, vp, table, pos)
+    # the int8 instance: int8 values 1 byte off their 16-byte alignment
+    _, k8, v8, _, _ = _case(cuda, torch.bfloat16, True, 2, 64, 4, 4, 64, 16,
+                            [300, 90])
+    flat = torch.zeros(k8[0].numel() + 1, device=cuda, dtype=torch.int8)
+    k8_off = (flat[1:].view(k8[0].shape), k8[1])
+    with pytest.raises(RuntimeError, match="\\(wgmma\\)"):
+        pa.paged_attention_chunk(q, k8_off, v8, table, pos)
     torch.cuda.synchronize()
     assert _paged_counts() == before
 

@@ -175,8 +175,9 @@ def test_split_reference_chunk_form_matches_pallas():
 def test_route_pins_the_instances_for_each_form(dtype, d):
     """Decode (T = 1) takes the split route at every dtype, int8 or not,
     windowed or not, when D is a multiple of 16; a chunk (T > 1) takes the
-    tensor-core route only without a window over dense bf16/f16 pages at
-    D 64 or 128; everything else takes SIMT."""
+    tensor-core route without a window at bf16/f16 q and D 64 or 128, over
+    dense pages and int8 pages alike; everything else (f32 q, other head
+    dims, windows) takes SIMT."""
     q = torch.zeros((1, 1, 2, d), dtype=dtype)
     dense = torch.zeros((2, 4, 2, d), dtype=dtype)
     int8 = (torch.zeros((2, 4, 2, d), dtype=torch.int8),
@@ -186,7 +187,7 @@ def test_route_pins_the_instances_for_each_form(dtype, d):
             assert tops._route(q, pages, 1, window) == (
                 "split" if d % 16 == 0 else "simt")
             for t in (2, 37, 256):
-                wgmma = (pages is dense and window == 0 and d in (64, 128)
+                wgmma = (window == 0 and d in (64, 128)
                          and dtype != torch.float32)
                 assert tops._route(q, pages, t, window) == (
                     "wgmma" if wgmma else "simt")
