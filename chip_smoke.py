@@ -59,6 +59,27 @@ Phases, one line each, any failure exits non-zero:
    640-1024 tokens, 256 new tokens each. Gates: pages in use never above
    8 x 33, first-token logits within 0.25 of the dense windowed forward,
    no windowed chunk on a kernel;
+12. wire (runs after phase 9; its servers are freed before phase 10): the
+   flagship behind the port's own ``ReplicaServer``s, two in this process
+   on ``127.0.0.1:0`` sharing the one model, phase 6's server settings and
+   prompts. Arms: routed (8 generates, serially over ``POST /generate``;
+   tokens equal a quiet direct serial run on a fresh server); fork over a
+   bf16 and an int8 pool (8 streams mid-decode on A, each frozen,
+   snapshot, through the codec, restored on B and unfrozen; B's pages
+   byte-identical to A's, pos and last equal, then both run to the end
+   with equal tokens); drain (8 concurrent generates on A, ``POST /drain
+   {"migrate_to": B}`` once all are mid-decode: every generate answers
+   409 -> B, B finishes each with all 32 tokens, A's pool ends free; the
+   drain's wall time, MB shipped, MB/s and the handoff gap against the
+   ITL); prefix (phase 8's storm shape, B's tree warm on the system
+   prompt: ``migrate_rid`` remaps >= 64 pages a stream and ships the rest;
+   the bytes beside a cold target's); disagg (A ``role="prefill"``, B
+   ``role="decode"``: 4 prompts of 1024 tokens, tokens equal the quiet
+   run, every handoff committed, the overlap fraction and the TTFTs). In
+   the drain and prefix arms a gate parks A's step loop once its streams
+   are mid-decode, so the handoff always finds them in flight. The paged
+   counters are zeroed before and read after the phase: split and wgmma
+   (dense and int8) must have run, SIMT not;
 10. train parity: the small f32 model trained three steps on the CPU (plain
    versions) and on the card (flash kernels) from the same weights and
    batches — first-step gradients and per-step losses agree;
@@ -68,12 +89,12 @@ Phases, one line each, any failure exits non-zero:
    zeroed just before and must read 24 / 12 / 12 per step just after, and
    the wgmma counters 24 forward, 12 dQ and 12 dK/dV),
    then ten steps on one repeated batch, whose loss must fall;
-12. train profile: ``torch.profiler`` over one training step — device busy
+13. train profile: ``torch.profiler`` over one training step — device busy
    time, idle share, the attention kernels' share, the top kernels;
-13. the ``kernels`` JSON line, 8 kernels (launches: the paged split,
+14. the ``kernels`` JSON line, 8 kernels (launches: the paged split,
    combine and wgmma chunk kernels' — dense and int8 instances — over
-   phases 6, 8 and 9, the SIMT chunk's over phase 5, the flash kernels'
-   over phase 11's timed steps), then the result line.
+   phases 6, 8, 9 and 12, the SIMT chunk's over phase 5, the flash
+   kernels' over phase 11's timed steps), then the result line.
 
 Nothing of JAX or of the ``kubetpu`` package is imported. ``--record PATH``
 also writes every measured number as one JSON file.
@@ -1303,6 +1324,468 @@ def phase_profile(server) -> dict:
     return row
 
 
+# -- phase 12: the paged server on the wire ----------------------------------
+
+WIRE_NEW = 32        # new tokens a request, phase 6's
+
+
+def _wire_server(model, cfg, **kw):
+    """A flagship server with phase 6's settings, on the model's device."""
+    from kubetpu_torch.jobs.paged import PagedDecodeServer
+
+    return PagedDecodeServer(cfg, model, n_slots=8, max_seq=2048,
+                             max_new_tokens=WIRE_NEW, page_size=16,
+                             prefill_budget=256,
+                             device=next(model.parameters()).device, **kw)
+
+
+def _serial(server, prompts) -> list:
+    """The quiet reference: each prompt alone on *server*, to the end."""
+    out = []
+    for p in prompts:
+        rid = server.enqueue(p)
+        server.drain()
+        out.append(server.pop_result(rid))
+    server.check_invariants()
+    return out
+
+
+def _stamp(server) -> dict:
+    """Host perf stamps of each request's emissions on *server* (wrapping
+    ``_obs_tokens``), its TTFT (first emission - arrival), and the rid of
+    each enqueued prompt."""
+    st = {"emits": {}, "ttft": {}, "rid": {}}
+    obs, enqueue = server._obs_tokens, server.enqueue
+
+    def stamped(rid, n):
+        now = time.perf_counter()
+        if rid not in st["emits"] and rid in server._arrive:
+            st["ttft"][rid] = now - server._arrive[rid]
+        st["emits"].setdefault(rid, []).append(now)
+        return obs(rid, n)
+
+    def enqueued(prompt, *a, **kw):
+        rid = enqueue(prompt, *a, **kw)
+        st["rid"][tuple(prompt)] = rid
+        return rid
+
+    server._obs_tokens, server.enqueue = stamped, enqueued
+    return st
+
+
+def _gaps(stamps) -> list:
+    """Every inter-token gap (ms) in *stamps*' emission lists, the first
+    token's (it lands with the admission step's decode token) left out."""
+    return [(b - a) * 1e3 for ts in stamps for a, b in zip(ts[1:], ts[2:])]
+
+
+class _Hold:
+    """Gate a replica's step loop for a handoff arm: it steps nothing until
+    *count* requests have arrived (so they are admitted together, in one
+    order, however the handler threads were scheduled), then runs until
+    each is migratable with at least 3 tokens, and from then on steps
+    nothing again. A parked step waits on the replica's condition
+    (releasing it) and advances nothing, so a handoff started after
+    ``wait()`` finds every stream mid-flight, and none decodes on the
+    source meanwhile."""
+
+    def __init__(self, rep, count: int) -> None:
+        import threading
+
+        self.rep, self.count = rep, count
+        self.arrived = False
+        self.held = threading.Event()
+        self._step = rep.server.step
+        rep.server.step = self._gated
+
+    def _gated(self):
+        srv = self.rep.server
+        self.arrived = (self.arrived
+                        or len(srv.unfinished_rids()) >= self.count)
+        if not self.arrived or self.held.is_set() or sum(
+                len(srv._emitted.get(r, ())) >= 3
+                for r in srv.migratable_rids()) >= self.count:
+            if self.arrived:
+                self.held.set()
+            self.rep._cv.wait(timeout=0.005)
+            return {}
+        return self._step()
+
+    def wait(self, what: str) -> None:
+        if not self.held.wait(300):
+            raise SystemExit(f"wire {what}: streams never reached "
+                             f"mid-decode")
+
+
+def _generate(addr, prompt, key, **extra) -> tuple:
+    """POST /generate -> (code, body): a 409's body too."""
+    import urllib.error
+
+    from kubetpu_torch.wire.httpcommon import RetryPolicy, request_json
+
+    try:
+        return 200, request_json(
+            addr + "/generate", {"prompt": prompt, "timeout": 600, **extra},
+            idempotency_key=key, timeout=600,
+            retry=RetryPolicy(attempts=1, deadline=600.0))
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read() or b"{}")
+
+
+def _generate_all(addr, prompts, tag) -> list:
+    """The prompts' generates posted concurrently -> [(code, body)]."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(len(prompts)) as pool:
+        return list(pool.map(
+            lambda ip: _generate(addr, ip[1], f"{tag}-{ip[0]}"),
+            enumerate(prompts)))
+
+
+def _chase(owner, prompts, tag, answers) -> list:
+    """Each 409 of *answers* names *owner*: the same keys at the owner
+    adopt the migrated streams -> their tokens."""
+    out = []
+    for i, (p, (code, body)) in enumerate(zip(prompts, answers)):
+        if code != 409 or body["migrated"]["replica"] != owner.name:
+            raise SystemExit(f"wire {tag}: request {i} answered {code} "
+                             f"{str(body)[:200]}, not 409 -> {owner.name}")
+        code, body = _generate(owner.address, p, f"{tag}-{i}")
+        if code != 200:
+            raise SystemExit(f"wire {tag}: the owner answered {code} "
+                             f"{str(body)[:200]}")
+        out.append(body["tokens"])
+    return out
+
+
+def _stop(*reps) -> None:
+    for rep in reps:
+        rep.shutdown(graceful=False)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def _counter(server, name, **labels) -> float:
+    return server.obs.counter(name, **labels).value
+
+
+def _wire_routed(model, cfg, prompts, quiet, smi) -> dict:
+    """8 generates, serially over POST /generate to one replica."""
+    from kubetpu_torch.router import ReplicaServer
+
+    a = _wire_server(model, cfg)
+    a.warmup()
+    st = _stamp(a)
+    rep = ReplicaServer(a, "wire-a", idle_wait=0.002)
+    rep.start()
+    walls, tokens = [], []
+    for i, p in enumerate(prompts):
+        t0 = time.perf_counter()
+        code, body = _generate(rep.address, p, f"routed-{i}")
+        walls.append((time.perf_counter() - t0) * 1e3)
+        if code != 200:
+            raise SystemExit(f"wire routed: {code} {str(body)[:200]}")
+        tokens.append(body["tokens"])
+    with rep._cv:
+        a.check_invariants()
+    _stop(rep)
+    ttft = [st["ttft"][st["rid"][tuple(p)]] * 1e3 for p in prompts]
+    row = dict(arm="routed", card=torch.cuda.get_device_name(0),
+               nvidia_smi=smi, requests=len(prompts),
+               tokens_equal_quiet=tokens == quiet,
+               ttft_ms=ttft, ttft_ms_p50=float(np.median(ttft)),
+               request_ms=walls, itl_ms_p50=float(np.median(
+                   _gaps(st["emits"].values()))))
+    line("wire", **row)
+    if tokens != quiet:
+        raise SystemExit("wire routed: routed tokens differ from the quiet "
+                         "serial run's")
+    return row
+
+
+def _live_pages(server, rid) -> dict:
+    slot = server._slot_rid.index(rid)
+    n = server._pages_needed(int(server.pos[slot]) + 1)
+    return server._gather_phys_pages(server._table[slot, :n])
+
+
+def _wire_fork(model, cfg, prompts, smi, arm, **kw) -> dict:
+    """8 streams mid-decode on A, each forked onto B through the codec
+    (freeze, snapshot, encode, decode, restore, unfreeze); then both
+    servers run to the end."""
+    from kubetpu_torch.router.migration import (decode_snapshot,
+                                                encode_snapshot)
+
+    a, b = _wire_server(model, cfg, **kw), _wire_server(model, cfg, **kw)
+    rids = [a.enqueue(p) for p in prompts]
+    for _ in range(200):
+        ready = set(a.migratable_rids())
+        if all(r in ready and len(a._emitted[r]) >= 3 for r in rids):
+            break
+        a.step()
+    if not all(r in a.migratable_rids() for r in rids):
+        raise SystemExit(f"wire {arm}: streams never all mid-decode")
+    times = {k: 0.0 for k in ("snapshot", "encode", "decode", "restore")}
+    nbytes, identical, state_equal, pairs = 0, True, True, []
+    for r in sorted(rids, key=a._slot_rid.index):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        a.freeze_slot(r)
+        snap = a.snapshot_slot(r, allow_frozen=True)
+        t1 = time.perf_counter()
+        meta, blob = encode_snapshot(snap)
+        t2 = time.perf_counter()
+        back = decode_snapshot(meta, blob)
+        t3 = time.perf_counter()
+        rb = b.restore_slot(back)
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        a.unfreeze_slot(r)
+        if rb is None:
+            raise SystemExit(f"wire {arm}: B had no room for stream {r}")
+        for k, dt in zip(times, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+            times[k] += dt
+        nbytes += len(blob)
+        pa_, pb = _live_pages(a, r), _live_pages(b, rb)
+        identical &= all(torch.equal(pa_[n], pb[n]) for n in pa_)
+        sa, sb = a._slot_rid.index(r), b._slot_rid.index(rb)
+        state_equal &= (int(a.pos[sa]) == int(b.pos[sb])
+                        and int(a.last[sa]) == int(b.last[sb]))
+        pairs.append((r, rb))
+    a.drain()
+    b.drain()
+    a.check_invariants()
+    b.check_invariants()
+    equal = [a.result(r) == b.result(rb) for r, rb in pairs]
+    full = all(len(a.result(r)) == len(a._prompts[r]) + WIRE_NEW
+               for r, _ in pairs)
+    n = len(pairs)
+    row = dict(arm=arm, card=torch.cuda.get_device_name(0), nvidia_smi=smi,
+               streams=n, pages_byte_identical=identical,
+               pos_last_equal=state_equal, tokens_equal=sum(equal),
+               mb_per_stream=nbytes / n / 1e6,
+               **{f"{k}_ms_per_stream": v / n * 1e3
+                  for k, v in times.items()},
+               snapshot_mb_s=nbytes / times["snapshot"] / 1e6,
+               restore_mb_s=nbytes / times["restore"] / 1e6)
+    line("wire", **row)
+    if not (identical and state_equal and all(equal) and full):
+        raise SystemExit(f"wire {arm}: the fork is not exact: {row}")
+    del a, b
+    torch.cuda.empty_cache()
+    return row
+
+
+def _wire_drain(model, cfg, prompts, quiet, smi) -> dict:
+    """8 concurrent streams on A; POST /drain {"migrate_to": B} once they
+    are mid-decode; every generate on A answers 409 -> B, and B finishes
+    each stream with all its tokens."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from kubetpu_torch.router import ReplicaServer
+    from kubetpu_torch.wire.httpcommon import request_json
+
+    a, b = _wire_server(model, cfg), _wire_server(model, cfg)
+    sa, sb = _stamp(a), _stamp(b)
+    rep_a = ReplicaServer(a, "wire-a", idle_wait=0.002)
+    rep_b = ReplicaServer(b, "wire-b", idle_wait=0.002)
+    hold = _Hold(rep_a, len(prompts))
+    rep_a.start()
+    rep_b.start()
+    with ThreadPoolExecutor(1) as pool:
+        fut = pool.submit(_generate_all, rep_a.address, prompts, "drain")
+        hold.wait("drain")
+        itl_before = float(np.median(_gaps(sa["emits"].values())))
+        t0 = time.perf_counter()
+        request_json(rep_a.address + "/drain",
+                     {"migrate_to": rep_b.address, "reason": "scale_down"},
+                     timeout=60)
+        with rep_a._cv:
+            if not rep_a._cv.wait_for(a._idle, timeout=600):
+                raise SystemExit("wire drain: A never went idle")
+        drain_s = time.perf_counter() - t0
+        answers = fut.result(timeout=600)
+    tokens = _chase(rep_b, prompts, "drain", answers)
+    full = [len(t) == len(p) + WIRE_NEW for t, p in zip(tokens, prompts)]
+    with rep_a._cv:
+        a_free = len(a._free) == a.pool_pages
+        a.check_invariants()
+    with rep_b._cv:
+        b.check_invariants()
+    shipped = _counter(a, "kubetpu_migration_bytes_shipped_total")
+    committed = _counter(a, "kubetpu_migrations_total", reason="scale_down",
+                         result="committed")
+    gaps, b_gaps = [], []
+    for (code, body), p in zip(answers, prompts):
+        ra, rb = sa["rid"][tuple(p)], body["migrated"]["rid"]
+        ts = sb["emits"][rb]
+        gaps.append((ts[0] - sa["emits"][ra][-1]) * 1e3)
+        b_gaps += [(y - x) * 1e3 for x, y in zip(ts, ts[1:])]
+    _stop(rep_a, rep_b)
+    row = dict(arm="drain", card=torch.cuda.get_device_name(0),
+               nvidia_smi=smi, streams=len(prompts),
+               migrated=int(committed), answered_409=len(tokens),
+               tokens_full=sum(full), tokens_equal_quiet=sum(
+                   t == q for t, q in zip(tokens, quiet)),
+               a_pool_all_free=a_free, drain_ms=drain_s * 1e3,
+               mb_shipped=shipped / 1e6,
+               mb_s=shipped / 1e6 / drain_s,
+               itl_ms_p50_on_a=itl_before,
+               itl_ms_p50_on_b=float(np.median(b_gaps)),
+               handoff_gap_ms_max=max(gaps),
+               handoff_gap_ms_p50=float(np.median(gaps)),
+               handoff_gap_ms=gaps)
+    line("wire", **row)
+    if not (all(full) and a_free and committed == len(prompts)):
+        raise SystemExit(f"wire drain: {row}")
+    return row
+
+
+def _wire_prefix(model, cfg, smi) -> dict:
+    """Phase 8's storm shape: B's tree warm on a 1024-token system prompt;
+    4 streams of it + 64-token tails mid-decode on A, each handed to B by
+    migrate_rid: only the uncached suffix crosses the wire."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from kubetpu_torch.router import ReplicaServer
+    from kubetpu_torch.router.migration import encode_snapshot
+
+    rng = np.random.default_rng(12)
+    sys_prompt = rng.integers(1, cfg.vocab, 1024).tolist()
+    prompts = [sys_prompt + rng.integers(1, cfg.vocab, 64).tolist()
+               for _ in range(5)]
+    kw = dict(prefix_cache_pages=128, n_pages=8 * 128 + 128)
+    quiet = _serial(_wire_server(model, cfg), prompts[1:])
+    a, b = _wire_server(model, cfg, **kw), _wire_server(model, cfg, **kw)
+    rep_a = ReplicaServer(a, "wire-pa", idle_wait=0.002)
+    rep_b = ReplicaServer(b, "wire-pb", idle_wait=0.002)
+    hold = _Hold(rep_a, 4)
+    rep_a.start()
+    rep_b.start()
+    code, body = _generate(rep_b.address, prompts[0], "prefix-warm")
+    if code != 200:
+        raise SystemExit(f"wire prefix: warming B answered {code}")
+    with ThreadPoolExecutor(1) as pool:
+        fut = pool.submit(_generate_all, rep_a.address, prompts[1:],
+                          "prefix")
+        hold.wait("prefix")
+        with rep_a._cv:
+            rids = a.migratable_rids()
+            full = {r: len(encode_snapshot(
+                {"pages": a.snapshot_slot(r)["pages"]})[1]) for r in rids}
+        shipped, ms = {}, {}
+        for r in rids:
+            before = _counter(a, "kubetpu_migration_bytes_shipped_total")
+            t0 = time.perf_counter()
+            if not rep_a.migrate_rid(r, rep_b.address, reason="prefix"):
+                raise SystemExit(f"wire prefix: stream {r} did not move")
+            ms[r] = (time.perf_counter() - t0) * 1e3
+            shipped[r] = _counter(
+                a, "kubetpu_migration_bytes_shipped_total") - before
+        answers = fut.result(timeout=600)
+    tokens = _chase(rep_b, prompts[1:], "prefix", answers)
+    remapped = [e["pages_remapped"]
+                for e in b.events.events(kind="migrate_in")]
+    with rep_b._cv:
+        b.check_invariants()
+    _stop(rep_a, rep_b)
+    row = dict(arm="prefix", card=torch.cuda.get_device_name(0),
+               nvidia_smi=smi, streams=len(rids),
+               pages_remapped=remapped,
+               mb_shipped=[shipped[r] / 1e6 for r in rids],
+               mb_cold=[full[r] / 1e6 for r in rids],
+               migrate_ms=[ms[r] for r in rids],
+               tokens_equal_quiet=sum(t == q for t, q in zip(tokens, quiet)))
+    line("wire", **row)
+    if len(remapped) != 4 or min(remapped) < 64:
+        raise SystemExit(f"wire prefix: remapped {remapped}, want >= 64 "
+                         f"pages a stream")
+    return row
+
+
+def _wire_disagg(model, cfg, smi) -> dict:
+    """A prefill replica and a decode replica: 4 prompts of 1024 tokens,
+    posted serially with B as the decode target; A streams the completed
+    spans while later chunks compute and hands off at the first token."""
+    from kubetpu_torch.router import ReplicaServer
+
+    rng = np.random.default_rng(13)
+    prompts = [rng.integers(0, cfg.vocab, 1024).tolist() for _ in range(4)]
+    quiet = _serial(_wire_server(model, cfg), prompts)
+    a, b = _wire_server(model, cfg), _wire_server(model, cfg)
+    a.warmup()
+    sa, sb = _stamp(a), _stamp(b)
+    rep_a = ReplicaServer(a, "wire-pre", role="prefill", idle_wait=0.002)
+    rep_b = ReplicaServer(b, "wire-dec", role="decode", idle_wait=0.002)
+    rep_a.start()
+    rep_b.start()
+    walls, tokens, first_b = [], [], []
+    for i, p in enumerate(prompts):
+        t0 = time.perf_counter()
+        answer = _generate(rep_a.address, p, f"disagg{i}-0",
+                           decode_target=rep_b.address,
+                           decode_name=rep_b.name)
+        tokens += _chase(rep_b, [p], f"disagg{i}", [answer])
+        walls.append((time.perf_counter() - t0) * 1e3)
+        first_b.append(
+            (sb["emits"][answer[1]["migrated"]["rid"]][0] - t0) * 1e3)
+    committed = _counter(a, "kubetpu_handoffs_total", result="committed")
+    overlap = (rep_a._handoff_early_bytes / rep_a._handoff_bytes
+               if rep_a._handoff_bytes else 0.0)
+    ttft_a = [sa["ttft"][sa["rid"][tuple(p)]] * 1e3 for p in prompts]
+    with rep_a._cv:
+        a.check_invariants()
+    with rep_b._cv:
+        b.check_invariants()
+    _stop(rep_a, rep_b)
+    row = dict(arm="disagg", card=torch.cuda.get_device_name(0),
+               nvidia_smi=smi, requests=len(prompts),
+               handoffs_committed=int(committed),
+               tokens_equal_quiet=tokens == quiet,
+               handoff_overlap_frac=overlap,
+               handoff_mb=rep_a._handoff_bytes / 1e6,
+               ttft_ms_on_prefill=ttft_a,
+               first_decode_token_ms_on_b=first_b, request_ms=walls)
+    line("wire", **row)
+    if tokens != quiet or committed != len(prompts):
+        raise SystemExit(f"wire disagg: {row}")
+    return row
+
+
+def phase_wire(model, cfg, smi, launches) -> dict:
+    """The port's main path through its own replica wire, at full width.
+    The paged launch counters are zeroed just before and read just after,
+    and added to *launches*; the phase's servers run the split, combine
+    and wgmma chunk kernels (dense and int8), never SIMT."""
+    from kubetpu_torch.ops import paged_attention as pa
+
+    rng = np.random.default_rng(0)
+    rng.integers(0, cfg.vocab, 40)        # phase 6's warm-up prompt's draw
+    lengths = [128, 1024, 256, 896, 384, 768, 512, 640]
+    prompts = [rng.integers(0, cfg.vocab, n).tolist() for n in lengths]
+    torch.cuda.synchronize()
+    for c in _PAGED_COUNTERS:
+        setattr(pa.paged_attention, c, 0)
+    t0 = time.perf_counter()
+    quiet = _serial(_wire_server(model, cfg), prompts)
+    rows = {"routed": _wire_routed(model, cfg, prompts, quiet, smi)}
+    for arm, kw in (("fork_bf16", {}), ("fork_int8", {"kv_int8": True})):
+        rows[arm] = _wire_fork(model, cfg, prompts, smi, arm, **kw)
+    rows["drain"] = _wire_drain(model, cfg, prompts, quiet, smi)
+    rows["prefix"] = _wire_prefix(model, cfg, smi)
+    rows["disagg"] = _wire_disagg(model, cfg, smi)
+    torch.cuda.synchronize()
+    counts = {c: getattr(pa.paged_attention, c) for c in _PAGED_COUNTERS}
+    for c, n in counts.items():
+        launches[c] = launches.get(c, 0) + n
+    rows.update(seconds=time.perf_counter() - t0, paged_launches=counts)
+    line("wire_launches", seconds=rows["seconds"], **counts)
+    if (counts["split_launches"] <= 0 or counts["wgmma_launches"] <= 0
+            or counts["wgmma_int8_launches"] <= 0 or counts["simt_launches"]):
+        raise SystemExit(f"wire: paged launches {counts}")
+    return rows
+
+
 # -- phase 10: the training step, CPU plain versions vs the card's kernels ---
 
 TRAIN_TOL = 1e-4     # f32 on both sides: summation order only
@@ -1503,17 +1986,20 @@ def main(argv) -> int:
     model, cfg = server.params, server.cfg
     del server
     torch.cuda.empty_cache()
-    # the paged launches of every main-path phase: serve, prefix, window
+    # the paged launches of every main-path phase: serve, prefix, window,
+    # wire
     paged_launches = dict(serve["paged_launches"])
     prefix = phase_prefix(model, cfg, dev["nvidia_smi"], paged_launches)
     window = phase_window(model, cfg, dev["nvidia_smi"], paged_launches)
+    wire = phase_wire(model, cfg, dev["nvidia_smi"], paged_launches)
     del model
     torch.cuda.empty_cache()
     train_parity = phase_train_parity()
     train, state, step, repeat = phase_train(dev["nvidia_smi"])
     train_prof = phase_train_profile(state, step, repeat)
 
-    # the paged kernels at the main path's cases: the split and combine
+    # the paged kernels at the main path's cases (launches: phases 6, 8, 9
+    # and 12; the SIMT chunk's: phase 5): the split and combine
     # kernels at decode_bf16 (max_abs_err over every decode case), the
     # chunk kernel's dense instance at chunk_bf16_T256 (max_abs_err over
     # both dense wgmma cases), its int8 instance at the int8 storm arm's
@@ -1600,6 +2086,7 @@ def main(argv) -> int:
     record = {"device": dev, "build": build, "kernel_cases": kern,
               "flash_cases": flash, "parity": parity, "serve": serve,
               "profile": prof, "prefix": prefix, "window": window,
+              "wire": wire,
               "main_path_paged_launches": paged_launches,
               "train_parity": train_parity,
               "train": train, "train_profile": train_prof,

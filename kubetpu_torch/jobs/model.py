@@ -129,6 +129,39 @@ class ModelConfig:
         return self.n_kv_heads or self.n_heads
 
 
+
+# The JAX package's ModelConfig, field by field in its order
+# (kubetpu/jobs/model.py:33-105), with the defaults of the fields the port
+# does not have, and its dtypes as that dataclass prints them: a migration
+# snapshot carries the config in that form, so both packages' servers
+# compare one string.
+_REFERENCE_FIELDS = (
+    "vocab", "d_model", "n_layers", "n_heads", "d_ff", "max_seq",
+    "rope_theta", "dtype", "remat", "remat_policy", "n_experts",
+    "moe_capacity_factor", "moe_aux_coeff", "moe_top_k", "loss_chunk",
+    "label_smoothing", "z_loss", "window", "rope_llama3_scaling",
+    "n_kv_heads")
+_REFERENCE_ONLY = {"moe_capacity_factor": 0.0, "moe_aux_coeff": 0.0,
+                   "moe_top_k": 1}
+_REFERENCE_DTYPES = {torch.float32: "float32", torch.bfloat16: "bfloat16",
+                     torch.float16: "float16"}
+
+
+def reference_config_repr(cfg: ModelConfig) -> str:
+    """``repr(kubetpu.jobs.model.ModelConfig(...))`` of the same
+    configuration: the ``cfg_fp`` a migration snapshot carries, which a
+    restore on either package's server compares with its own."""
+    parts = []
+    for name in _REFERENCE_FIELDS:
+        if name == "dtype":
+            text = (f"<class 'jax.numpy."
+                    f"{_REFERENCE_DTYPES[cfg.dtype]}'>")
+        else:
+            text = repr(_REFERENCE_ONLY[name] if name in _REFERENCE_ONLY
+                        else getattr(cfg, name))
+        parts.append(f"{name}={text}")
+    return f"ModelConfig({', '.join(parts)})"
+
 def _param(shape, cfg: ModelConfig, device) -> nn.Parameter:
     return nn.Parameter(torch.empty(shape, dtype=cfg.dtype, device=device),
                         requires_grad=False)

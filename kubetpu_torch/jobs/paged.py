@@ -19,12 +19,12 @@ in-place write saves that copy every step.
 
 Windowed configs run on a per-slot ring of physical pages, shared-prefix
 reuse maps cached pages read-only through the radix tree of
-``prefix_cache``, and the host DRAM tier keeps evicted prefixes as CPU
-tensors (``PagedDecodeServer``).
+``prefix_cache``, the host DRAM tier keeps evicted prefixes as CPU tensors,
+and live migration ships a slot's pages as stored (``PagedDecodeServer``).
 
-Not ported yet (later slices): ``overlap``, meshes, snapshot/restore for
-migration and the peer span's wire encoding (ROADMAP queue 1 item 6),
-``paged_forward_chunk`` and speculation (item 7), LoRA.
+Not ported yet (later slices): ``overlap`` (ROADMAP queue 1 item 2),
+``paged_forward_chunk`` and speculation (item 3), LoRA (item 4), meshes
+(item 8).
 """
 
 from __future__ import annotations
@@ -37,7 +37,8 @@ import torch
 
 from kubetpu_torch.jobs import model as model_lib
 from kubetpu_torch.jobs.decode import _attend_cached, _layer, forward_chunk_io
-from kubetpu_torch.jobs.model import ModelConfig, Transformer, resolve_device
+from kubetpu_torch.jobs.model import (ModelConfig, Transformer,
+                                      reference_config_repr, resolve_device)
 from kubetpu_torch.jobs.prefix_cache import RadixPrefixCache
 from kubetpu_torch.jobs.quant import quantize_kv_chunk
 from kubetpu_torch.jobs.sampling import (chosen_logprob, make_slot_sampler,
@@ -63,6 +64,21 @@ def init_page_pool(cfg: ModelConfig, n_pages: int, page_size: int,
         return ((zeros(shape, torch.int8), zeros(sshape, torch.float32)),
                 (zeros(shape, torch.int8), zeros(sshape, torch.float32)))
     return zeros(shape, cfg.dtype), zeros(shape, cfg.dtype)
+
+
+def _host_array(t: torch.Tensor):
+    """A CPU page tensor in the form spans and snapshots travel in: numpy,
+    the JAX package's form, for every stored dtype numpy has; a bfloat16
+    tensor stays a tensor (the wire codec writes its 16-bit patterns)."""
+    return t if t.dtype == torch.bfloat16 else t.numpy()
+
+
+def _cpu_tensor(arr) -> torch.Tensor:
+    """A shipped page array (numpy, or a bfloat16 tensor) as a CPU
+    tensor."""
+    if isinstance(arr, torch.Tensor):
+        return arr
+    return torch.from_numpy(np.ascontiguousarray(arr))
 
 
 def _gather_pages(pages_l, safe):
@@ -295,18 +311,23 @@ class PagedDecodeServer(SlotServerBase):
     reclaimed before an admission is refused. ``host_tier_bytes > 0`` adds
     the host DRAM tier: evicted spans are copied to host buffers instead of
     dropped and filled back on a later match. ``export_prefix_span`` /
-    ``inject_prefix`` move a span between replicas in the stored numpy
-    layout of the JAX package (f32 and int8 pools).
+    ``inject_prefix`` move a span between replicas in the stored layout of
+    the JAX package (numpy arrays; a bf16 pool's pages as bf16 tensors).
+
+    Live migration (``snapshot_slot`` / ``restore_slot``, with
+    ``snapshot_pages`` and ``migration_prefix_hint`` for the disaggregated
+    handoff) ships a decoding slot's live pages as stored, int8 pools as
+    their values and scales, and restores them token-exactly on another
+    server, mapping pages its prefix cache already holds read-only.
 
     The attention of both legs goes through the paged-attention kernels on
     the card and through their plain version on the CPU; there is no
     switch. ``device`` defaults to the card and raises without CUDA;
     *params* must already live on it.
 
-    Not ported yet: ``overlap``, the SLO engine and the profiler, live
-    migration (freeze, ``snapshot_slot`` / ``restore_slot``; with the wire,
-    ROADMAP queue 1 item 6), ``mesh``, LoRA, ``paged_forward_chunk`` and
-    speculation (item 7)."""
+    Not ported yet: the SLO engine (ROADMAP queue 1 item 1), ``overlap``
+    (item 2), speculation and ``paged_forward_chunk`` (item 3), LoRA (item
+    4), the profiler (item 6), ``mesh`` (item 8)."""
 
     def __init__(self, cfg: ModelConfig, params: Transformer,
                  n_slots: int = 8, max_seq: int = 512,
@@ -719,15 +740,6 @@ class PagedDecodeServer(SlotServerBase):
         for pool, name in self._pool_fields():
             pool[:, phys] = pages[name].to(self.device, pool.dtype)
 
-    def _check_numpy_span(self) -> None:
-        """Peer spans travel as numpy in the JAX package's stored layout,
-        which numpy can hold for f32 and int8 pools only."""
-        if not self.kv_int8 and self.k_pages.dtype != torch.float32:
-            raise NotImplementedError(
-                f"peer prefix spans of a {self.k_pages.dtype} pool need the "
-                f"wire's encoding (numpy has no such dtype): ROADMAP queue "
-                f"1 item 6, onto the wire")
-
     def prefix_local_pages(self, prompt: List[int]) -> int:
         """Full pages of *prompt* this server covers across both local
         tiers (HBM + host): the replica's peer-fetch gate. Host
@@ -741,13 +753,12 @@ class PagedDecodeServer(SlotServerBase):
                            from_page: int = 0) -> Optional[dict]:
         """This server's cached coverage of *prompt* for a peer replica:
         ``{matched_tokens, from_page, n_pages, pages}`` with ``pages`` the
-        numpy arrays of logical pages ``[from_page, n_pages)`` in the
-        stored layout (page axis 1), or None when coverage does not reach
+        arrays of logical pages ``[from_page, n_pages)`` in the stored
+        layout (page axis 1; numpy, bf16 as tensors), or None when coverage does not reach
         past *from_page*. Host-tier spans ship from their buffers, HBM
         spans pay the gather. Read-only (LRU stamps aside)."""
         if self._prefix_cache is None or not prompt or from_page < 0:
             return None
-        self._check_numpy_span()
         matched, segs = self._prefix_cache.match_tiered(prompt)
         n_pages = matched // self.page_size
         if n_pages <= from_page:
@@ -758,8 +769,9 @@ class PagedDecodeServer(SlotServerBase):
                 parts.append({k: v[:, :jp] for k, v in node.host.items()})
             else:
                 parts.append(self._gather_phys_pages(node.pages[:jp]))
-        out = {name: np.ascontiguousarray(torch.cat(
-            [p[name] for p in parts], dim=1)[:, from_page:n_pages].numpy())
+        out = {name: _host_array(torch.cat(
+            [p[name] for p in parts], dim=1)[:, from_page:n_pages]
+            .contiguous())
             for name in self._page_field_names()}
         self._c_tier_bytes["peer"].inc(
             sum(a.nbytes for a in out.values()))
@@ -774,7 +786,7 @@ class PagedDecodeServer(SlotServerBase):
 
     def inject_prefix(self, tokens: List[int], pages: dict,
                       from_page: int = 0) -> int:
-        """Adopt a peer-fetched span (numpy, stored layout, logical pages
+        """Adopt a peer-fetched span (stored layout, logical pages
         ``[from_page, n)`` of *tokens*) into the local tree: make tree
         budget and pool room, upload the uncovered pages and insert. Local
         coverage that receded below *from_page* leaves a hole: refused
@@ -783,7 +795,6 @@ class PagedDecodeServer(SlotServerBase):
         tree = self._prefix_cache
         if tree is None or not tokens or from_page < 0:
             return 0
-        self._check_numpy_span()
         ps = self.page_size
         n = len(tokens) // ps
         if n <= from_page:
@@ -822,7 +833,7 @@ class PagedDecodeServer(SlotServerBase):
         col0 = hbm_cov - from_page
         if alloc:
             self._upload_host_pages(
-                {name: torch.from_numpy(np.ascontiguousarray(arr[:, col0:]))
+                {name: _cpu_tensor(arr[:, col0:])
                  for name, arr in pages.items()}, alloc)
         donated = [-1] * hbm_cov + alloc
         consumed = tree.insert(tokens, donated)
@@ -936,7 +947,8 @@ class PagedDecodeServer(SlotServerBase):
             shared = self._slot_shared[slot]
             row = [int(p) for p in self._table[slot] if p >= 0]
             if row:
-                assert self.active[slot] or slot in self._prefills, \
+                assert (self.active[slot] or slot in self._prefills
+                        or slot in self._frozen), \
                     f"idle slot {slot} still maps pages {row}"
             private = set()
             for lp in range(self.max_pages_per_slot):
@@ -987,6 +999,214 @@ class PagedDecodeServer(SlotServerBase):
                 assert node.refcount == pins.get(id(node), 0), (
                     f"node refcount {node.refcount} != "
                     f"{pins.get(id(node), 0)} live pins")
+
+    # -- live KV migration ---------------------------------------------------
+
+    def _migration_kind(self) -> str:
+        """Compatibility tag a snapshot carries; restore refuses a mismatch
+        (a plain paged snapshot must not land on a speculative server whose
+        table width includes the gamma margin)."""
+        return "paged"
+
+    def _gather_page_span(self, slot: int, from_page: int,
+                          to_page: int) -> dict:
+        """Host copies of the slot's logical pages ``[from_page, to_page)``
+        gathered through the table, in their stored layout (dense: k/v;
+        kv_int8: the k_q/k_s/v_q/v_s quadruple, never dequantized) and
+        travelling form (``_host_array``): the one designed device->host
+        sync a handoff span pays."""
+        row = self._table[slot, from_page:to_page]
+        assert (row >= 0).all(), "live pages unmapped under a gather"
+        return {name: _host_array(t)
+                for name, t in self._gather_phys_pages(row).items()}
+
+    def snapshot_pages(self, rid: int, from_page: int,
+                       to_page: int) -> dict:
+        """Gather a completed page span of *rid*'s slot: the disaggregated
+        handoff's streaming leg. Page-aligned chunk starts make every full
+        page below ``prefill_progress`` final, so a prefill replica ships
+        spans while later chunks still compute. Valid for mid-prefill and
+        decoding slots; the caller ships only pages below the progress mark
+        or the decode position's page. A barrier leg."""
+        if self._ring_pages:
+            raise NotImplementedError(
+                "windowed (ring) slots have no shippable logical page "
+                "view")
+        if not 0 <= from_page < to_page:
+            raise ValueError(f"bad page span [{from_page}, {to_page})")
+        try:
+            slot = self._slot_rid.index(rid)
+        except ValueError:
+            raise ValueError(f"request {rid} holds no slot") from None
+        return self._gather_page_span(slot, from_page, to_page)
+
+    def snapshot_slot(self, rid: int, from_page: int = 0,
+                      allow_frozen: bool = False) -> dict:
+        """Everything needed to resume *rid* token-exactly on another
+        replica: the request state (``_snapshot_request``, the raw request
+        key included, so seeded sampling continues identically) and the
+        slot's live pages gathered through the table, as stored (int8
+        pools ship values and scales: the restored pool is bit-identical).
+        Only pages holding live tokens ship (positions 0..pos; decode
+        rewrites position pos before any read). *from_page* skips pages
+        the caller already shipped (the streaming handoff gathers only the
+        tail); ``n_live_pages`` stays absolute. *allow_frozen* lets the
+        handoff owner snapshot a slot it froze itself; third parties keep
+        getting the refusal, or two racing policies would ship one epoch
+        to two targets.
+
+        Refused (ValueError) for queued, mid-chunked-prefill,
+        deferred-first-token and already-frozen streams; windowed (ring)
+        servers raise NotImplementedError: a ring aliases logical pages per
+        slot. A barrier leg: the device gather is its designed sync."""
+        if self._ring_pages:
+            raise NotImplementedError(
+                "windowed (ring) slots cannot migrate: the ring aliases "
+                "logical pages per slot; there is no shippable logical "
+                "page view")
+        if any(qrid == rid for qrid, _p, _d in self._queue):
+            raise ValueError(f"request {rid} is still queued — nothing "
+                             f"to migrate; route the prompt instead")
+        try:
+            slot = self._slot_rid.index(rid)
+        except ValueError:
+            raise ValueError(f"request {rid} holds no slot") from None
+        if slot in self._prefills:
+            raise ValueError(
+                f"request {rid} is mid-chunked-prefill — migration "
+                f"only between rounds (let the admission finish)")
+        if slot in self._pending_first:
+            raise ValueError(
+                f"request {rid}'s first token is still deferred — "
+                f"step once before migrating")
+        if slot in self._frozen and not allow_frozen:
+            raise ValueError(
+                f"request {rid} is already frozen for another handoff")
+        if not self.active[slot] and slot not in self._frozen:
+            raise ValueError(f"request {rid} is not decoding")
+        snap = self._snapshot_request(rid, slot)
+        # tokens stored: the prompt and every emitted token but the last,
+        # whose K/V the next step writes at pos (pos + 1 in all)
+        n_live = self._pages_needed(int(self.pos[slot]) + 1)
+        if not 0 <= from_page <= n_live:
+            raise ValueError(
+                f"from_page {from_page} outside the live span "
+                f"[0, {n_live}]")
+        pages = self._gather_page_span(slot, from_page, n_live)
+        snap.update({
+            "kind": self._migration_kind(),
+            "cfg_fp": reference_config_repr(self.cfg),
+            "page_size": self.page_size,
+            "kv_int8": bool(self.kv_int8),
+            "max_seq": self.max_seq,
+            "n_live_pages": int(n_live),
+            "pages": pages,
+        })
+        self.events.emit("snapshot", rid=rid, slot=slot, pages=int(n_live))
+        return snap
+
+    def migration_prefix_hint(self, prompt: List[int]) -> int:
+        """Full pages of *prompt* this server could map read-only from its
+        prefix cache now: the ``/migrate_in`` begin phase advertises it, so
+        the source ships only the uncached suffix. A hint, never a
+        promise: ``restore_slot`` refuses a match that receded since.
+        Host-tier coverage counts (the restore's ``_prefill_start`` fills
+        it first)."""
+        if self._prefix_cache is None or not prompt:
+            return 0
+        matched, _segs = self._prefix_cache.match_tiered(prompt)
+        start = min(matched, ((len(prompt) - 1) // self.page_size)
+                    * self.page_size)
+        return max(0, start // self.page_size)
+
+    def restore_slot(self, snap: dict, reason: str = "migrate"):
+        """Rebuild a snapshot stream into a free slot and resume decode ->
+        the new local rid, or None when no slot or not enough pool pages
+        are free (nothing mutated; the caller may retry another replica).
+        Pages this server's prefix cache holds map read-only instead of
+        taking shipped bytes, so ``pages`` may start at logical page
+        ``ship_from_page`` (the begin-phase hint the source honored) and
+        only the uncached suffix uploads. A match that receded below the
+        shipped offset refuses (ValueError) rather than restore with
+        holes. The config must be the source's (``cfg_fp`` in the JAX
+        package's form, page size, kv_int8, max_seq, max_new_tokens,
+        eos_id). A barrier leg: the page upload is its designed
+        host->device copy."""
+        if self._ring_pages:
+            raise NotImplementedError(
+                "windowed (ring) servers cannot accept migrated slots")
+        if snap.get("kind") != self._migration_kind():
+            raise ValueError(
+                f"snapshot kind {snap.get('kind')!r} does not match this "
+                f"server ({self._migration_kind()!r})")
+        for field, mine in (("cfg_fp", reference_config_repr(self.cfg)),
+                            ("page_size", self.page_size),
+                            ("kv_int8", bool(self.kv_int8)),
+                            ("max_seq", self.max_seq),
+                            ("max_new_tokens", self.max_new_tokens),
+                            ("eos_id", self.eos_id)):
+            if snap.get(field) != mine:
+                raise ValueError(
+                    f"snapshot {field}={snap.get(field)!r} does not match "
+                    f"this server's {mine!r} — migration requires "
+                    f"config-identical replicas")
+        prompt = [int(t) for t in snap["prompt"]]
+        emitted = [int(t) for t in snap["emitted"]]
+        if not emitted:
+            raise ValueError("snapshot carries no emitted tokens — the "
+                             "stream never started decoding")
+        if len(emitted) >= self.max_new_tokens or (
+                self.eos_id is not None and emitted[-1] == self.eos_id):
+            raise ValueError("snapshot stream is already finished")
+        free = self._free_slots()
+        if not free:
+            return None
+        slot = free[0]
+        # cached prefix pages map read-only (never copied: the bytes are
+        # already here); the uncached suffix uploads from the snapshot
+        ship_from = int(snap.get("ship_from_page", 0))
+        start = self._prefill_start(prompt, slot)
+        use = start // self.page_size if start else 0
+        if use < ship_from:
+            self._prefix_unmap(slot)
+            raise ValueError(
+                f"prefix receded: snapshot pages start at logical page "
+                f"{ship_from} but only {use} pages matched locally — "
+                f"re-ship with a fresh hint")
+        if not self._alloc_pages(slot, self._worst_case_tokens(len(prompt))):
+            self._prefix_unmap(slot)
+            return None
+        n_live = int(snap["n_live_pages"])
+        for name, arr in snap.get("pages", {}).items():
+            if arr.shape[1] != n_live - ship_from:
+                self._prefix_unmap(slot)     # frees the private rows too
+                raise ValueError(
+                    f"snapshot page array {name!r} holds {arr.shape[1]} "
+                    f"pages, want {n_live - ship_from} "
+                    f"(n_live {n_live} - shipped-from {ship_from})")
+        if use < n_live:
+            self._upload_host_pages(
+                {name: _cpu_tensor(snap["pages"][name])[:, use - ship_from:]
+                 for name in self._page_field_names()},
+                self._table[slot, use:n_live])
+        rid = self._restore_request(snap, slot)
+        self.pos[slot] = int(snap["pos"])
+        self.last[slot] = int(snap["last"])
+        self.active[slot] = True
+        self._note_admitted(slot, prompt)   # prompt held for publication
+        self.obs.counter(
+            "kubetpu_migration_pages_remapped_total",
+            "snapshot pages satisfied read-only by the local prefix "
+            "cache instead of shipped bytes").inc(use)
+        self.obs.counter(
+            "kubetpu_migration_pages_shipped_total",
+            "snapshot pages written into the pool from shipped "
+            "bytes").inc(max(0, n_live - use))
+        self.events.emit("migrate_in", rid=rid, slot=slot, reason=reason,
+                         epoch=int(snap.get("epoch", 0)),
+                         pages_shipped=max(0, n_live - use),
+                         pages_remapped=use)
+        return rid
 
     # -- device legs ---------------------------------------------------------
 

@@ -24,8 +24,15 @@ bounded ``EventLog`` of admissions, retirements, cancels and expiries.
 ``queue_ttl`` bounds a queued request's wait: past it the request finishes
 empty with a reason.
 
-Not ported yet (later slices): ``overlap``, the SLO engine, the profiler,
-and freeze/migration.
+Live migration's host half (``kubetpu/jobs/serving.py:1006-1186``): which
+streams may move (``migratable_rids``, ``prefill_progress``), the pause
+around a wire handoff (``freeze_slot`` / ``unfreeze_slot``), how a stream
+that moved away finishes here (``finish_migrated``, ``migrated_to``), and
+the request-state half of a snapshot (``_snapshot_request`` /
+``_restore_request``); the page half is the paged server's.
+
+Not ported yet (later slices): the SLO engine (ROADMAP queue 1 item 1, with
+the router side), ``overlap`` (item 2) and the profiler (item 6).
 """
 
 from __future__ import annotations
@@ -116,6 +123,15 @@ class SlotServerBase:
         self._queue: List[Tuple[int, List[int], Optional[float]]] = []
         self._expired: Dict[int, str] = {}     # rid -> reason
         self._pending_first: Dict[int, tuple] = {}     # slot -> device scalars
+        # live migration: slots frozen mid-handoff (inactive for the step
+        # legs but not reusable), streams that finished here by migrating
+        # away (rid -> the new owner the wire layer reports instead of
+        # tokens), and each stream's handoff identity: (origin replica,
+        # origin rid) and the epoch the target's fence compares
+        self._frozen: set = set()
+        self._migrated: Dict[int, dict] = {}
+        self._stream_epoch: Dict[int, int] = {}
+        self._stream_origin: Dict[int, tuple] = {}
         # observability: every latency this server records lives in one
         # registry (``metrics_text``); occupancy gauges are evaluated at
         # render, so the hot loop pays nothing for them
@@ -158,9 +174,12 @@ class SlotServerBase:
         self._slot_reqkey[slot] = self._request_key(rid)
 
     def _free_slots(self) -> List[int]:
-        """Slots holding neither an active decode nor an in-flight prefill."""
+        """Slots holding neither an active decode nor an in-flight prefill
+        nor a stream frozen mid-migration (inactive for the step legs, but
+        its pages and bookkeeping are still live)."""
         return [i for i in range(self.n_slots)
-                if not self.active[i] and i not in self._prefills]
+                if not self.active[i] and i not in self._prefills
+                and i not in self._frozen]
 
     # -- request lifecycle ---------------------------------------------------
 
@@ -575,6 +594,7 @@ class SlotServerBase:
                          emitted=len(self._emitted.get(rid, ())))
         self._done[rid] = True
         self.active[slot] = False           # slot immediately reusable
+        self._frozen.discard(slot)          # a migrated-away stream
         self._slot_rid[slot] = None
         self._prefills.pop(slot, None)      # cancel() mid-prefill
         if slot in self._prefill_fifo:
@@ -596,6 +616,11 @@ class SlotServerBase:
                 return True
         for slot in range(self.n_slots):
             if self._slot_rid[slot] == rid:
+                if slot in self._frozen:
+                    # mid-handoff: the target could commit a live copy
+                    # after a local retire; the handoff always resolves
+                    # (commit-ack retires, refusal unfreezes), cancel after
+                    return False
                 # a deferred first token must not reach the next occupant
                 self._pending_first.pop(slot, None)
                 self.events.emit("cancel", rid=rid, queued=False)
@@ -627,12 +652,12 @@ class SlotServerBase:
     def load_info(self) -> dict:
         """The cheap load snapshot a router polls: host occupancy counters
         and recent-window latency percentiles (no device sync, no render).
-        No slot is ever frozen for migration here (not ported), so
-        ``migrating_slots`` reads 0."""
+        Frozen (mid-migration) slots count as occupied: their handoff has
+        not resolved, so a drained-gate must not read the replica idle."""
         return {
             "n_slots": self.n_slots,
-            "active_slots": int(self.active.sum()),
-            "migrating_slots": 0,
+            "active_slots": int(self.active.sum()) + len(self._frozen),
+            "migrating_slots": len(self._frozen),
             "queue_depth": len(self._queue),
             "inflight_prefills": len(self._prefills),
             "queue_wait_p99_ms": self._metrics.recent_percentile(
@@ -647,6 +672,186 @@ class SlotServerBase:
         """Tiered-KV-cache stats: the base loop has no cache tiers; the
         paged server reports its per-tier counters."""
         return {"enabled": False}
+
+    # -- live migration ------------------------------------------------------
+    #
+    # The host half of live KV migration: which streams may move, the
+    # pause/resume around a wire handoff, and how a migrated-away stream
+    # finishes locally. The page half (snapshot_slot / restore_slot) lives
+    # on the paged server. All of these are barrier legs: never called from
+    # inside step(); they may sync and upload. The JAX package also guards
+    # each with its overlap pipeline (an unrouted step in flight); the port
+    # has no overlap, so there is nothing in flight between steps.
+
+    def migratable_rids(self) -> List[int]:
+        """Request ids whose stream may be snapshot now: decoding, not
+        mid-(chunked-)prefill, first token materialized, not already frozen
+        for another handoff. A half-written prefill chunk has no
+        token-exact resume point."""
+        out: List[int] = []
+        for slot in range(self.n_slots):
+            rid = self._slot_rid[slot]
+            if (rid is None or not self.active[slot]
+                    or slot in self._prefills
+                    or slot in self._pending_first
+                    or slot in self._frozen):
+                continue
+            out.append(rid)
+        return out
+
+    def prefill_progress(self, rid: int) -> Optional[Tuple[int, int]]:
+        """(prompt tokens prefilled so far, prompt length) for a request
+        mid-chunked-prefill, None otherwise (queued, active, finished).
+        Chunk starts are quantum-aligned (the paged server's page size), so
+        every full page below the mark is final: the disaggregated
+        handoff ships those spans while later chunks still compute."""
+        for st in self._prefills.values():
+            if st["rid"] == rid:
+                return int(st["done"]), len(st["prompt"])
+        return None
+
+    def freeze_slot(self, rid: int) -> None:
+        """Pause *rid*'s slot for a handoff: inactive for the step legs
+        (decode neither advances nor writes it) but not reusable and not
+        idle. A frozen stream resumes exactly where it stopped
+        (``unfreeze_slot``) or finishes by migrating (``finish_migrated``),
+        never both."""
+        slot = self._slot_rid.index(rid)
+        self._frozen.add(slot)
+        self.active[slot] = False
+
+    def unfreeze_slot(self, rid: int) -> None:
+        """Resume a frozen stream after a definitively refused handoff: it
+        continues here token-exactly (its device state never moved).
+        Tolerates a stream canceled mid-transfer."""
+        try:
+            slot = self._slot_rid.index(rid)
+        except ValueError:
+            return                 # canceled while the wire leg ran
+        if slot in self._frozen:
+            self._frozen.discard(slot)
+            self.active[slot] = True
+
+    def finish_migrated(self, rid: int, info: dict) -> None:
+        """Source-side completion of a migrated stream: the slot frees like
+        a retire (pages released, prefix published), but the request
+        finishes as migrated: result readers get the new owner (*info*:
+        replica/rid/epoch, via ``migrated_to``) instead of tokens. Only
+        after the target's commit-ack, or on an ambiguous outcome, where
+        resuming could double-run the stream."""
+        if rid in self._prompts:   # a canceled-and-popped rid must not
+            self._migrated[rid] = dict(info)   # leak an unpoppable entry
+        try:
+            slot = self._slot_rid.index(rid)
+        except ValueError:
+            return                 # canceled while the wire leg ran
+        self.events.emit("migrate_out", rid=rid, slot=slot,
+                         replica=info.get("replica"),
+                         epoch=info.get("epoch"))
+        self._retire(slot)
+
+    def migrated_to(self, rid: int) -> Optional[dict]:
+        """Where a migrated-away stream went ({replica, rid, epoch,
+        ambiguous?}), or None for streams that finished here."""
+        return self._migrated.get(rid)
+
+    def cancel_expired(self, rid: int, reason: str) -> bool:
+        """Cancel *rid* and mark it expired with *reason*, so the wire
+        layer answers a retryable 503 (like a queue-TTL expiry) instead of
+        partial tokens: the drain-timeout escalation."""
+        if self._done.get(rid, False):
+            return False
+        self._expired[rid] = str(reason)
+        ok = self.cancel(rid)
+        if not ok:
+            self._expired.pop(rid, None)
+        return ok
+
+    def unfinished_rids(self) -> List[int]:
+        """Every request not yet finished — queued, mid-prefill, active or
+        frozen — the set a drain timeout must resolve."""
+        out: List[int] = [rid for rid, _p, _d in self._queue]
+        out += [st["rid"] for st in self._prefills.values()]
+        out += [r for r in self._slot_rid if r is not None]
+        seen: set = set()
+        uniq = []
+        for r in out:
+            if r not in seen and not self._done.get(r, False):
+                seen.add(r)
+                uniq.append(r)
+        return uniq
+
+    def snapshot_slot(self, rid: int, from_page: int = 0,
+                      allow_frozen: bool = False) -> dict:
+        """The base server carries no shippable cache view: migration is
+        the paged server's (the page table is the portable form). Raises
+        NotImplementedError, which the wire layer's migrate and handoff
+        legs treat as a per-stream skip; the signature is the paged one,
+        so a keyword call cannot raise TypeError past those handlers."""
+        raise NotImplementedError(
+            f"{type(self).__name__} does not support live migration — "
+            f"snapshot/restore ship the paged servers' page view")
+
+    def restore_slot(self, snap: dict, reason: str = "migrate"):
+        raise NotImplementedError(
+            f"{type(self).__name__} does not support live migration — "
+            f"snapshot/restore ship the paged servers' page view")
+
+    def _snapshot_request(self, rid: int, slot: int) -> dict:
+        """The cache-layout-free half of a slot snapshot: request
+        bookkeeping (prompt, emitted, logprobs, sampling), the raw request
+        key (restore reuses it verbatim, so seeded sampling continues
+        exactly), position and last token, and the stream's handoff
+        identity. The port's 63-bit request key ships as [hi32, lo32], the
+        two words the JAX package's key fills. Reading ``last`` is the
+        snapshot's designed device sync."""
+        key = int(self._slot_reqkey[slot])
+        return {
+            "version": 1,
+            "prompt": [int(t) for t in self._prompts[rid]],
+            "emitted": [int(t) for t in self._emitted[rid]],
+            "logprobs": [float(x) for x in self._logprobs[rid]],
+            "sampling": list(self._rid_sampling.get(
+                rid, self._default_sampling)),
+            "reqkey": [key >> 32, key & 0xFFFFFFFF],
+            "pos": int(self.pos[slot]),
+            "last": int(self.last[slot]),
+            "origin": (list(self._stream_origin[rid])
+                       if rid in self._stream_origin else None),
+            "epoch": int(self._stream_epoch.get(rid, 0)),
+            "max_new_tokens": self.max_new_tokens,
+            "eos_id": self.eos_id,
+        }
+
+    def _restore_request(self, snap: dict, slot: int) -> int:
+        """Rebuild the request-state half of a restored slot -> the new
+        local rid. The caller (``restore_slot``) owns the pages and the
+        activation order; this leg installs bookkeeping and the slot's
+        sampling state."""
+        prompt = [int(t) for t in snap["prompt"]]
+        emitted = [int(t) for t in snap["emitted"]]
+        rid = self._next_rid
+        self._next_rid += 1
+        s = snap.get("sampling") or list(self._default_sampling)
+        self._rid_sampling[rid] = (float(s[0]), int(s[1]), float(s[2]))
+        now = time.perf_counter()
+        self._arrive[rid] = now        # TTFT/ITL restart at the handoff:
+        self._last_emit[rid] = now     # the blip is the honest number
+        self._qw_recorded.add(rid)     # queue wait was paid at the source
+        self._bind_slot(rid, slot)
+        # the source's request key, verbatim: a sampled continuation draws
+        # exactly what an unmigrated run would have drawn
+        hi, lo = (int(w) for w in snap["reqkey"])
+        self._slot_reqkey[slot] = (hi << 32) | lo
+        self._prompts[rid] = prompt
+        self._emitted[rid] = emitted
+        self._logprobs[rid] = [float(x) for x in snap.get("logprobs", [])]
+        self._done[rid] = False
+        self._slot_rid[slot] = rid
+        self._stream_epoch[rid] = int(snap.get("epoch", 0))
+        if snap.get("origin") is not None:
+            self._stream_origin[rid] = tuple(snap["origin"])
+        return rid
 
     # -- results -------------------------------------------------------------
 
@@ -674,10 +879,22 @@ class SlotServerBase:
         self._arrive.pop(rid, None)
         self._last_emit.pop(rid, None)
         self._qw_recorded.discard(rid)
+        self._migrated.pop(rid, None)
+        self._stream_epoch.pop(rid, None)
+        self._stream_origin.pop(rid, None)
         return out
 
+    def _runnable(self) -> bool:
+        """A ``step()`` would advance something: active decodes, queued
+        admissions or in-flight prefill chunks. A server whose only work is
+        frozen (mid-migration) slots is not runnable, and not idle
+        either."""
+        return bool(self.active.any() or self._queue or self._prefills)
+
     def _idle(self) -> bool:
-        return not (self.active.any() or self._queue or self._prefills)
+        """Nothing to do and no stream frozen mid-migration (its handoff
+        has not resolved yet)."""
+        return not self._runnable() and not self._frozen
 
     def drain(self, max_steps: int = 10_000) -> None:
         """Run until every admitted and queued request finishes."""

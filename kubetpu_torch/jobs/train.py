@@ -230,7 +230,7 @@ def _resolve_attention(attention: str, window: int = 0):
         raise NotImplementedError(
             f"attention={attention!r} is a multi-device core (ring attention "
             "over a sequence-parallel mesh); it waits for the multi-device "
-            "slice (ROADMAP.md, queue 1, item 11)")
+            "slice (ROADMAP.md, queue 1, item 8)")
     if attention == "flash":
         from kubetpu_torch.ops.flash_attention import flash_attention
 

@@ -1,42 +1,33 @@
-"""Bounded structured event log (port of ``kubetpu/obs/events.py:56-160``).
+"""Bounded structured event log (port of ``kubetpu/obs/events.py:56-181``).
 
 A bounded ring of events
 
     {"ts": <epoch seconds>, "seq": <per-log monotonic int>,
-     "kind": "admit" | "retire" | "prefix_hit" | ...,
-     "component": "serving" | None, "trace_id": <32-hex or absent>,
-     ...free-form flat fields...}
+     "kind": "admit" | "retire" | "prefix_hit" | "migrate_in" | ...,
+     "component": "serving" | "replica:<name>" | None,
+     "trace_id": <32-hex or absent>, ...free-form flat fields...}
 
 recorded by the serving lifecycle (admission, retire, queue expiry,
-cancel) and the paged server's prefix cache (hit, publish, evict, spill,
-fill). Bounded (a deque ring with a ``dropped`` counter), cheap (one lock,
-one dict append: never a device sync), and trace-linked: ``emit`` reads
-``current_trace_id()``. The optional JSONL sink of the JAX package's log
-tees every event to a file.
+cancel, migration), the paged server's prefix cache (hit, publish, evict,
+spill, fill) and the replica's wire legs. Bounded (a deque ring with a
+``dropped`` counter), cheap (one lock, one dict append: never a device
+sync), and trace-linked: ``emit`` reads ``obs.trace.current_trace_id()``,
+so an event emitted under a wire request carries that request's trace id.
+``merge_events`` joins several logs for ``GET /events``. The optional
+JSONL sink of the JAX package's log tees every event to a file.
 
-Stdlib only.
+Stdlib only; imports nothing from the port outside ``obs``.
 """
 
 from __future__ import annotations
 
-import contextvars
 import json
 import threading
 import time
 from collections import deque
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional
 
-# (trace_id, span_id) of the span running in this context, the context
-# variable of the JAX package's ``obs/trace.py``. The port opens no spans
-# yet (the tracer comes with the wire, ROADMAP queue 1 item 6), so an
-# event carries a trace id only where a caller has set one.
-_trace_ctx: contextvars.ContextVar[Optional[Tuple[str, str]]] = (
-    contextvars.ContextVar("kubetpu_trace_ctx", default=None))
-
-
-def current_trace_id() -> Optional[str]:
-    cur = _trace_ctx.get()
-    return cur[0] if cur else None
+from kubetpu_torch.obs import trace as obs_trace
 
 
 class EventLog:
@@ -68,7 +59,7 @@ class EventLog:
         comp = component or self.component
         if comp:
             ev["component"] = comp
-        tid = current_trace_id()
+        tid = obs_trace.current_trace_id()
         if tid:
             ev["trace_id"] = tid
         for k, v in fields.items():
@@ -145,3 +136,19 @@ class EventLog:
         with self._lock:
             self._events.clear()
             self.dropped = 0
+
+
+def merge_events(logs: Dict[str, EventLog],
+                 limit: Optional[int] = None) -> List[dict]:
+    """Merge several components' rings into one (ts, seq)-ordered list,
+    stamping each event's ``component`` when the log didn't."""
+    out: List[dict] = []
+    for name, log in sorted(logs.items()):
+        for e in log.events():
+            if "component" not in e:
+                e = dict(e, component=name)
+            out.append(e)
+    out.sort(key=lambda e: (e.get("ts", 0.0), e.get("seq", 0)))
+    if limit is not None and limit >= 0:
+        out = out[-limit:] if limit else []
+    return out

@@ -19,8 +19,9 @@ for byte, so a dashboard or the reference's validator reads the port's
 - **label order is preserved** (not sorted), so the emitted series match
   byte for byte across scrapes.
 
-The parser, ``federate`` and the process-default registry of the JAX
-package are not ported yet (they serve the wire, ROADMAP queue 1 item 6).
+``default_registry()`` is the process-wide registry the wire client's
+counters land on. ``federate`` (with the router side, ROADMAP queue 1 item
+1) and the parser (the rest of obs, item 6) are not ported yet.
 """
 
 from __future__ import annotations
@@ -384,3 +385,16 @@ def validate_prometheus_text(text: str) -> List[str]:
                 f"{_fmt_labels(labels)}")
         seen.add(key)
     return problems
+
+
+# -- process-default registry ------------------------------------------------
+
+_DEFAULT = Registry()
+
+
+def default_registry() -> Registry:
+    """The process-wide registry. The wire CLIENT metrics
+    (``kubetpu_wire_requests_total`` / ``_retried_total``) land here.
+    Servers create their OWN registries: in-process replicas must not
+    share counters."""
+    return _DEFAULT

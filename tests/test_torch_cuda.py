@@ -525,3 +525,65 @@ def test_remat_through_the_flash_kernels_keeps_the_gradients(cuda, policy):
     assert grads["remat_fwd"] == 2 * cfg.n_layers
     for a, b in zip(grads["remat"], grads["plain"]):
         torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_int8", [False, True], ids=["bf16", "int8"])
+def test_migration_snapshot_restores_byte_identical_on_the_card(cuda,
+                                                                kv_int8):
+    """A bf16 server's stream, snapshot mid-decode -> wire codec ->
+    restored on a second server on the card: the restored pages, gathered
+    through the target's table, are the source's bytes; the stream
+    finishes with the unmigrated run's tokens; both sides ran the paged
+    kernels (no plain attention on the card)."""
+    from kubetpu_torch.jobs.model import ModelConfig, init_params
+    from kubetpu_torch.jobs.paged import PagedDecodeServer
+    from kubetpu_torch.router.migration import (decode_snapshot,
+                                                encode_snapshot)
+
+    cfg = ModelConfig(vocab=512, d_model=256, n_layers=2, n_heads=2,
+                      d_ff=512, max_seq=256, dtype=torch.bfloat16)
+    model = init_params(torch.Generator(device="cuda").manual_seed(0), cfg,
+                        device="cuda")
+    prompt = torch.randint(0, cfg.vocab, (70,),
+                           generator=torch.Generator().manual_seed(1)).tolist()
+
+    def server():
+        return PagedDecodeServer(cfg, model, n_slots=2, max_seq=256,
+                                 max_new_tokens=16, page_size=16,
+                                 prefill_budget=32, kv_int8=kv_int8,
+                                 device="cuda")
+
+    def live_pages(srv, rid):
+        slot = srv._slot_rid.index(rid)
+        n = srv._pages_needed(int(srv.pos[slot]) + 1)
+        return srv._gather_phys_pages(srv._table[slot, :n])
+
+    quiet = server()
+    rid = quiet.enqueue(prompt)
+    quiet.drain()
+    want = quiet.pop_result(rid)
+    src, dst = server(), server()
+    rid = src.enqueue(prompt)
+    while len(src._emitted.get(rid, [])) < 4:
+        src.step()
+    snap = src.snapshot_slot(rid)
+    src.freeze_slot(rid)
+    assert set(snap["pages"]) == ({"k_q", "k_s", "v_q", "v_s"} if kv_int8
+                                  else {"k", "v"})
+    before = live_pages(src, rid)
+    counts = _paged_counts()
+    rid2 = dst.restore_slot(decode_snapshot(*encode_snapshot(snap)))
+    src.finish_migrated(rid, {"replica": "dst", "rid": rid2, "epoch": 1})
+    after = live_pages(dst, rid2)
+    for name, t in before.items():
+        assert torch.equal(t, after[name]), name
+    slot = dst._slot_rid.index(rid2)
+    assert (int(dst.pos[slot]), int(dst.last[slot])) == (snap["pos"],
+                                                         snap["last"])
+    dst.drain()
+    assert dst.pop_result(rid2) == want
+    moved = [b - a for a, b in zip(counts, _paged_counts())]
+    assert moved[1] > 0 and moved[5] == 0       # split decode, no SIMT
+    src.check_invariants()
+    dst.check_invariants()

@@ -1,6 +1,8 @@
-"""Import hygiene of the PyTorch port: ``kubetpu_torch`` loads neither JAX
-nor any ``kubetpu`` module, and its entry points refuse to run without a
-device rather than drop to the CPU on their own."""
+"""Import hygiene of the PyTorch port: ``kubetpu_torch`` and
+``chip_smoke.py`` load neither JAX nor any ``kubetpu`` module (a port
+replica serves a generate with neither in the process), and the port's
+entry points refuse to run without a device rather than drop to the CPU on
+their own."""
 
 import os
 import pkgutil
@@ -32,7 +34,9 @@ def test_fresh_import_loads_no_jax_and_no_kubetpu():
     for name in ("jobs.paged", "jobs.train", "jobs.data", "jobs.convert",
                  "jobs.prefix_cache", "ops.paged_attention",
                  "ops.flash_attention", "obs", "obs.registry", "obs.events",
-                 "core", "core.metrics"):
+                 "obs.trace", "core", "core.metrics", "api", "api.utils",
+                 "wire", "wire.httpcommon", "wire.faults", "router",
+                 "router.migration", "router.replica"):
         assert f"kubetpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"
@@ -50,20 +54,61 @@ def test_fresh_import_loads_no_jax_and_no_kubetpu():
 
 
 def test_sources_import_neither_jax_nor_kubetpu():
+    """Every source of the port and ``chip_smoke.py``, indented (lazy)
+    imports included."""
     pattern = re.compile(
         r"^\s*(import\s+jax\b|from\s+jax\b|import\s+kubetpu(\.|\s|$)|"
         r"from\s+kubetpu(\.|\s))", re.M)
-    scanned = 0
+    paths = [os.path.join(REPO, "chip_smoke.py")]
     for root, _dirs, files in os.walk(PKG_DIR):
-        for name in files:
-            if not name.endswith(".py"):
-                continue
-            with open(os.path.join(root, name)) as f:
-                src = f.read()
-            scanned += 1
-            hit = pattern.search(src)
-            assert hit is None, f"{name}: {hit.group(0)!r}"
-    assert scanned >= 10
+        paths += [os.path.join(root, n) for n in files if n.endswith(".py")]
+    for path in paths:
+        with open(path) as f:
+            src = f.read()
+        hit = pattern.search(src)
+        assert hit is None, f"{path}: {hit.group(0)!r}"
+    assert len(paths) >= 20
+    assert any("router" in p and p.endswith("replica.py") for p in paths)
+
+
+def test_port_replica_serves_with_neither_jax_nor_kubetpu_loaded():
+    """A port ReplicaServer in a fresh interpreter serves a generate over
+    HTTP, migrates a stream to a second replica, and leaves jax and
+    kubetpu out of sys.modules."""
+    code = (
+        "import sys, torch\n"
+        "torch.set_num_threads(1)\n"
+        "from kubetpu_torch.jobs.model import ModelConfig, init_params\n"
+        "from kubetpu_torch.jobs.paged import PagedDecodeServer\n"
+        "from kubetpu_torch.router import ReplicaServer\n"
+        "from kubetpu_torch.wire.httpcommon import request_json\n"
+        "cfg = ModelConfig(vocab=32, d_model=16, n_layers=1, n_heads=2, "
+        "d_ff=32)\n"
+        "m = init_params(torch.Generator().manual_seed(0), cfg, "
+        "device='cpu')\n"
+        "reps = [ReplicaServer(PagedDecodeServer(cfg, m, n_slots=2, "
+        "max_seq=32, max_new_tokens=4, page_size=4, device='cpu'), "
+        "f'r{i}') for i in range(2)]\n"
+        "urls = [r.start() for r in reps]\n"
+        "body = request_json(urls[0] + '/generate', "
+        "{'prompt': [1, 2, 3, 4, 5]}, timeout=60)\n"
+        "assert len(body['emitted']) == 4, body\n"
+        "with reps[0]._cv:\n"
+        "    rid = reps[0].server.enqueue([3, 1, 2])\n"
+        "    while not reps[0].server.migratable_rids():\n"
+        "        reps[0].server.step()\n"
+        "    assert reps[0].migrate_rid(rid, urls[1])\n"
+        "for r in reps: r.shutdown(graceful=False)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' "
+        "or m.startswith('jax.') or m == 'kubetpu' "
+        "or m.startswith('kubetpu.'))\n"
+        "print(bad)\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
 def test_entry_points_default_to_the_card_and_raise_without_it():

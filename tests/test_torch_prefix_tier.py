@@ -156,18 +156,37 @@ def test_spans_move_between_the_jax_server_and_the_port(both, kv_int8):
     assert run(other, [prompt]) == ref
 
 
-def test_bf16_spans_wait_for_the_wire(both):
-    _, _, cfg, _, _ = both
+def test_bf16_spans_wait_for_the_wire():
+    """bf16 spans, which waited for the wire's encoding, now travel: a
+    bf16 pool exports its span as bf16 tensors, the wire codec's span
+    payload carries their 16-bit patterns, and the span injects into
+    another bf16 server, which then serves the prompt with the tokens of
+    the server that computed it."""
+    from kubetpu_torch.router.migration import (decode_span_payload,
+                                                encode_span_payload)
+
     bcfg = tmodel.ModelConfig(vocab=32, d_model=16, n_layers=1, n_heads=2,
                               d_ff=32, dtype=torch.bfloat16)
     model = tmodel.init_params(torch.Generator().manual_seed(0), bcfg,
                                device="cpu")
-    server = PagedDecodeServer(bcfg, model, n_slots=1, max_seq=32,
-                               max_new_tokens=2, page_size=4,
-                               prefix_cache_pages=4, device="cpu")
-    run(server, [[1, 2, 3, 4, 5, 6]])
-    with pytest.raises(NotImplementedError, match="item 6"):
-        server.export_prefix_span([1, 2, 3, 4, 5])
-    with pytest.raises(NotImplementedError, match="item 6"):
-        server.inject_prefix([1, 2, 3, 4], {"k": None, "v": None})
-    assert server.prefix_local_pages([1, 2, 3, 4, 9]) == 1
+
+    def server():
+        return PagedDecodeServer(bcfg, model, n_slots=1, max_seq=32,
+                                 max_new_tokens=2, page_size=4,
+                                 prefix_cache_pages=4, device="cpu")
+
+    src = server()
+    ref = run(src, [[1, 2, 3, 4, 5, 6]])
+    span = src.export_prefix_span([1, 2, 3, 4, 5])
+    assert span["n_pages"] == 1
+    assert span["pages"]["k"].dtype == torch.bfloat16
+    payload = encode_span_payload(span["pages"], span["from_page"])
+    assert {a["dtype"] for a in payload["arrays"]} == {"bfloat16"}
+    pages = decode_span_payload(payload)
+    for name, t in span["pages"].items():
+        assert torch.equal(pages[name], t)
+    dst = server()
+    assert dst.inject_prefix([1, 2, 3, 4], pages) == 1
+    assert dst.prefix_local_pages([1, 2, 3, 4, 9]) == 1
+    assert run(dst, [[1, 2, 3, 4, 5, 6]]) == ref
+    assert dst.prefix_cache_stats()["requests_hit"] == 1
