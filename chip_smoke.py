@@ -20,7 +20,13 @@ Phases, one line each, any failure exits non-zero:
    version's, the least time the card could take (bytes over 3.35 TB/s or
    operations over 989 TFLOP/s, whichever is larger) and one PyTorch
    library call's time as a yardstick; registers, spills and shared memory
-   of the instances (a spill in a wgmma chunk instance fails);
+   of the instances (a spill in a wgmma chunk instance fails); then the
+   speculative verify chunk (``verify_route`` lines: B=8 at the ragged
+   contexts, T = 2, 3, 5, 9, bf16 and int8 pages) on its three candidate
+   routes — the wgmma chunk kernel, the SIMT chunk kernel, and the split
+   route over the B*T queries as one-query rows — each against the plain
+   attention and timed, beside the bound, the plain version and SDPA, with
+   the route ``_route`` takes and the fastest;
 4. flash: the forward, dQ and dK/dV kernels at the flagship training shape
    (B=4, S=2048, H=16, D=128, bf16; causal, causal with window 256, and
    non-causal), each against its plain version, with the same timings
@@ -80,6 +86,27 @@ Phases, one line each, any failure exits non-zero:
    are mid-decode, so the handoff always finds them in flight. The paged
    counters are zeroed before and read after the phase: split and wgmma
    (dense and int8) must have run, SIMT not;
+15. dense (after phase 12; its servers are freed before phase 10):
+   phase 6's flagship, prompts and settings behind ``DecodeServer`` (bf16
+   and int8 caches) and ``PagedDecodeServer``, each with ``overlap`` off
+   and on: decode tokens/s, step wall time, one profiled window of ten
+   steps each (device busy time, idle share), then the paged pair three
+   more times each, alternated (``dense_alternation``). Gates: overlap's
+   tokens equal the pipeline-off tokens exactly on every server; the dense
+   first-token logits within 0.25 of the paged server's; a counter of
+   ``torch.cuda.synchronize``, event waits, ``.item()``, ``.cpu()`` and
+   ``.tolist()`` reads 0 inside every dispatched step and 1 in every
+   routed step;
+16. spec: ``PagedSpeculativeDecodeServer`` with the flagship as target,
+   a quarter-size random draft and the target as its own draft, over bf16
+   and int8 pools (and the self draft over an f32 pool with the weights in
+   f32), gamma_max 4, adaptive gamma, phase 6's prompts with 64 new tokens:
+   tokens/s, rounds, mean tokens per round, the gamma histogram, TTFT p50,
+   one profiled round (device busy, idle share, draft and verify device
+   ms). Gates in ``phase_spec``'s docstring, among them the near-tie rule:
+   speculative tokens equal the plain server's, except that a request's
+   first divergence may fall where the plain run's top two logits lie
+   within 0.25; and exact equality on phase 5's small f32 model;
 10. train parity: the small f32 model trained three steps on the CPU (plain
    versions) and on the card (flash kernels) from the same weights and
    batches — first-step gradients and per-step losses agree;
@@ -93,7 +120,7 @@ Phases, one line each, any failure exits non-zero:
    time, idle share, the attention kernels' share, the top kernels;
 14. the ``kernels`` JSON line, 8 kernels (launches: the paged split,
    combine and wgmma chunk kernels' — dense and int8 instances — over
-   phases 6, 8, 9 and 12, the SIMT chunk's over phase 5, the flash
+   phases 6, 8, 9, 12, 15 and 16, the SIMT chunk's over phase 5, the flash
    kernels' over phase 11's timed steps), then the result line.
 
 Nothing of JAX or of the ``kubetpu`` package is imported. ``--record PATH``
@@ -103,6 +130,7 @@ also writes every measured number as one JSON file.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import os
 import subprocess
@@ -534,6 +562,56 @@ def _split_parts(case) -> dict:
                              bytes=combine_bytes))
 
 
+# the verify chunk of phase 16: B = 8 slots at phase 3's ragged contexts,
+# T = gamma + 1 queries a slot, over bf16 and int8 pages
+VERIFY_T = (2, 3, 5, 9)
+VERIFY_ROUTES = ("wgmma", "simt", "rows")
+
+
+def phase_verify_routes() -> list:
+    """The three candidate routes of the speculative verify chunk at every
+    (T, pool): (a) the wgmma chunk kernel, (b) the SIMT chunk kernel, (c)
+    the split route over the B*T queries as one-query rows. Each against
+    the plain attention, timed (a replayed CUDA graph of 20 calls), beside
+    the bound (keys, values and scales read once over 3.35 TB/s), the
+    plain version's time and SDPA's on K/V already gathered. The route
+    ``_route`` takes at each T is reported beside the fastest."""
+    from kubetpu_torch.ops import paged_attention as pa
+
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    ragged = [2048, 1717, 1403, 1111, 877, 530, 301, 96]
+    rows = []
+    for int8 in (False, True):
+        for t in VERIFY_T:
+            case = _paged_case(gen, ragged, t, 0, int8, torch.bfloat16)
+            q, kp, vp, table, pos, _ = case
+            ref = pa.paged_attention_reference(q, kp, vp, table, pos, 0)
+            ms, errs = {}, {}
+            for route in VERIFY_ROUTES:
+                run = (lambda r=route: pa._kernel(q, kp, vp, table, pos, 0,
+                                                   route=r))
+                out = run()
+                torch.cuda.synchronize()
+                errs[route] = float((out.float() - ref.float()).abs().max())
+                if not (bool(torch.isfinite(out).all())
+                        and errs[route] <= BF16_TOL):
+                    raise SystemExit(f"verify T={t} int8={int8}: route "
+                                     f"{route} disagrees ({errs[route]})")
+                ms[route] = graph_ms(run)
+            plain_ms = cuda_ms(lambda: pa.paged_attention_reference(
+                q, kp, vp, table, pos, 0), iters=5, warmup=1)
+            bound_ms, bound_by, nbytes, flops = _bound(case)
+            row = dict(T=t, B=len(ragged), int8=int8, keys=sum(ragged),
+                       ms=ms, max_abs_err=errs, tol=BF16_TOL,
+                       fastest=min(ms, key=ms.get),
+                       routed=pa._route(q, kp, t, 0),
+                       plain_ms=plain_ms, library_ms=cuda_ms(_library(case)),
+                       bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes)
+            line("verify_route", **row)
+            rows.append(row)
+    return rows
+
+
 # -- phase 4: the flash kernels against their plain versions -----------------
 
 FLASH_SHAPE = dict(B=4, S=2048, H=16, D=128)
@@ -798,7 +876,6 @@ def _parity_servers(cfg, models, rng) -> dict:
     and window 8 on the ring table (ring of 2 pages, prompts up to 70
     tokens). Greedy tokens on the card must equal the CPU's exactly, and
     the pool oracle must hold after every drain."""
-    import dataclasses
 
     from kubetpu_torch.jobs.paged import PagedDecodeServer
 
@@ -1222,7 +1299,6 @@ def phase_window(model, cfg, smi, launches) -> dict:
     decode. Gates: the pool oracle after the drain; pages in use never
     above 8 x 33; each first token's logits within LOGIT_TOL of the
     port's dense windowed forward of the prompt."""
-    import dataclasses
 
     from kubetpu_torch.jobs import model as model_lib
 
@@ -1288,13 +1364,14 @@ def _profiled(run):
     return wall_us, kernels, counts
 
 
-def phase_profile(server) -> dict:
-    """Where a decode step's time goes: torch.profiler over 10 steps of 8
-    active slots (256-token prompts), after the counted run."""
+def _ten_step_profile(server) -> dict:
+    """torch.profiler over ten steps of eight active slots (256-token
+    prompts from their own generator), after three steps in: step time,
+    device busy time, idle share, the paged kernels' share and the top
+    kernels. Drains the server after."""
     rng = np.random.default_rng(1)
-    vocab = server.cfg.vocab
     for _ in range(server.n_slots):
-        server.enqueue(rng.integers(0, vocab, 256).tolist())
+        server.enqueue(rng.integers(0, server.cfg.vocab, 256).tolist())
     while server._queue or server._prefills:
         server.step()
     for _ in range(3):
@@ -1310,17 +1387,23 @@ def phase_profile(server) -> dict:
     attn = sum(v for k, v in kernels.items()
                if any(n in k for n in _PAGED_KERNELS))
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
-    row = dict(active_slots=active, steps=10, step_ms=wall_us / 10 / 1e3,
-               device_busy_ms_per_step=busy / 10 / 1e3,
-               idle_share=(1.0 - busy / wall_us) if busy else None,
-               paged_attention_share_of_busy=(attn / busy) if busy else None,
-               kernel_kinds=len(kernels),
-               device_kernels_per_step=counts["device_kernels"] / 10,
-               cpu_ops_per_step=counts["cpu_ops"] / 10,
-               top_kernels_ms_per_step=[(k[:60], v / 10 / 1e3)
-                                        for k, v in top])
-    line("profile", **row)
     server.drain()
+    return dict(active_slots=active, steps=10, step_ms=wall_us / 10 / 1e3,
+                device_busy_ms_per_step=busy / 10 / 1e3,
+                idle_share=(1.0 - busy / wall_us) if busy else None,
+                paged_attention_share_of_busy=(attn / busy) if busy else None,
+                kernel_kinds=len(kernels),
+                device_kernels_per_step=counts["device_kernels"] / 10,
+                cpu_ops_per_step=counts["cpu_ops"] / 10,
+                top_kernels_ms_per_step=[(k[:60], v / 10 / 1e3)
+                                         for k, v in top])
+
+
+def phase_profile(server) -> dict:
+    """Where a decode step's time goes: torch.profiler over 10 steps of 8
+    active slots (256-token prompts), after the counted run."""
+    row = _ten_step_profile(server)
+    line("profile", **row)
     return row
 
 
@@ -1786,6 +1869,585 @@ def phase_wire(model, cfg, smi, launches) -> dict:
     return rows
 
 
+# -- phase 15: the dense server and overlap ----------------------------------
+
+SERVE_LENGTHS = [128, 1024, 256, 896, 384, 768, 512, 640]
+DENSE_NEW = 32       # new tokens a request, phase 6's
+
+
+def _serve_prompts(cfg) -> list:
+    """Phase 6's prompts (after its warm-up prompt's draw)."""
+    rng = np.random.default_rng(0)
+    rng.integers(0, cfg.vocab, 40)
+    return [rng.integers(0, cfg.vocab, n).tolist() for n in SERVE_LENGTHS]
+
+
+class _SyncCounter:
+    """Counts the calls that wait for the card — ``torch.cuda.synchronize``,
+    an event's ``synchronize`` and a tensor's ``.item()``, ``.cpu()``,
+    ``.tolist()`` — inside each of a server's dispatched steps
+    (``_dispatch_step``) and routed steps (``_route_step``). ``close``
+    restores everything it patched."""
+
+    def __init__(self, server) -> None:
+        self.counts = {"dispatch": [], "route": []}
+        self._window = None
+        self._saved = []
+        for owner, name in ((torch.Tensor, "item"), (torch.Tensor, "cpu"),
+                            (torch.Tensor, "tolist"),
+                            (torch.cuda, "synchronize"),
+                            (torch.cuda.Event, "synchronize")):
+            self._patch(owner, name)
+        for leg in ("dispatch", "route"):
+            self._wrap(server, leg)
+
+    def _patch(self, owner, name) -> None:
+        fn = getattr(owner, name)
+
+        def counted(*args, **kwargs):
+            if self._window is not None:
+                self.counts[self._window][-1] += 1
+            return fn(*args, **kwargs)
+
+        setattr(owner, name, counted)
+        self._saved.append((owner, name, fn))
+
+    def _wrap(self, server, leg) -> None:
+        attr = f"_{leg}_step"
+        fn = getattr(server, attr)
+
+        def windowed(*args):
+            self.counts[leg].append(0)
+            self._window = leg
+            try:
+                return fn(*args)
+            finally:
+                self._window = None
+
+        setattr(server, attr, windowed)
+        self._saved.append((server, attr, None))
+
+    def close(self) -> dict:
+        for owner, name, fn in self._saved:
+            if fn is None:
+                delattr(owner, name)
+            else:
+                setattr(owner, name, fn)
+        d, r = self.counts["dispatch"], self.counts["route"]
+        return dict(dispatched=len(d), routed=len(r),
+                    dispatch_syncs_max=max(d, default=0),
+                    route_syncs=sorted(set(r)))
+
+
+def _overlap_run(server, prompts, launches) -> dict:
+    """Phase 6's staggered run (two prompts every four steps) on *server*,
+    with the host-sync counter on and the paged counters zeroed before
+    and read after (added to *launches*). Decode tokens/s and step wall
+    time over the steps that ran no prefill chunk."""
+    from kubetpu_torch.ops import paged_attention as pa
+
+    st = server._smoke_stats
+    torch.cuda.synchronize()
+    for c in _PAGED_COUNTERS:
+        setattr(pa.paged_attention, c, 0)
+    sync = _SyncCounter(server)
+    rids, pending, steps = [], list(prompts), 0
+    decode_s, decode_tokens, decode_steps = 0.0, 0, 0
+    t_start = time.perf_counter()
+    try:
+        while pending or not server._idle():
+            if pending and steps % 4 == 0:
+                rids += [server.enqueue(p) for p in pending[:2]]
+                pending = pending[2:]
+            chunks = st["chunks"]
+            t0 = time.perf_counter()
+            out = server.step()
+            dt = time.perf_counter() - t0
+            if st["chunks"] == chunks and out:
+                decode_s += dt
+                decode_tokens += sum(len(v) for v in out.values())
+                decode_steps += 1
+            steps += 1
+            if steps > 10_000:
+                raise SystemExit("dense: did not converge")
+    finally:
+        syncs = sync.close()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_start
+    counts = {c: getattr(pa.paged_attention, c) for c in _PAGED_COUNTERS}
+    for c, n in counts.items():
+        launches[c] = launches.get(c, 0) + n
+    results = [server.pop_result(r) for r in rids]
+    return dict(results=results, wall_s=wall, steps=steps,
+                decode_steps=decode_steps,
+                decode_toks_s=decode_tokens / decode_s if decode_s else None,
+                decode_step_ms=decode_s / decode_steps * 1e3
+                if decode_steps else None,
+                syncs=syncs, paged_launches=counts)
+
+
+def phase_dense(model, cfg, smi, launches) -> dict:
+    """Phase 6's flagship, prompts and settings behind ``DecodeServer``
+    (bf16 and int8 caches) and behind ``PagedDecodeServer``, each with
+    ``overlap`` off and on: decode tokens/s, step wall time and one
+    profiled window of ten steps (device busy time, idle share); then the
+    paged pair again three times each, alternated. Gates:
+    overlap's tokens equal the pipeline-off tokens exactly on every
+    server; the dense first-token logits within LOGIT_TOL of the paged
+    server's; the host-sync counter reads 0 inside every dispatched step
+    and 1 in every routed step."""
+    from kubetpu_torch.jobs.paged import PagedDecodeServer
+    from kubetpu_torch.jobs.serving import DecodeServer
+
+    prompts = _serve_prompts(cfg)
+    arms = (("dense", DecodeServer, {}),
+            ("dense_int8", DecodeServer, {"kv_int8": True}),
+            ("paged", PagedDecodeServer, {"page_size": 16}))
+    rows, runs, first, paged = {}, {}, {}, {}
+    t_phase = time.perf_counter()
+    for name, cls, kw in arms:
+        for overlap in (False, True):
+            arm = f"{name}_overlap" if overlap else name
+            server = cls(cfg, model, n_slots=8, max_seq=2048,
+                         max_new_tokens=DENSE_NEW, prefill_budget=256,
+                         overlap=overlap, device="cuda", **kw)
+            server.warmup()
+            server._smoke_stats = _instrument(server)
+            run = _overlap_run(server, prompts, launches)
+            prof = _ten_step_profile(server)
+            runs[arm] = run["results"]
+            first[arm] = server._smoke_stats["first_logits"]
+            row = dict(arm=arm, card=torch.cuda.get_device_name(0),
+                       nvidia_smi=smi, overlap=overlap,
+                       requests=len(prompts), new_tokens=DENSE_NEW,
+                       **{k: v for k, v in run.items() if k != "results"},
+                       profile=prof)
+            line("dense", **row)
+            rows[arm] = row
+            if cls is PagedDecodeServer:
+                server.check_invariants()
+                paged[overlap] = server
+            del server
+            torch.cuda.empty_cache()
+    # the paged server's decode tokens/s with overlap off and on, run
+    # again in alternation (off, on, on, off, off, on) on the same two
+    # servers: the host's noise between arms is as large as the effect
+    alt = {False: [], True: []}
+    for overlap in (False, True, True, False, False, True):
+        run = _overlap_run(paged[overlap], prompts, launches)
+        if run["results"] != runs["paged"]:
+            raise SystemExit("dense: an alternation run's tokens differ")
+        alt[overlap].append(run["decode_toks_s"])
+    rows["paged_alternation"] = dict(
+        off=alt[False], on=alt[True],
+        median_off=float(np.median(alt[False])),
+        median_on=float(np.median(alt[True])))
+    line("dense_alternation", card=torch.cuda.get_device_name(0),
+         nvidia_smi=smi, **rows["paged_alternation"])
+    del paged
+    torch.cuda.empty_cache()
+    gaps = {arm: _logit_gap(first[arm], first["paged"], prompts)
+            for arm in ("dense", "dense_int8")}
+    equal = {name: runs[name] == runs[f"{name}_overlap"]
+             for name, _, _ in arms}
+    syncs_ok = all(
+        r["syncs"]["dispatch_syncs_max"] == 0
+        and r["syncs"]["route_syncs"] == [1]
+        and r["syncs"]["routed"] == r["syncs"]["dispatched"]
+        for arm, r in rows.items() if arm != "paged_alternation")
+    # the dense path runs no paged kernel; the paged arms decode on the
+    # split route and prefill on the wgmma route
+    launches_ok = all(
+        (sum(r["paged_launches"].values()) == 0) if arm.startswith("dense")
+        else (r["paged_launches"]["split_launches"] > 0
+              and r["paged_launches"]["wgmma_launches"] > 0)
+        for arm, r in rows.items() if arm != "paged_alternation")
+    summary = dict(tokens_equal_overlap=equal, first_logit_gap=gaps,
+                   logit_tol=LOGIT_TOL, syncs_ok=syncs_ok,
+                   launches_ok=launches_ok,
+                   seconds=time.perf_counter() - t_phase)
+    line("dense_gates", **summary)
+    if (not all(equal.values()) or max(gaps.values()) > LOGIT_TOL
+            or not syncs_ok or not launches_ok):
+        raise SystemExit(f"dense: {summary}")
+    rows["gates"] = summary
+    return rows
+
+
+# -- phase 16: speculative decoding on the paged server ----------------------
+
+SPEC_NEW = 64        # new tokens a request
+GAMMA_MAX = 4
+
+
+def _record_top2(server) -> dict:
+    """Keep the top two logits of every row the server samples, keyed by
+    (prompt, index of the emitted token): the near-tie rule of phase 16
+    reads them. Returns a dict filled as the server runs (device tensors;
+    ``_top2_gaps`` reads them back)."""
+    rec = {"keys": [], "top2": []}
+    sampler, chunk_leg = server._sampler, server._prefill_chunk_device
+    ctx = {}
+
+    def chunk(prompt, slot, pos, take, final):
+        ctx["prompt"] = tuple(prompt)
+        return chunk_leg(prompt, slot, pos, take, final)
+
+    def spy(r, *args):
+        if r.dim() == 1:
+            rec["keys"].append([(ctx["prompt"], 0)])
+        else:
+            keys = []
+            for s in range(server.n_slots):
+                rid = server._slot_rid[s]
+                if not server.active[s] or rid is None:
+                    keys.append(None)
+                    continue
+                idx = (len(server._emitted[rid])
+                       + int(s in server._pending_first))
+                keys.append((tuple(server._prompts[rid]), idx))
+            rec["keys"].append(keys)
+        rec["top2"].append(torch.topk(r.float(), 2, dim=-1).values
+                           .reshape(-1, 2))
+        return sampler(r, *args)
+
+    server._sampler = spy
+    server._prefill_chunk_device = chunk
+    return rec
+
+
+def _top2_gaps(rec) -> dict:
+    """{(prompt, index): top-1 minus top-2 logit} from ``_record_top2``."""
+    gaps = {}
+    host = torch.cat(rec["top2"]).cpu().numpy()
+    i = 0
+    for keys in rec["keys"]:
+        for key in keys:
+            if key is not None:
+                gaps[key] = float(host[i, 0] - host[i, 1])
+            i += 1
+    return gaps
+
+
+def _near_tie_check(spec_out, plain_out, gaps, prompts) -> dict:
+    """Phase 16's rule: speculative tokens equal the plain server's, except
+    that the first divergence of a request, if any, may fall where the
+    plain run's top two logits lie within LOGIT_TOL."""
+    diverged, bad = [], []
+    for p, a, b in zip(prompts, spec_out, plain_out):
+        if a == b:
+            continue
+        n = len(p)
+        j = next((i for i, (x, y) in enumerate(zip(a[n:], b[n:]))
+                  if x != y), min(len(a), len(b)) - n)
+        gap = gaps.get((tuple(p), j))
+        diverged.append({"prompt_len": n, "index": j, "gap": gap})
+        if gap is None or gap > LOGIT_TOL:
+            bad.append(diverged[-1])
+    return {"diverged": diverged, "bad": bad}
+
+
+def _instrument_spec(server) -> dict:
+    """Count the speculative server's rounds by gamma (the round's T is
+    gamma + 1) and its prefill chunks, by wrapping its legs."""
+    st = {"rounds_by_gamma": {}, "chunks": 0}
+    round_leg, chunk_leg = server._device_round, server._prefill_chunk_device
+
+    def counted_round(gamma, active):
+        st["rounds_by_gamma"][gamma] = st["rounds_by_gamma"].get(gamma, 0) + 1
+        return round_leg(gamma, active)
+
+    def counted_chunk(*args):
+        res = chunk_leg(*args)
+        if res is not None:
+            st["chunks"] += 1
+        return res
+
+    server._device_round = counted_round
+    server._prefill_chunk_device = counted_chunk
+    return st
+
+
+def _expected_spec_launches(cfg, st, int8) -> dict:
+    """The paged launches phase 16's arm must show, one call a layer: every
+    prefill chunk (T >= 16) and every verify chunk (T = gamma + 1) on the
+    route ``_route`` takes for it (the wgmma route's int8 instance over an
+    int8 pool; "rows" counts as split launches)."""
+    from kubetpu_torch.ops import paged_attention as pa
+
+    wgmma = "wgmma_int8_launches" if int8 else "wgmma_launches"
+    counter = {"wgmma": wgmma, "rows": "split_launches",
+               "simt": "simt_launches"}
+    want = {wgmma: 0, "split_launches": 0, "simt_launches": 0}
+    q = torch.empty((1, 1, cfg.n_heads, cfg.head_dim), dtype=cfg.dtype,
+                    device="meta")
+    kv = torch.empty((1, 16, cfg.kv_heads, cfg.head_dim), device="meta",
+                     dtype=torch.int8 if int8 else cfg.dtype)
+    pool = (kv, kv) if int8 else kv
+    want[counter[pa._route(q, pool, 256, 0)]] += st["chunks"]
+    for gamma, n in st["rounds_by_gamma"].items():
+        want[counter[pa._route(q, pool, gamma + 1, 0)]] += n
+    return {k: v * cfg.n_layers for k, v in want.items()}
+
+
+def _spec_round_profile(server, prompts) -> dict:
+    """torch.profiler over one round of eight active slots: the round's
+    wall and device busy time, its idle share, and the device time under
+    the draft's proposal and under the verify chunk (record_function
+    ranges around the two)."""
+    from kubetpu_torch.jobs import spec_serving
+
+    for p in prompts:
+        server.enqueue(p)
+    while server._queue or server._prefills:
+        server.step()
+    server.step()
+    saved = (spec_serving.draft_propose, spec_serving.paged_forward_chunk)
+
+    def ranged(label, fn):
+        def run(*args, **kwargs):
+            with torch.profiler.record_function(label):
+                return fn(*args, **kwargs)
+        return run
+
+    spec_serving.draft_propose = ranged("spec_draft", saved[0])
+    spec_serving.paged_forward_chunk = ranged("spec_verify", saved[1])
+    try:
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            server.step()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    finally:
+        spec_serving.draft_propose, spec_serving.paged_forward_chunk = saved
+    # the ranges appear twice: as host events whose device total sums the
+    # kernels they launched (read here), and as device-side annotations
+    # spanning those kernels (left out of the busy sum)
+    busy, ranges = 0.0, {}
+    for ev in prof.key_averages():
+        if ev.key in ("spec_draft", "spec_verify"):
+            if ev.device_type != DeviceType.CUDA:
+                ranges[ev.key] = getattr(ev, "device_time_total",
+                                         getattr(ev, "cuda_time_total", 0.0))
+        elif ev.device_type == DeviceType.CUDA:
+            busy += getattr(ev, "self_device_time_total",
+                            getattr(ev, "self_cuda_time_total", 0.0))
+    server.drain()
+    return dict(round_ms=wall_us / 1e3, device_busy_ms=busy / 1e3,
+                idle_share=(1.0 - busy / wall_us) if busy else None,
+                draft_device_ms=ranges.get("spec_draft", 0.0) / 1e3 or None,
+                verify_device_ms=ranges.get("spec_verify", 0.0) / 1e3
+                or None)
+
+
+def _spec_small_f32() -> dict:
+    """Phase 5's small f32 model (and a one-layer f32 draft) on the CPU and
+    on the card, f32 and int8 pools: the speculative server's tokens equal
+    the plain server's exactly, and the card's equal the CPU's."""
+    from kubetpu_torch.jobs import model as model_lib
+    from kubetpu_torch.jobs.paged import PagedDecodeServer
+    from kubetpu_torch.jobs.spec_serving import PagedSpeculativeDecodeServer
+
+    cfg = model_lib.ModelConfig(vocab=512, d_model=256, n_layers=2,
+                                n_heads=4, n_kv_heads=2, d_ff=512,
+                                max_seq=256)
+    dcfg = model_lib.ModelConfig(vocab=512, d_model=64, n_layers=1,
+                                 n_heads=2, d_ff=128, max_seq=256)
+    target = model_lib.init_params(torch.Generator().manual_seed(7), cfg,
+                                   device="cpu")
+    draft = model_lib.init_params(torch.Generator().manual_seed(8), dcfg,
+                                  device="cpu")
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, cfg.vocab, n).tolist() for n in (5, 40, 23,
+                                                                 70)]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        t = copy.deepcopy(target).to(dev)
+        d = copy.deepcopy(draft).to(dev)
+        for kv_int8 in (False, True):
+            kw = dict(n_slots=3, max_seq=256, max_new_tokens=16,
+                      page_size=16, prefill_budget=32, kv_int8=kv_int8,
+                      device=dev)
+            for kind, server in (
+                    ("plain", PagedDecodeServer(cfg, t, **kw)),
+                    ("spec", PagedSpeculativeDecodeServer(
+                        cfg, dcfg, t, d, gamma_max=GAMMA_MAX, **kw))):
+                rids = [server.enqueue(prompts[0])]
+                server.step()
+                rids += [server.enqueue(p) for p in prompts[1:]]
+                server.drain()
+                server.check_invariants()
+                out[(dev, kv_int8, kind)] = [server.result(r) for r in rids]
+    ref = {k: out[("cpu", k, "plain")] for k in (False, True)}
+    equal = {f"{dev}_{'int8' if k else 'f32'}_{kind}": v == ref[k]
+             for (dev, k, kind), v in out.items()}
+    return {"equal_to_cpu_plain": equal, "ok": all(equal.values())}
+
+
+def _spec_plain(model, cfg, prompts, smi, int8, kw) -> dict:
+    """The plain paged server over the spec arms' pool, prompts and
+    settings: its tokens, the top-two gaps of every row it sampled, and
+    its tokens/s."""
+    from kubetpu_torch.jobs.paged import PagedDecodeServer
+
+    server = PagedDecodeServer(cfg, model, kv_int8=int8, **kw)
+    server.warmup()
+    rec = _record_top2(server)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rids = [server.enqueue(p) for p in prompts]
+    server.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    server.check_invariants()
+    out = dict(results=[server.pop_result(r) for r in rids],
+               gaps=_top2_gaps(rec), toks_s=len(prompts) * SPEC_NEW / wall,
+               wall_s=wall)
+    line("spec_plain", pool="int8" if int8 else "bf16",
+         card=torch.cuda.get_device_name(0), nvidia_smi=smi,
+         toks_s=out["toks_s"], wall_s=wall)
+    return out
+
+
+def _spec_arm(arm, model, cfg, dcfg, draft, int8, kw, prompts, plain, smi,
+              launches) -> dict:
+    """One speculative arm: warmup, the counted run (paged counters zeroed
+    before and read after, added to *launches*), the pool oracle, the
+    near-tie rule against *plain*, and one profiled round. Raises on a
+    launch count or a divergence the rule does not allow."""
+    from kubetpu_torch.jobs.spec_serving import PagedSpeculativeDecodeServer
+    from kubetpu_torch.ops import paged_attention as pa
+
+    server = PagedSpeculativeDecodeServer(
+        cfg, dcfg, model, draft, kv_int8=int8, gamma_max=GAMMA_MAX,
+        adaptive_gamma=True, **kw)
+    server.warmup()
+    st = _instrument_spec(server)
+    torch.cuda.synchronize()
+    for c in _PAGED_COUNTERS:
+        setattr(pa.paged_attention, c, 0)
+    t0 = time.perf_counter()
+    rids = [server.enqueue(p) for p in prompts]
+    steps = 0
+    while not server._idle():
+        server.step()
+        steps += 1
+        if steps > 10_000:
+            raise SystemExit(f"spec {arm}: did not converge")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {c: getattr(pa.paged_attention, c) for c in _PAGED_COUNTERS}
+    server.check_invariants()
+    for c, n in counts.items():
+        launches[c] = launches.get(c, 0) + n
+    results = [server.pop_result(r) for r in rids]
+    want = _expected_spec_launches(cfg, st, int8)
+    ties = _near_tie_check(results, plain["results"], plain["gaps"], prompts)
+    proposed = server._c_spec_proposed.value
+    row = dict(arm=arm, card=torch.cuda.get_device_name(0), nvidia_smi=smi,
+               requests=len(prompts), new_tokens=SPEC_NEW,
+               gamma_max=GAMMA_MAX, toks_s=len(prompts) * SPEC_NEW / wall,
+               plain_toks_s=plain["toks_s"], wall_s=wall,
+               rounds=int(server._c_spec_rounds.value),
+               mean_tokens_per_round=server.mean_tokens_per_round(),
+               accepted_share=(server._c_spec_accepted.value / proposed
+                               if proposed else None),
+               gamma_histogram=st["rounds_by_gamma"],
+               slot_gammas=server.slot_gammas(),
+               prefill_chunks=st["chunks"],
+               ttft_p50_ms=server.metrics_summary()["ttft"]["p50_ms"],
+               paged_launches=counts, expected_launches=want,
+               tokens_equal_plain=sum(a == b for a, b in zip(
+                   results, plain["results"])),
+               diverged=ties["diverged"])
+    row["profile"] = _spec_round_profile(server, [p[:256] for p in prompts])
+    line("spec", **row)
+    del server
+    torch.cuda.empty_cache()
+    if any(counts[k] != v for k, v in want.items()):
+        raise SystemExit(f"spec {arm}: paged launches {counts}, expected "
+                         f"{want}")
+    if ties["bad"]:
+        raise SystemExit(f"spec {arm}: tokens diverge from the plain server "
+                         f"away from a near-tie: {ties['bad']}")
+    return row
+
+
+def phase_spec(model, cfg, smi, launches) -> dict:
+    """``PagedSpeculativeDecodeServer`` with the flagship as target and two
+    drafts: "quarter" (d 512, 3 layers, 4 heads, d_ff 1408, random from
+    seed 7: the acceptance floor) and "self" (the target: the ceiling),
+    each over bf16 and int8 pools, gamma_max 4 with adaptive gamma, phase
+    6's prompts with 64 new tokens each; then the self draft once more
+    with the flagship's weights in f32 over an f32 pool. Beside each the
+    plain ``PagedDecodeServer`` over the same pool and prompts.
+
+    Gates: the pool oracle after every drain; the paged counters (zeroed
+    before, read after) show every prefill and verify chunk on the route
+    ``_route`` takes for it; greedy tokens equal the plain server's up to
+    near-ties — the first divergence of a request, if any, must fall where
+    the plain run's top two logits lie within LOGIT_TOL; the f32 self
+    draft's mean tokens per round at least 0.9 * (gamma_max + 1); and, on
+    phase 5's small f32 model, speculative tokens equal plain tokens
+    exactly, on the card and on the CPU.
+
+    Why the ceiling is gated at f32: the draft runs the dense cache's plain
+    attention (f32 weights of each key, as the JAX package's dense path)
+    and the verify the paged kernels; at bf16 the random flagship's top
+    two logits tie within rounding on a few percent of positions, and
+    there the two orders of summation pick different tokens, so the bf16
+    self draft accepts ~0.88-0.96 of its proposals from run to run (its
+    rate is recorded). In f32 the two agree but for ties below 1e-5."""
+    from kubetpu_torch.jobs import model as model_lib
+
+    t_phase = time.perf_counter()
+    prompts = _serve_prompts(cfg)
+    kw = dict(n_slots=8, max_seq=2048, max_new_tokens=SPEC_NEW,
+              page_size=16, prefill_budget=256, device="cuda")
+    plain = {int8: _spec_plain(model, cfg, prompts, smi, int8, kw)
+             for int8 in (False, True)}
+    qcfg = model_lib.ModelConfig(vocab=cfg.vocab, d_model=512, n_layers=3,
+                                 n_heads=4, d_ff=1408, max_seq=2048,
+                                 dtype=torch.bfloat16)
+    quarter = model_lib.init_params(
+        torch.Generator(device="cuda").manual_seed(7), qcfg, device="cuda")
+    rows = {}
+    for dname, (dcfg, draft) in (("quarter", (qcfg, quarter)),
+                                 ("self", (cfg, model))):
+        for int8 in (False, True):
+            arm = f"{dname}_{'int8' if int8 else 'bf16'}"
+            rows[arm] = _spec_arm(arm, model, cfg, dcfg, draft, int8, kw,
+                                  prompts, plain[int8], smi, launches)
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    model32 = copy.deepcopy(model).float()
+    plain32 = _spec_plain(model32, cfg32, prompts, smi, False, kw)
+    rows["self_f32"] = _spec_arm("self_f32", model32, cfg32, cfg32, model32,
+                                 False, kw, prompts, plain32, smi, launches)
+    del model32
+    torch.cuda.empty_cache()
+    floor = 0.9 * (GAMMA_MAX + 1)
+    ceiling = rows["self_f32"]["mean_tokens_per_round"]
+    small = _spec_small_f32()
+    line("spec_f32", **small)
+    rows["small_f32"] = small
+    rows["seconds"] = time.perf_counter() - t_phase
+    line("spec_gates", self_f32_mean_tokens_per_round=ceiling, floor=floor,
+         self_bf16=rows["self_bf16"]["mean_tokens_per_round"],
+         self_int8=rows["self_int8"]["mean_tokens_per_round"],
+         small_f32_ok=small["ok"], seconds=rows["seconds"])
+    if ceiling < floor:
+        raise SystemExit(f"spec: self-draft mean tokens per round "
+                         f"{ceiling} < {floor}")
+    if not small["ok"]:
+        raise SystemExit(f"spec f32: tokens differ: {small}")
+    return rows
+
+
 # -- phase 10: the training step, CPU plain versions vs the card's kernels ---
 
 TRAIN_TOL = 1e-4     # f32 on both sides: summation order only
@@ -1979,6 +2641,7 @@ def main(argv) -> int:
     dev = phase_device()
     build = phase_build()
     kern = phase_kernels()
+    verify = phase_verify_routes()
     flash = phase_flash()
     parity = phase_parity()
     serve, server = phase_serve(dev["nvidia_smi"])
@@ -1987,19 +2650,22 @@ def main(argv) -> int:
     del server
     torch.cuda.empty_cache()
     # the paged launches of every main-path phase: serve, prefix, window,
-    # wire
+    # wire, dense, spec
     paged_launches = dict(serve["paged_launches"])
     prefix = phase_prefix(model, cfg, dev["nvidia_smi"], paged_launches)
     window = phase_window(model, cfg, dev["nvidia_smi"], paged_launches)
     wire = phase_wire(model, cfg, dev["nvidia_smi"], paged_launches)
+    dense = phase_dense(model, cfg, dev["nvidia_smi"], paged_launches)
+    spec = phase_spec(model, cfg, dev["nvidia_smi"], paged_launches)
     del model
     torch.cuda.empty_cache()
     train_parity = phase_train_parity()
     train, state, step, repeat = phase_train(dev["nvidia_smi"])
     train_prof = phase_train_profile(state, step, repeat)
 
-    # the paged kernels at the main path's cases (launches: phases 6, 8, 9
-    # and 12; the SIMT chunk's: phase 5): the split and combine
+    # the paged kernels at the main path's cases (launches: phases 6, 8, 9,
+    # 12, 15 and 16; the SIMT chunk's: phase 5 and phase 16's f32 arm,
+    # whose verify chunks take it too): the split and combine
     # kernels at decode_bf16 (max_abs_err over every decode case), the
     # chunk kernel's dense instance at chunk_bf16_T256 (max_abs_err over
     # both dense wgmma cases), its int8 instance at the int8 storm arm's
@@ -2018,6 +2684,12 @@ def main(argv) -> int:
     chunks8 = [r for r in kern if r["route"] == "wgmma" and r["shape"]["int8"]]
     paged = dict(route="cuda", source="kubetpu_torch/ops/csrc/paged_attention.cu",
                  replaces="kubetpu/ops/paged_attention.py:65")
+    # the verify chunk's cases (phase 3): each route's ms by T, per pool
+    verify_ms = {("int8" if r["int8"] else "bf16"): {} for r in verify}
+    for r in verify:
+        verify_ms["int8" if r["int8"] else "bf16"][r["T"]] = dict(
+            r["ms"], routed=r["routed"], bound_ms=r["bound_ms"],
+            plain_ms=r["plain_ms"], library_ms=r["library_ms"])
     kernels = [
         dict(paged, name="paged_attention_split", instances="split",
              launches=paged_launches["split_launches"],
@@ -2043,7 +2715,7 @@ def main(argv) -> int:
              ms=chunk["ms"],
              plain_ms=chunk["plain_ms"], bound_ms=chunk["bound_ms"],
              bound_by=chunk["bound_by"], library_ms=chunk["library_ms"],
-             ok=all(r["ok"] for r in chunks)),
+             verify=verify_ms["bf16"], ok=all(r["ok"] for r in chunks)),
         dict(paged, name="paged_attention_chunk_int8", instances="wgmma_int8",
              launches=paged_launches["wgmma_int8_launches"],
              max_abs_err=max(r["max_abs_err"] for r in chunks8),
@@ -2053,10 +2725,11 @@ def main(argv) -> int:
              t256_ms=chunk8_t256["ms"], t256_bound_ms=chunk8_t256["bound_ms"],
              t256_plain_ms=chunk8_t256["plain_ms"],
              t256_library_ms=chunk8_t256["library_ms"],
-             ok=all(r["ok"] for r in chunks8)),
+             verify=verify_ms["int8"], ok=all(r["ok"] for r in chunks8)),
         dict(paged, name="paged_attention_chunk_simt", instances="simt",
-             launches=parity["paged_launches"]["simt_launches"],
-             launches_from="parity", max_abs_err=simt["max_abs_err"],
+             launches=parity["paged_launches"]["simt_launches"]
+             + paged_launches["simt_launches"],
+             launches_from="parity, spec", max_abs_err=simt["max_abs_err"],
              ms=simt["ms"], plain_ms=simt["plain_ms"],
              bound_ms=simt["bound_ms"], bound_by=simt["bound_by"],
              library_ms=simt["library_ms"], ok=simt["ok"]),
@@ -2086,7 +2759,8 @@ def main(argv) -> int:
     record = {"device": dev, "build": build, "kernel_cases": kern,
               "flash_cases": flash, "parity": parity, "serve": serve,
               "profile": prof, "prefix": prefix, "window": window,
-              "wire": wire,
+              "wire": wire, "verify_routes": verify, "dense": dense,
+              "spec": spec,
               "main_path_paged_launches": paged_launches,
               "train_parity": train_parity,
               "train": train, "train_profile": train_prof,

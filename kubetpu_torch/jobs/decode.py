@@ -1,28 +1,79 @@
-"""Chunk forward through a KV cache (port of ``kubetpu/jobs/decode.py:46-231``).
+"""Autoregressive decoding with a KV cache (port of ``kubetpu/jobs/decode.py``).
 
-``forward_chunk_io`` runs T new tokens at positions ``pos..pos+T-1``
-through the model while a pluggable cache strategy (``cache_io``) owns the
-write and the read of each layer's cache — the paged pool's prefill
-(``paged._paged_prefill_io``) plugs in here. The cache is a tree of tuples
-whose every tensor leads with the layer axis; the Python loop over layers
-hands each strategy its layer's views, and the strategies write those views
-in place (no functional copy of the cache per layer, unlike the JAX
-package's scan carry).
+The core is the T-token chunk forward through a cache (``forward_chunk_io``):
+plain decoding is its T == 1 case, speculative verification
+(``kubetpu_torch.jobs.speculative``) its T == gamma+1 case, and a pluggable
+cache strategy (``cache_io``) owns each layer's write and read — the dense
+contiguous cache (``_dense_cache_io``), its int8 form (``_int8_cache_io``)
+and the paged pool's prefill (``paged._paged_prefill_io``) plug in here.
+The cache is a tree of tuples whose every tensor leads with the layer axis;
+the Python loop over layers hands each strategy its layer's views, and the
+strategies write those views in place (no functional copy of the cache per
+layer, unlike the JAX package's scan carry).
+
+Positions are an int (every row at the same offset) or a (B,) tensor (per
+row: ``forward_chunk_at_io``, the serving step and the draft step, where
+the JAX package vmaps over the batch). A write whose chunk would run past
+the cache end lands at ``S_max - T``, as ``lax.dynamic_update_slice``
+clamps it; the mask and the rotary positions keep the unclamped position.
+
+``make_generate`` is the batch generate loop (greedy, or seeded sampling
+through the serving sampler). The ring cache (``make_rolling_generate``)
+is not ported yet (ROADMAP queue 1 item 2).
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from kubetpu_torch.jobs import model as model_lib
-from kubetpu_torch.jobs.model import ModelConfig, Transformer
+from kubetpu_torch.jobs.model import ModelConfig, Transformer, resolve_device
+from kubetpu_torch.jobs.quant import quantize_kv_chunk
 
 
-def _attend_cached(q, k_cache, v_cache, pos: int, window: int = 0):
+def init_kv_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None):
+    """(k_cache, v_cache), each (L, B, S_max, H_kv, D) zeros in
+    ``cfg.dtype``: the cache holds only the kv heads under grouped-query
+    attention."""
+    device = resolve_device(device)
+    shape = (cfg.n_layers, batch, max_seq, cfg.kv_heads, cfg.head_dim)
+    return (torch.zeros(shape, dtype=cfg.dtype, device=device),
+            torch.zeros(shape, dtype=cfg.dtype, device=device))
+
+
+def init_kv_cache_int8(cfg: ModelConfig, batch: int, max_seq: int,
+                       device=None):
+    """int8 KV cache: ((k_q, k_scale), (v_q, v_scale)) with int8 values
+    (L, B, S_max, H_kv, D) and per-token, per-head f32 scales
+    (L, B, S_max, H_kv, 1). Entries quantize at write time
+    (``quant.quantize_kv_chunk``) and dequantize on read."""
+    device = resolve_device(device)
+    shape = (cfg.n_layers, batch, max_seq, cfg.kv_heads, cfg.head_dim)
+    sshape = shape[:-1] + (1,)
+
+    def pair():
+        return (torch.zeros(shape, dtype=torch.int8, device=device),
+                torch.zeros(sshape, dtype=torch.float32, device=device))
+
+    return pair(), pair()
+
+
+def _query_positions(pos, t: int, device) -> torch.Tensor:
+    """(T,) for an int *pos*, (B, T) for a (B,) tensor: pos + 0..T-1."""
+    steps = torch.arange(t, device=device)
+    if isinstance(pos, torch.Tensor):
+        return pos.long()[:, None] + steps
+    return pos + steps
+
+
+def _attend_cached(q, k_cache, v_cache, pos, window: int = 0):
     """Chunk attention through a contiguous cache: query t (at position
     pos+t) sees entries 0..pos+t, banded below by ``window`` when set.
     Grouped-query aware without expanding the cache. q: (B, T, H, D);
-    caches: (B, S_max, H_kv, D). f32 scores and softmax."""
+    caches: (B, S_max, H_kv, D); pos an int or (B,). f32 scores and
+    softmax."""
     b, t, h, d = q.shape
     h_kv = k_cache.shape[2]
     g = h // h_kv
@@ -30,28 +81,76 @@ def _attend_cached(q, k_cache, v_cache, pos: int, window: int = 0):
     qg = q.reshape(b, t, h_kv, g, d).float()
     scores = torch.einsum("bqkgd,bskd->bkgqs", qg, k_cache.float()) * scale
     k_pos = torch.arange(k_cache.shape[1], device=q.device)
-    q_pos = pos + torch.arange(t, device=q.device)
-    mask = k_pos[None, :] <= q_pos[:, None]                 # (T, S_max)
+    q_pos = _query_positions(pos, t, q.device)[..., None]   # ([B,] T, 1)
+    mask = k_pos <= q_pos                                   # ([B,] T, S)
     if window > 0:
-        mask &= q_pos[:, None] - k_pos[None, :] < window
+        mask &= q_pos - k_pos < window
+    if mask.dim() == 3:
+        mask = mask[:, None, None]
     scores = scores.masked_fill(~mask, model_lib.NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", probs, v_cache.float())
     return out.reshape(b, t, h, d).to(q.dtype)
 
 
+def _write_at(cache_l, new, pos) -> None:
+    """Write a chunk new (B, T, ...) into cache_l (B, S_max, ...) in place
+    at rows pos..pos+T-1 (pos an int or (B,)), the start clamped into
+    [0, S_max - T] as ``lax.dynamic_update_slice`` clamps it."""
+    b, t = new.shape[:2]
+    limit = cache_l.shape[1] - t
+    if not isinstance(pos, torch.Tensor):
+        start = min(max(int(pos), 0), limit)
+        cache_l[:, start:start + t] = new
+        return
+    start = torch.clamp(pos.long(), 0, limit)
+    rows = start[:, None] + torch.arange(t, device=new.device)
+    batch = torch.arange(b, device=new.device)[:, None]
+    cache_l[batch, rows] = new
+
+
+def _dense_cache_io(window: int):
+    """The (L, B, S_max, ...) contiguous-cache strategy: write the chunk at
+    *pos*, attend through the whole (banded) cache."""
+    def io(q, k, v, cache, pos):
+        k_l, v_l = cache
+        _write_at(k_l, k.to(k_l.dtype), pos)
+        _write_at(v_l, v.to(v_l.dtype), pos)
+        return _attend_cached(q, k_l, v_l, pos, window=window), cache
+
+    return io
+
+
+def _int8_cache_io(window: int):
+    """The int8 contiguous-cache strategy: quantize the chunk's K/V per
+    token and head on write, dequantize on read (convert, then scale, in
+    f32), with ``_dense_cache_io``'s banded read."""
+    def io(q, k, v, cache, pos):
+        (kq, ksc), (vq, vsc) = cache
+        k8, ks = quantize_kv_chunk(k)
+        v8, vs = quantize_kv_chunk(v)
+        _write_at(kq, k8, pos)
+        _write_at(ksc, ks, pos)
+        _write_at(vq, v8, pos)
+        _write_at(vsc, vs, pos)
+        attn = _attend_cached(q, kq.float() * ksc, vq.float() * vsc, pos,
+                              window=window)
+        return attn, cache
+
+    return io
+
+
 def _decode_block_core(cfg: ModelConfig, layer, x, cache, pos, cache_io):
     """The transformer block of every cached decode path, parameterized on
     the cache strategy: ``cache_io(q, k, v, cache, pos) -> (attn, cache)``
     owns the write and the (banded) read; norms, projections, rope at the
-    absolute positions and the MLP are shared. x: (B, T, D). (The JAX
-    package's per-example LoRA branch is not ported yet.)"""
+    absolute positions and the MLP are shared. x: (B, T, D); pos an int or
+    (B,). (The JAX package's per-example LoRA branch is not ported yet.)"""
     h = model_lib.rms_norm(x, layer.ln1)
     q = torch.einsum("bsd,dhk->bshk", h, layer.wq)
     k = torch.einsum("bsd,dhk->bshk", h, layer.wk)
     v = torch.einsum("bsd,dhk->bshk", h, layer.wv)
-    positions = pos + torch.arange(x.shape[1], dtype=torch.int32,
-                                   device=x.device)
+    positions = _query_positions(pos, x.shape[1], x.device).to(torch.int32)
     positions = positions.expand(x.shape[0], x.shape[1])
     q = model_lib.rope(q, positions, cfg.rope_theta, cfg.rope_llama3_scaling)
     k = model_lib.rope(k, positions, cfg.rope_theta, cfg.rope_llama3_scaling)
@@ -68,12 +167,21 @@ def _layer(cache, i: int):
     return cache[i]
 
 
+def _rows(cache, index):
+    """Views of a cache tree's batch rows *index* (a slice), for a
+    single-slot leg that writes through them in place."""
+    if isinstance(cache, tuple):
+        return tuple(_rows(c, index) for c in cache)
+    return cache[:, index]
+
+
 @torch.no_grad()
 def forward_chunk_io(cfg: ModelConfig, params: Transformer, tokens, cache,
                      pos, cache_io):
     """The chunk forward over a cache strategy. tokens: (B, T) at positions
-    ``pos..pos+T-1`` -> (logits (B, T, V) float32, cache). The strategy
-    writes the cache in place; the same tree comes back."""
+    ``pos..pos+T-1`` (pos an int or (B,)) -> (logits (B, T, V) float32,
+    cache). The strategy writes the cache in place; the same tree comes
+    back."""
     x = params.embed[tokens]                               # (B, T, D)
     for i, layer in enumerate(params.blocks):
         x, _ = _decode_block_core(cfg, layer, x, _layer(cache, i), pos,
@@ -81,3 +189,118 @@ def forward_chunk_io(cfg: ModelConfig, params: Transformer, tokens, cache,
     x = model_lib.rms_norm(x, params.ln_f)
     logits = torch.einsum("bsd,dv->bsv", x, params.head).float()
     return logits, cache
+
+
+def forward_chunk(cfg: ModelConfig, params: Transformer, tokens, k_cache,
+                  v_cache, pos):
+    """Logits (B, T, V) f32 for a T-token chunk at pos..pos+T-1 through the
+    dense cache, which takes the chunk's K/V -> (logits, k_cache,
+    v_cache)."""
+    logits, _ = forward_chunk_io(cfg, params, tokens, (k_cache, v_cache),
+                                 pos, _dense_cache_io(cfg.window))
+    return logits, k_cache, v_cache
+
+
+def forward_chunk_at_io(cfg: ModelConfig, params: Transformer, chunk, cache,
+                        pos, cache_io):
+    """``forward_chunk_io`` at per-row positions pos (B,): serving slots
+    and speculative rounds advance each sequence unevenly. Every cache
+    layout rides the same batched call."""
+    return forward_chunk_io(cfg, params, chunk, cache, pos, cache_io)
+
+
+def forward_chunk_at(cfg: ModelConfig, params: Transformer, chunk, k_cache,
+                     v_cache, pos):
+    """``forward_chunk`` at per-row positions: the dense-cache spelling of
+    ``forward_chunk_at_io`` -> (logits, k_cache, v_cache)."""
+    logits, _ = forward_chunk_at_io(cfg, params, chunk, (k_cache, v_cache),
+                                    pos, _dense_cache_io(cfg.window))
+    return logits, k_cache, v_cache
+
+
+def _prefill_with(cfg, params, tokens, write, attn_fn=None):
+    """The prefill body: one batched forward over the whole prompt
+    (``model.forward_with_kv``), K/V landing in the cache through *write*."""
+    logits, ks, vs = model_lib.forward_with_kv(params, tokens, cfg,
+                                               attn_fn=attn_fn)
+    write(ks, vs)
+    return logits
+
+
+def prefill(cfg: ModelConfig, params: Transformer, tokens, k_cache, v_cache,
+            attn_fn=None):
+    """Fill the cache from one batched forward over the prompt (B, S_p) ->
+    (last position's logits (B, V) f32, k_cache, v_cache)."""
+    def write(ks, vs):
+        s = ks.shape[2]
+        k_cache[:, :, :s] = ks.to(k_cache.dtype)
+        v_cache[:, :, :s] = vs.to(v_cache.dtype)
+
+    logits = _prefill_with(cfg, params, tokens, write, attn_fn)
+    return logits, k_cache, v_cache
+
+
+def prefill_int8(cfg: ModelConfig, params: Transformer, tokens, cache,
+                 attn_fn=None):
+    """``prefill`` for the int8 cache: the prompt's K/V quantize into it in
+    one shot -> (logits, cache)."""
+    (kq, ksc), (vq, vsc) = cache
+
+    def write(ks, vs):
+        s = ks.shape[2]
+        k8, kscale = quantize_kv_chunk(ks)
+        v8, vscale = quantize_kv_chunk(vs)
+        kq[:, :, :s] = k8
+        ksc[:, :, :s] = kscale
+        vq[:, :, :s] = v8
+        vsc[:, :, :s] = vscale
+
+    return _prefill_with(cfg, params, tokens, write, attn_fn), cache
+
+
+def make_generate(cfg: ModelConfig, temperature: float = 0.0,
+                  top_k: Optional[int] = None, top_p: Optional[float] = None,
+                  kv_int8: bool = False):
+    """``generate(params, prompt (B, S_p), seed, num_steps) -> (B, S_p +
+    num_steps)`` tokens. Greedy when temperature == 0; otherwise row b's
+    draw at position q is seeded from (seed, b, q) through the serving
+    sampler (``sampling.make_slot_sampler``: temperature, top-k and
+    nucleus compose). ``kv_int8=True`` stores the cache in int8 with
+    per-token, per-head scales. One loop body serves both layouts: only
+    the (init, prefill, cache_io) triple differs."""
+    from kubetpu_torch.jobs.sampling import make_slot_sampler, row_seed
+
+    sampler = make_slot_sampler()
+
+    @torch.no_grad()
+    def generate(params: Transformer, prompt: torch.Tensor, seed: int,
+                 num_steps: int) -> torch.Tensor:
+        b, s_prompt = prompt.shape
+        max_seq = s_prompt + num_steps
+        dev = prompt.device
+        if kv_int8:
+            cache = init_kv_cache_int8(cfg, b, max_seq, device=dev)
+            logits, cache = prefill_int8(cfg, params, prompt, cache)
+            cache_io = _int8_cache_io(cfg.window)
+        else:
+            cache = init_kv_cache(cfg, b, max_seq, device=dev)
+            logits, *cache = prefill(cfg, params, prompt, *cache)
+            cache = tuple(cache)
+            cache_io = _dense_cache_io(cfg.window)
+        out = []
+        for i in range(num_steps):
+            seeds = None
+            if temperature > 0:
+                seeds = [row_seed(seed, r, s_prompt + i) for r in range(b)]
+            token = sampler(logits, temperature, top_k or 0, top_p or 1.0,
+                            seeds)
+            out.append(token)
+            if i + 1 < num_steps:     # the last token's K/V is never read
+                logits, cache = forward_chunk_io(
+                    cfg, params, token[:, None], cache, s_prompt + i,
+                    cache_io)
+                logits = logits[:, 0]
+        generated = torch.stack(out, dim=1).to(prompt.dtype)
+        return torch.cat([prompt, generated], dim=1)
+
+    return generate

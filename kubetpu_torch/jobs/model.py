@@ -392,6 +392,28 @@ def forward(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig,
     return torch.einsum("bsd,dv->bsv", x, params.head)
 
 
+@torch.no_grad()
+def forward_with_kv(params: Transformer, tokens: torch.Tensor,
+                    cfg: ModelConfig, attn_fn: Optional[AttnFn] = None):
+    """The batched forward that also returns every layer's rotary-embedded
+    K/V: the prefill of the dense decode cache (the same block as
+    training, so prefill cannot drift from the trained model) -> (last
+    position's logits (B, V) f32, ks (L, B, S, H_kv, D), vs likewise)."""
+    if attn_fn is None:
+        attn_fn = default_attn_fn(cfg)
+    positions = torch.arange(tokens.shape[1], dtype=torch.int32,
+                             device=tokens.device)
+    x = params.embed[tokens]
+    ks, vs = [], []
+    for layer in params.blocks:
+        x, _aux, k, v = _block_with_aux(cfg, attn_fn, positions, x, layer)
+        ks.append(k)
+        vs.append(v)
+    x = rms_norm(x, params.ln_f)
+    logits = torch.einsum("bsd,dv->bsv", x, params.head)[:, -1]
+    return logits.float(), torch.stack(ks), torch.stack(vs)
+
+
 def _position_losses(logits, targets, label_smoothing: float,
                      z_loss: float) -> torch.Tensor:
     """Per-position loss in f32 from raw logits, the formula both loss tails

@@ -9,21 +9,28 @@
   prompt streams in, and holds its worst case (prompt + max_new_tokens)
   once decoding, so decoding never starves mid-sequence.
 
-Both legs of the serving path — the decode step (``paged_forward_one``)
-and every prefill chunk (``forward_chunk_io`` over ``_paged_prefill_io``) —
-attend through ``kubetpu_torch.ops.paged_attention``: the hand-written CUDA
-kernel on the card, its plain PyTorch version on the CPU. K/V pages are
-written in place before the attention reads them, on the same stream; the
-JAX package's functional ``.at[].set`` returns a new pool per layer, the
-in-place write saves that copy every step.
+Every leg of the serving path — the decode step (``paged_forward_one``),
+the speculative verify chunk (``paged_forward_chunk``) and every prefill
+chunk (``forward_chunk_io`` over ``_paged_prefill_io``) — attends through
+``kubetpu_torch.ops.paged_attention``: the hand-written CUDA kernel on the
+card, its plain PyTorch version on the CPU. K/V pages are written in place
+before the attention reads them, on the same stream; the JAX package's
+functional ``.at[].set`` returns a new pool per layer, the in-place write
+saves that copy every step.
+
+The server's pools hold one page past the pool the table addresses: the
+drop page (index ``pool_pages``). A write the JAX package drops with
+``mode="drop"`` (an unmapped page, an inactive slot) lands there instead,
+so the step picks its kept rows without a host sync; no table maps the
+drop page and nothing reads it. ``k_pages`` / ``v_pages`` are views of the
+addressable pages.
 
 Windowed configs run on a per-slot ring of physical pages, shared-prefix
 reuse maps cached pages read-only through the radix tree of
 ``prefix_cache``, the host DRAM tier keeps evicted prefixes as CPU tensors,
 and live migration ships a slot's pages as stored (``PagedDecodeServer``).
 
-Not ported yet (later slices): ``overlap`` (ROADMAP queue 1 item 2),
-``paged_forward_chunk`` and speculation (item 3), LoRA (item 4), meshes
+Not ported yet (later slices): LoRA (ROADMAP queue 1 item 4) and meshes
 (item 8).
 """
 
@@ -43,7 +50,7 @@ from kubetpu_torch.jobs.prefix_cache import RadixPrefixCache
 from kubetpu_torch.jobs.quant import quantize_kv_chunk
 from kubetpu_torch.jobs.sampling import (chosen_logprob, make_slot_sampler,
                                          row_seed)
-from kubetpu_torch.jobs.serving import SlotServerBase
+from kubetpu_torch.jobs.serving import SlotServerBase, to_device
 from kubetpu_torch.ops.paged_attention import (paged_attention,
                                                paged_attention_chunk)
 
@@ -138,14 +145,21 @@ def _attend_paged_chunk(q, k_pages_l, v_pages_l, table, pos):
     return out.reshape(b, t, h, d).to(q.dtype)
 
 
+def _pool_view(store, n_pages: int):
+    """The first *n_pages* pages of a pool store (dense, or an int8
+    (values, scales) pair): views, written through in place."""
+    if isinstance(store, tuple):
+        return tuple(t[:, :n_pages] for t in store)
+    return store[:, :n_pages]
+
+
 def _write_token_kv(pages_l, new, phys_page, offset):
-    """Write one token's K or V per row into its page, in place.
-    pages_l: (P, ps, H_kv, D) or the int8 (values, scales) pair, where the
-    token quantizes at write time; new: (N, H_kv, D); phys_page/offset: (N,)
-    and every phys_page inside the pool. The JAX package drops the
-    out-of-range sentinel with ``mode="drop"``; torch indexing has no such
-    mode (a negative index would wrap onto a live page), so the caller
-    filters those rows out first (``paged_forward_one``)."""
+    """Write tokens' K or V into their pages, in place. pages_l:
+    (P, ps, H_kv, D) or the int8 (values, scales) pair, where the tokens
+    quantize at write time; new: (*N, H_kv, D); phys_page/offset: (*N,),
+    every phys_page inside the pool. torch indexing has no ``mode="drop"``
+    (a negative index would wrap onto a live page): the callers send a
+    dropped row to the drop page instead."""
     if isinstance(pages_l, tuple):
         q8, sc = pages_l
         n8, ns = quantize_kv_chunk(new)
@@ -155,47 +169,92 @@ def _write_token_kv(pages_l, new, phys_page, offset):
         pages_l[phys_page, offset] = new.to(pages_l.dtype)
 
 
-@torch.no_grad()
-def paged_forward_one(cfg: ModelConfig, params: Transformer, token, k_pages,
-                      v_pages, table, pos, attend=_attend_paged,
-                      write_enable=None):
-    """One decode step for all slots through the page pool. token: (B,)
-    int; pos: (B,) int32 position of this token; table: (B, max_pages)
-    int32. Returns logits (B, V) f32; the pools are written in place.
-    *attend* is the page-attention core. *write_enable* (B,) bool drops
-    the K/V write of masked slots (inactive slots must never scribble on
-    pages a mid-prefill neighbour has filled). Rows whose page is unmapped
-    or disabled are dropped once, before the layer loop: the one host sync
-    of the step happens there, before any layer work is queued."""
+def _write_targets(k_pages, table, tpos, write_enable):
+    """(physical page, offset) of each token at positions tpos (B, T)
+    through the table, computed on the device: a token whose page is
+    unmapped or past the table, or whose slot *write_enable* (B,) masks,
+    goes to the drop page (the pools' last page)."""
     vals = k_pages[0] if isinstance(k_pages, tuple) else k_pages
-    ps = vals.shape[2]
-    pos_l = pos.long()
-    lp = torch.clamp(pos_l // ps, max=table.shape[1] - 1)
-    phys = torch.gather(table, 1, lp[:, None])[:, 0].long()
-    keep = phys >= 0
+    ps, drop = vals.shape[2], vals.shape[1] - 1
+    lp = tpos // ps
+    phys = torch.gather(table, 1,
+                        torch.clamp(lp, max=table.shape[1] - 1)).long()
+    keep = (phys >= 0) & (lp < table.shape[1])
     if write_enable is not None:
-        keep = keep & write_enable
-    rows = torch.nonzero(keep)[:, 0]
-    phys, offset = phys[rows], (pos_l % ps)[rows]
-    x = params.embed[token][:, None]                        # (B, 1, D)
-    positions = pos_l[:, None]
+        keep = keep & write_enable[:, None]
+    return torch.where(keep, phys, drop), tpos % ps
+
+
+def _paged_forward(cfg: ModelConfig, params: Transformer, tokens, k_pages,
+                   v_pages, table, pos, attend, write_enable):
+    """The body of both pool legs: tokens (B, T) at per-slot positions
+    pos..pos+T-1, each layer's K/V written through the table first (a
+    dropped write to the drop page), then ``attend(q (B, T, H, D), k_l,
+    v_l, table, pos)`` -> (B, T, H, D) reads them. Logits (B, T, V) f32."""
+    t = tokens.shape[1]
+    tpos = pos.long()[:, None] + torch.arange(t, device=pos.device)
+    phys, offset = _write_targets(k_pages, table, tpos, write_enable)
+    x = params.embed[tokens]                                 # (B, T, D)
     for i, layer in enumerate(params.blocks):
         k_l, v_l = _layer(k_pages, i), _layer(v_pages, i)
         h = model_lib.rms_norm(x, layer.ln1)
         q = torch.einsum("bsd,dhk->bshk", h, layer.wq)
         k = torch.einsum("bsd,dhk->bshk", h, layer.wk)
         v = torch.einsum("bsd,dhk->bshk", h, layer.wv)
-        q = model_lib.rope(q, positions, cfg.rope_theta,
-                           cfg.rope_llama3_scaling)
-        k = model_lib.rope(k, positions, cfg.rope_theta,
-                           cfg.rope_llama3_scaling)
-        _write_token_kv(k_l, k[rows, 0], phys, offset)
-        _write_token_kv(v_l, v[rows, 0], phys, offset)
-        attn = attend(q[:, 0].contiguous(), k_l, v_l, table, pos)
-        x = x + torch.einsum("bhk,hkd->bd", attn, layer.wo)[:, None]
+        q = model_lib.rope(q, tpos, cfg.rope_theta, cfg.rope_llama3_scaling)
+        k = model_lib.rope(k, tpos, cfg.rope_theta, cfg.rope_llama3_scaling)
+        _write_token_kv(k_l, k, phys, offset)
+        _write_token_kv(v_l, v, phys, offset)
+        attn = attend(q, k_l, v_l, table, pos)
+        x = x + torch.einsum("bshk,hkd->bsd", attn, layer.wo)
         x = x + model_lib._mlp(cfg, model_lib.rms_norm(x, layer.ln2), layer)
     x = model_lib.rms_norm(x, params.ln_f)
-    return torch.einsum("bsd,dv->bsv", x, params.head).float()[:, 0]
+    return torch.einsum("bsd,dv->bsv", x, params.head).float()
+
+
+@torch.no_grad()
+def paged_forward_one(cfg: ModelConfig, params: Transformer, token, k_pages,
+                      v_pages, table, pos, attend=_attend_paged,
+                      write_enable=None):
+    """One decode step for all slots through the page pool. token: (B,)
+    int; pos: (B,) int32 position of this token; table: (B, max_pages)
+    int32 over the pool's addressable pages; k_pages/v_pages: the pool
+    stores, whose last page is the drop page. Returns logits (B, V) f32;
+    the pools are written in place. *attend* is the one-query
+    page-attention core (q (B, H, D)). *write_enable* (B,) bool drops the
+    K/V write of masked slots (inactive slots must never scribble on pages
+    a mid-prefill neighbour has filled): it and an unmapped page's write
+    land on the drop page, so the step queues without a host sync."""
+    def attend_one(q, k_l, v_l, table, pos):
+        return attend(q[:, 0].contiguous(), k_l, v_l, table, pos)[:, None]
+
+    return _paged_forward(cfg, params, token[:, None], k_pages, v_pages,
+                          table, pos, attend_one, write_enable)[:, 0]
+
+
+@torch.no_grad()
+def paged_forward_chunk(cfg: ModelConfig, params: Transformer, tokens,
+                        k_pages, v_pages, table, pos, write_enable=None,
+                        attend_chunk=None):
+    """The T-token chunk of every slot through the page pool at per-slot
+    positions ``pos..pos+T-1``: the speculative verify leg (T = gamma+1;
+    ``paged_forward_one`` is its T == 1 sibling). tokens: (B, T); pos:
+    (B,) int32; k_pages/v_pages: the pool stores (the drop page last).
+    Returns logits (B, T, V) f32; the pools are written in place.
+
+    The chunk's K/V are written first, then the queries attend through the
+    table under the positional mask, so in-chunk causality is the mask's
+    job and an int8 pool's queries read the quantized in-chunk entries, as
+    a one-token decode step would read them back. Rejected tokens' entries
+    are never rolled back: positions rewind, and the mask never reads past
+    a query's position until the position is fed again and overwritten.
+    *write_enable* (B,) bool sends an inactive slot's writes to the drop
+    page, as an unmapped page's, without a host sync. *attend_chunk* is
+    the chunk attention core (``ops.paged_attention_chunk``: the kernel on
+    the card, its plain version on the CPU; ``_attend_paged_chunk`` by
+    default)."""
+    return _paged_forward(cfg, params, tokens, k_pages, v_pages, table, pos,
+                          attend_chunk or _attend_paged_chunk, write_enable)
 
 
 def _paged_prefill_io(write_phys, gather_row, ps: int, window: int,
@@ -204,9 +263,9 @@ def _paged_prefill_io(write_phys, gather_row, ps: int, window: int,
     ``decode.forward_chunk_io`` (batch 1, chunk at position ``pos``).
 
     *write_phys* (n_write,): the physical page of each chunk page; entries
-    equal to the pool size (the sentinel: pad-only pages) are dropped. The
-    server hands it over as a CPU tensor, so picking the kept pages costs
-    no device sync. *gather_row*: a prefix of the slot's logical table
+    past the pool (pad-only pages) are dropped. It is a CPU tensor, so the
+    kept pages are picked on the host and staged to the card without a
+    device sync. *gather_row*: a prefix of the slot's logical table
     covering the chunk's visible positions, on the pool's device.
 
     With *attend_chunk* (the kernel path) the chunk's K/V are written to
@@ -243,9 +302,9 @@ def _paged_prefill_io(write_phys, gather_row, ps: int, window: int,
         srcs = (payload,) if dense else payload
         if kept is None:
             dev = dsts[0].device
-            sel = torch.nonzero(write_phys < dsts[0].shape[0])[:, 0]
-            kept = (sel.to(dev, non_blocking=True),
-                    write_phys[sel].to(dev, non_blocking=True))
+            wp = write_phys.numpy()
+            sel = np.flatnonzero(wp < dsts[0].shape[0])
+            kept = (to_device(sel, dev), to_device(wp[sel], dev))
         sel, phys = kept
         for dst, src in zip(dsts, srcs):
             dst[phys] = src[0].reshape(n_write, ps, *src.shape[2:])[sel]
@@ -320,13 +379,14 @@ class PagedDecodeServer(SlotServerBase):
     their values and scales, and restores them token-exactly on another
     server, mapping pages its prefix cache already holds read-only.
 
-    The attention of both legs goes through the paged-attention kernels on
+    The attention of every leg goes through the paged-attention kernels on
     the card and through their plain version on the CPU; there is no
-    switch. ``device`` defaults to the card and raises without CUDA;
-    *params* must already live on it.
+    switch. ``overlap=True`` double-buffers the host loop
+    (``SlotServerBase``): the decode step queues without a host sync, its
+    dropped writes going to the drop page. ``device`` defaults to the card
+    and raises without CUDA; *params* must already live on it.
 
-    Not ported yet: the SLO engine (ROADMAP queue 1 item 1), ``overlap``
-    (item 2), speculation and ``paged_forward_chunk`` (item 3), LoRA (item
+    Not ported yet: the SLO engine (ROADMAP queue 1 item 1), LoRA (item
     4), the profiler (item 6), ``mesh`` (item 8)."""
 
     def __init__(self, cfg: ModelConfig, params: Transformer,
@@ -336,7 +396,7 @@ class PagedDecodeServer(SlotServerBase):
                  temperature: float = 0.0, top_k: Optional[int] = None,
                  top_p: Optional[float] = None, seed: int = 0,
                  kv_int8: bool = False, prefill_budget: int = 0,
-                 queue_ttl: Optional[float] = None,
+                 overlap: bool = False, queue_ttl: Optional[float] = None,
                  prefix_cache_pages: int = 0, pool_frac: float = 1.0,
                  host_tier_bytes: int = 0, device=None) -> None:
         device = resolve_device(device)
@@ -362,19 +422,26 @@ class PagedDecodeServer(SlotServerBase):
         super().__init__(cfg, params, n_slots, max_seq, max_new_tokens,
                          eos_id, temperature=temperature, top_k=top_k,
                          top_p=top_p, seed=seed,
-                         prefill_budget=prefill_budget, queue_ttl=queue_ttl,
-                         device=device)
+                         prefill_budget=prefill_budget, overlap=overlap,
+                         queue_ttl=queue_ttl, device=device)
         self.page_size = page_size
         self._min_bucket = page_size
-        self.max_pages_per_slot = (max_seq + page_size - 1) // page_size
+        # _seq_margin(): positions past max_seq a slot's table must cover
+        # (the speculative server's verify chunk overshoots by gamma_max)
+        self.max_pages_per_slot = (
+            max_seq + self._seq_margin() + page_size - 1) // page_size
         self._ring_pages = (self._pages_needed(cfg.window) + 1
                             if cfg.window > 0 else 0)
         self.pool_frac = float(pool_frac)
         base_pages = n_pages or (n_slots * self.max_pages_per_slot + 1) // 2
         self.pool_pages = max(1, int(base_pages * self.pool_frac))
         self.kv_int8 = kv_int8
-        self.k_pages, self.v_pages = init_page_pool(
-            cfg, self.pool_pages, page_size, kv_int8=kv_int8, device=device)
+        # the stores hold the drop page past the addressable pool
+        self._k_store, self._v_store = init_page_pool(
+            cfg, self.pool_pages + 1, page_size, kv_int8=kv_int8,
+            device=device)
+        self.k_pages = _pool_view(self._k_store, self.pool_pages)
+        self.v_pages = _pool_view(self._v_store, self.pool_pages)
         self._free: List[int] = list(range(self.pool_pages))
         self._table = np.full((n_slots, self.max_pages_per_slot), -1,
                               np.int32)
@@ -463,8 +530,14 @@ class PagedDecodeServer(SlotServerBase):
     def _pages_needed(self, n_tokens: int) -> int:
         return (n_tokens + self.page_size - 1) // self.page_size
 
+    def _seq_margin(self) -> int:
+        """Positions past ``max_seq`` every slot's reservation and the
+        table width must also cover: 0 for one-token decode (the
+        speculative server returns ``gamma_max``)."""
+        return 0
+
     def _worst_case_tokens(self, prompt_len: int) -> int:
-        return prompt_len + self.max_new_tokens + 1
+        return prompt_len + self.max_new_tokens + 1 + self._seq_margin()
 
     def _alloc_pages(self, slot: int, upto_tokens: int) -> bool:
         """Map pages so *slot* can hold *upto_tokens* tokens; False (nothing
@@ -1064,6 +1137,10 @@ class PagedDecodeServer(SlotServerBase):
                 "windowed (ring) slots cannot migrate: the ring aliases "
                 "logical pages per slot; there is no shippable logical "
                 "page view")
+        if self._inflight is not None:
+            raise ValueError(
+                "snapshot requires the overlap pipeline flushed — an "
+                "unrouted step may still move this stream")
         if any(qrid == rid for qrid, _p, _d in self._queue):
             raise ValueError(f"request {rid} is still queued — nothing "
                              f"to migrate; route the prompt instead")
@@ -1297,7 +1374,7 @@ class PagedDecodeServer(SlotServerBase):
                             self._gather_prefix(pos + bucket))
         tokens = self._upload(np.asarray([chunk], np.int64))
         logits, _ = forward_chunk_io(self.cfg, self.params, tokens,
-                                     (self.k_pages, self.v_pages), pos, io)
+                                     (self._k_store, self._v_store), pos, io)
         if not final:
             return True
         r = logits[0, take - 1]
@@ -1314,7 +1391,7 @@ class PagedDecodeServer(SlotServerBase):
         active = self._upload(self.active)
         pos = self._upload(self.pos.astype(np.int32))
         logits = paged_forward_one(
-            self.cfg, self.params, self.last, self.k_pages, self.v_pages,
+            self.cfg, self.params, self.last, self._k_store, self._v_store,
             self._table_on_device(), pos, attend=self._attend,
             write_enable=active)
         seeds = None                       # all-greedy: no draw needs one
@@ -1349,12 +1426,12 @@ class PagedDecodeServer(SlotServerBase):
             forward_chunk_io(self.cfg, self.params,
                              self._upload(np.zeros((1, len(padded)),
                                                    np.int64)),
-                             (self.k_pages, self.v_pages), 0, io)
+                             (self._k_store, self._v_store), 0, io)
 
         self._warmup_buckets(prefill_dummy)
         zeros = np.zeros((self.n_slots,), np.int32)
-        paged_forward_one(self.cfg, self.params, self.last, self.k_pages,
-                          self.v_pages, self._table_on_device(),
+        paged_forward_one(self.cfg, self.params, self.last, self._k_store,
+                          self._v_store, self._table_on_device(),
                           self._upload(zeros), attend=self._attend,
                           write_enable=self._upload(zeros.astype(bool)))
         if self.device.type == "cuda":

@@ -31,8 +31,25 @@ that moved away finishes here (``finish_migrated``, ``migrated_to``), and
 the request-state half of a snapshot (``_snapshot_request`` /
 ``_restore_request``); the page half is the paged server's.
 
+``overlap=True`` double-buffers the host loop: ``step()`` dispatches step
+N (``_dispatch_step``, which makes no host sync) before it routes step N-1's
+tokens (``_route_step``, the step's one sync), so the card runs one step
+ahead of token routing. Emission, and with it EOS and length retirement,
+lags one step; a retired slot's one in-flight token is discarded by the
+dispatch-time snapshot, and the stray cache write it made lands where the
+next occupant writes before any read. ``drain()`` flushes the tail. Host
+arrays reach the card through pinned staging buffers, so an upload does
+not wait for the queued work either.
+
+``DecodeServer`` is the contiguous-cache sibling of the paged server: one
+(L, n_slots, S_max, H_kv, D) cache, dense or int8 (``kv_int8``), with the
+device legs of ``_build_dense_legs`` (a prefill chunk of one slot through
+``decode.forward_chunk_io``, and the all-slot step through
+``decode.forward_chunk_at_io``). The speculative servers draft on the same
+dense cache.
+
 Not ported yet (later slices): the SLO engine (ROADMAP queue 1 item 1, with
-the router side), ``overlap`` (item 2) and the profiler (item 6).
+the router side) and the profiler (item 6).
 """
 
 from __future__ import annotations
@@ -44,11 +61,52 @@ import numpy as np
 import torch
 
 from kubetpu_torch.core.metrics import LatencyRecorder
+from kubetpu_torch.jobs.decode import (_dense_cache_io, _int8_cache_io,
+                                       _rows, forward_chunk_at_io,
+                                       forward_chunk_io, init_kv_cache,
+                                       init_kv_cache_int8)
 from kubetpu_torch.jobs.model import (ModelConfig, Transformer,
                                       resolve_device)
-from kubetpu_torch.jobs.sampling import row_seed
+from kubetpu_torch.jobs.sampling import (chosen_logprob, make_slot_sampler,
+                                         row_seed)
 from kubetpu_torch.obs.events import EventLog
 from kubetpu_torch.obs.registry import Registry, install_process_gauges
+
+
+def to_device(a: np.ndarray, device) -> torch.Tensor:
+    """A copy of host array *a* on *device*. For the card it is staged in
+    pinned memory and copied without waiting for the device's queue (a
+    copy from pageable memory would wait for it); the caching host
+    allocator keeps the staging buffer until the copy has run."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return torch.from_numpy(np.array(a, copy=True)).to(device)
+    staged = torch.from_numpy(np.ascontiguousarray(a)).pin_memory()
+    return staged.to(device, non_blocking=True)
+
+
+def _stage_to_host(t: torch.Tensor):
+    """Queue the copy of device tensor *t* to the host without waiting: on
+    the card into a pinned buffer, with an event recorded after the copy,
+    so that a later wait covers this copy and nothing queued after it; on
+    the CPU the tensor itself. ``_host_values`` reads it back."""
+    if t.device.type != "cuda":
+        return t, None
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+    return host, done
+
+
+def _host_values(staged) -> np.ndarray:
+    """The values of a ``_stage_to_host`` copy, as numpy: the one host
+    sync (waiting on the copy's event on the card)."""
+    t, done = staged
+    if done is None:
+        return t.cpu().numpy()
+    done.synchronize()
+    return t.numpy()
 
 
 class SlotServerBase:
@@ -63,7 +121,8 @@ class SlotServerBase:
       True | (token, logprob)``: prefill ``prompt[pos:pos+take]`` at
       ``pos`` (``final`` samples the first token);
     - ``_device_step() -> (tokens, logprobs)`` device tensors (n_slots,):
-      one decode step for all slots;
+      one decode step for all slots, queued without a host sync (the base
+      routes, and with ``overlap`` defers, the host copy);
     - optional hooks ``_prefill_start(prompt, slot)``, ``_note_admitted(
       slot, prompt)``, ``_note_emitted(slot)`` and ``_on_retire(slot)``.
     """
@@ -74,8 +133,8 @@ class SlotServerBase:
                  max_seq: int, max_new_tokens: int, eos_id: Optional[int],
                  temperature: float = 0.0, top_k: Optional[int] = None,
                  top_p: Optional[float] = None, seed: int = 0,
-                 prefill_budget: int = 0, queue_ttl: Optional[float] = None,
-                 device=None) -> None:
+                 prefill_budget: int = 0, overlap: bool = False,
+                 queue_ttl: Optional[float] = None, device=None) -> None:
         self.cfg = cfg
         self.params = params
         self.device = resolve_device(device)
@@ -96,9 +155,11 @@ class SlotServerBase:
         self.seed = int(seed)
         self._slot_reqkey: List[int] = [0] * n_slots
         self.prefill_budget = int(prefill_budget)
+        self.overlap = bool(overlap)
         # token-budget scheduler state: slot -> in-flight prefill progress
         self._prefills: Dict[int, dict] = {}
         self._prefill_fifo: List[int] = []
+        self._inflight = None          # overlap: the step not yet routed
         self.n_slots = n_slots
         self.max_seq = max_seq
         self.max_new_tokens = max_new_tokens
@@ -122,7 +183,7 @@ class SlotServerBase:
         self.queue_ttl = queue_ttl
         self._queue: List[Tuple[int, List[int], Optional[float]]] = []
         self._expired: Dict[int, str] = {}     # rid -> reason
-        self._pending_first: Dict[int, tuple] = {}     # slot -> device scalars
+        self._pending_first: Dict[int, tuple] = {}     # slot -> staged copy
         # live migration: slots frozen mid-handoff (inactive for the step
         # legs but not reusable), streams that finished here by migrating
         # away (rid -> the new owner the wire layer reports instead of
@@ -152,10 +213,9 @@ class SlotServerBase:
         self._qw_recorded: set = set()         # rids with a queue_wait sample
 
     def _upload(self, a: np.ndarray) -> torch.Tensor:
-        """A copy of host array *a* on the server's device, without waiting
-        for the device's queue (the host copy is private to the transfer)."""
-        return torch.from_numpy(np.array(a, copy=True)).to(
-            self.device, non_blocking=True)
+        """A copy of host array *a* on the server's device, queued without a
+        host sync (``to_device``)."""
+        return to_device(a, self.device)
 
     def _request_key(self, rid: int) -> int:
         return row_seed(self.seed, rid)
@@ -228,7 +288,7 @@ class SlotServerBase:
         if defer:
             self._emitted[rid] = []
             self._logprobs[rid] = []
-            self._pending_first[slot] = admitted
+            self._pending_first[slot] = self._stage_first(admitted)
         else:
             first, first_lp = admitted
             self._emitted[rid] = [int(first)]
@@ -366,26 +426,42 @@ class SlotServerBase:
         """Admit and advance prefills (under the token budget when set),
         then one decode step for every active slot -> {rid: tokens emitted
         this step}. A request admitted this step emits two tokens: its
-        prefill's first and this step's decode."""
+        prefill's first and this step's decode. With ``overlap`` this call
+        dispatches step N and routes step N-1's tokens."""
         self._schedule_prefills()
         handle = None
         t0 = time.perf_counter()
         if self.active.any():
-            tokens, lps = self._device_step()
-            handle = (tokens, lps, self.active.copy(), list(self._slot_rid))
+            handle = self._dispatch_step()
+        if self.overlap:
+            handle, self._inflight = self._inflight, handle
         out = self._materialize_pending()
         if handle is not None:
             self._route_step(handle, out)
+        if handle is not None or self._inflight is not None:
             self._metrics.record("step", time.perf_counter() - t0)
         return out
 
+    def _dispatch_step(self):
+        """Queue one decode step and the copy of its tokens and logprobs to
+        the host (float64 holds both exactly), without a host sync, and
+        capture the (active, rid) snapshot routing needs: under ``overlap``
+        the live tables may have moved on (retirement, re-admission) by the
+        time the tokens reach the host, and a stale token must never reach
+        a new occupant."""
+        tokens, lps = self._device_step()
+        staged = _stage_to_host(torch.stack([tokens.double(), lps.double()]))
+        return staged, self.active.copy(), list(self._slot_rid)
+
     def _route_step(self, handle, out: Dict[int, List[int]]) -> None:
-        """Copy the step's tokens to the host (its one sync) and route them
-        by the dispatch-time snapshot; a token whose request has since
-        retired is discarded."""
-        tokens_d, lps_d, snap_active, snap_rids = handle
-        tokens = tokens_d.cpu().numpy()
-        lps = lps_d.cpu().numpy()
+        """Wait for a dispatched step's host copy (the step's one sync: on
+        the card it waits for that step's copy, not for a step dispatched
+        after it) and route the tokens by the dispatch-time snapshot; a
+        token whose request has since retired or lost the slot is
+        discarded."""
+        staged, snap_active, snap_rids = handle
+        host = _host_values(staged)
+        tokens, lps = host[0].astype(np.int64), host[1]
         for slot in range(self.n_slots):
             if not snap_active[slot]:
                 continue
@@ -407,7 +483,7 @@ class SlotServerBase:
         chunk is. Only valid while no request is in the server: the dummy
         prefill scribbles on slot 0's state."""
         assert (not self.active.any() and not self._queue
-                and not self._prefills), (
+                and not self._prefills and self._inflight is None), (
             "warmup() must run before serving: it scribbles on slot 0's "
             "device state (and, for the paged server, on pool pages a "
             "mid-prefill slot may have mapped)")
@@ -546,7 +622,7 @@ class SlotServerBase:
         self._metrics.record("prefill_chunk", dt)
         if final:
             self._activate(st["rid"], slot, st["prompt"], res)
-            self._pending_first[slot] = res
+            self._pending_first[slot] = self._stage_first(res)
             self._metrics.record("admission_stall", st["t"])
             self._prefills.pop(slot)
             self._prefill_fifo.remove(slot)
@@ -564,11 +640,21 @@ class SlotServerBase:
     def _device_step(self):
         raise NotImplementedError
 
+    def _stage_first(self, first) -> tuple:
+        """A deferred first token and its logprob (device scalars), staged
+        to the host right after its prefill: the fetch then waits for that
+        prefill only, not for the step dispatched after it."""
+        return _stage_to_host(torch.stack([x.double().reshape(())
+                                           for x in first]))
+
     def _materialize_pending(self) -> Dict[int, List[int]]:
         """Fetch deferred first tokens after the step's decode was queued,
         and run their retire checks."""
         out: Dict[int, List[int]] = {}
-        for slot, (first, lp) in sorted(self._pending_first.items()):
+        items = sorted(self._pending_first.items())
+        self._pending_first.clear()
+        for slot, staged in items:
+            first, lp = _host_values(staged)
             rid = self._slot_rid[slot]
             if rid is None:
                 continue
@@ -578,7 +664,6 @@ class SlotServerBase:
             out.setdefault(rid, []).append(tok)
             self._obs_tokens(rid, 1)
             self._retire_if_done(slot)
-        self._pending_first.clear()
         return out
 
     def _retire_if_done(self, slot: int) -> None:
@@ -679,15 +764,18 @@ class SlotServerBase:
     # pause/resume around a wire handoff, and how a migrated-away stream
     # finishes locally. The page half (snapshot_slot / restore_slot) lives
     # on the paged server. All of these are barrier legs: never called from
-    # inside step(); they may sync and upload. The JAX package also guards
-    # each with its overlap pipeline (an unrouted step in flight); the port
-    # has no overlap, so there is nothing in flight between steps.
+    # inside step(); they may sync and upload. Under ``overlap`` an unrouted
+    # step in flight may still move a stream: the legs refuse until drain()
+    # or an idle step flushes it.
 
     def migratable_rids(self) -> List[int]:
         """Request ids whose stream may be snapshot now: decoding, not
         mid-(chunked-)prefill, first token materialized, not already frozen
         for another handoff. A half-written prefill chunk has no
-        token-exact resume point."""
+        token-exact resume point, and an unrouted overlap step may still
+        move any stream: none is migratable then."""
+        if self._inflight is not None:
+            return []
         out: List[int] = []
         for slot in range(self.n_slots):
             rid = self._slot_rid[slot]
@@ -715,7 +803,12 @@ class SlotServerBase:
         (decode neither advances nor writes it) but not reusable and not
         idle. A frozen stream resumes exactly where it stopped
         (``unfreeze_slot``) or finishes by migrating (``finish_migrated``),
-        never both."""
+        never both. Refused (ValueError) while an overlap step is in
+        flight."""
+        if self._inflight is not None:
+            raise ValueError("freeze requires the overlap pipeline flushed "
+                             "— an unrouted step may still move this "
+                             "stream")
         slot = self._slot_rid.index(rid)
         self._frozen.add(slot)
         self.active[slot] = False
@@ -886,20 +979,175 @@ class SlotServerBase:
 
     def _runnable(self) -> bool:
         """A ``step()`` would advance something: active decodes, queued
-        admissions or in-flight prefill chunks. A server whose only work is
-        frozen (mid-migration) slots is not runnable, and not idle
-        either."""
-        return bool(self.active.any() or self._queue or self._prefills)
+        admissions, in-flight prefill chunks or an unrouted overlap step.
+        A server whose only work is frozen (mid-migration) slots is not
+        runnable, and not idle either."""
+        return bool(self.active.any() or self._queue or self._prefills
+                    or self._inflight is not None)
 
     def _idle(self) -> bool:
-        """Nothing to do and no stream frozen mid-migration (its handoff
-        has not resolved yet)."""
+        """Nothing to do, no unrouted overlap step and no stream frozen
+        mid-migration (its handoff has not resolved yet)."""
         return not self._runnable() and not self._frozen
 
     def drain(self, max_steps: int = 10_000) -> None:
-        """Run until every admitted and queued request finishes."""
+        """Run until every admitted and queued request finishes (flushing
+        the in-flight prefill chunks and the overlap pipeline)."""
         for _ in range(max_steps):
             if self._idle():
                 return
             self.step()
         raise RuntimeError("drain did not converge")
+
+
+def _build_dense_legs(cfg: ModelConfig, cache_io):
+    """(prefill_chunk, step_all) for the contiguous-cache server; the server
+    samples from the logits they return.
+
+    ``prefill_chunk(params, cache, chunk (1, T), slot, pos) -> logits
+    (1, T, V)``: one slot's chunk at *pos* through views of its cache rows,
+    written in place.
+
+    ``step_all(params, cache, last, pos, active) -> logits (B, V)``: one
+    token for every slot at its own position. An inactive slot writes at
+    row S_max - 1 instead of its stale position (a mid-prefill neighbour's
+    chunks live there): that row is never read before the step that
+    rewrites it."""
+
+    @torch.no_grad()
+    def prefill_chunk(params, cache, chunk, slot: int, pos: int):
+        cache_s = _rows(cache, slice(slot, slot + 1))
+        return forward_chunk_io(cfg, params, chunk, cache_s, pos,
+                                cache_io)[0]
+
+    @torch.no_grad()
+    def step_all(params, cache, last, pos, active):
+        leaf = cache[0][0] if isinstance(cache[0], tuple) else cache[0]
+        pos_w = torch.where(active, pos, leaf.shape[2] - 1)
+        logits, _ = forward_chunk_at_io(cfg, params, last[:, None], cache,
+                                        pos_w, cache_io)
+        return logits[:, 0]
+
+    return prefill_chunk, step_all
+
+
+class DecodeServer(SlotServerBase):
+    """Continuous batching over one model with a contiguous per-slot KV
+    cache (port of the JAX package's ``DecodeServer``): dense in
+    ``cfg.dtype``, or int8 with per-token, per-head scales
+    (``kv_int8=True``). The legs are cache-layout-blind (a cache tree and a
+    ``cache_io`` strategy); ``PagedDecodeServer`` is the pool-backed
+    sibling.
+
+    ``prefill_budget=N`` streams queued prompts in as chunks of at most ~N
+    tokens a step, token-exact against monolithic admission;
+    ``overlap=True`` double-buffers the host loop (``SlotServerBase``).
+    Live migration is the paged servers': ``snapshot_slot`` and
+    ``restore_slot`` raise ``NotImplementedError``, which the wire layer
+    treats as a per-stream skip. The attention is plain PyTorch (the JAX
+    package's dense path has no Pallas kernel); ``device`` defaults to the
+    card and raises without CUDA."""
+
+    def __init__(self, cfg: ModelConfig, params: Transformer,
+                 n_slots: int = 8, max_seq: int = 512,
+                 max_new_tokens: int = 64, eos_id: Optional[int] = None,
+                 temperature: float = 0.0, top_k: Optional[int] = None,
+                 top_p: Optional[float] = None, seed: int = 0,
+                 kv_int8: bool = False, prefill_budget: int = 0,
+                 overlap: bool = False, queue_ttl: Optional[float] = None,
+                 device=None) -> None:
+        device = resolve_device(device)
+        for p in params.parameters():
+            if p.device.type != device.type:
+                raise ValueError(f"params live on {p.device}, the server "
+                                 f"on {device}")
+        super().__init__(cfg, params, n_slots, max_seq, max_new_tokens,
+                         eos_id, temperature=temperature, top_k=top_k,
+                         top_p=top_p, seed=seed,
+                         prefill_budget=prefill_budget, overlap=overlap,
+                         queue_ttl=queue_ttl, device=device)
+        self.kv_int8 = bool(kv_int8)
+        if kv_int8:
+            self.cache = init_kv_cache_int8(cfg, n_slots, max_seq, device)
+            cache_io = _int8_cache_io(cfg.window)
+        else:
+            self.cache = init_kv_cache(cfg, n_slots, max_seq, device)
+            cache_io = _dense_cache_io(cfg.window)
+        self._prefill_chunk, self._step_all = _build_dense_legs(cfg,
+                                                               cache_io)
+        self._sampler = make_slot_sampler()
+
+    @property
+    def k_cache(self) -> torch.Tensor:
+        """The dense layout's K cache; an int8 server has none (read
+        ``cache``, the ((kq, ks), (vq, vs)) tree)."""
+        if self.kv_int8:
+            raise AttributeError(
+                "kv_int8 server: no dense k_cache tensor — use self.cache")
+        return self.cache[0]
+
+    @property
+    def v_cache(self) -> torch.Tensor:
+        if self.kv_int8:
+            raise AttributeError(
+                "kv_int8 server: no dense v_cache tensor — use self.cache")
+        return self.cache[1]
+
+    # -- device legs ---------------------------------------------------------
+
+    def _admit_device(self, prompt: List[int], slot: int):
+        """The whole-prompt prefill as one pos-0 final chunk; the first
+        token stays a device scalar."""
+        return self._prefill_chunk_device(prompt, slot, 0, len(prompt), True)
+
+    def _prefill_chunk_device(self, prompt: List[int], slot: int, pos: int,
+                              take: int, final: bool):
+        """One prefill chunk through the slot's cache rows: non-final
+        chunks are exact bucket-grid sizes, final chunks bucket-pad (pad
+        positions are rewritten before any read). The first token and its
+        logprob (device scalars) for the final chunk, True otherwise; the
+        draw at position q is seeded from (request, q - 1)."""
+        bucket = self._chunk_bucket(pos, take, final)
+        chunk = prompt[pos:pos + take] + [0] * (bucket - take)
+        logits = self._prefill_chunk(
+            self.params, self.cache,
+            self._upload(np.asarray([chunk], np.int64)), slot, pos)
+        if not final:
+            return True
+        r = logits[0, take - 1]
+        temp, tk, tp = self._slot_sampling(slot)
+        tok = self._sampler(r, temp, tk, tp,
+                            row_seed(self._slot_reqkey[slot], pos + take - 1))
+        return tok, chosen_logprob(r, tok)
+
+    def _device_step(self):
+        active = self._upload(self.active)
+        logits = self._step_all(self.params, self.cache, self.last,
+                                self._upload(self.pos.astype(np.int32)),
+                                active)
+        seeds = None                       # all-greedy: no draw needs one
+        if (self._slot_temp > 0).any():
+            seeds = [row_seed(self._slot_reqkey[s], int(self.pos[s]))
+                     for s in range(self.n_slots)]
+        nxt = self._sampler(logits, self._slot_temp, self._slot_topk,
+                            self._slot_topp, seeds)
+        nxt = torch.where(active, nxt, self.last)   # inactive slots hold
+        lp = chosen_logprob(logits, nxt)
+        self.pos += self.active
+        self.last = nxt
+        return nxt, lp
+
+    @torch.no_grad()
+    def warmup(self) -> None:
+        """Run a dummy prefill for every prompt bucket and one masked step,
+        so the allocator holds its blocks and every library handle exists
+        before the first request. Only valid on an idle server: the dummy
+        prefill rewrites slot 0's cache rows."""
+        self._warmup_buckets(lambda padded: self._prefill_chunk(
+            self.params, self.cache,
+            self._upload(np.zeros((1, len(padded)), np.int64)), 0, 0))
+        self._step_all(self.params, self.cache, self.last,
+                       self._upload(np.zeros((self.n_slots,), np.int32)),
+                       self._upload(np.zeros((self.n_slots,), bool)))
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)

@@ -34,6 +34,11 @@ Routes, chosen by ``_route(q, k_pages_l, t, window)``:
   weights). Where its 64-row blocks would leave SMs idle it cuts each
   row's keys into up to 4 shares (``_chunk_splits``) and the combine
   kernel merges them.
+- "rows" (the speculative verify chunk where it is the fastest:
+  ``_ROWS_ROUTE``): the split route over a chunk's B*T queries as
+  one-query rows (each slot's table row repeated T times, row (b, t) at
+  pos[b] + t), exact because the chunk's K/V are written before the call;
+  it counts as split and combine launches.
 - "simt" (every other call: chunks at f32 q or at head dims other than
   64/128, and decode at head dims that are not multiples of 16): the f32
   CUDA-core kernel; ``paged_attention.simt_launches`` counts it. The
@@ -116,17 +121,31 @@ def _gather(pages_l, safe):
     return vals[safe].float() * sc[safe]
 
 
+# The speculative verify chunk (T = gamma + 1 <= 9 queries a slot) timed on
+# the three routes at B = 8, g = 1, D = 128 (chip_smoke.py phase 3,
+# ``verify_route`` lines): the wgmma chunk is fastest at every T over bf16
+# pages and at T 3-9 over int8 pages; at T = 2 over int8 pages the split
+# route over the B*T queries as one-query rows is. (T, int8 pages) pairs
+# that take "rows" at g = 1, D = 128:
+_ROWS_ROUTE = {(2, True)}
+
+
 def _route(q, k_pages_l, t: int, window: int) -> str:
     """The instances that run a call with *t* queries per slot: "split" for
-    one query (T = 1) at a head dim that is a multiple of 16, "wgmma" for
-    T > 1 without a window at bf16/f16 q and D 64 or 128, over dense or
-    int8 pages (*k_pages_l* picks the instance, not the route), else
-    "simt"."""
+    one query (T = 1) at a head dim that is a multiple of 16; for T > 1
+    without a window at bf16/f16 q and D 64 or 128, "rows" where
+    ``_ROWS_ROUTE`` names (T, int8 pages) at g = 1 and D = 128, else
+    "wgmma" over dense or int8 pages (*k_pages_l* picks the instance);
+    else "simt"."""
     d = q.shape[-1]
     if t == 1:
         return "split" if d % 16 == 0 else "simt"
     if (window == 0 and q.dtype in (torch.bfloat16, torch.float16)
             and d in (64, 128)):
+        int8 = isinstance(k_pages_l, tuple)
+        g = q.shape[2] // _pages(k_pages_l)[0].shape[2]
+        if d == 128 and g == 1 and (t, int8) in _ROWS_ROUTE:
+            return "rows"
         return "wgmma"
     return "simt"
 
@@ -348,9 +367,33 @@ def _launch_combine(part, ml, out):
     return out
 
 
-def _kernel(q, k_pages_l, v_pages_l, table, pos, window: int):
-    route = _route(q, k_pages_l, q.shape[1], window)
-    if route == "split":
+def _launch_rows(q, k_pages_l, v_pages_l, table, pos):
+    """The split route over a chunk's B*T queries as B*T one-query rows
+    (CUDA tensors only): q (B, T, H, D) viewed as (B*T, 1, H, D), each
+    slot's table row repeated T times and row (b, t) at position
+    pos[b] + t. Exact for a chunk whose K/V the caller committed before the
+    call: each row sees the keys its causal mask allows. Each slot's keys
+    are read T times."""
+    b, t, h, d = q.shape
+    rows_q = q.reshape(b * t, 1, h, d)
+    rows_table = table[:, None].expand(b, t, table.shape[1]).reshape(b * t,
+                                                                    -1)
+    rows_pos = (pos[:, None] + torch.arange(t, dtype=torch.int32,
+                                            device=pos.device)).reshape(-1)
+    out = _launch_combine(
+        *_launch_split(rows_q, k_pages_l, v_pages_l, rows_table, rows_pos,
+                       0),
+        torch.empty_like(rows_q))
+    return out.reshape(b, t, h, d)
+
+
+def _kernel(q, k_pages_l, v_pages_l, table, pos, window: int, route=None):
+    """Launch *route* (``_route``'s choice when None) for the call."""
+    if route is None:
+        route = _route(q, k_pages_l, q.shape[1], window)
+    if route == "rows":
+        out = _launch_rows(q, k_pages_l, v_pages_l, table, pos)
+    elif route == "split":
         out = _launch_combine(
             *_launch_split(q, k_pages_l, v_pages_l, table, pos, window),
             torch.empty_like(q))

@@ -587,3 +587,115 @@ def test_migration_snapshot_restores_byte_identical_on_the_card(cuda,
     assert moved[1] > 0 and moved[5] == 0       # split decode, no SIMT
     src.check_invariants()
     dst.check_invariants()
+
+
+# the speculative verify chunk: B = 8 slots, T = gamma + 1 queries a slot
+_VERIFY_CASES = [(route, t, int8) for route in ("wgmma", "simt", "rows")
+                 for t in (2, 5, 9) for int8 in (False, True)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route,t,int8", _VERIFY_CASES,
+                         ids=[f"{r}_T{t}_{'int8' if i else 'bf16'}"
+                              for r, t, i in _VERIFY_CASES])
+def test_verify_route_candidates_match_plain_version(cuda, route, t, int8):
+    """Each candidate route of the verify chunk — the wgmma chunk kernel,
+    the SIMT chunk kernel, and the split route over the B*T queries as
+    one-query rows — against the plain attention at B = 8, bf16 q, D 128,
+    over bf16 and int8 pages; the fully unmapped last slot writes 0."""
+    ctx = [600, 517, 300, 257, 130, 77, 40, 20]
+    case = _case(cuda, torch.bfloat16, int8, 8, t, 16, 16, 128, 16, ctx,
+                 seed=9)
+    before = _paged_counts()
+    out = pa._kernel(*case, 0, route=route)
+    torch.cuda.synchronize()
+    moved = tuple(b - a for a, b in zip(before, _paged_counts()))
+    want = {"rows": (1, 1, 1, 0, 0, 0), "simt": (1, 0, 0, 0, 0, 1),
+            "wgmma": _expected_moves(case, "wgmma")}[route]
+    assert moved == want
+    ref = pa.paged_attention_reference(*case, 0)
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2,
+                               rtol=2e-2)
+    assert torch.all(out[-1] == 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_int8", [False, True], ids=["bf16", "int8"])
+def test_drop_page_writes_equal_the_row_filtered_writes(cuda, kv_int8):
+    """The decode step's dropped writes (an unmapped page, a masked slot)
+    go to the pool's drop page: logits and every addressable page are
+    bit-equal to the path that filtered the kept rows out with
+    ``torch.nonzero`` (a host sync) before writing them."""
+    from kubetpu_torch.jobs import model as model_lib
+    from kubetpu_torch.jobs.decode import _layer
+    from kubetpu_torch.jobs.model import ModelConfig, init_params
+    from kubetpu_torch.jobs.paged import (_write_token_kv, init_page_pool,
+                                          paged_forward_one)
+
+    cfg = ModelConfig(vocab=512, d_model=256, n_layers=2, n_heads=2,
+                      d_ff=512, max_seq=256, dtype=torch.bfloat16)
+    model = init_params(torch.Generator(device="cuda").manual_seed(0), cfg,
+                        device="cuda")
+    n_pool, ps = 12, 16
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    stores = init_page_pool(cfg, n_pool + 1, ps, kv_int8=kv_int8,
+                            device="cuda")
+    for t in (x for pool in stores
+              for x in (pool if isinstance(pool, tuple) else (pool,))):
+        if t.dtype == torch.int8:
+            t.copy_(torch.randint(-127, 128, t.shape, generator=gen,
+                                  device="cuda"))
+        else:
+            t.copy_(torch.rand(t.shape, generator=gen, device="cuda"))
+    table = torch.tensor([[0, 1, 2, -1], [3, 4, -1, -1], [5, 6, 7, 8],
+                          [9, -1, -1, -1]], dtype=torch.int32, device="cuda")
+    pos = torch.tensor([40, 40, 63, 5], dtype=torch.int32, device="cuda")
+    enable = torch.tensor([True, True, False, True], device="cuda")
+    token = torch.tensor([1, 2, 3, 4], device="cuda")
+
+    def clone(pools):
+        return tuple(tuple(x.clone() for x in p) if isinstance(p, tuple)
+                     else p.clone() for p in pools)
+
+    def filtered(k_pages, v_pages):
+        """The row-filtered write path the drop page replaces."""
+        ps_ = (k_pages[0] if isinstance(k_pages, tuple) else k_pages).shape[2]
+        pos_l = pos.long()
+        lp = torch.clamp(pos_l // ps_, max=table.shape[1] - 1)
+        phys = torch.gather(table, 1, lp[:, None])[:, 0].long()
+        rows = torch.nonzero((phys >= 0) & enable)[:, 0]
+        phys, offset = phys[rows], (pos_l % ps_)[rows]
+        x = model.embed[token[:, None]]
+        for i, layer in enumerate(model.blocks):
+            k_l, v_l = _layer(k_pages, i), _layer(v_pages, i)
+            h = model_lib.rms_norm(x, layer.ln1)
+            q = torch.einsum("bsd,dhk->bshk", h, layer.wq)
+            k = torch.einsum("bsd,dhk->bshk", h, layer.wk)
+            v = torch.einsum("bsd,dhk->bshk", h, layer.wv)
+            q = model_lib.rope(q, pos_l[:, None], cfg.rope_theta)
+            k = model_lib.rope(k, pos_l[:, None], cfg.rope_theta)
+            _write_token_kv(k_l, k[rows, 0], phys, offset)
+            _write_token_kv(v_l, v[rows, 0], phys, offset)
+            attn = pa.paged_attention(q[:, 0].contiguous(), k_l, v_l, table,
+                                      pos)[:, None]
+            x = x + torch.einsum("bshk,hkd->bsd", attn, layer.wo)
+            x = x + model_lib._mlp(cfg, model_lib.rms_norm(x, layer.ln2),
+                                   layer)
+        x = model_lib.rms_norm(x, model.ln_f)
+        return torch.einsum("bsd,dv->bsv", x, model.head).float()[:, 0]
+
+    old = clone(stores)
+    with torch.no_grad():
+        want = filtered(*old)
+        got = paged_forward_one(cfg, model, token, *stores, table, pos,
+                                attend=pa.paged_attention,
+                                write_enable=enable)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    flat = [x for pool in stores
+            for x in (pool if isinstance(pool, tuple) else (pool,))]
+    flat_old = [x for pool in old
+                for x in (pool if isinstance(pool, tuple) else (pool,))]
+    for a, b in zip(flat, flat_old):
+        assert torch.equal(a[:, :n_pool], b[:, :n_pool])

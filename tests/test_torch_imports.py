@@ -32,6 +32,8 @@ def test_fresh_import_loads_no_jax_and_no_kubetpu():
     out of sys.modules."""
     mods = _all_modules()
     for name in ("jobs.paged", "jobs.train", "jobs.data", "jobs.convert",
+                 "jobs.decode", "jobs.serving", "jobs.speculative",
+                 "jobs.spec_serving",
                  "jobs.prefix_cache", "ops.paged_attention",
                  "ops.flash_attention", "obs", "obs.registry", "obs.events",
                  "obs.trace", "core", "core.metrics", "api", "api.utils",
@@ -112,14 +114,17 @@ def test_port_replica_serves_with_neither_jax_nor_kubetpu_loaded():
 
 
 def test_entry_points_default_to_the_card_and_raise_without_it():
-    """No device and no CUDA: model construction, the servers, the train
-    entry points and the flash wrappers raise, never continue silently on
-    the CPU."""
+    """No device and no CUDA: model construction, the servers (plain,
+    dense and speculative), the caches, the train entry points and the
+    flash wrappers raise, never continue silently on the CPU."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default is usable here")
     from kubetpu_torch.jobs.model import ModelConfig, init_params
     from kubetpu_torch.jobs.paged import PagedDecodeServer, init_page_pool
-    from kubetpu_torch.jobs.serving import SlotServerBase
+    from kubetpu_torch.jobs.decode import init_kv_cache
+    from kubetpu_torch.jobs.serving import DecodeServer, SlotServerBase
+    from kubetpu_torch.jobs.spec_serving import (
+        PagedSpeculativeDecodeServer, SpeculativeDecodeServer)
     from kubetpu_torch.jobs.train import (init_state, make_eval_step,
                                           make_train_step)
     from kubetpu_torch.ops import flash_attention as fa
@@ -137,6 +142,14 @@ def test_entry_points_default_to_the_card_and_raise_without_it():
     with pytest.raises(RuntimeError, match="CUDA"):
         SlotServerBase(cfg, model, n_slots=2, max_seq=16, max_new_tokens=4,
                        eos_id=None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DecodeServer(cfg, model)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SpeculativeDecodeServer(cfg, cfg, model, model)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PagedSpeculativeDecodeServer(cfg, cfg, model, model)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_kv_cache(cfg, 2, 16)
     with pytest.raises(RuntimeError, match="CUDA"):
         init_state(torch.Generator().manual_seed(0), cfg)
     with pytest.raises(RuntimeError, match="CUDA"):

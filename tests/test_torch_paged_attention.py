@@ -176,8 +176,10 @@ def test_route_pins_the_instances_for_each_form(dtype, d):
     """Decode (T = 1) takes the split route at every dtype, int8 or not,
     windowed or not, when D is a multiple of 16; a chunk (T > 1) takes the
     tensor-core route without a window at bf16/f16 q and D 64 or 128, over
-    dense pages and int8 pages alike; everything else (f32 q, other head
-    dims, windows) takes SIMT."""
+    dense pages and int8 pages alike — except the verify chunk the card
+    measured faster as one-query rows (T = 2 over int8 pages at g = 1,
+    D = 128); everything else (f32 q, other head dims, windows) takes
+    SIMT."""
     q = torch.zeros((1, 1, 2, d), dtype=dtype)
     dense = torch.zeros((2, 4, 2, d), dtype=dtype)
     int8 = (torch.zeros((2, 4, 2, d), dtype=torch.int8),
@@ -186,11 +188,13 @@ def test_route_pins_the_instances_for_each_form(dtype, d):
         for window in (0, 8):
             assert tops._route(q, pages, 1, window) == (
                 "split" if d % 16 == 0 else "simt")
-            for t in (2, 37, 256):
+            for t in (2, 3, 9, 37, 256):
                 wgmma = (window == 0 and d in (64, 128)
                          and dtype != torch.float32)
+                rows = (wgmma and d == 128 and t == 2
+                        and isinstance(pages, tuple))
                 assert tops._route(q, pages, t, window) == (
-                    "wgmma" if wgmma else "simt")
+                    "rows" if rows else "wgmma" if wgmma else "simt")
 
 
 def test_cpu_takes_the_plain_version_and_counts_no_launch():
