@@ -107,6 +107,19 @@ Phases, one line each, any failure exits non-zero:
    speculative tokens equal the plain server's, except that a request's
    first divergence may fall where the plain run's top two logits lie
    within 0.25; and exact equality on phase 5's small f32 model;
+17. multilora (after phase 16): the flagship with 64 resident rank-8
+   adapters on wq/wk/wv/wo (~3.1 MB each in bf16), phase 6's prompts as 8
+   tenants, 32 new tokens: the plain ``PagedDecodeServer`` and the packed
+   ``PagedMultiLoraDecodeServer`` over bf16 (profiled: device busy, idle
+   share, kernels a step, the LoRA gather's and deltas' device ms; then
+   both run again three times each, alternated), int8 and with
+   ``overlap``; each tenant alone on its merged weights
+   (n_slots=1, in turn); ``SpecMultiLoraDecodeServer`` with phase 16's
+   quarter draft; hot load and evict on the wire (two port replicas, an
+   ``AdapterRegistry`` pushing a 65th adapter). Gates in
+   ``phase_multilora``'s docstring: phase 16's near-tie rule against the
+   merged servers, exact on phase 5's small f32 model, prefix isolation,
+   0 / 1 host syncs a dispatched / routed step, the paged launches;
 10. train parity: the small f32 model trained three steps on the CPU (plain
    versions) and on the card (flash kernels) from the same weights and
    batches — first-step gradients and per-step losses agree;
@@ -118,10 +131,17 @@ Phases, one line each, any failure exits non-zero:
    then ten steps on one repeated batch, whose loss must fall;
 13. train profile: ``torch.profiler`` over one training step — device busy
    time, idle share, the attention kernels' share, the top kernels;
+18. lora_train: LoRA (rank 8, wq/wk/wv/wo) on phase 11's weights at phase
+   11's configuration: one warm-up and five timed steps (step time,
+   tokens/s, peak memory; flash counters 24 / 12 / 12 a step, all wgmma),
+   ten steps on one repeated batch whose loss must fall, the base's bytes
+   unchanged; then the small f32 model's three LoRA steps on the CPU and
+   the card (first-step A/B gradients, per-step losses);
 14. the ``kernels`` JSON line, 8 kernels (launches: the paged split,
    combine and wgmma chunk kernels' — dense and int8 instances — over
-   phases 6, 8, 9, 12, 15 and 16, the SIMT chunk's over phase 5, the flash
-   kernels' over phase 11's timed steps), then the result line.
+   phases 6, 8, 9, 12, 15, 16 and 17, the SIMT chunk's over phase 5, the
+   flash kernels' over phase 11's and phase 18's timed steps), then the
+   result line.
 
 Nothing of JAX or of the ``kubetpu`` package is imported. ``--record PATH``
 also writes every measured number as one JSON file.
@@ -1334,13 +1354,16 @@ def phase_window(model, cfg, smi, launches) -> dict:
     return row
 
 
-def _profiled(run):
+def _profiled(run, ranges=None):
     """(wall us, {kernel name: device self time us}, {"device_kernels": the
     kernels run, "cpu_ops": the host-side operator calls, nested ones
     included}) of run() under torch.profiler. Only device-side events are
     summed (CPU ops would count twice); on one stream kernels never
     overlap, so their sum is the device busy time and 1 - busy / wall the
-    idle share."""
+    idle share. *ranges*: a dict whose keys are ``record_function`` labels
+    run() opens; each gets the device time (us) of the kernels launched
+    inside it (the ranges' device-side annotations stay out of the busy
+    sum)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1354,6 +1377,11 @@ def _profiled(run):
     kernels = {}
     counts = {"device_kernels": 0, "cpu_ops": 0}
     for ev in prof.key_averages():
+        if ranges is not None and ev.key in ranges:
+            if ev.device_type != DeviceType.CUDA:
+                ranges[ev.key] = getattr(ev, "device_time_total",
+                                         getattr(ev, "cuda_time_total", 0.0))
+            continue
         if ev.device_type != DeviceType.CUDA:
             counts["cpu_ops"] += ev.count
             continue
@@ -1364,11 +1392,12 @@ def _profiled(run):
     return wall_us, kernels, counts
 
 
-def _ten_step_profile(server) -> dict:
+def _ten_step_profile(server, ranges=None) -> dict:
     """torch.profiler over ten steps of eight active slots (256-token
     prompts from their own generator), after three steps in: step time,
     device busy time, idle share, the paged kernels' share and the top
-    kernels. Drains the server after."""
+    kernels; with *ranges* (``_profiled``'s), each range's device ms a
+    step. Drains the server after."""
     rng = np.random.default_rng(1)
     for _ in range(server.n_slots):
         server.enqueue(rng.integers(0, server.cfg.vocab, 256).tolist())
@@ -1382,13 +1411,16 @@ def _ten_step_profile(server) -> dict:
         for _ in range(10):
             server.step()
 
-    wall_us, kernels, counts = _profiled(ten_steps)
+    wall_us, kernels, counts = _profiled(ten_steps, ranges)
     busy = sum(kernels.values())
     attn = sum(v for k, v in kernels.items()
                if any(n in k for n in _PAGED_KERNELS))
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
     server.drain()
-    return dict(active_slots=active, steps=10, step_ms=wall_us / 10 / 1e3,
+    extra = ({} if ranges is None else {"range_device_ms_per_step": {
+        k: v / 10 / 1e3 for k, v in ranges.items()}})
+    return dict(**extra, active_slots=active, steps=10,
+                step_ms=wall_us / 10 / 1e3,
                 device_busy_ms_per_step=busy / 10 / 1e3,
                 idle_share=(1.0 - busy / wall_us) if busy else None,
                 paged_attention_share_of_busy=(attn / busy) if busy else None,
@@ -1939,11 +1971,12 @@ class _SyncCounter:
                     route_syncs=sorted(set(r)))
 
 
-def _overlap_run(server, prompts, launches) -> dict:
+def _overlap_run(server, prompts, launches, adapters=None) -> dict:
     """Phase 6's staggered run (two prompts every four steps) on *server*,
     with the host-sync counter on and the paged counters zeroed before
     and read after (added to *launches*). Decode tokens/s and step wall
-    time over the steps that ran no prefill chunk."""
+    time over the steps that ran no prefill chunk. *adapters*: each
+    prompt's adapter on a multi-LoRA server."""
     from kubetpu_torch.ops import paged_attention as pa
 
     st = server._smoke_stats
@@ -1951,13 +1984,15 @@ def _overlap_run(server, prompts, launches) -> dict:
     for c in _PAGED_COUNTERS:
         setattr(pa.paged_attention, c, 0)
     sync = _SyncCounter(server)
-    rids, pending, steps = [], list(prompts), 0
+    rids, steps = [], 0
+    pending = [(p, {} if adapters is None else {"adapter": a})
+               for p, a in zip(prompts, adapters or [None] * len(prompts))]
     decode_s, decode_tokens, decode_steps = 0.0, 0, 0
     t_start = time.perf_counter()
     try:
         while pending or not server._idle():
             if pending and steps % 4 == 0:
-                rids += [server.enqueue(p) for p in pending[:2]]
+                rids += [server.enqueue(p, **kw) for p, kw in pending[:2]]
                 pending = pending[2:]
             chunks = st["chunks"]
             t0 = time.perf_counter()
@@ -2448,6 +2483,531 @@ def phase_spec(model, cfg, smi, launches) -> dict:
     return rows
 
 
+# -- phase 17: multi-LoRA serving on the paged server ------------------------
+
+ML_RESIDENT = 64     # resident adapters (scripts/bench_gate.py:503-510)
+ML_NEW = 32          # new tokens a request, phase 6's
+ML_TENANTS = [9 * i for i in range(8)]    # one adapter a prompt, 0 .. 63
+
+
+def _tenant_adapters(cfg, lcfg, seeds):
+    """``bench_model.py:1607-1615``'s tenant adapters on the card in the
+    model's dtype: the init's A (seed 500 + t) and B drawn N(0, 0.05)
+    (seed 900 + t)."""
+    from kubetpu_torch.jobs.lora import init_lora_params
+
+    out = []
+    for t in seeds:
+        a = init_lora_params(torch.Generator(device="cuda").manual_seed(
+            500 + t), cfg, lcfg, device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(900 + t)
+        for tgt in lcfg.targets:
+            b = a["blocks"][f"{tgt}_b"]
+            a["blocks"][f"{tgt}_b"] = (torch.randn(
+                b.shape, generator=gen, device="cuda") * 0.05).to(cfg.dtype)
+        out.append(a)
+    return out
+
+
+class _LoraRanges:
+    """``record_function`` ranges around the per-slot factor gather
+    ("lora_gather") and the delta einsums ("lora_delta") of the decode
+    legs while open; ``close`` restores the functions."""
+
+    LABELS = ("lora_gather", "lora_delta")
+
+    def __init__(self) -> None:
+        from kubetpu_torch.jobs import decode, paged
+
+        self._saved = [(paged, "select_lora", "lora_gather"),
+                       (decode, "_lora_in", "lora_delta"),
+                       (decode, "_lora_out", "lora_delta")]
+        self._saved = [(mod, name, label, getattr(mod, name))
+                       for mod, name, label in self._saved]
+        for mod, name, label, fn in self._saved:
+            setattr(mod, name, self._ranged(label, fn))
+
+    @staticmethod
+    def _ranged(label, fn):
+        def run(*args, **kwargs):
+            with torch.profiler.record_function(label):
+                return fn(*args, **kwargs)
+        return run
+
+    def close(self) -> None:
+        for mod, name, _label, fn in self._saved:
+            setattr(mod, name, fn)
+
+
+def _ml_server(model, cfg, lcfg, ads, **kw):
+    """A packed multi-LoRA flagship server with phase 6's settings."""
+    from kubetpu_torch.jobs.multi_lora import PagedMultiLoraDecodeServer
+
+    return PagedMultiLoraDecodeServer(
+        cfg, model, lcfg, ads, n_slots=8, max_seq=2048,
+        max_new_tokens=ML_NEW, page_size=16, prefill_budget=256,
+        device="cuda", **kw)
+
+
+def _ml_arm(arm, server, prompts, adapters, smi, launches,
+            top2=False, profile=False) -> dict:
+    """One serving arm of phase 17 on a warmed-up *server*: phase 6's
+    staggered run with the host-sync counter (``_overlap_run``), the
+    paged launches checked against the legs that ran, the pool and
+    directory oracles, and optionally the top-two logits of every row
+    (the near-tie rule's input) and a profiled window of ten steps."""
+    st = _instrument(server)
+    server._smoke_stats = st
+    rec = _record_top2(server) if top2 else None
+    run = _overlap_run(server, prompts, launches, adapters)
+    server.check_invariants()
+    n_dec, n_chunk = (server.cfg.n_layers * st[k] for k in ("steps",
+                                                            "chunks"))
+    wgmma = ("wgmma_int8_launches" if server.kv_int8 else "wgmma_launches")
+    counts = run["paged_launches"]
+    launches_ok = (n_dec > 0 and counts["split_launches"] == n_dec
+                   and counts[wgmma] == n_chunk
+                   and counts["simt_launches"] == 0)
+    syncs = run["syncs"]
+    ttft = server.metrics_summary()["ttft"]
+    row = dict(arm=arm, card=torch.cuda.get_device_name(0), nvidia_smi=smi,
+               overlap=server.overlap, kv_int8=server.kv_int8,
+               requests=len(prompts), new_tokens=ML_NEW,
+               toks_s=len(prompts) * ML_NEW / run["wall_s"],
+               **{k: v for k, v in run.items() if k != "results"},
+               ttft_p50_ms=ttft["p50_ms"], ttft_p99_ms=ttft["p99_ms"],
+               launches_ok=launches_ok,
+               syncs_ok=(syncs["dispatch_syncs_max"] == 0
+                         and syncs["route_syncs"] == [1]
+                         and syncs["routed"] == syncs["dispatched"]))
+    if hasattr(server, "lora_stack"):
+        row.update(resident_adapters=len(server.resident_adapters()),
+                   adapter_capacity=server.n_adapters,
+                   stack_bytes=server._adapter_bytes_each
+                   * server.n_adapters)
+    out = dict(row=row, results=run["results"])
+    if rec is not None:
+        out["gaps"] = _top2_gaps(rec)
+    if profile:
+        row["profile"] = _ten_step_profile(server)
+    line("multilora", **row)
+    return out
+
+
+def _ml_alternation(servers, prompts, first, smi, launches) -> dict:
+    """The plain and the packed server's staggered runs again, alternated
+    (plain, packed, packed, plain, plain, packed): one pair a run sits
+    inside the host's noise. *servers*: {arm: (server, adapters)}; each
+    run's tokens must repeat *first*[arm]. Decode tokens/s of every run
+    and the medians' ratio."""
+    alt = {"plain": [], "packed": []}
+    for arm in ("plain", "packed", "packed", "plain", "plain", "packed"):
+        server, adapters = servers[arm]
+        run = _overlap_run(server, prompts, launches, adapters)
+        if run["results"] != first[arm]:
+            raise SystemExit(f"multilora: an alternation run of {arm} "
+                             f"changed its tokens")
+        alt[arm].append(run["decode_toks_s"])
+    med = {arm: float(np.median(v)) for arm, v in alt.items()}
+    row = dict(card=torch.cuda.get_device_name(0), nvidia_smi=smi,
+               plain=alt["plain"], packed=alt["packed"],
+               median_plain=med["plain"], median_packed=med["packed"],
+               packed_over_plain=med["packed"] / med["plain"])
+    line("multilora_alternation", **row)
+    return row
+
+
+def _ml_prefix(model, cfg, lcfg, ads, prompt) -> list:
+    """Prefix isolation on a packed server with the tree on: *prompt* under
+    one tenant, replayed under it (a hit), then under another tenant (a
+    miss) -> the hit count after each of the three."""
+    server = _ml_server(model, cfg, lcfg, ads, prefix_cache_pages=256)
+    hits = []
+    for aid in (ML_TENANTS[-1], ML_TENANTS[-1], ML_TENANTS[0]):
+        rid = server.enqueue(prompt, adapter=aid)
+        server.drain()
+        server.pop_result(rid)
+        hits.append(server.prefix_cache_stats()["requests_hit"])
+    server.check_invariants()
+    del server
+    torch.cuda.empty_cache()
+    return hits
+
+
+def _ml_merged(model, cfg, lcfg, ads, prompts, smi, launches,
+               kv_int8=False) -> dict:
+    """The per-tenant arm of the reference storm: each prompt alone on its
+    own ``PagedDecodeServer`` over its tenant's merged weights
+    (``merge_lora``), at n_slots=1, in turn, over a bf16 or an int8 pool.
+    Tokens, the top-two gaps of every row it sampled, and the tokens/s of
+    the whole arm."""
+    from kubetpu_torch.jobs.lora import merge_lora
+    from kubetpu_torch.jobs.paged import PagedDecodeServer
+    from kubetpu_torch.ops import paged_attention as pa
+
+    results, gaps, ttft, wall = [], {}, [], 0.0
+    for p, aid in zip(prompts, ML_TENANTS):
+        merged = merge_lora(model, ads[aid], lcfg)
+        server = PagedDecodeServer(cfg, merged, n_slots=1, max_seq=2048,
+                                   max_new_tokens=ML_NEW, page_size=16,
+                                   n_pages=2048 // 16, prefill_budget=256,
+                                   kv_int8=kv_int8, device="cuda")
+        rec = _record_top2(server)
+        torch.cuda.synchronize()
+        for c in _PAGED_COUNTERS:
+            setattr(pa.paged_attention, c, 0)
+        t0 = time.perf_counter()
+        rid = server.enqueue(p)
+        server.drain()
+        torch.cuda.synchronize()
+        wall += time.perf_counter() - t0
+        for c in _PAGED_COUNTERS:
+            launches[c] = launches.get(c, 0) + getattr(pa.paged_attention, c)
+        server.check_invariants()
+        results.append(server.pop_result(rid))
+        gaps.update(_top2_gaps(rec))
+        ttft.append(server.metrics_summary()["ttft"]["p50_ms"])
+        del server, merged
+        torch.cuda.empty_cache()
+    row = dict(arm="merged_per_tenant" + ("_int8" if kv_int8 else ""),
+               card=torch.cuda.get_device_name(0), kv_int8=kv_int8,
+               nvidia_smi=smi, servers=len(prompts), n_slots=1,
+               toks_s=len(prompts) * ML_NEW / wall, wall_s=wall,
+               ttft_p50_ms=float(np.median(ttft)))
+    line("multilora", **row)
+    return dict(row=row, results=results, gaps=gaps)
+
+
+def _ml_spec(model, cfg, lcfg, ads, prompts, smi, launches) -> dict:
+    """``SpecMultiLoraDecodeServer`` with phase 16's quarter draft over a
+    bf16 pool, the eight tenants at once: tokens, tokens/s, tokens a
+    round, the paged launches (every prefill and verify chunk on the route
+    ``_route`` takes for it)."""
+    from kubetpu_torch.jobs import model as model_lib
+    from kubetpu_torch.jobs.multi_lora import SpecMultiLoraDecodeServer
+    from kubetpu_torch.ops import paged_attention as pa
+
+    qcfg = model_lib.ModelConfig(vocab=cfg.vocab, d_model=512, n_layers=3,
+                                 n_heads=4, d_ff=1408, max_seq=2048,
+                                 dtype=torch.bfloat16)
+    quarter = model_lib.init_params(
+        torch.Generator(device="cuda").manual_seed(7), qcfg, device="cuda")
+    server = SpecMultiLoraDecodeServer(
+        cfg, qcfg, model, quarter, lcfg, ads, n_slots=8, max_seq=2048,
+        max_new_tokens=ML_NEW, page_size=16, prefill_budget=256,
+        gamma_max=GAMMA_MAX, device="cuda")
+    server.warmup()
+    st = _instrument_spec(server)
+    torch.cuda.synchronize()
+    for c in _PAGED_COUNTERS:
+        setattr(pa.paged_attention, c, 0)
+    t0 = time.perf_counter()
+    rids = [server.enqueue(p, adapter=a) for p, a in zip(prompts,
+                                                         ML_TENANTS)]
+    server.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {c: getattr(pa.paged_attention, c) for c in _PAGED_COUNTERS}
+    for c, n in counts.items():
+        launches[c] = launches.get(c, 0) + n
+    server.check_invariants()
+    results = [server.pop_result(r) for r in rids]
+    want = _expected_spec_launches(cfg, st, False)
+    row = dict(arm="spec_quarter", card=torch.cuda.get_device_name(0),
+               nvidia_smi=smi, toks_s=len(prompts) * ML_NEW / wall,
+               wall_s=wall, rounds=int(server._c_spec_rounds.value),
+               mean_tokens_per_round=server.mean_tokens_per_round(),
+               ttft_p50_ms=server.metrics_summary()["ttft"]["p50_ms"],
+               paged_launches=counts, expected_launches=want,
+               launches_ok=all(counts[k] == v for k, v in want.items()))
+    line("multilora", **row)
+    del server, quarter
+    torch.cuda.empty_cache()
+    return dict(row=row, results=results)
+
+
+def _ml_wire(model, cfg, lcfg, ads, extra, prompt, smi) -> dict:
+    """Hot load and evict on the wire: a packed replica (64 resident
+    adapters, full) and a plain one in this process. An
+    ``AdapterRegistry`` pushes a 65th adapter (the LRU index is evicted),
+    the same load replayed under its key is a no-op, a routed generate
+    names it and equals the in-process run, its evict is refused 409
+    while a request holds it, and the plain replica answers 404. The hot
+    load's time over the wire and in process."""
+    import urllib.error
+
+    from kubetpu_torch.jobs.paged import PagedDecodeServer
+    from kubetpu_torch.router import ReplicaServer
+    from kubetpu_torch.router.adapters import AdapterRegistry
+    from kubetpu_torch.wire.httpcommon import request_json
+
+    a = _ml_server(model, cfg, lcfg, ads)
+    b = PagedDecodeServer(cfg, model, n_slots=8, max_seq=2048,
+                          max_new_tokens=ML_NEW, page_size=16,
+                          prefill_budget=256, device="cuda")
+    a.warmup()
+    reps = [ReplicaServer(a, "ml-a", idle_wait=0.002),
+            ReplicaServer(b, "ml-b", idle_wait=0.002)]
+    for rep in reps:
+        rep.start()
+    try:
+        reg = AdapterRegistry()
+        name = reg.register(extra[0])
+        victim = a._adapter_names[min(range(a.n_adapters),
+                                      key=a._adapter_lru.__getitem__)]
+        loads = a.obs.counter("kubetpu_adapter_loads_total")
+        t0 = time.perf_counter()
+        payload = {"action": "load", "name": name,
+                   "adapter": reg.encoded(name)}
+        first = request_json(reps[0].address + "/adapters", payload,
+                             idempotency_key="ml-load", timeout=600)
+        push_ms = (time.perf_counter() - t0) * 1e3
+        replay = request_json(reps[0].address + "/adapters", payload,
+                              idempotency_key="ml-load", timeout=600)
+        again = reg.push_adapter(reps[0].address, name, timeout=600)
+        with reps[0]._cv:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            other = a.load_adapter(extra[1])
+            torch.cuda.synchronize()
+            load_ms = (time.perf_counter() - t0) * 1e3
+            a.evict_adapter(other)
+        code, body = _generate(reps[0].address, prompt, "ml-gen",
+                               adapter=name)
+        with reps[0]._cv:
+            rid = a.enqueue(prompt, adapter=name)
+        try:
+            reg.evict_adapter(reps[0].address, name, timeout=600)
+            evict_code = 200
+        except urllib.error.HTTPError as e:
+            evict_code = e.code
+        while True:
+            with reps[0]._cv:
+                if a.finished(rid):
+                    inproc = a.pop_result(rid)
+                    break
+            time.sleep(0.01)
+        evicted = reg.evict_adapter(reps[0].address, name,
+                                    timeout=600)["evicted"]
+        try:
+            reg.push_adapter(reps[1].address, name, timeout=600)
+            plain_code = 200
+        except urllib.error.HTTPError as e:
+            plain_code = e.code
+        with reps[0]._cv:
+            a.check_invariants()
+            resident = len(a.resident_adapters())
+    finally:
+        _stop(*reps)
+    row = dict(arm="wire", card=torch.cuda.get_device_name(0),
+               nvidia_smi=smi, push_ms=push_ms, load_in_process_ms=load_ms,
+               loaded=name in first["resident"],
+               victim_evicted=victim not in first["resident"],
+               resident_after_load=len(first["resident"]),
+               replay_equal=replay == first,
+               loads_counted=int(loads.value), again_resident=name in
+               again["resident"], generate_code=code,
+               routed_equal_in_process=code == 200
+               and body["tokens"] == inproc,
+               evict_in_use_code=evict_code, evicted_after=evicted,
+               plain_replica_code=plain_code, resident_at_end=resident)
+    line("multilora", **row)
+    ok = (row["loaded"] and row["victim_evicted"]
+          and row["resident_after_load"] == ML_RESIDENT
+          and row["replay_equal"] and row["again_resident"]
+          and row["loads_counted"] == 2 and row["routed_equal_in_process"]
+          and evict_code == 409 and evicted is True and plain_code == 404)
+    return dict(row=row, ok=ok)
+
+
+def _ml_small_f32() -> dict:
+    """Phase 5's small f32 model with three adapters on the CPU and on the
+    card, f32 and int8 pools: the packed server's tokens equal each
+    tenant's merged single-tenant server's exactly, the card's equal the
+    CPU's."""
+    from kubetpu_torch.jobs import model as model_lib
+    from kubetpu_torch.jobs.lora import (LoraConfig, init_lora_params,
+                                         merge_lora)
+    from kubetpu_torch.jobs.multi_lora import PagedMultiLoraDecodeServer
+    from kubetpu_torch.jobs.paged import PagedDecodeServer
+
+    cfg = _small_cfg()
+    lcfg = LoraConfig(rank=8, alpha=16.0)
+    base = model_lib.init_params(torch.Generator().manual_seed(7), cfg,
+                                 device="cpu")
+    ads = []
+    for t in range(3):
+        a = init_lora_params(torch.Generator().manual_seed(500 + t), cfg,
+                             lcfg, device="cpu")
+        gen = torch.Generator().manual_seed(900 + t)
+        for k, v in a["blocks"].items():
+            if k.endswith("_b"):
+                a["blocks"][k] = torch.randn(v.shape, generator=gen) * 0.05
+        ads.append(a)
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, cfg.vocab, n).tolist()
+               for n in (5, 40, 23, 70)]
+    picks = [0, 1, 2, 0]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        m = copy.deepcopy(base).to(dev)
+        ad = [{"blocks": {k: v.to(dev) for k, v in a["blocks"].items()}}
+              for a in ads]
+        for kv_int8 in (False, True):
+            kw = dict(max_seq=256, max_new_tokens=16, page_size=16,
+                      prefill_budget=32, kv_int8=kv_int8, device=dev)
+            server = PagedMultiLoraDecodeServer(cfg, m, lcfg, ad, n_slots=3,
+                                                **kw)
+            rids = [server.enqueue(prompts[0], adapter=picks[0])]
+            server.step()
+            rids += [server.enqueue(p, adapter=a)
+                     for p, a in zip(prompts[1:], picks[1:])]
+            server.drain()
+            server.check_invariants()
+            out[(dev, kv_int8, "packed")] = [server.result(r) for r in rids]
+            merged = []
+            for p, a in zip(prompts, picks):
+                ref = PagedDecodeServer(cfg, merge_lora(m, ad[a], lcfg),
+                                        n_slots=1, **kw)
+                rid = ref.enqueue(p)
+                ref.drain()
+                merged.append(ref.result(rid))
+            out[(dev, kv_int8, "merged")] = merged
+    ref = {k: out[("cpu", k, "merged")] for k in (False, True)}
+    equal = {f"{dev}_{'int8' if k else 'f32'}_{kind}": v == ref[k]
+             for (dev, k, kind), v in out.items()}
+    return {"equal_to_cpu_merged": equal, "ok": all(equal.values())}
+
+
+def phase_multilora(model, cfg, smi, launches) -> dict:
+    """Multi-LoRA serving on the flagship: 64 resident rank-8 adapters on
+    wq/wk/wv/wo (bench_model.py's tenant adapters), phase 6's prompts as
+    eight tenants (adapters 0, 9, ..., 63), 32 new tokens, 8 slots,
+    ``prefill_budget=256``. Arms: the plain ``PagedDecodeServer`` (what
+    the adapters cost), the packed ``PagedMultiLoraDecodeServer`` over a
+    bf16 pool (both again three times each, alternated: one pair is
+    inside the host's noise), over an int8 pool and with ``overlap``; each tenant alone
+    on its merged weights at n_slots=1 in turn, over a bf16 and an int8
+    pool (the packed arms' references, pool for pool); the speculative
+    packed
+    server with phase 16's quarter draft; hot load / evict on the wire;
+    phase 5's small f32 model on the CPU and the card.
+
+    Gates: each tenant's packed tokens equal its merged server's, the
+    first divergence allowed only where the merged run's top two logits
+    lie within LOGIT_TOL (exactly equal on the small f32 model); the
+    speculative tokens equal the packed server's under the same rule; a
+    same-tenant replay hits the prefix tree and the prompt under another
+    adapter misses it; 0 host syncs in each dispatched step and 1 in each
+    routed one; the paged launches of every arm on the split and wgmma
+    routes, none on SIMT; the oracles after every arm; the wire's
+    answers (``_ml_wire``)."""
+    from kubetpu_torch.jobs.lora import LoraConfig
+    from kubetpu_torch.jobs.paged import PagedDecodeServer
+
+    t_phase = time.perf_counter()
+    lcfg = LoraConfig(rank=8, alpha=16.0)
+    ads = _tenant_adapters(cfg, lcfg, range(ML_RESIDENT + 2))
+    resident, extra = ads[:ML_RESIDENT], ads[ML_RESIDENT:]
+    prompts = _serve_prompts(cfg)
+    rows = {}
+    plain = PagedDecodeServer(cfg, model, n_slots=8, max_seq=2048,
+                              max_new_tokens=ML_NEW, page_size=16,
+                              prefill_budget=256, device="cuda")
+    plain.warmup()
+    rows["plain"] = _ml_arm("plain", plain, prompts, None, smi, launches,
+                            top2=True, profile=True)
+    packed = _ml_server(model, cfg, lcfg, resident)
+    packed.warmup()
+    rows["packed"] = _ml_arm("packed", packed, prompts, ML_TENANTS, smi,
+                             launches, top2=True)
+    ranges = {k: 0.0 for k in _LoraRanges.LABELS}
+    patch = _LoraRanges()
+    try:
+        prof = _ten_step_profile(packed, ranges)
+    finally:
+        patch.close()
+    rows["packed"]["row"]["profile"] = prof
+    line("multilora_profile", arm="packed", **prof)
+    packed.check_invariants()
+    alternation = _ml_alternation(
+        {"plain": (plain, None), "packed": (packed, ML_TENANTS)}, prompts,
+        {arm: rows[arm]["results"] for arm in ("plain", "packed")}, smi,
+        launches)
+    del plain, packed
+    torch.cuda.empty_cache()
+    # prefix isolation: a same-tenant replay hits, another tenant misses
+    replay = _ml_prefix(model, cfg, lcfg, resident, prompts[-1])
+    prefix_ok = replay == [0, 1, 1]
+    for arm, kw in (("packed_int8", {"kv_int8": True}),
+                    ("packed_overlap", {"overlap": True})):
+        server = _ml_server(model, cfg, lcfg, resident, **kw)
+        server.warmup()
+        rows[arm] = _ml_arm(arm, server, prompts, ML_TENANTS, smi, launches)
+        del server
+        torch.cuda.empty_cache()
+    rows["merged"] = _ml_merged(model, cfg, lcfg, resident, prompts, smi,
+                                launches)
+    rows["merged_int8"] = _ml_merged(model, cfg, lcfg, resident, prompts,
+                                     smi, launches, kv_int8=True)
+    rows["spec"] = _ml_spec(model, cfg, lcfg, resident, prompts, smi,
+                            launches)
+    rows["wire"] = _ml_wire(model, cfg, lcfg, resident, extra, prompts[0],
+                            smi)
+    small = _ml_small_f32()
+    line("multilora_f32", **small)
+    merged = rows["merged"]
+    ref = {"packed": merged, "packed_overlap": merged,
+           "packed_int8": rows["merged_int8"]}
+    ties = {arm: _near_tie_check(rows[arm]["results"], m["results"],
+                                 m["gaps"], prompts)
+            for arm, m in ref.items()}
+    spec_ties = _near_tie_check(rows["spec"]["results"],
+                                rows["packed"]["results"],
+                                rows["packed"]["gaps"], prompts)
+    overlap_equal = (rows["packed_overlap"]["results"]
+                     == rows["packed"]["results"])
+    arms = ("plain", "packed", "packed_int8", "packed_overlap")
+    p_prof, q_prof = rows["plain"]["row"]["profile"], prof
+    summary = dict(
+        tokens_equal_merged={a: sum(x == y for x, y in zip(
+            rows[a]["results"], m["results"])) for a, m in ref.items()},
+        diverged={a: t["diverged"] for a, t in ties.items()},
+        bad={a: t["bad"] for a, t in ties.items()},
+        spec_tokens_equal_packed=sum(x == y for x, y in zip(
+            rows["spec"]["results"], rows["packed"]["results"])),
+        spec_bad=spec_ties["bad"], overlap_tokens_equal=overlap_equal,
+        prefix_replay_hits=replay, prefix_ok=prefix_ok,
+        syncs_ok={a: rows[a]["row"]["syncs_ok"] for a in arms},
+        launches_ok={a: rows[a]["row"]["launches_ok"] for a in arms},
+        spec_launches_ok=rows["spec"]["row"]["launches_ok"],
+        wire_ok=rows["wire"]["ok"], small_f32_ok=small["ok"],
+        packed_over_plain_decode_toks_s=(
+            rows["packed"]["row"]["decode_toks_s"]
+            / rows["plain"]["row"]["decode_toks_s"]),
+        alternated_packed_over_plain=alternation["packed_over_plain"],
+        packed_over_merged_toks_s=(rows["packed"]["row"]["toks_s"]
+                                   / merged["row"]["toks_s"]),
+        step_device_busy_ms={"plain": p_prof["device_busy_ms_per_step"],
+                             "packed": q_prof["device_busy_ms_per_step"]},
+        step_kernels={"plain": p_prof["device_kernels_per_step"],
+                      "packed": q_prof["device_kernels_per_step"]},
+        lora_device_ms_per_step=q_prof["range_device_ms_per_step"],
+        seconds=time.perf_counter() - t_phase)
+    line("multilora_gates", **summary)
+    failed = (any(summary["bad"].values()) or spec_ties["bad"]
+              or not overlap_equal or not prefix_ok
+              or not all(summary["syncs_ok"].values())
+              or not all(summary["launches_ok"].values())
+              or not summary["spec_launches_ok"] or not summary["wire_ok"]
+              or not small["ok"])
+    if failed:
+        raise SystemExit(f"multilora: {summary}")
+    out = {k: v["row"] for k, v in rows.items()}
+    out.update(gates=summary, small_f32=small, alternation=alternation)
+    return out
+
+
 # -- phase 10: the training step, CPU plain versions vs the card's kernels ---
 
 TRAIN_TOL = 1e-4     # f32 on both sides: summation order only
@@ -2624,6 +3184,149 @@ def phase_train_profile(state, step, batch) -> dict:
     return row
 
 
+# -- phase 18: LoRA fine-tuning of the flagship --------------------------------
+
+LORA_LR = 1e-3
+
+
+def _lora_train_parity() -> dict:
+    """Three LoRA steps of phase 10's small f32 model on the CPU (plain
+    versions) and on the card (flash kernels), from the same base, the
+    same adapter (B drawn N(0, 0.05), so A has a gradient from the first
+    step) and the same batches: first-step A/B gradients within TRAIN_TOL
+    of each leaf's largest, per-step losses within TRAIN_TOL relative."""
+    from kubetpu_torch.jobs import lora as lora_lib
+    from kubetpu_torch.jobs import model as model_lib
+    from kubetpu_torch.jobs import train as train_lib
+    from kubetpu_torch.jobs.data import SyntheticCorpus
+
+    cfg = _small_cfg()
+    lcfg = lora_lib.LoraConfig(rank=8, alpha=16.0)
+    base = model_lib.init_params(torch.Generator().manual_seed(11), cfg,
+                                 device="cpu")
+    start = lora_lib.init_lora_params(torch.Generator().manual_seed(12),
+                                      cfg, lcfg, device="cpu")
+    gen = torch.Generator().manual_seed(13)
+    for k, v in start["blocks"].items():
+        if k.endswith("_b"):
+            start["blocks"][k] = torch.randn(v.shape, generator=gen) * 0.05
+    it = SyntheticCorpus(cfg.vocab, seed=1).batches(2, 200, seed=2)
+    batches = [next(it) for _ in range(3)]
+    attn = train_lib._resolve_attention("flash", cfg.window)
+    grads, losses = {}, {}
+    for dev in ("cpu", "cuda"):
+        b = copy.deepcopy(base).to(dev)
+        lora = {"blocks": {k: v.clone().to(dev).requires_grad_(True)
+                           for k, v in start["blocks"].items()}}
+        tokens, targets = (torch.from_numpy(x).long().to(dev)
+                           for x in batches[0])
+        loss = model_lib.next_token_loss(lora_lib._merged_view(b, lora, lcfg),
+                                         tokens, targets, cfg, attn)
+        grads[dev] = [x.cpu() for x in torch.autograd.grad(
+            loss, train_lib._trained_leaves(lora))]
+        opt = train_lib.make_optimizer(lr=LORA_LR)
+        state = train_lib.TrainState(
+            lora, opt.init(train_lib._trained_leaves(lora)))
+        step = lora_lib.make_lora_train_step(cfg, lcfg, optimizer=opt,
+                                             device=dev)
+        losses[dev] = []
+        for tokens, targets in batches:
+            state, loss = step(state, b, tokens, targets)
+            losses[dev].append(float(loss))
+    grad_err = max(float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+                   for a, b in zip(grads["cuda"], grads["cpu"]))
+    loss_err = max(abs(a - b) / abs(b)
+                   for a, b in zip(losses["cuda"], losses["cpu"]))
+    row = dict(cfg="vocab 512, d 256, 2 layers, 4 heads / 2 kv, f32",
+               lora="rank 8, alpha 16, wq wk wv wo", batch=2, seq=200,
+               steps=3, losses_cpu=losses["cpu"],
+               losses_cuda=losses["cuda"], loss_rel_err=loss_err,
+               grad_rel_err=grad_err, tol=TRAIN_TOL)
+    line("lora_train_parity", **row)
+    if not grad_err <= TRAIN_TOL or not loss_err <= TRAIN_TOL:
+        raise SystemExit(f"lora train parity: gradients {grad_err}, losses "
+                         f"{loss_err} above {TRAIN_TOL}")
+    return row
+
+
+def phase_lora_train(base, smi) -> dict:
+    """LoRA on the flagship at phase 11's configuration (batch 4 x seq
+    2048, full remat, flash attention), rank 8 on wq/wk/wv/wo, the base
+    being phase 11's trained weights: one warm-up step, five timed steps
+    (step time, tokens/s, peak memory; the flash counters zeroed just
+    before must read 24 / 12 / 12 a step, all wgmma, just after), ten
+    steps on one repeated batch whose loss must fall, the base's bytes
+    unchanged after all of them; then ``_lora_train_parity``."""
+    from kubetpu_torch.jobs import lora as lora_lib
+    from kubetpu_torch.jobs import train as train_lib
+    from kubetpu_torch.jobs.data import SyntheticCorpus
+
+    cfg = _flagship_train_cfg()
+    lcfg = lora_lib.LoraConfig(rank=8, alpha=16.0)
+    batch, seq, timed = 4, 2048, 5
+    base.requires_grad_(False)
+    before = [p.detach().clone() for p in base.parameters()]
+    state, opt = lora_lib.init_lora_state(
+        torch.Generator(device="cuda").manual_seed(1), cfg, lcfg,
+        optimizer=train_lib.make_optimizer(lr=LORA_LR), device="cuda")
+    n_lora = lora_lib.lora_param_count(state.params)
+    step = lora_lib.make_lora_train_step(cfg, lcfg, optimizer=opt,
+                                         attention="flash", device="cuda")
+    it = SyntheticCorpus(cfg.vocab, seed=0).batches(batch, seq, seed=3)
+    batches = [next(it) for _ in range(timed + 1)]
+    state, loss = step(state, base, *batches[0])     # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_flash_counts()                             # zero just before
+    t0 = time.perf_counter()
+    losses = []
+    for b in batches[1:]:
+        state, loss = step(state, base, *b)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _flash_counts()                         # read just after
+    losses = [float(x) for x in losses]
+    peak_mem = torch.cuda.max_memory_allocated() / 1e9
+    expected = (2 * cfg.n_layers * timed, cfg.n_layers * timed,
+                cfg.n_layers * timed, 2 * cfg.n_layers * timed,
+                cfg.n_layers * timed, cfg.n_layers * timed)
+    fit = []
+    for _ in range(10):
+        state, loss = step(state, base, *batches[1])
+        fit.append(float(loss))
+    untouched = all(torch.equal(a, b) for a, b in zip(before,
+                                                      base.parameters()))
+    step_s = wall / timed
+    n_base = sum(p.numel() for p in base.parameters())
+    row = dict(card=torch.cuda.get_device_name(0), nvidia_smi=smi,
+               lora="rank 8, alpha 16, wq wk wv wo", lora_params=n_lora,
+               trainable_fraction=n_lora / n_base, batch=batch, seq=seq,
+               remat="full", attention="flash", lr=LORA_LR,
+               step_ms=step_s * 1e3, tokens_s=batch * seq / step_s,
+               peak_mem_gb=peak_mem, losses=losses,
+               repeated_batch_losses=fit, base_untouched=untouched,
+               flash_launches=dict(forward=counts[0], dq=counts[1],
+                                   dkv=counts[2], forward_wgmma=counts[3],
+                                   dq_wgmma=counts[4], dkv_wgmma=counts[5],
+                                   steps=timed))
+    line("lora_train", **row)
+    del before, state
+    torch.cuda.empty_cache()
+    if counts != expected:
+        raise SystemExit(f"lora train: flash launches {counts} != "
+                         f"{expected}")
+    if not all(np.isfinite(losses + fit)):
+        raise SystemExit(f"lora train: non-finite losses {losses} {fit}")
+    if not fit[-1] < fit[0]:
+        raise SystemExit(f"lora train: loss on a repeated batch did not "
+                         f"fall: {fit}")
+    if not untouched:
+        raise SystemExit("lora train: the base's weights changed")
+    row["parity"] = _lora_train_parity()
+    return row
+
+
 def main(argv) -> int:
     record_path = None
     if argv[:1] == ["--record"] and len(argv) == 2:
@@ -2657,14 +3360,22 @@ def main(argv) -> int:
     wire = phase_wire(model, cfg, dev["nvidia_smi"], paged_launches)
     dense = phase_dense(model, cfg, dev["nvidia_smi"], paged_launches)
     spec = phase_spec(model, cfg, dev["nvidia_smi"], paged_launches)
+    multilora = phase_multilora(model, cfg, dev["nvidia_smi"],
+                                paged_launches)
     del model
     torch.cuda.empty_cache()
     train_parity = phase_train_parity()
     train, state, step, repeat = phase_train(dev["nvidia_smi"])
     train_prof = phase_train_profile(state, step, repeat)
+    base = state.params                 # phase 18 fine-tunes on top of it
+    del state, step, repeat
+    torch.cuda.empty_cache()
+    lora_train = phase_lora_train(base, dev["nvidia_smi"])
+    del base
+    torch.cuda.empty_cache()
 
     # the paged kernels at the main path's cases (launches: phases 6, 8, 9,
-    # 12, 15 and 16; the SIMT chunk's: phase 5 and phase 16's f32 arm,
+    # 12, 15, 16 and 17; the SIMT chunk's: phase 5 and phase 16's f32 arm,
     # whose verify chunks take it too): the split and combine
     # kernels at decode_bf16 (max_abs_err over every decode case), the
     # chunk kernel's dense instance at chunk_bf16_T256 (max_abs_err over
@@ -2735,14 +3446,18 @@ def main(argv) -> int:
              library_ms=simt["library_ms"], ok=simt["ok"]),
     ]
     # the flash kernels at the main path's case (causal); max_abs_err and ok
-    # over all three cases
+    # over all three cases; launches over phase 11's and phase 18's timed
+    # steps
     for kind, name, replaces, launches in (
             ("forward", "flash_forward", "kubetpu/ops/flash_attention.py:41",
-             train["flash_launches"]["forward"]),
+             train["flash_launches"]["forward"]
+             + lora_train["flash_launches"]["forward"]),
             ("dq", "flash_backward_dq", "kubetpu/ops/flash_attention.py:141",
-             train["flash_launches"]["dq"]),
+             train["flash_launches"]["dq"]
+             + lora_train["flash_launches"]["dq"]),
             ("dkv", "flash_backward_dkv", "kubetpu/ops/flash_attention.py:195",
-             train["flash_launches"]["dkv"])):
+             train["flash_launches"]["dkv"]
+             + lora_train["flash_launches"]["dkv"])):
         rows = [r for r in flash if r["kernel"] == kind]
         main_row = next(r for r in rows if r["case"] == "causal")
         kernels.append({
@@ -2760,10 +3475,11 @@ def main(argv) -> int:
               "flash_cases": flash, "parity": parity, "serve": serve,
               "profile": prof, "prefix": prefix, "window": window,
               "wire": wire, "verify_routes": verify, "dense": dense,
-              "spec": spec,
+              "spec": spec, "multilora": multilora,
               "main_path_paged_launches": paged_launches,
               "train_parity": train_parity,
               "train": train, "train_profile": train_prof,
+              "lora_train": lora_train,
               "kernels": kernels}
     if record_path:
         os.makedirs(os.path.dirname(os.path.abspath(record_path)),

@@ -6,7 +6,9 @@ port holds one ``Block`` per layer. ``params_from_numpy`` takes that tree
 already turned into numpy arrays (``jax.tree.map(np.asarray, params)``) —
 so this module needs no JAX — and un-stacks the layer axis;
 ``params_to_numpy`` goes the other way, so that tests can hold trained
-weights against the JAX package's.
+weights against the JAX package's. ``lora_from_numpy`` / ``lora_to_numpy``
+carry a LoRA adapter tree (``{"blocks": {leaf: (L, ...)}}``, the layer axis
+kept: the port's adapters are stacked like the reference's) the same way.
 """
 
 from __future__ import annotations
@@ -72,3 +74,22 @@ def params_to_numpy(model: Transformer) -> dict:
         "ln_f": arr(model.ln_f),
         "head": arr(model.head),
     }
+
+
+def lora_from_numpy(np_tree: Mapping, device=None,
+                    dtype: torch.dtype = torch.float32) -> dict:
+    """The port's adapter tree of the JAX package's (numpy arrays, e.g.
+    ``jax.tree.map(np.asarray, lora)``), on *device* (the card by default)
+    in *dtype*, leaves in the tree's key order."""
+    device = resolve_device(device)
+    return {"blocks": {
+        k: torch.from_numpy(np.asarray(v).astype(np.float32)).to(
+            device=device, dtype=dtype)
+        for k, v in np_tree["blocks"].items()}}
+
+
+def lora_to_numpy(lora: Mapping) -> dict:
+    """An adapter tree as the JAX package's tree of numpy arrays, in
+    float32 (numpy has no bfloat16)."""
+    return {"blocks": {k: v.detach().float().cpu().numpy()
+                       for k, v in lora["blocks"].items()}}

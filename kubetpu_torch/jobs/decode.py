@@ -140,22 +140,88 @@ def _int8_cache_io(window: int):
     return io
 
 
-def _decode_block_core(cfg: ModelConfig, layer, x, cache, pos, cache_io):
+def _lora_in(out, h, a, b, scale: float):
+    """*out* (B, T, H, hd) plus each row's input-projection delta: h
+    (B, T, D) through a (B, D, r), then b (B, r, H, hd), times *scale*.
+    One batched matmul into the rank-r bottleneck and one fused
+    multiply-add out of it (``baddbmm``): the fewest launches, and the
+    fewest host-side ops, a target costs."""
+    bsz, t = out.shape[:2]
+    hr = torch.bmm(h, a)                                   # (B, T, r)
+    return torch.baddbmm(out.reshape(bsz, t, -1), hr,
+                         b.reshape(bsz, b.shape[1], -1),
+                         alpha=scale).view(out.shape)
+
+
+def _lora_out(o, attn, a, b, scale: float):
+    """*o* (B, T, D) plus each row's output-projection delta: attn
+    (B, T, H, hd) through a (B, H, hd, r), then b (B, r, D), times
+    *scale*."""
+    bsz, t = attn.shape[:2]
+    ar = torch.bmm(attn.reshape(bsz, t, -1),
+                   a.reshape(bsz, -1, a.shape[-1]))          # (B, T, r)
+    return torch.baddbmm(o, ar, b, alpha=scale)
+
+
+def select_lora(lora, adapter_ids):
+    """Each row's adapter factors, gathered once per forward: the stacked
+    tree's leaves (N, L, ...) indexed by *adapter_ids* (B,) on the adapter
+    axis straight into layer-major (L, B, ...) tensors (one gather a leaf,
+    reading only the selected adapters), then split by layer -> one
+    {leaf: (B, ...)} dict a layer of contiguous views (``lora_layer``),
+    which the batched matmuls take without a copy. None without adapters:
+    no LoRA op runs at all."""
+    if lora is None:
+        return None
+    per_leaf = {k: v.transpose(0, 1)[:, adapter_ids].unbind(0)
+                for k, v in lora["blocks"].items()}
+    n_layers = len(next(iter(per_leaf.values())))
+    return [{k: views[i] for k, views in per_leaf.items()}
+            for i in range(n_layers)]
+
+
+def lora_layer(sel, i: int):
+    """Layer *i*'s per-row factors of a ``select_lora`` result."""
+    return None if sel is None else sel[i]
+
+
+def project(name: str, h, w, lora_l, scale: float):
+    """An input projection ``h @ w`` (B, T, D) x (D, H, hd), plus each
+    row's adapter delta when *lora_l* holds factors for target *name*."""
+    out = torch.einsum("bsd,dhk->bshk", h, w)
+    if lora_l is not None and f"{name}_a" in lora_l:
+        out = _lora_in(out, h, lora_l[f"{name}_a"], lora_l[f"{name}_b"],
+                       scale)
+    return out
+
+
+def out_project(attn, wo, lora_l, scale: float):
+    """The output projection (B, T, H, hd) x (H, hd, D), plus each row's
+    ``wo`` delta."""
+    o = torch.einsum("bshk,hkd->bsd", attn, wo)
+    if lora_l is not None and "wo_a" in lora_l:
+        o = _lora_out(o, attn, lora_l["wo_a"], lora_l["wo_b"], scale)
+    return o
+
+
+def _decode_block_core(cfg: ModelConfig, layer, x, cache, pos, cache_io,
+                       lora_l=None, lora_scale: float = 1.0):
     """The transformer block of every cached decode path, parameterized on
     the cache strategy: ``cache_io(q, k, v, cache, pos) -> (attn, cache)``
-    owns the write and the (banded) read; norms, projections, rope at the
-    absolute positions and the MLP are shared. x: (B, T, D); pos an int or
-    (B,). (The JAX package's per-example LoRA branch is not ported yet.)"""
+    owns the write and the (banded) read; norms, projections (with each
+    row's adapter deltas when *lora_l* holds per-row factors, the
+    multi-LoRA path), rope at the absolute positions and the MLP are
+    shared. x: (B, T, D); pos an int or (B,)."""
     h = model_lib.rms_norm(x, layer.ln1)
-    q = torch.einsum("bsd,dhk->bshk", h, layer.wq)
-    k = torch.einsum("bsd,dhk->bshk", h, layer.wk)
-    v = torch.einsum("bsd,dhk->bshk", h, layer.wv)
+    q = project("wq", h, layer.wq, lora_l, lora_scale)
+    k = project("wk", h, layer.wk, lora_l, lora_scale)
+    v = project("wv", h, layer.wv, lora_l, lora_scale)
     positions = _query_positions(pos, x.shape[1], x.device).to(torch.int32)
     positions = positions.expand(x.shape[0], x.shape[1])
     q = model_lib.rope(q, positions, cfg.rope_theta, cfg.rope_llama3_scaling)
     k = model_lib.rope(k, positions, cfg.rope_theta, cfg.rope_llama3_scaling)
     attn, cache = cache_io(q, k, v, cache, pos)
-    x = x + torch.einsum("bshk,hkd->bsd", attn, layer.wo)
+    x = x + out_project(attn, layer.wo, lora_l, lora_scale)
     x = x + model_lib._mlp(cfg, model_lib.rms_norm(x, layer.ln2), layer)
     return x, cache
 
@@ -177,44 +243,54 @@ def _rows(cache, index):
 
 @torch.no_grad()
 def forward_chunk_io(cfg: ModelConfig, params: Transformer, tokens, cache,
-                     pos, cache_io):
+                     pos, cache_io, lora=None, adapter_ids=None,
+                     lora_scale: float = 1.0):
     """The chunk forward over a cache strategy. tokens: (B, T) at positions
     ``pos..pos+T-1`` (pos an int or (B,)) -> (logits (B, T, V) float32,
     cache). The strategy writes the cache in place; the same tree comes
-    back."""
+    back. ``lora`` (a stacked adapter tree, leaves (N, L, ...)) with
+    ``adapter_ids`` (B,) on its device applies row b's adapter to row b
+    (``kubetpu_torch.jobs.multi_lora``), the factors gathered once."""
     x = params.embed[tokens]                               # (B, T, D)
+    sel = select_lora(lora, adapter_ids)
     for i, layer in enumerate(params.blocks):
         x, _ = _decode_block_core(cfg, layer, x, _layer(cache, i), pos,
-                                  cache_io)
+                                  cache_io, lora_layer(sel, i), lora_scale)
     x = model_lib.rms_norm(x, params.ln_f)
     logits = torch.einsum("bsd,dv->bsv", x, params.head).float()
     return logits, cache
 
 
 def forward_chunk(cfg: ModelConfig, params: Transformer, tokens, k_cache,
-                  v_cache, pos):
+                  v_cache, pos, lora=None, adapter_ids=None,
+                  lora_scale: float = 1.0):
     """Logits (B, T, V) f32 for a T-token chunk at pos..pos+T-1 through the
     dense cache, which takes the chunk's K/V -> (logits, k_cache,
     v_cache)."""
     logits, _ = forward_chunk_io(cfg, params, tokens, (k_cache, v_cache),
-                                 pos, _dense_cache_io(cfg.window))
+                                 pos, _dense_cache_io(cfg.window), lora,
+                                 adapter_ids, lora_scale)
     return logits, k_cache, v_cache
 
 
 def forward_chunk_at_io(cfg: ModelConfig, params: Transformer, chunk, cache,
-                        pos, cache_io):
+                        pos, cache_io, lora=None, adapter_ids=None,
+                        lora_scale: float = 1.0):
     """``forward_chunk_io`` at per-row positions pos (B,): serving slots
     and speculative rounds advance each sequence unevenly. Every cache
     layout rides the same batched call."""
-    return forward_chunk_io(cfg, params, chunk, cache, pos, cache_io)
+    return forward_chunk_io(cfg, params, chunk, cache, pos, cache_io, lora,
+                            adapter_ids, lora_scale)
 
 
 def forward_chunk_at(cfg: ModelConfig, params: Transformer, chunk, k_cache,
-                     v_cache, pos):
+                     v_cache, pos, lora=None, adapter_ids=None,
+                     lora_scale: float = 1.0):
     """``forward_chunk`` at per-row positions: the dense-cache spelling of
     ``forward_chunk_at_io`` -> (logits, k_cache, v_cache)."""
     logits, _ = forward_chunk_at_io(cfg, params, chunk, (k_cache, v_cache),
-                                    pos, _dense_cache_io(cfg.window))
+                                    pos, _dense_cache_io(cfg.window), lora,
+                                    adapter_ids, lora_scale)
     return logits, k_cache, v_cache
 
 

@@ -30,8 +30,11 @@ reuse maps cached pages read-only through the radix tree of
 ``prefix_cache``, the host DRAM tier keeps evicted prefixes as CPU tensors,
 and live migration ships a slot's pages as stored (``PagedDecodeServer``).
 
-Not ported yet (later slices): LoRA (ROADMAP queue 1 item 4) and meshes
-(item 8).
+Every leg takes each slot's LoRA adapter deltas around the attention
+(``lora``, ``adapter_ids``): ``multi_lora.PagedMultiLoraDecodeServer``
+feeds them through the ``_admit_lora`` / ``_step_lora`` hooks, the plain
+server feeds none and runs no LoRA op. Not ported yet (a later slice):
+meshes (ROADMAP queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -43,7 +46,9 @@ import numpy as np
 import torch
 
 from kubetpu_torch.jobs import model as model_lib
-from kubetpu_torch.jobs.decode import _attend_cached, _layer, forward_chunk_io
+from kubetpu_torch.jobs.decode import (_attend_cached, _layer,
+                                       forward_chunk_io, lora_layer,
+                                       out_project, project, select_lora)
 from kubetpu_torch.jobs.model import (ModelConfig, Transformer,
                                       reference_config_repr, resolve_device)
 from kubetpu_torch.jobs.prefix_cache import RadixPrefixCache
@@ -186,27 +191,33 @@ def _write_targets(k_pages, table, tpos, write_enable):
 
 
 def _paged_forward(cfg: ModelConfig, params: Transformer, tokens, k_pages,
-                   v_pages, table, pos, attend, write_enable):
+                   v_pages, table, pos, attend, write_enable, lora=None,
+                   adapter_ids=None, lora_scale: float = 1.0):
     """The body of both pool legs: tokens (B, T) at per-slot positions
     pos..pos+T-1, each layer's K/V written through the table first (a
     dropped write to the drop page), then ``attend(q (B, T, H, D), k_l,
-    v_l, table, pos)`` -> (B, T, H, D) reads them. Logits (B, T, V) f32."""
+    v_l, table, pos)`` -> (B, T, H, D) reads them. Logits (B, T, V) f32.
+    ``lora`` + ``adapter_ids`` (B,): each slot's adapter deltas around the
+    attention, as ``decode.forward_chunk_io`` applies them (the factors
+    gathered once a forward)."""
     t = tokens.shape[1]
     tpos = pos.long()[:, None] + torch.arange(t, device=pos.device)
     phys, offset = _write_targets(k_pages, table, tpos, write_enable)
     x = params.embed[tokens]                                 # (B, T, D)
+    sel = select_lora(lora, adapter_ids)
     for i, layer in enumerate(params.blocks):
         k_l, v_l = _layer(k_pages, i), _layer(v_pages, i)
+        lora_l = lora_layer(sel, i)
         h = model_lib.rms_norm(x, layer.ln1)
-        q = torch.einsum("bsd,dhk->bshk", h, layer.wq)
-        k = torch.einsum("bsd,dhk->bshk", h, layer.wk)
-        v = torch.einsum("bsd,dhk->bshk", h, layer.wv)
+        q = project("wq", h, layer.wq, lora_l, lora_scale)
+        k = project("wk", h, layer.wk, lora_l, lora_scale)
+        v = project("wv", h, layer.wv, lora_l, lora_scale)
         q = model_lib.rope(q, tpos, cfg.rope_theta, cfg.rope_llama3_scaling)
         k = model_lib.rope(k, tpos, cfg.rope_theta, cfg.rope_llama3_scaling)
         _write_token_kv(k_l, k, phys, offset)
         _write_token_kv(v_l, v, phys, offset)
         attn = attend(q, k_l, v_l, table, pos)
-        x = x + torch.einsum("bshk,hkd->bsd", attn, layer.wo)
+        x = x + out_project(attn, layer.wo, lora_l, lora_scale)
         x = x + model_lib._mlp(cfg, model_lib.rms_norm(x, layer.ln2), layer)
     x = model_lib.rms_norm(x, params.ln_f)
     return torch.einsum("bsd,dv->bsv", x, params.head).float()
@@ -215,7 +226,8 @@ def _paged_forward(cfg: ModelConfig, params: Transformer, tokens, k_pages,
 @torch.no_grad()
 def paged_forward_one(cfg: ModelConfig, params: Transformer, token, k_pages,
                       v_pages, table, pos, attend=_attend_paged,
-                      write_enable=None):
+                      write_enable=None, lora=None, adapter_ids=None,
+                      lora_scale: float = 1.0):
     """One decode step for all slots through the page pool. token: (B,)
     int; pos: (B,) int32 position of this token; table: (B, max_pages)
     int32 over the pool's addressable pages; k_pages/v_pages: the pool
@@ -224,18 +236,21 @@ def paged_forward_one(cfg: ModelConfig, params: Transformer, token, k_pages,
     page-attention core (q (B, H, D)). *write_enable* (B,) bool drops the
     K/V write of masked slots (inactive slots must never scribble on pages
     a mid-prefill neighbour has filled): it and an unmapped page's write
-    land on the drop page, so the step queues without a host sync."""
+    land on the drop page, so the step queues without a host sync.
+    ``lora`` + ``adapter_ids`` (B,): each slot's adapter deltas."""
     def attend_one(q, k_l, v_l, table, pos):
         return attend(q[:, 0].contiguous(), k_l, v_l, table, pos)[:, None]
 
     return _paged_forward(cfg, params, token[:, None], k_pages, v_pages,
-                          table, pos, attend_one, write_enable)[:, 0]
+                          table, pos, attend_one, write_enable, lora,
+                          adapter_ids, lora_scale)[:, 0]
 
 
 @torch.no_grad()
 def paged_forward_chunk(cfg: ModelConfig, params: Transformer, tokens,
                         k_pages, v_pages, table, pos, write_enable=None,
-                        attend_chunk=None):
+                        attend_chunk=None, lora=None, adapter_ids=None,
+                        lora_scale: float = 1.0):
     """The T-token chunk of every slot through the page pool at per-slot
     positions ``pos..pos+T-1``: the speculative verify leg (T = gamma+1;
     ``paged_forward_one`` is its T == 1 sibling). tokens: (B, T); pos:
@@ -252,9 +267,11 @@ def paged_forward_chunk(cfg: ModelConfig, params: Transformer, tokens,
     page, as an unmapped page's, without a host sync. *attend_chunk* is
     the chunk attention core (``ops.paged_attention_chunk``: the kernel on
     the card, its plain version on the CPU; ``_attend_paged_chunk`` by
-    default)."""
+    default). ``lora`` + ``adapter_ids`` (B,): each slot's adapter deltas
+    (the multi-LoRA verify chunk)."""
     return _paged_forward(cfg, params, tokens, k_pages, v_pages, table, pos,
-                          attend_chunk or _attend_paged_chunk, write_enable)
+                          attend_chunk or _attend_paged_chunk, write_enable,
+                          lora, adapter_ids, lora_scale)
 
 
 def _paged_prefill_io(write_phys, gather_row, ps: int, window: int,
@@ -386,8 +403,10 @@ class PagedDecodeServer(SlotServerBase):
     dropped writes going to the drop page. ``device`` defaults to the card
     and raises without CUDA; *params* must already live on it.
 
-    Not ported yet: the SLO engine (ROADMAP queue 1 item 1), LoRA (item
-    4), the profiler (item 6), ``mesh`` (item 8)."""
+    Multi-tenant LoRA serving is the subclass
+    ``multi_lora.PagedMultiLoraDecodeServer``. Not ported yet: the SLO
+    engine (ROADMAP queue 1 item 1), the profiler (item 6), ``mesh`` (item
+    8)."""
 
     def __init__(self, cfg: ModelConfig, params: Transformer,
                  n_slots: int = 8, max_seq: int = 512,
@@ -1373,8 +1392,10 @@ class PagedDecodeServer(SlotServerBase):
         io = self._chunk_io(write_row, row,
                             self._gather_prefix(pos + bucket))
         tokens = self._upload(np.asarray([chunk], np.int64))
+        lora, aid = self._admit_lora(slot)
         logits, _ = forward_chunk_io(self.cfg, self.params, tokens,
-                                     (self._k_store, self._v_store), pos, io)
+                                     (self._k_store, self._v_store), pos, io,
+                                     lora, aid, self._lora_scale)
         if not final:
             return True
         r = logits[0, take - 1]
@@ -1390,10 +1411,12 @@ class PagedDecodeServer(SlotServerBase):
         -1 holes) goes to the device; the attention masks unmapped pages."""
         active = self._upload(self.active)
         pos = self._upload(self.pos.astype(np.int32))
+        lora, aids = self._step_lora()
         logits = paged_forward_one(
             self.cfg, self.params, self.last, self._k_store, self._v_store,
             self._table_on_device(), pos, attend=self._attend,
-            write_enable=active)
+            write_enable=active, lora=lora, adapter_ids=aids,
+            lora_scale=self._lora_scale)
         seeds = None                       # all-greedy: no draw needs one
         if (self._slot_temp > 0).any():
             seeds = [row_seed(self._slot_reqkey[s], int(self.pos[s]))
@@ -1426,13 +1449,17 @@ class PagedDecodeServer(SlotServerBase):
             forward_chunk_io(self.cfg, self.params,
                              self._upload(np.zeros((1, len(padded)),
                                                    np.int64)),
-                             (self._k_store, self._v_store), 0, io)
+                             (self._k_store, self._v_store), 0, io,
+                             *self._admit_lora(0), self._lora_scale)
 
         self._warmup_buckets(prefill_dummy)
         zeros = np.zeros((self.n_slots,), np.int32)
+        lora, aids = self._step_lora()
         paged_forward_one(self.cfg, self.params, self.last, self._k_store,
                           self._v_store, self._table_on_device(),
                           self._upload(zeros), attend=self._attend,
-                          write_enable=self._upload(zeros.astype(bool)))
+                          write_enable=self._upload(zeros.astype(bool)),
+                          lora=lora, adapter_ids=aids,
+                          lora_scale=self._lora_scale)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)

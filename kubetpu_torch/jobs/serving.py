@@ -124,7 +124,10 @@ class SlotServerBase:
       one decode step for all slots, queued without a host sync (the base
       routes, and with ``overlap`` defers, the host copy);
     - optional hooks ``_prefill_start(prompt, slot)``, ``_note_admitted(
-      slot, prompt)``, ``_note_emitted(slot)`` and ``_on_retire(slot)``.
+      slot, prompt)``, ``_note_emitted(slot)`` and ``_on_retire(slot)``;
+    - the multi-LoRA hooks ``_admit_lora(slot)`` / ``_step_lora()`` (the
+      adapter pair every device leg takes) and ``_drop_request_state(
+      rid)`` (per-request bookkeeping, dropped on every exit path).
     """
 
     _min_bucket = 1
@@ -233,6 +236,32 @@ class SlotServerBase:
         self._slot_topp[slot] = tp
         self._slot_reqkey[slot] = self._request_key(rid)
 
+    # -- multi-LoRA hooks (the multi_lora servers override them) -------------
+    #
+    # Every device leg takes a (stacked adapter tree, adapter ids) pair; the
+    # plain servers pass (None, None), and no LoRA op runs.
+
+    _lora_scale = 1.0     # alpha / rank of the multi-LoRA servers' stack
+
+    def _admit_lora(self, slot: int):
+        """(adapter stack, the slot's adapter id (1,) on the device) for an
+        admission's prefill chunks: none here."""
+        return None, None
+
+    def _step_lora(self):
+        """(adapter stack, per-slot adapter ids (n_slots,) on the device)
+        for a decode step: none here."""
+        return None, None
+
+    def _drop_request_state(self, rid: int) -> None:
+        """Drop what the server keeps for *rid*'s admission and decoding:
+        its sampling settings here, and a subclass's own maps (the
+        multi-LoRA servers' adapter map). Called on every path a request's
+        bookkeeping dies through: ``pop_result``, ``cancel`` (queued or
+        admitted), the queue-TTL expiry and a refused ``submit``, so no
+        entry outlives its request."""
+        self._rid_sampling.pop(rid, None)
+
     def _free_slots(self) -> List[int]:
         """Slots holding neither an active decode nor an in-flight prefill
         nor a stream frozen mid-migration (inactive for the step legs, but
@@ -332,7 +361,7 @@ class SlotServerBase:
         self._rid_sampling[rid] = self._normalize_sampling(sampling)
         self._arrive[rid] = time.perf_counter()
         if not self._try_admit(rid, prompt, free[0]):
-            del self._rid_sampling[rid]
+            self._drop_request_state(rid)
             del self._arrive[rid]
             return None
         self._next_rid += 1
@@ -380,7 +409,7 @@ class SlotServerBase:
             if deadline is not None and now >= deadline:
                 self._done[rid] = True
                 self._expired[rid] = "queue_ttl"
-                self._rid_sampling.pop(rid, None)
+                self._drop_request_state(rid)
                 self._arrive.pop(rid, None)  # no tokens ever: no TTFT
                 self._metrics.record("queue_expired", now - deadline)
                 self.events.emit("queue_expired", rid=rid)
@@ -696,7 +725,7 @@ class SlotServerBase:
             if qrid == rid:
                 self._queue.pop(i)
                 self._done[rid] = True
-                self._rid_sampling.pop(rid, None)
+                self._drop_request_state(rid)
                 self.events.emit("cancel", rid=rid, queued=True)
                 return True
         for slot in range(self.n_slots):
@@ -710,7 +739,7 @@ class SlotServerBase:
                 self._pending_first.pop(slot, None)
                 self.events.emit("cancel", rid=rid, queued=False)
                 self._retire(slot)
-                self._rid_sampling.pop(rid, None)
+                self._drop_request_state(rid)
                 return True
         return False
 
@@ -966,7 +995,7 @@ class SlotServerBase:
             raise KeyError(f"request {rid} is not finished")
         out = self._prompts.pop(rid) + self._emitted.pop(rid)
         del self._done[rid]
-        self._rid_sampling.pop(rid, None)
+        self._drop_request_state(rid)
         self._logprobs.pop(rid, None)
         self._expired.pop(rid, None)
         self._arrive.pop(rid, None)
@@ -1000,32 +1029,35 @@ class SlotServerBase:
         raise RuntimeError("drain did not converge")
 
 
-def _build_dense_legs(cfg: ModelConfig, cache_io):
+def _build_dense_legs(cfg: ModelConfig, cache_io, lora_scale: float = 1.0):
     """(prefill_chunk, step_all) for the contiguous-cache server; the server
-    samples from the logits they return.
+    samples from the logits they return. The trailing (lora, aid / aids)
+    pair is the multi-LoRA hook: (None, None) for the plain server.
 
-    ``prefill_chunk(params, cache, chunk (1, T), slot, pos) -> logits
-    (1, T, V)``: one slot's chunk at *pos* through views of its cache rows,
-    written in place.
+    ``prefill_chunk(params, cache, chunk (1, T), slot, pos, lora, aid) ->
+    logits (1, T, V)``: one slot's chunk at *pos* through views of its
+    cache rows, written in place.
 
-    ``step_all(params, cache, last, pos, active) -> logits (B, V)``: one
-    token for every slot at its own position. An inactive slot writes at
-    row S_max - 1 instead of its stale position (a mid-prefill neighbour's
-    chunks live there): that row is never read before the step that
-    rewrites it."""
+    ``step_all(params, cache, last, pos, active, lora, aids) -> logits
+    (B, V)``: one token for every slot at its own position. An inactive
+    slot writes at row S_max - 1 instead of its stale position (a
+    mid-prefill neighbour's chunks live there): that row is never read
+    before the step that rewrites it."""
 
     @torch.no_grad()
-    def prefill_chunk(params, cache, chunk, slot: int, pos: int):
+    def prefill_chunk(params, cache, chunk, slot: int, pos: int, lora=None,
+                      aid=None):
         cache_s = _rows(cache, slice(slot, slot + 1))
-        return forward_chunk_io(cfg, params, chunk, cache_s, pos,
-                                cache_io)[0]
+        return forward_chunk_io(cfg, params, chunk, cache_s, pos, cache_io,
+                                lora, aid, lora_scale)[0]
 
     @torch.no_grad()
-    def step_all(params, cache, last, pos, active):
+    def step_all(params, cache, last, pos, active, lora=None, aids=None):
         leaf = cache[0][0] if isinstance(cache[0], tuple) else cache[0]
         pos_w = torch.where(active, pos, leaf.shape[2] - 1)
         logits, _ = forward_chunk_at_io(cfg, params, last[:, None], cache,
-                                        pos_w, cache_io)
+                                        pos_w, cache_io, lora, aids,
+                                        lora_scale)
         return logits[:, 0]
 
     return prefill_chunk, step_all
@@ -1073,8 +1105,8 @@ class DecodeServer(SlotServerBase):
         else:
             self.cache = init_kv_cache(cfg, n_slots, max_seq, device)
             cache_io = _dense_cache_io(cfg.window)
-        self._prefill_chunk, self._step_all = _build_dense_legs(cfg,
-                                                               cache_io)
+        self._prefill_chunk, self._step_all = _build_dense_legs(
+            cfg, cache_io, self._lora_scale)
         self._sampler = make_slot_sampler()
 
     @property
@@ -1111,7 +1143,8 @@ class DecodeServer(SlotServerBase):
         chunk = prompt[pos:pos + take] + [0] * (bucket - take)
         logits = self._prefill_chunk(
             self.params, self.cache,
-            self._upload(np.asarray([chunk], np.int64)), slot, pos)
+            self._upload(np.asarray([chunk], np.int64)), slot, pos,
+            *self._admit_lora(slot))
         if not final:
             return True
         r = logits[0, take - 1]
@@ -1124,7 +1157,7 @@ class DecodeServer(SlotServerBase):
         active = self._upload(self.active)
         logits = self._step_all(self.params, self.cache, self.last,
                                 self._upload(self.pos.astype(np.int32)),
-                                active)
+                                active, *self._step_lora())
         seeds = None                       # all-greedy: no draw needs one
         if (self._slot_temp > 0).any():
             seeds = [row_seed(self._slot_reqkey[s], int(self.pos[s]))
@@ -1145,9 +1178,11 @@ class DecodeServer(SlotServerBase):
         prefill rewrites slot 0's cache rows."""
         self._warmup_buckets(lambda padded: self._prefill_chunk(
             self.params, self.cache,
-            self._upload(np.zeros((1, len(padded)), np.int64)), 0, 0))
+            self._upload(np.zeros((1, len(padded)), np.int64)), 0, 0,
+            *self._admit_lora(0)))
         self._step_all(self.params, self.cache, self.last,
                        self._upload(np.zeros((self.n_slots,), np.int32)),
-                       self._upload(np.zeros((self.n_slots,), bool)))
+                       self._upload(np.zeros((self.n_slots,), bool)),
+                       *self._step_lora())
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)

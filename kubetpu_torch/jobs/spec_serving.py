@@ -249,7 +249,8 @@ class SpeculativeDecodeServer(_SpecRoundsMixin, SlotServerBase):
 
 
 def _build_paged_spec_round(tcfg: ModelConfig, dcfg: ModelConfig, gamma: int,
-                            dead_pos: int, attend_chunk=None):
+                            dead_pos: int, attend_chunk=None,
+                            lora_scale: float = 1.0):
     """The paged speculative round for one *gamma*: draft ``gamma`` greedy
     tokens through the dense per-slot draft cache at per-slot positions
     (``speculative.draft_propose``), verify them in one (gamma+1)-token
@@ -265,13 +266,16 @@ def _build_paged_spec_round(tcfg: ModelConfig, dcfg: ModelConfig, gamma: int,
     drop page (``write_enable``).
 
     ``round(t_params, d_params, k_store, v_store, dcache, table, last, pos,
-    active, slot_gamma) -> (new_last, target_tok (B, gamma+1), n_emit (B,),
-    lps (B, gamma+1))``, queued without a host sync; the caches are written
-    in place."""
+    active, slot_gamma, lora, aids) -> (new_last, target_tok (B, gamma+1),
+    n_emit (B,), lps (B, gamma+1))``, queued without a host sync; the
+    caches are written in place. ``(lora, aids)`` is the target's
+    multi-LoRA pair (each slot's adapter in the verify chunk; None for the
+    plain server); the draft runs without adapters: a base-model draft can
+    only lower acceptance, never change the greedy output."""
 
     @torch.no_grad()
     def round_all(t_params, d_params, k_store, v_store, dcache, table, last,
-                  pos, active, slot_gamma):
+                  pos, active, slot_gamma, lora=None, aids=None):
         dk, dv = dcache
         pos_d = torch.where(active, pos, dead_pos)
         _, _, drafts = draft_propose(dcfg, gamma, d_params, dk, dv, last,
@@ -279,7 +283,8 @@ def _build_paged_spec_round(tcfg: ModelConfig, dcfg: ModelConfig, gamma: int,
         chunk = torch.cat([last[:, None], drafts], dim=1)
         t_logits = paged_forward_chunk(
             tcfg, t_params, chunk, k_store, v_store, table, pos,
-            write_enable=active, attend_chunk=attend_chunk)
+            write_enable=active, attend_chunk=attend_chunk, lora=lora,
+            adapter_ids=aids, lora_scale=lora_scale)
         target_tok = torch.argmax(t_logits, dim=-1)
         # a slot whose adaptive gamma sits below the round's emits at most
         # its own gamma of drafts: a prefix of an accepted run is still the
@@ -388,7 +393,7 @@ class PagedSpeculativeDecodeServer(_SpecRoundsMixin, PagedDecodeServer):
     def _round_leg(self, gamma: int):
         return _build_paged_spec_round(
             self.cfg, self.draft_cfg, gamma, self._draft_len - 1,
-            attend_chunk=self._attend_chunk)
+            attend_chunk=self._attend_chunk, lora_scale=self._lora_scale)
 
     def _note_admitted(self, slot: int, prompt: List[int]) -> None:
         super()._note_admitted(slot, prompt)
@@ -451,7 +456,7 @@ class PagedSpeculativeDecodeServer(_SpecRoundsMixin, PagedDecodeServer):
             self.params, self.draft_params, self._k_store, self._v_store,
             self.dcache, self._table_on_device(), self.last,
             self._upload(self.pos.astype(np.int32)), self._upload(active),
-            self._upload(self._gamma))
+            self._upload(self._gamma), *self._step_lora())
         return toks, n_emit, lps
 
     def step(self) -> Dict[int, List[int]]:

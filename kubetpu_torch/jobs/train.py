@@ -168,10 +168,19 @@ def init_state(generator: torch.Generator, cfg: ModelConfig,
     return state_from_params(params, optimizer), optimizer
 
 
+def _trained_leaves(params) -> List[torch.Tensor]:
+    """The tensors a step trains: a model's parameters, or an adapter
+    tree's leaves in sorted key order (the order of the optimizer state)."""
+    if isinstance(params, torch.nn.Module):
+        return list(params.parameters())
+    return [params["blocks"][k] for k in sorted(params["blocks"])]
+
+
 def make_update_step(loss_fn, optimizer: AdamW, accum_steps: int = 1,
                      skip_nonfinite: bool = False):
     """The train-step body: value and gradients of ``loss_fn(params,
-    *batch)``, then the optimizer. Returns ``step(state, *batch) -> (state,
+    *batch)``, then the optimizer. *params* is a ``Transformer`` or a LoRA
+    adapter tree (``{"blocks": {leaf: tensor}}``). Returns ``step(state, *batch) -> (state,
     loss)`` with the loss a device f32 scalar.
 
     ``accum_steps > 1`` splits the batch into that many equal microbatches
@@ -183,12 +192,12 @@ def make_update_step(loss_fn, optimizer: AdamW, accum_steps: int = 1,
 
     def grads_of(params, batch):
         loss = loss_fn(params, *batch)
-        leaves = list(params.parameters())
+        leaves = _trained_leaves(params)
         return loss.detach(), torch.autograd.grad(loss, leaves)
 
     def train_step(state: TrainState, *batch):
         params = state.params
-        leaves = list(params.parameters())
+        leaves = _trained_leaves(params)
         if accum_steps <= 1:
             loss, grads = grads_of(params, batch)
         else:

@@ -7,7 +7,11 @@
   handoff;
 - :mod:`kubetpu_torch.router.migration` — the snapshot wire codec, byte
   for byte the JAX package's, with bfloat16 pages carried as their 16-bit
-  patterns.
+  patterns;
+- :mod:`kubetpu_torch.router.adapters` — the multi-LoRA control plane:
+  the adapter codec (the JAX package's bytes, bf16 included) and the
+  content-hashed ``AdapterRegistry`` that pushes adapters to a replica's
+  ``POST /adapters``.
 
 ``RouterServer``, the replica pool, the hash ring and the autoscaler are
 not ported yet (ROADMAP queue 1, the router side): a port replica speaks

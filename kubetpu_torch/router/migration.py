@@ -58,7 +58,9 @@ def encode_array(name: str, arr: PageArray) -> Tuple[dict, bytes]:
             arr.tobytes())
 
 
-def _decode_array(spec: dict, raw: bytes) -> PageArray:
+def decode_array(spec: dict, raw: bytes) -> PageArray:
+    """The array of a manifest entry (dtype, shape) from its raw bytes:
+    numpy, or a ``torch.bfloat16`` CPU tensor under ``"bfloat16"``."""
     if spec["dtype"] == BF16:
         bits = np.frombuffer(raw, dtype=np.uint16).reshape(spec["shape"])
         return torch.from_numpy(bits.copy()).view(torch.bfloat16)
@@ -98,7 +100,7 @@ def decode_snapshot(meta: dict, blob: bytes) -> dict:
             raise ValueError(
                 f"snapshot blob truncated: need {off + n} bytes for "
                 f"{spec['name']!r}, have {len(blob)}")
-        pages[spec["name"]] = _decode_array(spec, blob[off:off + n])
+        pages[spec["name"]] = decode_array(spec, blob[off:off + n])
         off += n
     if off != len(blob):
         raise ValueError(

@@ -4,9 +4,11 @@ plane (port of ``kubetpu/router/replica.py``).
 The protocol, the endpoints and their answers are the JAX package's, over
 the port's own copies of the wire, obs and codec modules, so a port
 replica sits behind a ``kubetpu`` router and trades migrated streams with
-a ``kubetpu`` replica. What differs: no LoRA server exists in the port
-yet, so ``/adapters`` answers 404 and a generate naming an adapter 400
-(the JAX package's answers for a server without LoRA).
+a ``kubetpu`` replica. ``/adapters`` hot-loads and evicts adapters on a
+multi-LoRA server (``jobs.multi_lora``) and answers 404 on a server
+without ``load_adapter``; a generate naming an adapter reaches a
+multi-LoRA server and is refused 400 elsewhere: the JAX package's
+answers.
 
 The slot servers (``DecodeServer`` / ``PagedDecodeServer`` and friends)
 are in-process objects; ``obs.exporter.MetricsServer`` gave them a
@@ -28,7 +30,8 @@ wire. This server is that missing half — the leg the affinity router
     GET  /trace/<id> -> finished spans of one trace (the replica leg of
                         a stitched router trace)
     POST /generate   -> {"prompt": [ids], "sampling": {...}?,
-                        "timeout": s?} -> {"rid", "tokens", "emitted"}
+                        "adapter": name or index?, "timeout": s?} ->
+                        {"rid", "tokens", "emitted"}
                         — synchronous generate: enqueue, wait for the
                         step loop to finish the request, return
                         prompt + emitted tokens. A stream that MIGRATED
@@ -54,6 +57,10 @@ wire. This server is that missing half — the leg the affinity router
                         (origin, rid): a stale or duplicate handoff
                         generation is refused 409, keeping at most one
                         copy of a stream active fleet-wide
+    POST /adapters   -> {"action": "load", "name"?, "adapter": wire
+                        tree} | {"action": "evict", "name"} — hot load
+                        or evict a LoRA adapter on a multi-LoRA server
+                        (404 elsewhere; 409 evicting an adapter in use)
 
 Robustness (the Round-7 contract, uniformly):
 
@@ -351,10 +358,11 @@ class ReplicaServer:
                     )
                     return
                 if self.path == "/adapters":
-                    # the multi-LoRA control plane: no LoRA server in the
-                    # port yet (ROADMAP queue 1 item 4)
-                    write_json(self, 404, {"error": "replica does not "
-                                                    "serve multi-LoRA"})
+                    run_idempotent(
+                        self, replica.idem,
+                        self.headers.get("Idempotency-Key"),
+                        lambda: replica._adapters(req),
+                    )
                     return
                 if self.path != "/generate":
                     write_json(self, 404, {"error": f"no route {self.path}"})
@@ -432,15 +440,20 @@ class ReplicaServer:
                     return 503, {"error": "replica step loop is not "
                                           "running"}
                 self.events.emit("generate", prompt_tokens=len(prompt))
-                # a routed generate may name its LoRA adapter; the port
-                # serves no LoRA yet, and a silent drop would serve the
-                # base model to a tenant expecting their adapter
+                # a routed generate may name its LoRA adapter (a resident
+                # name or a stack index); refused up front on a server
+                # without LoRA: a silent drop would serve the base model
+                # to a tenant expecting their adapter
+                extra = {}
                 if req.get("adapter") is not None:
-                    return 400, {"error": "replica does not serve "
-                                          "multi-LoRA"}
+                    if not hasattr(self.server, "lora_stack"):
+                        return 400, {"error": "replica does not serve "
+                                              "multi-LoRA"}
+                    extra["adapter"] = req["adapter"]
                 try:
                     rid = self.server.enqueue(prompt,
-                                              sampling=req.get("sampling"))
+                                              sampling=req.get("sampling"),
+                                              **extra)
                 except ValueError as e:
                     return 400, {"error": str(e)}
                 except Exception as e:  # noqa: BLE001 — report, stay up
@@ -555,6 +568,67 @@ class ReplicaServer:
             "span": encode_span_payload(span["pages"],
                                         int(span["from_page"])),
         }
+
+    # -- adapter hot load / evict --------------------------------------------
+
+    def _adapters(self, req: dict):
+        """``POST /adapters``, the multi-LoRA control-plane leg -> (code,
+        obj), under ``run_idempotent`` (a lost response replays).
+        Actions:
+
+        - ``load``: decode the wire adapter and hot-load it into the
+          serving stack (content-idempotent: a replayed or re-keyed load
+          of a resident adapter is a no-op). 503 when the stack is full of
+          in-use adapters (retryable: requests drain), 400 on a malformed
+          or mismatched payload;
+        - ``evict``: drop the named adapter from the directory. 409 while
+          a live request references it; ``evicted: false`` when already
+          gone (replay-idempotent).
+
+        Both answers carry the post-action resident set. 404 on a server
+        without ``load_adapter``."""
+        load_fn = getattr(self.server, "load_adapter", None)
+        evict_fn = getattr(self.server, "evict_adapter", None)
+        if load_fn is None or evict_fn is None:
+            return 404, {"error": "replica does not serve multi-LoRA"}
+        action = str(req.get("action") or "load")
+        if action == "load":
+            from kubetpu_torch.router.adapters import decode_adapter
+            try:
+                adapter = decode_adapter(req.get("adapter") or {})
+            except ValueError as e:
+                return 400, {"error": str(e)}
+            name = req.get("name")
+            if name is not None and not isinstance(name, str):
+                return 400, {"error": "adapter name must be a string"}
+            try:
+                with self._cv:
+                    out = load_fn(adapter, name=name)
+                    resident = self.server.resident_adapters()
+            except ValueError as e:
+                return 400, {"error": str(e)}
+            except RuntimeError as e:
+                # every index pinned by live requests: transient, the
+                # keyed retry lands after streams drain
+                return 503, {"error": str(e)}
+            self.events.emit("adapter_wire_load", name=out)
+            return 200, {"name": out, "resident": resident,
+                         "replica": self.name}
+        if action == "evict":
+            name = req.get("name")
+            if not isinstance(name, str) or not name:
+                return 400, {"error": "evict needs an adapter name"}
+            try:
+                with self._cv:
+                    evicted = evict_fn(name)
+                    resident = self.server.resident_adapters()
+            except RuntimeError as e:
+                return 409, {"error": str(e)}
+            self.events.emit("adapter_wire_evict", name=name,
+                             evicted=bool(evicted))
+            return 200, {"evicted": bool(evicted), "resident": resident,
+                         "replica": self.name}
+        return 400, {"error": f"unknown adapter action {action!r}"}
 
     def _maybe_peer_prefetch(self, req: dict, prompt: list,
                              key: Optional[str]) -> None:

@@ -699,3 +699,206 @@ def test_drop_page_writes_equal_the_row_filtered_writes(cuda, kv_int8):
                 for x in (pool if isinstance(pool, tuple) else (pool,))]
     for a, b in zip(flat, flat_old):
         assert torch.equal(a[:, :n_pool], b[:, :n_pool])
+
+
+def _lora_model(dev, dtype, seed=0):
+    """A small model at D = 128 (the split and wgmma routes) and three
+    rank-8 adapters on it: two with B drawn N(0, 0.05), one all zero."""
+    from kubetpu_torch.jobs.lora import LoraConfig, init_lora_params
+    from kubetpu_torch.jobs.model import ModelConfig, init_params
+
+    cfg = ModelConfig(vocab=512, d_model=256, n_layers=2, n_heads=2,
+                      d_ff=512, max_seq=256, dtype=dtype)
+    lcfg = LoraConfig(rank=8, alpha=16.0)
+    model = init_params(torch.Generator(device=dev).manual_seed(seed), cfg,
+                        device=dev)
+    ads = []
+    for s in (1, 2, 3):
+        a = init_lora_params(torch.Generator(device=dev).manual_seed(s), cfg,
+                             lcfg, device=dev)
+        if s < 3:
+            gen = torch.Generator(device=dev).manual_seed(100 + s)
+            for k, v in a["blocks"].items():
+                if k.endswith("_b"):
+                    a["blocks"][k] = (torch.randn(v.shape, generator=gen,
+                                                  device=dev) * 0.05).to(dtype)
+        ads.append(a)
+    return cfg, lcfg, model, ads
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_int8", [False, True], ids=["bf16", "int8"])
+def test_packed_multi_lora_server_on_the_card(cuda, kv_int8):
+    """A packed bf16 server, three tenants (the third on a zero adapter)
+    beside the plain server on the same prompts: the zero tenant's tokens
+    equal the plain server's exactly, every leg ran on the paged kernels
+    (split decode, wgmma chunks, no SIMT), and the bookkeeping drains."""
+    from kubetpu_torch.jobs.multi_lora import PagedMultiLoraDecodeServer
+    from kubetpu_torch.jobs.paged import PagedDecodeServer
+
+    cfg, lcfg, model, ads = _lora_model("cuda", torch.bfloat16)
+    kw = dict(n_slots=3, max_seq=256, max_new_tokens=12, page_size=16,
+              prefill_budget=32, kv_int8=kv_int8, device="cuda")
+    gen = torch.Generator().manual_seed(5)
+    prompts = [torch.randint(0, cfg.vocab, (n,), generator=gen).tolist()
+               for n in (40, 70, 100)]
+    counts = _paged_counts()
+    packed = PagedMultiLoraDecodeServer(cfg, model, lcfg, ads, **kw)
+    rids = [packed.enqueue(p, adapter=a) for a, p in enumerate(prompts)]
+    packed.drain()
+    moved = [b - a for a, b in zip(counts, _paged_counts())]
+    got = [packed.pop_result(r) for r in rids]
+    plain = PagedDecodeServer(cfg, model, **kw)
+    want = [plain.enqueue(p) for p in prompts]
+    plain.drain()
+    want = [plain.pop_result(r) for r in want]
+    assert got[2] == want[2]
+    assert got[0] != want[0] or got[1] != want[1]   # the adapters steer
+    assert moved[1] > 0 and moved[5] == 0            # split, no SIMT
+    assert (moved[4] if kv_int8 else moved[3]) > 0   # the wgmma chunks
+    packed.check_invariants()
+    assert packed._rid_adapter == {}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_int8", [False, True], ids=["bf16", "int8"])
+def test_packed_legs_match_the_cpu_on_the_card(cuda, kv_int8):
+    """One packed decode step and one 4-token chunk through a random pool,
+    three rows on three adapters: the card (split and wgmma kernels, bf16
+    weights) against the same legs on the CPU in f32 (plain attention),
+    within bf16 noise; and each row equals its merged model's row on the
+    card."""
+    from kubetpu_torch.jobs.lora import merge_lora
+    from kubetpu_torch.jobs.multi_lora import stack_adapters
+    from kubetpu_torch.jobs.paged import (init_page_pool, paged_forward_chunk,
+                                          paged_forward_one)
+
+    cfg, lcfg, model, ads = _lora_model("cuda", torch.bfloat16)
+    n_pool, ps = 12, 16
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    stores = init_page_pool(cfg, n_pool + 1, ps, kv_int8=kv_int8,
+                            device="cuda")
+    flat = [x for pool in stores
+            for x in (pool if isinstance(pool, tuple) else (pool,))]
+    for t in flat:
+        if t.dtype == torch.int8:
+            t.copy_(torch.randint(-127, 128, t.shape, generator=gen,
+                                  device="cuda"))
+        else:
+            t.copy_(torch.rand(t.shape, generator=gen, device="cuda")
+                    * (0.02 if t.shape[-1] == 1 else 1.0))
+    table = torch.tensor([[0, 1, 2, -1], [3, 4, 5, -1], [6, 7, 8, 9]],
+                         dtype=torch.int32, device="cuda")
+    pos = torch.tensor([40, 33, 60], dtype=torch.int32, device="cuda")
+    ids = torch.tensor([0, 1, 2], device="cuda")
+    stack = stack_adapters(lcfg, ads)
+    tokens = torch.randint(0, cfg.vocab, (3, 4), generator=gen,
+                           device="cuda")
+
+    def legs(model_, stores_, stack_, dev, merged=None):
+        def clone():
+            return tuple(tuple(x.clone() for x in p) if isinstance(p, tuple)
+                         else p.clone() for p in stores_)
+
+        lora = None if merged else stack_
+        args = dict(lora=lora, adapter_ids=None if merged else ids.to(dev),
+                    lora_scale=lcfg.scale)
+        one = paged_forward_one(cfg if dev == "cuda" else cpu_cfg, model_,
+                                tokens[:, 0].to(dev), *clone(),
+                                table.to(dev), pos.to(dev),
+                                attend=pa.paged_attention, **args)
+        chunk = paged_forward_chunk(cfg if dev == "cuda" else cpu_cfg,
+                                    model_, tokens.to(dev), *clone(),
+                                    table.to(dev), pos.to(dev),
+                                    attend_chunk=pa.paged_attention_chunk,
+                                    **args)
+        return one.float().cpu(), chunk.float().cpu()
+
+    import dataclasses
+
+    from kubetpu_torch.jobs.model import Transformer
+
+    cpu_cfg = dataclasses.replace(cfg, dtype=torch.float32)
+    cpu_model = Transformer(cpu_cfg, "cpu")
+    cpu_model.load_state_dict({k: v.float().cpu()
+                               for k, v in model.state_dict().items()})
+    cpu_stores = tuple(
+        tuple(x.cpu() for x in p) if isinstance(p, tuple)
+        else p.float().cpu() for p in stores)
+    cpu_stack = {"blocks": {k: v.float().cpu()
+                            for k, v in stack["blocks"].items()}}
+    counts = _paged_counts()
+    with torch.no_grad():
+        card = legs(model, stores, stack, "cuda")
+        torch.cuda.synchronize()
+        moved = [b - a for a, b in zip(counts, _paged_counts())]
+        host = legs(cpu_model, cpu_stores, cpu_stack, "cpu")
+        rows = [legs(merge_lora(model, ads[r], lcfg), stores, None, "cuda",
+                     merged=True) for r in range(3)]
+    assert moved[1] > 0 and moved[5] == 0
+    assert (moved[4] if kv_int8 else moved[3]) > 0
+    for got, want in zip(card, host):
+        scale = float(want.abs().max())
+        assert float((got - want).abs().max()) <= 0.05 * scale
+    for r in range(3):
+        for got, want in zip(card, rows[r]):
+            scale = float(want[r].abs().max())
+            assert float((got[r] - want[r]).abs().max()) <= 0.05 * scale
+
+
+@pytest.mark.gpu
+def test_lora_step_on_the_card_matches_the_cpu(cuda):
+    """Three LoRA steps of a small f32 model on the card (flash kernels)
+    and on the CPU (plain versions) from the same weights and batches:
+    per-step losses and the first step's A/B gradients agree; the base's
+    bytes stay as they were on both."""
+    from kubetpu_torch.jobs import lora as lora_lib
+    from kubetpu_torch.jobs import model as model_lib
+    from kubetpu_torch.jobs.train import (TrainState, _trained_leaves,
+                                          make_optimizer)
+    from kubetpu_torch.ops import flash_attention as fa
+
+    cfg, lcfg, _, _ = _lora_model("cpu", torch.float32)
+    cfg = model_lib.ModelConfig(vocab=512, d_model=256, n_layers=2,
+                                n_heads=4, n_kv_heads=2, d_ff=512,
+                                max_seq=128)
+    base_cpu = model_lib.init_params(torch.Generator().manual_seed(0), cfg,
+                                     device="cpu")
+    start = lora_lib.init_lora_params(torch.Generator().manual_seed(1), cfg,
+                                      lcfg, device="cpu")
+    gen = torch.Generator().manual_seed(2)
+    for k, v in start["blocks"].items():
+        if k.endswith("_b"):
+            start["blocks"][k] = torch.randn(v.shape, generator=gen) * 0.05
+    batches = [torch.randint(0, cfg.vocab, (2, 128), generator=gen)
+               for _ in range(3)]
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        base = model_lib.Transformer(cfg, dev)
+        base.load_state_dict(base_cpu.state_dict())
+        before = {k: v.clone() for k, v in base.state_dict().items()}
+        lora = {"blocks": {k: v.clone().to(dev).requires_grad_(True)
+                           for k, v in start["blocks"].items()}}
+        tokens, targets = batches[0].to(dev), batches[0].roll(-1, 1).to(dev)
+        loss = model_lib.next_token_loss(
+            lora_lib._merged_view(base, lora, lcfg), tokens, targets, cfg,
+            lora_lib._resolve_attention("flash"))
+        grads = torch.autograd.grad(loss, _trained_leaves(lora))
+        opt = make_optimizer(lr=1e-3)
+        state = TrainState(lora, opt.init(_trained_leaves(lora)))
+        step = lora_lib.make_lora_train_step(cfg, lcfg, optimizer=opt,
+                                             device=dev)
+        fwd = fa.flash_forward.launches
+        losses = []
+        for b in batches:
+            state, loss = step(state, base, b, b.roll(-1, 1))
+            losses.append(float(loss))
+        runs[dev] = dict(losses=losses, grads=[g.cpu() for g in grads],
+                         fwd=fa.flash_forward.launches - fwd)
+        for k, v in base.state_dict().items():
+            assert torch.equal(v, before[k]), k
+    assert runs["cuda"]["fwd"] == 3 * cfg.n_layers
+    torch.testing.assert_close(runs["cuda"]["losses"], runs["cpu"]["losses"],
+                               rtol=1e-4, atol=1e-4)
+    for a, b in zip(runs["cuda"]["grads"], runs["cpu"]["grads"]):
+        torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-5)

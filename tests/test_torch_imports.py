@@ -33,12 +33,12 @@ def test_fresh_import_loads_no_jax_and_no_kubetpu():
     mods = _all_modules()
     for name in ("jobs.paged", "jobs.train", "jobs.data", "jobs.convert",
                  "jobs.decode", "jobs.serving", "jobs.speculative",
-                 "jobs.spec_serving",
+                 "jobs.spec_serving", "jobs.lora", "jobs.multi_lora",
                  "jobs.prefix_cache", "ops.paged_attention",
                  "ops.flash_attention", "obs", "obs.registry", "obs.events",
                  "obs.trace", "core", "core.metrics", "api", "api.utils",
                  "wire", "wire.httpcommon", "wire.faults", "router",
-                 "router.migration", "router.replica"):
+                 "router.migration", "router.replica", "router.adapters"):
         assert f"kubetpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"
@@ -115,8 +115,9 @@ def test_port_replica_serves_with_neither_jax_nor_kubetpu_loaded():
 
 def test_entry_points_default_to_the_card_and_raise_without_it():
     """No device and no CUDA: model construction, the servers (plain,
-    dense and speculative), the caches, the train entry points and the
-    flash wrappers raise, never continue silently on the CPU."""
+    dense, speculative and multi-LoRA), the caches, the train and LoRA
+    entry points and the flash wrappers raise, never continue silently on
+    the CPU."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default is usable here")
     from kubetpu_torch.jobs.model import ModelConfig, init_params
@@ -125,6 +126,14 @@ def test_entry_points_default_to_the_card_and_raise_without_it():
     from kubetpu_torch.jobs.serving import DecodeServer, SlotServerBase
     from kubetpu_torch.jobs.spec_serving import (
         PagedSpeculativeDecodeServer, SpeculativeDecodeServer)
+    from kubetpu_torch.jobs.convert import lora_from_numpy, lora_to_numpy
+    from kubetpu_torch.jobs.lora import (LoraConfig, init_lora_params,
+                                         init_lora_state,
+                                         make_lora_train_step)
+    from kubetpu_torch.jobs.multi_lora import (MultiLoraDecodeServer,
+                                               PagedMultiLoraDecodeServer,
+                                               SpecMultiLoraDecodeServer,
+                                               stack_adapters)
     from kubetpu_torch.jobs.train import (init_state, make_eval_step,
                                           make_train_step)
     from kubetpu_torch.ops import flash_attention as fa
@@ -156,6 +165,25 @@ def test_entry_points_default_to_the_card_and_raise_without_it():
         make_train_step(cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         make_eval_step(cfg)
+    # LoRA and the multi-LoRA servers
+    lcfg = LoraConfig(rank=2)
+    adapter = init_lora_params(torch.Generator().manual_seed(1), cfg, lcfg,
+                               device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_lora_params(torch.Generator().manual_seed(1), cfg, lcfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_lora_state(torch.Generator().manual_seed(1), cfg, lcfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_lora_train_step(cfg, lcfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PagedMultiLoraDecodeServer(cfg, model, lcfg, [adapter])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SpecMultiLoraDecodeServer(cfg, cfg, model, model, lcfg, [adapter])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        MultiLoraDecodeServer(cfg, model, lcfg,
+                              stack_adapters(lcfg, [adapter]))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        lora_from_numpy(lora_to_numpy(adapter))
     # the flash wrappers follow their tensors: the plain version on the
     # CPU, the kernel on the card, and anything else raises
     meta = torch.empty((1, 4, 2, 8), device="meta")
