@@ -120,6 +120,31 @@ Phases, one line each, any failure exits non-zero:
    ``phase_multilora``'s docstring: phase 16's near-tie rule against the
    merged servers, exact on phase 5's small f32 model, prefix isolation,
    0 / 1 host syncs a dispatched / routed step, the paged launches;
+19. router (after phase 17): the port's ``RouterServer`` in front of port
+   ``ReplicaServer``s on the flagship, in this process, phase 6's settings
+   with a prefix tree. Arms: affinity (4 families x 4 members, a
+   512-token system prompt and 64-token tails, 32 new tokens, serially
+   through the router with ``head_quantum`` 16: tokens against a quiet
+   direct serial run under phase 16's near-tie rule, each family on one
+   replica, its later members hitting the tree; routed and direct TTFT
+   p50, the router's overhead: its route latency less the replica's
+   request time); random (the same storm, ``policy="random"``: the hit
+   rate beside affinity's, peer-fetched hits counted apart); slo (both
+   ``/slo`` surfaces return verdicts; a router whose objective no fleet
+   meets burns: ``batch`` 503, ``interactive`` routed); scale_down (a
+   ``ReplicaAutoscaler`` scales up on a hot policy through a launcher
+   that builds a port replica, then down, migrate-then-remove, from a
+   replica with 2 streams of 64 new tokens mid-decode: they finish on the
+   survivor, near-tie rule against a quiet run, events scale_up <
+   scale_down_migrate < drain < scale_down; the scale-down ms); profile
+   (one storm replica's profiler, enabled before its warm-up, every 8th
+   step: coverage >= 0.9 and each phase's ms and share; with ``overlap``,
+   0 / 1 host syncs a dispatched / routed step and each sampled step's
+   wait on its own event); tenant (a packed replica of 8 rank-8 adapters
+   beside a plain one, a 9th distributed by ``POST /adapters``: a
+   generate naming it lands on the packed replica by the tenant-affine
+   pick, tokens equal to the in-process run). The paged counters are
+   zeroed before and read after: split and wgmma must run, SIMT not;
 10. train parity: the small f32 model trained three steps on the CPU (plain
    versions) and on the card (flash kernels) from the same weights and
    batches — first-step gradients and per-step losses agree;
@@ -139,7 +164,7 @@ Phases, one line each, any failure exits non-zero:
    the card (first-step A/B gradients, per-step losses);
 14. the ``kernels`` JSON line, 8 kernels (launches: the paged split,
    combine and wgmma chunk kernels' — dense and int8 instances — over
-   phases 6, 8, 9, 12, 15, 16 and 17, the SIMT chunk's over phase 5, the
+   phases 6, 8, 9, 12, 15, 16, 17 and 19, the SIMT chunk's over phase 5, the
    flash kernels' over phase 11's and phase 18's timed steps), then the
    result line.
 
@@ -1444,12 +1469,12 @@ def phase_profile(server) -> dict:
 WIRE_NEW = 32        # new tokens a request, phase 6's
 
 
-def _wire_server(model, cfg, **kw):
+def _wire_server(model, cfg, max_new_tokens=WIRE_NEW, **kw):
     """A flagship server with phase 6's settings, on the model's device."""
     from kubetpu_torch.jobs.paged import PagedDecodeServer
 
     return PagedDecodeServer(cfg, model, n_slots=8, max_seq=2048,
-                             max_new_tokens=WIRE_NEW, page_size=16,
+                             max_new_tokens=max_new_tokens, page_size=16,
                              prefill_budget=256,
                              device=next(model.parameters()).device, **kw)
 
@@ -1467,9 +1492,9 @@ def _serial(server, prompts) -> list:
 
 def _stamp(server) -> dict:
     """Host perf stamps of each request's emissions on *server* (wrapping
-    ``_obs_tokens``), its TTFT (first emission - arrival), and the rid of
-    each enqueued prompt."""
-    st = {"emits": {}, "ttft": {}, "rid": {}}
+    ``_obs_tokens``), its TTFT (first emission - arrival), the rid of each
+    enqueued prompt and each rid's enqueue time."""
+    st = {"emits": {}, "ttft": {}, "rid": {}, "enq": {}}
     obs, enqueue = server._obs_tokens, server.enqueue
 
     def stamped(rid, n):
@@ -1480,8 +1505,10 @@ def _stamp(server) -> dict:
         return obs(rid, n)
 
     def enqueued(prompt, *a, **kw):
+        t0 = time.perf_counter()
         rid = enqueue(prompt, *a, **kw)
         st["rid"][tuple(prompt)] = rid
+        st["enq"][rid] = t0
         return rid
 
     server._obs_tokens, server.enqueue = stamped, enqueued
@@ -1530,6 +1557,12 @@ class _Hold:
         if not self.held.wait(300):
             raise SystemExit(f"wire {what}: streams never reached "
                              f"mid-decode")
+
+    def release(self) -> None:
+        """Step normally again."""
+        with self.rep._cv:
+            self.rep.server.step = self._step
+            self.rep._cv.notify_all()
 
 
 def _generate(addr, prompt, key, **extra) -> tuple:
@@ -3008,6 +3041,499 @@ def phase_multilora(model, cfg, smi, launches) -> dict:
     return out
 
 
+# -- phase 19: the router side -------------------------------------------------
+
+ROUTER_FAMILIES = 4      # prompt families of the affinity storm
+ROUTER_MEMBERS = 4       # members a family
+ROUTER_SCALE_NEW = 64    # new tokens of each scale-down stream
+ROUTER_TREE_PAGES = 256  # a replica's prefix tree: every family's 32 pages
+
+
+def _router_storm(cfg) -> list:
+    """4 families x 4 members: a 512-token system prompt a family and a
+    64-token tail a member, in rounds (member j of every family, then
+    member j + 1), so each family's first member arrives cold."""
+    rng = np.random.default_rng(19)
+    heads = [rng.integers(1, cfg.vocab, 512).tolist()
+             for _ in range(ROUTER_FAMILIES)]
+    tails = [[rng.integers(1, cfg.vocab, 64).tolist()
+              for _ in range(ROUTER_MEMBERS)] for _ in heads]
+    return [heads[f] + tails[f][m] for m in range(ROUTER_MEMBERS)
+            for f in range(ROUTER_FAMILIES)]
+
+
+def _router_replica(model, cfg, name, profile=False, slos=None, **kw):
+    """A started port replica over a flagship server with phase 6's
+    settings and a prefix tree that holds every family, warmed up (its
+    profiler enabled before the warm-up when *profile*) -> (replica,
+    ``_stamp`` stamps)."""
+    from kubetpu_torch.router import ReplicaServer
+
+    server = _wire_server(model, cfg, prefix_cache_pages=ROUTER_TREE_PAGES,
+                          **kw)
+    if profile:
+        server.enable_profiler(sample_every=8)
+    server.warmup()
+    if slos is not None:
+        server.declare_slos(slos, eval_interval=0.0)
+    stamps = _stamp(server)
+    rep = ReplicaServer(server, name, idle_wait=0.002)
+    rep.start()
+    return rep, stamps
+
+
+def _router_post(router, prompts, tag, **extra) -> tuple:
+    """The prompts' generates through the router, one at a time ->
+    (bodies, client walls in ms)."""
+    bodies, walls = [], []
+    for i, p in enumerate(prompts):
+        t0 = time.perf_counter()
+        code, body = _generate(router.address, p, f"{tag}-{i}", **extra)
+        walls.append((time.perf_counter() - t0) * 1e3)
+        if code != 200:
+            raise SystemExit(f"router {tag}: request {i} answered {code} "
+                             f"{str(body)[:200]}")
+        bodies.append(body)
+    return bodies, walls
+
+
+def _tree_hits(reps) -> dict:
+    """Requests that hit a replica's tree, and those of them whose pages a
+    peer fetch had just brought (the prefix tier's hint, not affinity)."""
+    hits = sum(r.server.prefix_cache_stats()["requests_hit"] for r in reps)
+    peer = sum(_counter(r.server, "kubetpu_peer_prefix_fetch_total",
+                        result="hit") for r in reps)
+    return dict(requests_hit=int(hits), peer_fetch_hits=int(peer))
+
+
+def _router_storm_arm(model, cfg, prompts, policy, smi, quiet=None,
+                      slos=False):
+    """The storm through a port router (*policy*) over two fresh port
+    replicas, serially. Returns the row and, when *slos*, the live
+    (router, replicas) for the SLO arm (else they are stopped)."""
+    from kubetpu_torch.obs.slo import router_slos, serving_slos
+    from kubetpu_torch.router import RouterServer
+
+    serving = (serving_slos(ttft_p95_s=10.0, queue_wait_p99_s=10.0,
+                            min_free_pages=1) if slos else None)
+    made = [_router_replica(model, cfg, f"{policy}-{x}",
+                            profile=slos and x == "a", slos=serving)
+            for x in "ab"]
+    reps = [rep for rep, _ in made]
+    stamps = {rep.name: st for rep, st in made}
+    router = RouterServer(
+        policy=policy, head_quantum=16, load_refresh_s=0.05, seed=0,
+        slos=(router_slos(route_p99_s=10.0, ttft_p50_s=10.0,
+                          min_free_pages=1) if slos else None),
+        slo_interval_s=0.2)
+    router.start()
+    for rep in reps:
+        router.register_replica(rep.address)
+    bodies, walls = _router_post(router, prompts, f"storm-{policy}")
+    tokens = [b["tokens"] for b in bodies]
+    ttft, server_ms = [], []
+    for b in bodies:
+        st = stamps[b["replica"]]
+        ttft.append(st["ttft"][b["rid"]] * 1e3)
+        server_ms.append((st["emits"][b["rid"]][-1] - st["enq"][b["rid"]])
+                         * 1e3)
+    lat = router._metrics.summary()
+    families = {}
+    for i, b in enumerate(bodies):
+        families.setdefault(i % ROUTER_FAMILIES, set()).add(b["replica"])
+    hits = _tree_hits(reps)
+    row = dict(arm=policy, card=torch.cuda.get_device_name(0),
+               nvidia_smi=smi, requests=len(prompts),
+               replicas=[b["replica"] for b in bodies],
+               families_pinned=all(len(v) == 1 for v in families.values()),
+               **hits, hit_rate=hits["requests_hit"] / len(prompts),
+               local_hit_rate=(hits["requests_hit"] - hits["peer_fetch_hits"])
+               / len(prompts),
+               ttft_ms_p50=float(np.median(ttft)), ttft_ms=ttft,
+               request_ms_p50=float(np.median(walls)),
+               server_request_ms_p50=float(np.median(server_ms)),
+               router_route_ms_p50=lat["route"]["p50_ms"],
+               router_upstream_ms_p50=lat["upstream"]["p50_ms"],
+               router_overhead_ms_p50=lat["route"]["p50_ms"]
+               - float(np.median(server_ms)),
+               client_overhead_ms_p50=float(np.median(
+                   [w - s for w, s in zip(walls, server_ms)])),
+               fallbacks=int(router._c_fallback.value))
+    if quiet is not None:
+        ties = _near_tie_check(tokens, quiet["tokens"], quiet["gaps"],
+                               prompts)
+        row.update(tokens_equal_quiet=sum(
+            t == q for t, q in zip(tokens, quiet["tokens"])),
+            diverged=ties["diverged"], bad=ties["bad"])
+    for rep in reps:
+        with rep._cv:
+            rep.server.check_invariants()
+    if slos:
+        return row, router, reps
+    router.shutdown()
+    _stop(*reps)
+    return row, None, None
+
+
+def _router_slos(router, reps, prompt, smi) -> dict:
+    """Both ``/slo`` surfaces return verdicts; then a router over the same
+    replicas declaring an objective no fleet meets burns: a ``batch``
+    request is shed 503, an ``interactive`` one still routes."""
+    from kubetpu_torch.obs.slo import Objective
+    from kubetpu_torch.router import RouterServer
+    from kubetpu_torch.wire.httpcommon import request_json
+
+    router.evaluate_slos(0.0)
+    rslo = request_json(router.address + "/slo", method="GET", timeout=60)
+    replica_slo = {r.name: request_json(r.address + "/slo", method="GET",
+                                        timeout=60) for r in reps}
+    burning = RouterServer(
+        head_quantum=16, load_refresh_s=0.05, slo_interval_s=0.05,
+        slos=[Objective("impossible", metric="kubetpu_serving_queue_depth",
+                        threshold=-1.0, reduce="max")])
+    burning.start()
+    try:
+        for rep in reps:
+            burning.register_replica(rep.address)
+        for _ in range(3):
+            burning.evaluate_slos(0.0)
+        shed, _ = _generate(burning.address, prompt, "slo-batch",
+                            slo_class="batch")
+        routed, body = _generate(burning.address, prompt, "slo-interactive",
+                                 slo_class="interactive")
+        is_burning = burning._burning()
+    finally:
+        burning.shutdown()
+    row = dict(arm="slo", card=torch.cuda.get_device_name(0),
+               nvidia_smi=smi,
+               router_verdicts={k: dict(ok=v["ok"], value=v["value"],
+                                        burn_fast=v["burn_fast"])
+                                for k, v in rslo["results"].items()},
+               replica_verdicts={n: sorted(v["results"])
+                                 for n, v in replica_slo.items()},
+               burning=is_burning, batch_code=shed, interactive_code=routed,
+               interactive_replica=body.get("replica"))
+    line("router", **row)
+    if not (rslo["results"] and all(v["results"]
+                                    for v in replica_slo.values())
+            and is_burning and shed == 503 and routed == 200):
+        raise SystemExit(f"router slo: {row}")
+    return row
+
+
+def _owned_prompts(router, cfg, names, per_replica, n_tokens=256) -> list:
+    """*per_replica* prompts of *n_tokens* for each of *names*, chosen by
+    the router's own ring (each a family of its own)."""
+    from kubetpu_torch.router import prefix_head_key
+
+    rng = np.random.default_rng(191)
+    out = {n: [] for n in names}
+    while any(len(v) < per_replica for v in out.values()):
+        p = rng.integers(1, cfg.vocab, n_tokens).tolist()
+        owner = router.ring.lookup(prefix_head_key(
+            p, router.head_tokens, router.head_quantum))
+        if len(out.get(owner, [None] * per_replica)) < per_replica:
+            out[owner].append(p)
+    return [p for n in names for p in out[n]]
+
+
+def _router_scale_down(model, cfg, smi) -> dict:
+    """The autoscaler on port replicas: a hot policy (TTFT over a 1 us
+    ceiling) scales one replica up to two through a launcher that builds a
+    port replica on the shared model; then, with two streams of 64 new
+    tokens mid-decode on each, a relaxed policy scales down,
+    migrate-then-remove: the victim's streams finish on the survivor
+    (the router re-pins each) under the near-tie rule against a quiet
+    run, and the router's events read scale_up < scale_down_migrate <
+    drain < scale_down."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from kubetpu_torch.router import (ReplicaAutoscaler, RouterServer,
+                                      ScalePolicy)
+
+    made, stopped = {}, []
+
+    def launch():
+        rep, _ = _router_replica(model, cfg, "scale-a",
+                                 max_new_tokens=ROUTER_SCALE_NEW)
+        made[rep.name] = rep
+        return rep.address
+
+    rep_b, _ = _router_replica(model, cfg, "scale-b",
+                               max_new_tokens=ROUTER_SCALE_NEW)
+    made[rep_b.name] = rep_b
+    router = RouterServer(head_quantum=16, load_refresh_s=0.05)
+    router.start()
+    try:
+        router.register_replica(rep_b.address)
+        scaler = ReplicaAutoscaler(
+            router, launch,
+            policy=ScalePolicy(min_replicas=1, max_replicas=2, up_after=1,
+                               down_after=1, cooldown_s=0.0,
+                               ttft_p50_ms=0.001),
+            terminator=lambda name, url: stopped.append(name))
+        code, _ = _generate(router.address, [1] * 64, "scale-warm")
+        t0 = time.perf_counter()
+        up = scaler.poll_once()["action"]
+        up_ms = (time.perf_counter() - t0) * 1e3
+        prompts = _owned_prompts(router, cfg, ["scale-a", "scale-b"], 2)
+        quiet_srv = _wire_server(model, cfg, max_new_tokens=ROUTER_SCALE_NEW)
+        rec = _record_top2(quiet_srv)
+        quiet = _serial(quiet_srv, prompts)
+        gaps = _top2_gaps(rec)
+        del quiet_srv, rec
+        holds = {n: _Hold(made[n], 2) for n in made}
+        with ThreadPoolExecutor(len(prompts)) as pool:
+            futs = [pool.submit(_generate, router.address, p, f"scale-{i}")
+                    for i, p in enumerate(prompts)]
+            for hold in holds.values():
+                hold.wait("scale")
+            scaler.policy = ScalePolicy(
+                min_replicas=1, max_replicas=2, up_after=99, down_after=1,
+                cooldown_s=0.0, cold_active_frac=1.01,
+                queue_wait_p99_ms=1e9, ttft_p50_ms=1e9)
+            t0 = time.perf_counter()
+            drain = scaler.poll_once()["action"]
+            holds["scale-b"].release()
+            down = None
+            while time.perf_counter() - t0 < 300 and down is None:
+                down = scaler.poll_once()["action"]
+                time.sleep(0.01)
+            down_ms = (time.perf_counter() - t0) * 1e3
+            answers = [f.result(timeout=600) for f in futs]
+        tokens = [body.get("tokens") for _, body in answers]
+        ties = _near_tie_check(tokens, quiet, gaps, prompts)
+        seqs = {}
+        for e in router.events.events():
+            seqs.setdefault(e["kind"], e["seq"])
+        order = [seqs.get(k) for k in ("scale_up", "scale_down_migrate",
+                                       "drain", "scale_down")]
+        with made["scale-b"]._cv:
+            made["scale-b"].server.check_invariants()
+        row = dict(arm="scale_down", card=torch.cuda.get_device_name(0),
+                   nvidia_smi=smi, warm_code=code, scale_up=up,
+                   scale_up_ms=up_ms, drain=drain, scale_down=down,
+                   scale_down_ms=down_ms, streams=len(prompts),
+                   answered=[c for c, _ in answers],
+                   replicas=[b.get("replica") for _, b in answers],
+                   repins=int(router._c_repin.value),
+                   tokens_full=sum(t is not None and len(t) == len(p)
+                                   + ROUTER_SCALE_NEW
+                                   for t, p in zip(tokens, prompts)),
+                   tokens_equal_quiet=sum(t == q for t, q in
+                                          zip(tokens, quiet)),
+                   diverged=ties["diverged"], bad=ties["bad"],
+                   event_seq=order, terminated=stopped)
+    finally:
+        router.shutdown()
+        _stop(*made.values())
+    line("router", **row)
+    if not (up == "scale_up:scale-a" and drain == "drain:scale-a"
+            and down == "scale_down:scale-a" and stopped == ["scale-a"]
+            and row["answered"] == [200] * len(prompts)
+            and set(row["replicas"]) == {"scale-b"} and row["repins"] == 2
+            and row["tokens_full"] == len(prompts) and not ties["bad"]
+            and None not in order and order == sorted(order)):
+        raise SystemExit(f"router scale_down: {row}")
+    return row
+
+
+def _router_profile(model, cfg, profiled_rep, smi) -> dict:
+    """The profiler: the storm replica's breakdown (enabled before its
+    warm-up, every 8th step sampled), then a server with ``overlap`` and
+    the profiler on: the host-sync counter reads 0 in every dispatched
+    step and 1 in every routed step, each sampled step waits once on its
+    own copy's event, and nothing calls ``torch.cuda.synchronize``."""
+    from kubetpu_torch.jobs import serving as serving_mod
+
+    summary = profiled_rep.server.profile_summary()
+    server = _wire_server(model, cfg, overlap=True)
+    server.enable_profiler(sample_every=8)
+    server.warmup()
+    torch.cuda.synchronize()
+    waits, dispatched, device_syncs = [], [], [0]
+    real_wait, real_sync = serving_mod._wait_staged, torch.cuda.synchronize
+    dispatch = server._dispatch_step
+
+    def dispatched_step():
+        handle = dispatch()
+        dispatched.append(handle[0][1])
+        return handle
+
+    def wait(staged):
+        waits.append(staged[1])
+        return real_wait(staged)
+
+    def no_sync(*args, **kwargs):
+        device_syncs[0] += 1
+        return real_sync(*args, **kwargs)
+
+    server._dispatch_step = dispatched_step
+    serving_mod._wait_staged, torch.cuda.synchronize = wait, no_sync
+    sync = _SyncCounter(server)
+    try:
+        rids = [server.enqueue(p) for p in _serve_prompts(cfg)]
+        server.drain()
+    finally:
+        syncs = sync.close()
+        serving_mod._wait_staged, torch.cuda.synchronize = real_wait, real_sync
+    overlap = server.profile_summary()
+    for r in rids:
+        server.pop_result(r)
+    own = all(any(w is d for d in dispatched) for w in waits)
+    row = dict(arm="profile", card=torch.cuda.get_device_name(0),
+               nvidia_smi=smi, sample_every=summary["sample_every"],
+               steps=summary["steps"], sampled_steps=summary["sampled_steps"],
+               coverage=summary["coverage"],
+               phase_ms={k: v["seconds"] * 1e3 / summary["sampled_steps"]
+                         for k, v in summary["phases"].items()},
+               phase_share={k: v["frac"]
+                            for k, v in summary["phases"].items()},
+               step_ms=summary["sampled_wall_s"] * 1e3
+               / summary["sampled_steps"],
+               recompiles=summary["recompiles"],
+               overlap_coverage=overlap["coverage"],
+               overlap_sampled_steps=overlap["sampled_steps"],
+               overlap_syncs=syncs, sampled_waits=len(waits),
+               waits_on_own_event=own, device_syncs=device_syncs[0])
+    line("router", **row)
+    if not (summary["coverage"] >= 0.9 and overlap["coverage"] >= 0.9
+            and syncs["dispatch_syncs_max"] == 0
+            and syncs["route_syncs"] == [1] and waits and own
+            and device_syncs[0] == 0):
+        raise SystemExit(f"router profile: {row}")
+    return row
+
+
+def _router_tenant(model, cfg, smi) -> dict:
+    """Tenant affinity: a packed replica holding 8 rank-8 adapters (phase
+    17's) beside a plain one; a 9th adapter registered with the router's
+    ``AdapterRegistry`` and distributed by ``POST /adapters`` (the plain
+    replica skipped); a generate naming it, on a prompt whose ring owner
+    is the plain replica, lands on the packed one through the
+    tenant-affine pick, with the in-process run's tokens."""
+    from kubetpu_torch.jobs.lora import LoraConfig
+    from kubetpu_torch.router import ReplicaServer, RouterServer
+    from kubetpu_torch.router.adapters import AdapterRegistry
+    from kubetpu_torch.wire.httpcommon import request_json
+
+    lcfg = LoraConfig(rank=8, alpha=16.0)
+    ads = _tenant_adapters(cfg, lcfg, range(8))
+    extra = _tenant_adapters(cfg, lcfg, [8])[0]
+    a = _ml_server(model, cfg, lcfg, ads, max_adapters=9)
+    a.warmup()
+    b = _wire_server(model, cfg)
+    reps = [ReplicaServer(a, "tenant-packed", idle_wait=0.002),
+            ReplicaServer(b, "tenant-plain", idle_wait=0.002)]
+    for rep in reps:
+        rep.start()
+    reg = AdapterRegistry()
+    name = reg.register(extra, name="tenant-9")
+    router = RouterServer(head_quantum=16, load_refresh_s=0.05, adapters=reg)
+    router.start()
+    try:
+        for rep in reps:
+            router.register_replica(rep.address)
+        t0 = time.perf_counter()
+        out = request_json(router.address + "/adapters",
+                           {"action": "load", "name": name},
+                           idempotency_key="tenant-load", timeout=600)
+        push_ms = (time.perf_counter() - t0) * 1e3
+        router.pool.refresh(0.0)
+        summ = request_json(router.address + "/adapters", method="GET",
+                            timeout=60)
+        prompt = _owned_prompts(router, cfg, ["tenant-plain"], 1)[0]
+        affine = router._c_tenant_affine.value
+        code, body = _generate(router.address, prompt, "tenant-gen",
+                               adapter=name)
+        with reps[0]._cv:
+            rid = a.enqueue(prompt, adapter=name)
+        while True:
+            with reps[0]._cv:
+                if a.finished(rid):
+                    inproc = a.pop_result(rid)
+                    break
+            time.sleep(0.01)
+        with reps[0]._cv:
+            a.check_invariants()
+        row = dict(arm="tenant", card=torch.cuda.get_device_name(0),
+                   nvidia_smi=smi, distributed=sorted(out["results"]),
+                   packed_ok=out["results"].get("tenant-packed", {}).get(
+                       "ok"),
+                   push_ms=push_ms, registered=summ["registered"],
+                   resident_on_packed=len(summ["resident"].get(
+                       "tenant-packed", [])),
+                   generate_code=code, replica=body.get("replica"),
+                   tenant_affine=int(router._c_tenant_affine.value - affine),
+                   tokens_equal_in_process=code == 200
+                   and body["tokens"] == inproc)
+    finally:
+        router.shutdown()
+        _stop(*reps)
+    line("router", **row)
+    if not (row["distributed"] == ["tenant-packed"] and row["packed_ok"]
+            and row["replica"] == "tenant-packed"
+            and row["tenant_affine"] == 1
+            and row["tokens_equal_in_process"]):
+        raise SystemExit(f"router tenant: {row}")
+    return row
+
+
+def phase_router(model, cfg, smi, launches) -> dict:
+    """The port's router side in front of port replicas on the flagship,
+    in this process on ``127.0.0.1:0``: the affinity storm (against a
+    quiet direct run and under ``policy="random"``), SLOs, the
+    autoscaler's scale-down, the profiler and tenant affinity. The paged
+    counters are zeroed just before and read just after, and added to
+    *launches*: split and wgmma must run, SIMT not."""
+    from kubetpu_torch.ops import paged_attention as pa
+
+    prompts = _router_storm(cfg)
+    torch.cuda.synchronize()
+    for c in _PAGED_COUNTERS:
+        setattr(pa.paged_attention, c, 0)
+    t0 = time.perf_counter()
+    quiet_srv = _wire_server(model, cfg, prefix_cache_pages=ROUTER_TREE_PAGES)
+    quiet_srv.warmup()
+    qst = _stamp(quiet_srv)
+    rec = _record_top2(quiet_srv)
+    quiet = dict(tokens=_serial(quiet_srv, prompts), gaps=_top2_gaps(rec))
+    direct_ttft = [qst["ttft"][qst["rid"][tuple(p)]] * 1e3 for p in prompts]
+    direct_hits = quiet_srv.prefix_cache_stats()["requests_hit"]
+    del quiet_srv, rec
+    rows = {}
+    row, router, reps = _router_storm_arm(model, cfg, prompts, "affinity",
+                                          smi, quiet=quiet, slos=True)
+    row.update(direct_ttft_ms_p50=float(np.median(direct_ttft)),
+               direct_ttft_ms=direct_ttft, direct_requests_hit=direct_hits)
+    line("router", **row)
+    rows["affinity"] = row
+    if not (row["families_pinned"] and not row["bad"]
+            and row["requests_hit"] >= len(prompts) - ROUTER_FAMILIES):
+        raise SystemExit(f"router affinity: {row}")
+    try:
+        rows["slo"] = _router_slos(router, reps, prompts[0], smi)
+        rows["profile"] = _router_profile(model, cfg, reps[0], smi)
+    finally:
+        router.shutdown()
+        _stop(*reps)
+    row, _, _ = _router_storm_arm(model, cfg, prompts, "random", smi)
+    line("router", **row)
+    rows["random"] = row
+    rows["scale_down"] = _router_scale_down(model, cfg, smi)
+    rows["tenant"] = _router_tenant(model, cfg, smi)
+    torch.cuda.synchronize()
+    counts = {c: getattr(pa.paged_attention, c) for c in _PAGED_COUNTERS}
+    for c, n in counts.items():
+        launches[c] = launches.get(c, 0) + n
+    rows.update(seconds=time.perf_counter() - t0, paged_launches=counts)
+    line("router_launches", seconds=rows["seconds"], **counts)
+    if (counts["split_launches"] <= 0 or counts["wgmma_launches"] <= 0
+            or counts["simt_launches"]):
+        raise SystemExit(f"router: paged launches {counts}")
+    return rows
+
+
 # -- phase 10: the training step, CPU plain versions vs the card's kernels ---
 
 TRAIN_TOL = 1e-4     # f32 on both sides: summation order only
@@ -3353,7 +3879,7 @@ def main(argv) -> int:
     del server
     torch.cuda.empty_cache()
     # the paged launches of every main-path phase: serve, prefix, window,
-    # wire, dense, spec
+    # wire, dense, spec, multilora, router
     paged_launches = dict(serve["paged_launches"])
     prefix = phase_prefix(model, cfg, dev["nvidia_smi"], paged_launches)
     window = phase_window(model, cfg, dev["nvidia_smi"], paged_launches)
@@ -3362,6 +3888,7 @@ def main(argv) -> int:
     spec = phase_spec(model, cfg, dev["nvidia_smi"], paged_launches)
     multilora = phase_multilora(model, cfg, dev["nvidia_smi"],
                                 paged_launches)
+    router = phase_router(model, cfg, dev["nvidia_smi"], paged_launches)
     del model
     torch.cuda.empty_cache()
     train_parity = phase_train_parity()
@@ -3375,7 +3902,7 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
 
     # the paged kernels at the main path's cases (launches: phases 6, 8, 9,
-    # 12, 15, 16 and 17; the SIMT chunk's: phase 5 and phase 16's f32 arm,
+    # 12, 15, 16, 17 and 19; the SIMT chunk's: phase 5 and phase 16's f32 arm,
     # whose verify chunks take it too): the split and combine
     # kernels at decode_bf16 (max_abs_err over every decode case), the
     # chunk kernel's dense instance at chunk_bf16_T256 (max_abs_err over
@@ -3475,7 +4002,7 @@ def main(argv) -> int:
               "flash_cases": flash, "parity": parity, "serve": serve,
               "profile": prof, "prefix": prefix, "window": window,
               "wire": wire, "verify_routes": verify, "dense": dense,
-              "spec": spec, "multilora": multilora,
+              "spec": spec, "multilora": multilora, "router": router,
               "main_path_paged_launches": paged_launches,
               "train_parity": train_parity,
               "train": train, "train_profile": train_prof,

@@ -404,9 +404,14 @@ class PagedDecodeServer(SlotServerBase):
     and raises without CUDA; *params* must already live on it.
 
     Multi-tenant LoRA serving is the subclass
-    ``multi_lora.PagedMultiLoraDecodeServer``. Not ported yet: the SLO
-    engine (ROADMAP queue 1 item 1), the profiler (item 6), ``mesh`` (item
-    8)."""
+    ``multi_lora.PagedMultiLoraDecodeServer``. ``declare_slos`` and
+    ``enable_profiler`` are the base's; ``mesh`` is not ported yet."""
+
+    # the two device legs, called through the instance so that
+    # ``enable_profiler`` can watch them (the JAX server's ``_prefill_chunk``
+    # and ``_step_all``)
+    _prefill_leg = staticmethod(forward_chunk_io)
+    _step_leg = staticmethod(paged_forward_one)
 
     def __init__(self, cfg: ModelConfig, params: Transformer,
                  n_slots: int = 8, max_seq: int = 512,
@@ -1393,9 +1398,9 @@ class PagedDecodeServer(SlotServerBase):
                             self._gather_prefix(pos + bucket))
         tokens = self._upload(np.asarray([chunk], np.int64))
         lora, aid = self._admit_lora(slot)
-        logits, _ = forward_chunk_io(self.cfg, self.params, tokens,
-                                     (self._k_store, self._v_store), pos, io,
-                                     lora, aid, self._lora_scale)
+        logits, _ = self._prefill_leg(self.cfg, self.params, tokens,
+                                      (self._k_store, self._v_store), pos,
+                                      io, lora, aid, self._lora_scale)
         if not final:
             return True
         r = logits[0, take - 1]
@@ -1412,7 +1417,7 @@ class PagedDecodeServer(SlotServerBase):
         active = self._upload(self.active)
         pos = self._upload(self.pos.astype(np.int32))
         lora, aids = self._step_lora()
-        logits = paged_forward_one(
+        logits = self._step_leg(
             self.cfg, self.params, self.last, self._k_store, self._v_store,
             self._table_on_device(), pos, attend=self._attend,
             write_enable=active, lora=lora, adapter_ids=aids,
@@ -1446,20 +1451,20 @@ class PagedDecodeServer(SlotServerBase):
         def prefill_dummy(padded):
             io = self._chunk_io(row[:self._pages_needed(len(padded))], row,
                                 self._gather_prefix(len(padded)))
-            forward_chunk_io(self.cfg, self.params,
-                             self._upload(np.zeros((1, len(padded)),
-                                                   np.int64)),
-                             (self._k_store, self._v_store), 0, io,
-                             *self._admit_lora(0), self._lora_scale)
+            self._prefill_leg(self.cfg, self.params,
+                              self._upload(np.zeros((1, len(padded)),
+                                                    np.int64)),
+                              (self._k_store, self._v_store), 0, io,
+                              *self._admit_lora(0), self._lora_scale)
 
         self._warmup_buckets(prefill_dummy)
         zeros = np.zeros((self.n_slots,), np.int32)
         lora, aids = self._step_lora()
-        paged_forward_one(self.cfg, self.params, self.last, self._k_store,
-                          self._v_store, self._table_on_device(),
-                          self._upload(zeros), attend=self._attend,
-                          write_enable=self._upload(zeros.astype(bool)),
-                          lora=lora, adapter_ids=aids,
-                          lora_scale=self._lora_scale)
+        self._step_leg(self.cfg, self.params, self.last, self._k_store,
+                       self._v_store, self._table_on_device(),
+                       self._upload(zeros), attend=self._attend,
+                       write_enable=self._upload(zeros.astype(bool)),
+                       lora=lora, adapter_ids=aids,
+                       lora_scale=self._lora_scale)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)

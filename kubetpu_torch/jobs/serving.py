@@ -48,8 +48,14 @@ device legs of ``_build_dense_legs`` (a prefill chunk of one slot through
 ``decode.forward_chunk_at_io``). The speculative servers draft on the same
 dense cache.
 
-Not ported yet (later slices): the SLO engine (ROADMAP queue 1 item 1, with
-the router side) and the profiler (item 6).
+The signal layer is the JAX package's, off by default: ``declare_slos``
+attaches an SLO engine (``obs.slo``) over the server's registry, evaluated
+from inside ``step()``, and ``enable_profiler`` the sampled profiler
+(``obs.profile``): every Nth step is split into schedule / dispatch /
+device / materialize, the device phase waiting on that step's own host
+copy event, and the device legs are watched for first calls. Un-sampled
+steps, and a server without a profiler, make no more host syncs than
+before.
 """
 
 from __future__ import annotations
@@ -70,7 +76,9 @@ from kubetpu_torch.jobs.model import (ModelConfig, Transformer,
 from kubetpu_torch.jobs.sampling import (chosen_logprob, make_slot_sampler,
                                          row_seed)
 from kubetpu_torch.obs.events import EventLog
+from kubetpu_torch.obs.profile import ServingProfiler
 from kubetpu_torch.obs.registry import Registry, install_process_gauges
+from kubetpu_torch.obs.slo import Objective, SloEngine
 
 
 def to_device(a: np.ndarray, device) -> torch.Tensor:
@@ -97,6 +105,14 @@ def _stage_to_host(t: torch.Tensor):
     done = torch.cuda.Event()
     done.record()
     return host, done
+
+
+def _wait_staged(staged) -> None:
+    """Wait until a ``_stage_to_host`` copy has landed (its own event on
+    the card; nothing to wait for on the CPU)."""
+    done = staged[1]
+    if done is not None:
+        done.synchronize()
 
 
 def _host_values(staged) -> np.ndarray:
@@ -202,6 +218,12 @@ class SlotServerBase:
         self.obs = Registry()
         install_process_gauges(self.obs, "serving")
         self.events = EventLog(component="serving")
+        # the sampled profiler and the SLO engine, both off by default
+        # (``enable_profiler`` / ``declare_slos``): while off they cost
+        # one ``is not None`` check a step, no sync, no upload
+        self._profiler: Optional[ServingProfiler] = None
+        self.slo: Optional[SloEngine] = None
+        self._slo_interval = 1.0
         self._metrics = LatencyRecorder(
             registry=self.obs, metric="kubetpu_serving_latency_seconds")
         self.obs.gauge_fn("kubetpu_serving_active_slots",
@@ -451,24 +473,101 @@ class SlotServerBase:
         """Prometheus exposition of this server's registry."""
         return self.obs.render()
 
+    # -- the signal layer: profiler and SLOs ---------------------------------
+
+    # (attribute, leg name) of every device leg ``enable_profiler`` watches,
+    # the port's names for the JAX package's compiled legs: the dense
+    # server's ``_prefill_chunk`` / ``_step_all`` and the paged speculative
+    # server's ``_draft_prefill`` keep their names; the paged server's
+    # ``_prefill_leg`` / ``_step_leg`` (``forward_chunk_io`` /
+    # ``paged_forward_one``) are its ``_prefill_chunk`` / ``_step_all``;
+    # the dense speculative server's ``_prefill_slot`` / ``_round`` are its
+    # ``_prefill_jit`` / ``_round_jit``. The paged speculative round, built
+    # for each gamma (``_round_leg``), is watched per call as
+    # ``round[gamma=G]``.
+    _PROFILED_LEGS = (("_prefill_chunk", "prefill"), ("_step_all", "step"),
+                      ("_prefill_leg", "prefill"), ("_step_leg", "step"),
+                      ("_draft_prefill", "draft_prefill"),
+                      ("_prefill_slot", "prefill"), ("_round", "round"))
+
+    def enable_profiler(self, sample_every: int = 16) -> ServingProfiler:
+        """Turn on the sampled profiler (``obs.profile``): every
+        *sample_every*-th ``step()`` records a per-phase wall breakdown
+        (schedule / dispatch / device / materialize; the device phase
+        waits on that step's own host copy event, the one cost of a
+        sampled step), and the device legs (``_PROFILED_LEGS``) are
+        wrapped for first-call tracking (``kubetpu_jit_recompiles_total
+        {leg=...}`` and its seconds). Enable BEFORE ``warmup()`` to see
+        the warmup's first calls attributed per leg. Un-sampled steps
+        (and the default, disabled state) add no sync and no upload."""
+        prof = ServingProfiler(sample_every=sample_every, registry=self.obs)
+        self._profiler = prof
+        for attr, leg in self._PROFILED_LEGS:
+            fn = getattr(self, attr, None)
+            if fn is not None:
+                setattr(self, attr, prof.watch(leg, fn))
+        return prof
+
+    def profile_summary(self) -> dict:
+        """The profiler's structured snapshot (phase breakdown, coverage,
+        per-leg first calls) — {} while disabled."""
+        return self._profiler.summary() if self._profiler else {}
+
+    def declare_slos(self, objectives: List[Objective],
+                     eval_interval: float = 1.0, **engine_kw) -> SloEngine:
+        """Attach an SLO engine (``obs.slo``) over this server's own
+        registry — ``obs.slo.serving_slos(...)`` builds the standard
+        objective set. The engine re-evaluates at most once per
+        *eval_interval* seconds, from inside ``step()``; results render as
+        ``kubetpu_slo_*`` gauges on ``metrics_text()`` and read through
+        ``self.slo.results()`` (the replica's ``GET /slo``)."""
+        self.slo = SloEngine(objectives, registry=self.obs, **engine_kw)
+        self._slo_interval = float(eval_interval)
+        return self.slo
+
+    def _begin_profiled_step(self):
+        """The profiler's record for this step (None unless sampled), after
+        the SLO engine's throttled evaluation."""
+        prof = self._profiler
+        rec = prof.begin_step() if prof is not None else None
+        if self.slo is not None:
+            self.slo.maybe_evaluate(self._slo_interval)
+        return rec
+
     def step(self) -> Dict[int, List[int]]:
         """Admit and advance prefills (under the token budget when set),
         then one decode step for every active slot -> {rid: tokens emitted
         this step}. A request admitted this step emits two tokens: its
         prefill's first and this step's decode. With ``overlap`` this call
         dispatches step N and routes step N-1's tokens."""
+        rec = self._begin_profiled_step()
         self._schedule_prefills()
+        if rec is not None:
+            rec.mark("schedule")
         handle = None
         t0 = time.perf_counter()
         if self.active.any():
             handle = self._dispatch_step()
+        if rec is not None:
+            rec.mark("dispatch")
+            if handle is not None:
+                # the one cost of a sampled step: wait for THIS step's host
+                # copy (its own event, not the whole device), so the
+                # device's time is attributable; the overlap pipeline
+                # pauses for this step only
+                _wait_staged(handle[0])
+                rec.mark("device")
         if self.overlap:
             handle, self._inflight = self._inflight, handle
         out = self._materialize_pending()
         if handle is not None:
             self._route_step(handle, out)
+        if rec is not None:
+            rec.mark("materialize")
         if handle is not None or self._inflight is not None:
             self._metrics.record("step", time.perf_counter() - t0)
+        if rec is not None:
+            self._profiler.end_step(rec)
         return out
 
     def _dispatch_step(self):

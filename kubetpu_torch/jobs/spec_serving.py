@@ -46,7 +46,9 @@ from kubetpu_torch.jobs.model import (ModelConfig, Transformer,
                                       reference_config_repr, resolve_device)
 from kubetpu_torch.jobs.paged import PagedDecodeServer, paged_forward_chunk
 from kubetpu_torch.jobs.sampling import chosen_logprob
-from kubetpu_torch.jobs.serving import SlotServerBase, _build_dense_legs
+from kubetpu_torch.jobs.serving import (SlotServerBase, _build_dense_legs,
+                                        _host_values, _stage_to_host,
+                                        _wait_staged)
 from kubetpu_torch.jobs.speculative import (_accepted, draft_and_verify,
                                             draft_propose)
 
@@ -121,15 +123,43 @@ def _route_round(server, toks, n_emit, lps, out):
     return out
 
 
-def _round_to_host(target_tok, n_emit, lps):
-    """A round's device results as host arrays, in one transfer (the
-    round's one sync): (toks (B, G) int64, n_emit (B,) int64, lps (B, G)
-    f64). float64 holds the token ids and the f32 logprobs exactly."""
-    host = torch.cat([target_tok.double(), n_emit.double()[:, None],
-                      lps.double()], dim=1).cpu().numpy()
-    g = target_tok.shape[1]
+def _stage_round(target_tok, n_emit, lps):
+    """Queue a round's device results' copy to the host as one transfer,
+    without waiting -> (staged copy, G). float64 holds the token ids and
+    the f32 logprobs exactly."""
+    return (_stage_to_host(torch.cat([target_tok.double(),
+                                      n_emit.double()[:, None],
+                                      lps.double()], dim=1)),
+            target_tok.shape[1])
+
+
+def _round_values(staged, g: int):
+    """A staged round as host arrays (the round's one sync): (toks (B, G)
+    int64, n_emit (B,) int64, lps (B, G) f64)."""
+    host = _host_values(staged)
     return (host[:, :g].astype(np.int64), host[:, g].astype(np.int64),
             host[:, g + 1:])
+
+
+def _profiled_round(rec, device_round):
+    """A round's host copies, with the sampled step's phase marks: the
+    round queued (``dispatch``), its own copy event waited on
+    (``device``), then read. *device_round* queues the round -> device
+    (target_tok, n_emit, lps)."""
+    staged, g = _stage_round(*device_round())
+    if rec is not None:
+        rec.mark("dispatch")
+        _wait_staged(staged)
+        rec.mark("device")
+    return _round_values(staged, g)
+
+
+def _end_round_step(server, rec, out):
+    """Close a sampled step's record (routing is its ``materialize``)."""
+    if rec is not None:
+        rec.mark("materialize")
+        server._profiler.end_step(rec)
+    return out
 
 
 def _refuse_sampling(server, sampling):
@@ -221,15 +251,20 @@ class SpeculativeDecodeServer(_SpecRoundsMixin, SlotServerBase):
         """One speculative round for every active slot -> {rid: [tokens]};
         each request receives 1..gamma+1 tokens (clipped at EOS and
         max_new_tokens on the host; the device overshoot is never read)."""
+        rec = self._begin_profiled_step()
         self._drain_queue_into_slots()
+        if rec is not None:
+            rec.mark("schedule")
         if not self.active.any():
-            return self._materialize_pending()
+            return _end_round_step(self, rec, self._materialize_pending())
         t0 = time.perf_counter()
-        toks, n_emit, lps = _round_to_host(*self._round(self.active))
+        toks, n_emit, lps = _profiled_round(
+            rec, lambda: self._round(self.active))
         self.pos += n_emit
         out = self._materialize_pending()
         self._metrics.record("step", time.perf_counter() - t0)
-        return _route_round(self, toks, n_emit, lps, out)
+        return _end_round_step(self, rec,
+                               _route_round(self, toks, n_emit, lps, out))
 
     def _slot_proposed(self, slot: int) -> int:
         return self.gamma
@@ -451,8 +486,14 @@ class PagedSpeculativeDecodeServer(_SpecRoundsMixin, PagedDecodeServer):
 
     def _device_round(self, gamma: int, active: np.ndarray):
         """Queue one round at *gamma* -> device (target_tok, n_emit,
-        lps)."""
-        self.last, toks, n_emit, lps = self._round_leg(gamma)(
+        lps). With the profiler on, the leg is watched per gamma
+        (``round[gamma=G]``): a walk onto a gamma not run before reads as
+        a first call on its own leg."""
+        round_all = self._round_leg(gamma)
+        if self._profiler is not None:
+            round_all = self._profiler.watch(f"round[gamma={gamma}]",
+                                             round_all)
+        self.last, toks, n_emit, lps = round_all(
             self.params, self.draft_params, self._k_store, self._v_store,
             self.dcache, self._table_on_device(), self.last,
             self._upload(self.pos.astype(np.int32)), self._upload(active),
@@ -465,18 +506,22 @@ class PagedSpeculativeDecodeServer(_SpecRoundsMixin, PagedDecodeServer):
         max_new_tokens on the host; the device overshoot is never read).
         Admission runs the base scheduler first, monolithic or
         token-budget chunked, both composing with prefix hits."""
+        rec = self._begin_profiled_step()
         self._schedule_prefills()
+        if rec is not None:
+            rec.mark("schedule")
         if not self.active.any():
-            return self._materialize_pending()
+            return _end_round_step(self, rec, self._materialize_pending())
         t0 = time.perf_counter()
         g = max(int(self._gamma[s]) for s in range(self.n_slots)
                 if self.active[s])
-        toks, n_emit, lps = _round_to_host(*self._device_round(
-            g, self.active))
+        toks, n_emit, lps = _profiled_round(
+            rec, lambda: self._device_round(g, self.active))
         self.pos += n_emit
         out = self._materialize_pending()
         self._metrics.record("step", time.perf_counter() - t0)
-        return _route_round(self, toks, n_emit, lps, out)
+        return _end_round_step(self, rec,
+                               _route_round(self, toks, n_emit, lps, out))
 
     def _slot_proposed(self, slot: int) -> int:
         return int(self._gamma[slot])

@@ -1,4 +1,4 @@
-"""Bounded structured event log (port of ``kubetpu/obs/events.py:56-181``).
+"""Bounded structured event log (port of ``kubetpu/obs/events.py``).
 
 A bounded ring of events
 
@@ -13,8 +13,10 @@ spill, fill) and the replica's wire legs. Bounded (a deque ring with a
 ``dropped`` counter), cheap (one lock, one dict append: never a device
 sync), and trace-linked: ``emit`` reads ``obs.trace.current_trace_id()``,
 so an event emitted under a wire request carries that request's trace id.
-``merge_events`` joins several logs for ``GET /events``. The optional
-JSONL sink of the JAX package's log tees every event to a file.
+``merge_events`` joins several logs for ``GET /events``;
+``validate_events_jsonl`` checks that stream. ``set_sink(path)`` tees every
+event to a JSONL file; the process-default log (``event_log()``) honours
+``KUBETPU_EVENT_SINK`` at import.
 
 Stdlib only; imports nothing from the port outside ``obs``.
 """
@@ -22,12 +24,16 @@ Stdlib only; imports nothing from the port outside ``obs``.
 from __future__ import annotations
 
 import json
+import os
 import threading
 import time
 from collections import deque
 from typing import Dict, List, Optional
 
 from kubetpu_torch.obs import trace as obs_trace
+
+# keys every event carries (the JSONL schema validate_events_jsonl pins)
+REQUIRED_KEYS = ("ts", "seq", "kind")
 
 
 class EventLog:
@@ -152,3 +158,48 @@ def merge_events(logs: Dict[str, EventLog],
     if limit is not None and limit >= 0:
         out = out[-limit:] if limit else []
     return out
+
+
+def validate_events_jsonl(text: str) -> List[str]:
+    """Problems found in *text* as an event JSONL stream (empty = valid):
+    non-JSON lines, non-object lines, missing/ill-typed required keys.
+    The ``make obs-check`` oracle for ``GET /events``."""
+    problems: List[str] = []
+    for lineno, raw in enumerate(text.splitlines(), 1):
+        if not raw.strip():
+            continue
+        try:
+            ev = json.loads(raw)
+        except ValueError:
+            problems.append(f"line {lineno}: not JSON: {raw[:80]!r}")
+            continue
+        if not isinstance(ev, dict):
+            problems.append(f"line {lineno}: not an object")
+            continue
+        for key in REQUIRED_KEYS:
+            if key not in ev:
+                problems.append(f"line {lineno}: missing {key!r}")
+        if "ts" in ev and not isinstance(ev["ts"], (int, float)):
+            problems.append(f"line {lineno}: ts is not a number")
+        if "seq" in ev and not isinstance(ev["seq"], int):
+            problems.append(f"line {lineno}: seq is not an int")
+        if "kind" in ev and not isinstance(ev["kind"], str):
+            problems.append(f"line {lineno}: kind is not a string")
+    return problems
+
+
+# -- process-default log ------------------------------------------------------
+
+_DEFAULT = EventLog()
+if os.environ.get("KUBETPU_EVENT_SINK"):
+    try:
+        _DEFAULT.set_sink(os.environ["KUBETPU_EVENT_SINK"])
+    except OSError:
+        pass
+
+
+def event_log() -> EventLog:
+    """The process-wide event log — where code without a component-scoped
+    log (checkpoint save/restore, CLIs) records. Servers create their OWN
+    logs, like registries: in-process test fleets must not interleave."""
+    return _DEFAULT

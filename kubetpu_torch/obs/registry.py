@@ -20,8 +20,9 @@ for byte, so a dashboard or the reference's validator reads the port's
   byte for byte across scrapes.
 
 ``default_registry()`` is the process-wide registry the wire client's
-counters land on. ``federate`` (with the router side, ROADMAP queue 1 item
-1) and the parser (the rest of obs, item 6) are not ported yet.
+counters land on. ``parse_prometheus_text`` reads the text back, and
+``federate`` merges peer scrapes into one exposition (the router's fleet
+``/metrics``, the exporter's multi-registry merge).
 """
 
 from __future__ import annotations
@@ -61,6 +62,25 @@ def _escape_label_value(v: str) -> str:
     the whole exposition."""
     return (v.replace("\\", "\\\\").replace('"', '\\"')
             .replace("\n", "\\n"))
+
+
+def _unescape_label_value(s: str) -> str:
+    """Inverse of ``_escape_label_value`` — a proper left-to-right scan
+    (sequential ``str.replace`` calls mangle adjacent escapes: ``\\\\"``
+    must decode to ``\\"``, not ``"``)."""
+    out: List[str] = []
+    i = 0
+    while i < len(s):
+        c = s[i]
+        if c == "\\" and i + 1 < len(s):
+            nxt = s[i + 1]
+            out.append({"n": "\n", "\\": "\\", '"': '"'}.get(nxt,
+                                                             "\\" + nxt))
+            i += 2
+        else:
+            out.append(c)
+            i += 1
+    return "".join(out)
 
 
 def _fmt_labels(labels: Tuple[Tuple[str, str], ...]) -> str:
@@ -330,7 +350,37 @@ def install_process_gauges(registry: Registry, component: str,
     registry.gauge_fn("kubetpu_process_rss_bytes", _rss_bytes)
 
 
-# -- validation ---------------------------------------------------------------
+# -- parsing / validation / federation ---------------------------------------
+
+
+def parse_prometheus_text(text: str):
+    """[(name, labels dict, value)] for every sample line; comments and
+    blanks skipped. Raises ``ValueError`` on a malformed line — callers
+    that must not fail (the federating controller) catch and skip."""
+    out = []
+    for lineno, raw in enumerate(text.splitlines(), 1):
+        line = raw.strip()
+        if not line or line.startswith("#"):
+            continue
+        m = _SERIES_RE.match(line)
+        if m is None:
+            raise ValueError(f"malformed series line {lineno}: {raw!r}")
+        labels: Dict[str, str] = {}
+        body = m.group("labels")
+        if body:
+            # lenient here (strict grammar checks live in validate): pull
+            # every well-formed pair, unescape
+            for lm in _LABEL_RE.finditer(body):
+                labels[lm.group(1)] = _unescape_label_value(lm.group(2))
+        try:
+            value = float(m.group("value"))
+        except ValueError as e:
+            raise ValueError(
+                f"bad sample value on line {lineno}: {raw!r}") from e
+        out.append((m.group("name"), labels, value))
+    return out
+
+
 
 
 def validate_prometheus_text(text: str) -> List[str]:
@@ -385,6 +435,49 @@ def validate_prometheus_text(text: str) -> List[str]:
                 f"{_fmt_labels(labels)}")
         seen.add(key)
     return problems
+
+
+def _series_lines(text: str, extra_label: Tuple[str, str]):
+    """(name -> type) and relabeled sample lines of *text* with
+    *extra_label* appended to every series that doesn't already carry that
+    label key (agent capacity series already carry ``node=``)."""
+    types: Dict[str, str] = {}
+    for line in text.splitlines():
+        if line.startswith("# TYPE"):
+            parts = line.split()
+            if len(parts) == 4:
+                types[parts[2]] = parts[3]
+    lines: List[str] = []
+    for name, labels, value in parse_prometheus_text(text):
+        if extra_label[0] not in labels:
+            labels = dict(labels)
+            labels[extra_label[0]] = extra_label[1]
+        lt = tuple((k, v) for k, v in labels.items())
+        lines.append(f"{name}{_fmt_labels(lt)} {_fmt(value)}")
+    return types, lines
+
+
+def federate(own: str, scraped: Dict[str, str], label: str = "node") -> str:
+    """Merge this process's exposition *own* with *scraped* peer
+    expositions ({peer name -> text}), relabeling every peer series with
+    ``<label>="<name>"`` — the controller's fleet ``/metrics`` (label
+    ``node``) and the exporter's multi-registry merge (``component``).
+    Peer ``TYPE`` lines are deduplicated against the local ones; a peer
+    text that fails to parse is skipped wholesale (federation must
+    degrade, never 500)."""
+    out_lines = own.rstrip("\n").splitlines() if own.strip() else []
+    typed = {ln.split()[2] for ln in out_lines if ln.startswith("# TYPE")}
+    for node in sorted(scraped):
+        try:
+            types, lines = _series_lines(scraped[node], (label, node))
+        except ValueError:
+            continue
+        for name, kind in types.items():
+            if name not in typed:
+                typed.add(name)
+                out_lines.append(f"# TYPE {name} {kind}")
+        out_lines.extend(lines)
+    return "\n".join(out_lines) + "\n" if out_lines else ""
 
 
 # -- process-default registry ------------------------------------------------

@@ -902,3 +902,85 @@ def test_lora_step_on_the_card_matches_the_cpu(cuda):
                                rtol=1e-4, atol=1e-4)
     for a, b in zip(runs["cuda"]["grads"], runs["cpu"]["grads"]):
         torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("overlap", [False, True], ids=["plain", "overlap"])
+def test_sampled_step_waits_on_its_own_event(cuda, overlap, monkeypatch):
+    """The profiler on the card: a sampled step's device phase waits on
+    the event its own dispatch recorded after the step's host copy (never
+    ``torch.cuda.synchronize``); an un-sampled dispatched step makes no
+    sync and a routed one exactly one; the tokens equal an unprofiled
+    server's and the phases cover the sampled wall."""
+    from kubetpu_torch.jobs import serving as serving_mod
+    from kubetpu_torch.jobs.model import ModelConfig, init_params
+    from kubetpu_torch.jobs.paged import PagedDecodeServer
+
+    cfg = ModelConfig(vocab=512, d_model=256, n_layers=2, n_heads=2,
+                      d_ff=512, max_seq=256, dtype=torch.bfloat16)
+    model = init_params(torch.Generator(device="cuda").manual_seed(0), cfg,
+                        device="cuda")
+    gen = torch.Generator().manual_seed(3)
+    prompts = [torch.randint(0, cfg.vocab, (n,), generator=gen).tolist()
+               for n in (40, 70)]
+    kw = dict(n_slots=2, max_seq=256, max_new_tokens=24, page_size=16,
+              prefill_budget=32, overlap=overlap, device="cuda")
+
+    def serve(server):
+        rids = [server.enqueue(p) for p in prompts]
+        server.drain()
+        return [server.pop_result(r) for r in rids]
+
+    want = serve(PagedDecodeServer(cfg, model, **kw))
+    server = PagedDecodeServer(cfg, model, **kw)
+    server.enable_profiler(sample_every=4)
+    server.warmup()
+    window = {"leg": None}
+    counts = {"dispatch": [], "route": [], "device_sync": 0}
+    dispatched, waited = [], []
+
+    def counting(fn):
+        def wrapper(*args, **kwargs):
+            if window["leg"] is not None:
+                counts[window["leg"]][-1] += 1
+            return fn(*args, **kwargs)
+        return wrapper
+
+    def no_device_sync(*args, **kwargs):
+        counts["device_sync"] += 1
+
+    for name in ("item", "cpu", "tolist"):
+        monkeypatch.setattr(torch.Tensor, name,
+                            counting(getattr(torch.Tensor, name)))
+    monkeypatch.setattr(torch.cuda.Event, "synchronize",
+                        counting(torch.cuda.Event.synchronize))
+    monkeypatch.setattr(torch.cuda, "synchronize", no_device_sync)
+    for leg in ("dispatch", "route"):
+        fn = getattr(server, f"_{leg}_step")
+
+        def windowed(*args, leg=leg, fn=fn):
+            counts[leg].append(0)
+            window["leg"] = leg
+            try:
+                out = fn(*args)
+            finally:
+                window["leg"] = None
+            if leg == "dispatch":
+                dispatched.append(out[0][1])
+            return out
+        setattr(server, f"_{leg}_step", windowed)
+    real_wait = serving_mod._wait_staged
+    monkeypatch.setattr(serving_mod, "_wait_staged",
+                        lambda staged: (waited.append(staged[1]),
+                                        real_wait(staged)))
+    got = serve(server)
+    monkeypatch.undo()
+    assert got == want
+    assert counts["device_sync"] == 0
+    assert counts["dispatch"] == [0] * len(counts["dispatch"])
+    assert counts["route"] == [1] * len(counts["dispatch"])
+    s = server.profile_summary()
+    assert s["sampled_steps"] >= 2 and 0 < len(waited) <= s["sampled_steps"]
+    assert all(isinstance(e, torch.cuda.Event) for e in waited)
+    assert all(any(e is d for d in dispatched) for e in waited)
+    assert s["coverage"] >= 0.9, s

@@ -38,7 +38,10 @@ def test_fresh_import_loads_no_jax_and_no_kubetpu():
                  "ops.flash_attention", "obs", "obs.registry", "obs.events",
                  "obs.trace", "core", "core.metrics", "api", "api.utils",
                  "wire", "wire.httpcommon", "wire.faults", "router",
-                 "router.migration", "router.replica", "router.adapters"):
+                 "router.migration", "router.replica", "router.adapters",
+                 "router.hashring", "router.pool", "router.server",
+                 "router.autoscaler", "obs.slo", "obs.profile",
+                 "obs.exporter"):
         assert f"kubetpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"
@@ -73,10 +76,28 @@ def test_sources_import_neither_jax_nor_kubetpu():
     assert any("router" in p and p.endswith("replica.py") for p in paths)
 
 
+# the router side holds no model: these files import no torch of their own
+# (the replica's codec and the adapter registry do, for bf16)
+TORCH_FREE = ("router/hashring.py", "router/pool.py", "router/server.py",
+              "router/autoscaler.py", "obs/slo.py", "obs/profile.py",
+              "obs/exporter.py", "obs/registry.py", "obs/events.py",
+              "obs/trace.py", "wire/httpcommon.py", "wire/faults.py")
+
+
+def test_router_and_obs_sources_import_no_torch():
+    """No import of torch (lazy ones included) in the router's and obs's
+    model-free files."""
+    pattern = re.compile(r"^\s*(import\s+torch\b|from\s+torch\b)", re.M)
+    for rel in TORCH_FREE:
+        with open(os.path.join(PKG_DIR, rel)) as f:
+            hit = pattern.search(f.read())
+        assert hit is None, f"{rel}: {hit.group(0)!r}"
+
+
 def test_port_replica_serves_with_neither_jax_nor_kubetpu_loaded():
     """A port ReplicaServer in a fresh interpreter serves a generate over
-    HTTP, migrates a stream to a second replica, and leaves jax and
-    kubetpu out of sys.modules."""
+    HTTP, directly and behind the port's RouterServer, migrates a stream
+    to a second replica, and leaves jax and kubetpu out of sys.modules."""
     code = (
         "import sys, torch\n"
         "torch.set_num_threads(1)\n"
@@ -88,6 +109,7 @@ def test_port_replica_serves_with_neither_jax_nor_kubetpu_loaded():
         "d_ff=32)\n"
         "m = init_params(torch.Generator().manual_seed(0), cfg, "
         "device='cpu')\n"
+        "from kubetpu_torch.router import RouterServer\n"
         "reps = [ReplicaServer(PagedDecodeServer(cfg, m, n_slots=2, "
         "max_seq=32, max_new_tokens=4, page_size=4, device='cpu'), "
         "f'r{i}') for i in range(2)]\n"
@@ -95,6 +117,13 @@ def test_port_replica_serves_with_neither_jax_nor_kubetpu_loaded():
         "body = request_json(urls[0] + '/generate', "
         "{'prompt': [1, 2, 3, 4, 5]}, timeout=60)\n"
         "assert len(body['emitted']) == 4, body\n"
+        "router = RouterServer()\n"
+        "rurl = router.start()\n"
+        "for u in urls: router.register_replica(u)\n"
+        "body = request_json(rurl + '/generate', "
+        "{'prompt': [1, 2, 3, 4, 5]}, timeout=60)\n"
+        "assert len(body['emitted']) == 4 and body['replica'], body\n"
+        "router.shutdown()\n"
         "with reps[0]._cv:\n"
         "    rid = reps[0].server.enqueue([3, 1, 2])\n"
         "    while not reps[0].server.migratable_rids():\n"

@@ -385,33 +385,43 @@ class StepGate:
     tokens, every further step of the loop waits on the replica's
     condition (releasing it) and advances nothing, until ``release()``.
     The handoff under test then always lands mid-flight, and the loop
-    never starves the handler threads of the lock."""
+    never starves the handler threads of the lock. With *count* > 1 the
+    loop steps nothing until *count* requests have arrived (so they are
+    admitted together), and parks once *count* streams are mid-decode."""
 
-    def __init__(self, rep, n: int = 3) -> None:
+    def __init__(self, rep, n: int = 3, count: int = 1) -> None:
         self.rep = rep
         self.n = n
+        self.count = count
         self.held = threading.Event()
         self._released = False
+        self._arrived = count == 1
         self._step = rep.server.step
         rep.server.step = self._gated_step
 
     def _gated_step(self):
         srv = self.rep.server
-        if not self._released and (self.held.is_set() or any(
-                len(srv._emitted.get(r, ())) >= self.n
-                for r in srv.migratable_rids())):
-            self.held.set()
+        self._arrived = (self._arrived
+                         or len(srv.unfinished_rids()) >= self.count)
+        if not self._released and (not self._arrived or self.held.is_set()
+                                   or sum(len(srv._emitted.get(r, ()))
+                                          >= self.n
+                                          for r in srv.migratable_rids())
+                                   >= self.count):
+            if self._arrived:
+                self.held.set()
             self.rep._cv.wait(timeout=0.005)
             return {}
         return self._step()
 
-    def wait_midstream(self) -> int:
-        """The held stream's rid, once the gate holds it."""
+    def wait_midstream(self):
+        """The held stream's rid (the *count* held rids when count > 1),
+        once the gate holds them."""
         assert self.held.wait(WAIT), "stream never reached mid-decode"
         with self.rep._cv:
             rids = self.rep.server.migratable_rids()
-        assert len(rids) == 1, rids
-        return rids[0]
+        assert len(rids) == self.count, rids
+        return rids[0] if self.count == 1 else rids
 
     def release(self) -> None:
         with self.rep._cv:

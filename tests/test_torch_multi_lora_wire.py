@@ -267,6 +267,57 @@ def test_jax_router_distributes_and_routes_to_port_replicas(fleet):
         packed_rep.server.check_invariants()
 
 
+def test_port_router_distribute_and_summary(fleet):
+    """The port's router with the port's registry in front of the same
+    replicas: ``POST /adapters`` fans the registered adapter out to the
+    packed replica (the plain one is skipped, not failed), ``GET``
+    summarizes registry and residency, an unregistered name is 404, a
+    routed generate naming the tenant lands the packed replica through the
+    tenant-affine pick with the in-process server's tokens, and an evict
+    fans out too."""
+    from kubetpu_torch.router import RouterServer as PortRouterServer
+
+    packed_rep, plain_rep = fleet["reps"]
+    router = PortRouterServer(load_refresh_s=0.05, adapters=fleet["preg"])
+    router.start()
+    try:
+        for rep in fleet["reps"]:
+            router.register_replica(rep.address)
+        out = request_json(router.address + "/adapters",
+                           {"action": "load", "name": "tenant-extra"},
+                           idempotency_key="pr-dist-1", timeout=WAIT)
+        assert out["results"]["packed0"]["ok"] is True
+        assert "plain0" not in out["results"]
+        assert "tenant-extra" in packed_rep.server.resident_adapters()
+        summ = request_json(router.address + "/adapters", None,
+                            timeout=10.0)
+        assert summ["registered"] == ["tenant-extra"]
+        with pytest.raises(urllib.error.HTTPError) as e:
+            request_json(router.address + "/adapters",
+                         {"action": "load", "name": "no-such"},
+                         idempotency_key="pr-dist-2", timeout=10.0)
+        assert e.value.code == 404
+        router.pool.refresh(0.0)     # the /load snapshot sees residency
+        affine = router._c_tenant_affine.value
+        body = request_json(router.address + "/generate",
+                            {"prompt": [5, 6, 7], "adapter": "tenant-extra",
+                             "timeout": WAIT},
+                            idempotency_key="pr-gen-1", timeout=WAIT)
+        assert body["replica"] == "packed0"
+        assert router._c_tenant_affine.value == affine + 1
+        assert body["tokens"] == merged_tokens(fleet["base"],
+                                               fleet["extra"], [5, 6, 7])
+        out = request_json(router.address + "/adapters",
+                           {"action": "evict", "name": "tenant-extra"},
+                           idempotency_key="pr-evict-1", timeout=WAIT)
+        assert out["results"]["packed0"]["ok"] is True
+        assert "tenant-extra" not in packed_rep.server.resident_adapters()
+        with packed_rep._cv:
+            packed_rep.server.check_invariants()
+    finally:
+        router.shutdown()
+
+
 def test_multilora_stream_skips_migration_and_finishes_in_place(fleet):
     packed_rep, plain_rep = fleet["reps"]
     srv = packed_rep.server

@@ -10,9 +10,12 @@
   ``PagedDecodeServer``, f32) to a ``kubetpu_torch`` replica over
   ``/migrate_out``, another hops back, and each finishes with the
   unmigrated JAX run's greedy tokens.
-- **Routing**: the JAX package's ``RouterServer`` fronts two port
-  replicas; routed greedy tokens equal a direct serial run of the port's
-  server, and no request is admitted twice.
+- **Routing, both ways**: the JAX package's ``RouterServer`` fronts two
+  port replicas, and the port's ``RouterServer`` two JAX replicas; routed
+  greedy tokens equal a direct serial run of the replicas' server, and no
+  request is admitted twice. ``python -m kubetpu.cli.obs`` renders the
+  port router's section and its ``--trace`` the router hop above the
+  replica leg.
 - **Disaggregated handoff** (the port of ``tests/test_disagg.py:61-216``):
   a port prefill replica streams completed KV spans to a port decode
   replica, behind the JAX router: ``snapshot_pages`` equals the full
@@ -25,6 +28,9 @@ weights). Wire waits are on state, with deadlines of at least 60 s."""
 import copy
 import dataclasses
 import json
+import os
+import subprocess
+import sys
 import threading
 import urllib.error
 
@@ -44,9 +50,12 @@ from kubetpu.wire.httpcommon import request_json
 from kubetpu_torch.jobs import model as tmodel
 from kubetpu_torch.jobs.convert import params_from_numpy
 from kubetpu_torch.jobs.paged import PagedDecodeServer
+from kubetpu_torch.obs import span
 from kubetpu_torch.router import ReplicaServer
+from kubetpu_torch.router import RouterServer as PortRouterServer
 from kubetpu_torch.router import migration as codec
 from kubetpu_torch.router.migration import assemble_spans, span_name
+from kubetpu_torch.wire.httpcommon import request_json as port_request_json
 
 torch.set_num_threads(1)
 
@@ -371,6 +380,92 @@ def test_jax_router_fronts_port_replicas_token_exact(both):
         for rep in reps:
             with rep._cv:
                 rep.server.check_invariants()
+    finally:
+        router.shutdown()
+        for rep in reps:
+            rep.shutdown(graceful=False)
+
+
+def test_port_router_fronts_jax_replicas_token_exact(both):
+    """The port's router in front of two JAX replicas: routed greedy
+    tokens equal a direct serial run of the JAX server, nothing is
+    admitted twice, and the federated ``/metrics`` carries the replicas'
+    series."""
+    prompts = storm_prompts()
+    kw = dict(max_new_tokens=5, prefill_budget=PS, prefix_cache_pages=16)
+    want = serial(jax_server(both, **kw), prompts)
+    reps = [JaxReplicaServer(jax_server(both, **kw), f"jr{i}",
+                             idle_wait=0.002) for i in range(2)]
+    router = PortRouterServer(load_refresh_s=0.1)
+    for rep in reps:
+        rep.start()
+    router.start()
+    try:
+        for rep in reps:
+            router.register_replica(rep.address)
+        bodies = [request_json(router.address + "/generate",
+                               {"prompt": p, "timeout": WAIT},
+                               idempotency_key=f"proute-{i}", timeout=WAIT)
+                  for i, p in enumerate(prompts)]
+        assert [b["tokens"] for b in bodies] == want
+        assert {b["replica"] for b in bodies} <= {"jr0", "jr1"}
+        admits = sum(len(r.server.events.events(kind="admit"))
+                     for r in reps)
+        assert admits == len(prompts)
+        assert sum(r.server.prefix_cache_stats()["requests_hit"]
+                   for r in reps) > 0
+        text = router.metrics_text()
+        assert 'replica="jr0"' in text and 'replica="jr1"' in text
+        for rep in reps:
+            with rep._cv:
+                rep.server.check_invariants()
+    finally:
+        router.shutdown()
+        for rep in reps:
+            rep.shutdown(graceful=False)
+
+
+def _cli_obs(*args):
+    """``python -m kubetpu.cli.obs ARGS`` in a subprocess -> stdout."""
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), JAX_PLATFORMS="cpu")
+    proc = subprocess.run([sys.executable, "-m", "kubetpu.cli.obs", *args],
+                          capture_output=True, text=True, timeout=120,
+                          env=env)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    return proc.stdout
+
+
+def test_cli_obs_renders_the_port_router(both):
+    """The JAX package's operator CLI, run for real against the port's
+    router over two port replicas: ``--scrape`` renders the router
+    section, the replica breaker states and each replica's load line;
+    ``--controller URL --trace ID`` renders ``[router]`` above a
+    ``[replica:*]`` leg."""
+    reps = [ReplicaServer(routed_server(both), f"tr{i}", idle_wait=0.002)
+            for i in range(2)]
+    router = PortRouterServer(load_refresh_s=0.1)
+    for rep in reps:
+        rep.start()
+    router.start()
+    try:
+        for rep in reps:
+            router.register_replica(rep.address)
+        with span("cli-port-router") as root:
+            # the port's client: its trace context is the port tracer's
+            port_request_json(router.address + "/generate",
+                              {"prompt": [4] * 40, "timeout": WAIT},
+                              idempotency_key="cli-port-1", timeout=WAIT)
+            tid = root.trace_id
+        out = _cli_obs("--scrape", router.address)
+        assert "router    routed=1" in out
+        assert "replicas healthy=2" in out
+        assert "replica   tr0:" in out and "replica   tr1:" in out
+        lines = _cli_obs("--controller", router.address,
+                         "--trace", tid).splitlines()
+        r_i = next(i for i, ln in enumerate(lines) if "[router]" in ln)
+        rep_i = next(i for i, ln in enumerate(lines) if "[replica:" in ln)
+        assert r_i < rep_i
     finally:
         router.shutdown()
         for rep in reps:
