@@ -162,11 +162,39 @@ Phases, one line each, any failure exits non-zero:
    ten steps on one repeated batch whose loss must fall, the base's bytes
    unchanged; then the small f32 model's three LoRA steps on the CPU and
    the card (first-step A/B gradients, per-step losses);
+20. int8w (after phase 19): the flagship's weights through
+   ``quantize_params`` (int8, per-output-channel scales; embedding and
+   norms raw) behind ``PagedDecodeServer`` over a bf16 and over an int8
+   pool and behind ``DecodeServer``, beside the bf16-weight paged server,
+   at phase 6's prompts and settings: decode tokens/s, TTFT p50, peak
+   memory (the arm's weights plus its peak above what was resident
+   before it), ten profiled steps of the bf16 pair; gates in
+   ``phase_int8w``'s docstring (tokens against the dequantized weights'
+   under phase 16's near-tie rule, ``param_bytes`` ratio <= 0.56, peak
+   below bf16's, the paged launches);
+22. rolling: ``make_rolling_generate`` (ring cache) against
+   ``make_generate`` on the flagship at window 512, bf16 and int8
+   weights, 4 x 640-token prompts, 64 new tokens: tokens under the
+   near-tie rule, tokens/s of both loops, the ring's bytes against the
+   dense cache's;
+21. moe (after phase 22, the flagship freed): the flagship's widths with 8
+   experts, top-2, capacity 2.0 (~3.65B parameters) behind
+   ``PagedDecodeServer`` at phase 6's settings; a top-1 dense-dispatch arm
+   and the top-2 model on int8 weights: decode tokens/s, TTFT p50, peak
+   memory, ten profiled steps with the MoE MLP's device time; gates in
+   ``phase_moe``'s docstring (one-chunk logits against ``forward`` at the
+   same N, the small f32 MoE model's tokens card against CPU, the paged
+   launches);
+23. moe_train (after phase 18): phase 10's small f32 model with 4
+   experts, capacity 1.5 and aux 0.01 (three steps, CPU against card),
+   then phase 21's config with aux 0.01 cut to 2 layers at phase 11's
+   shape: step time, tokens/s, MFU over the active parameters, peak
+   memory, flash launches all wgmma, a falling loss on a repeated batch;
 14. the ``kernels`` JSON line, 8 kernels (launches: the paged split,
    combine and wgmma chunk kernels' — dense and int8 instances — over
-   phases 6, 8, 9, 12, 15, 16, 17 and 19, the SIMT chunk's over phase 5, the
-   flash kernels' over phase 11's and phase 18's timed steps), then the
-   result line.
+   phases 6, 8, 9, 12, 15, 16, 17, 19, 20 and 21, the SIMT chunk's over
+   phase 5, the flash kernels' over the timed steps of phases 11, 18 and
+   23), then the result line.
 
 Nothing of JAX or of the ``kubetpu`` package is imported. ``--record PATH``
 also writes every measured number as one JSON file.
@@ -3547,16 +3575,17 @@ def _small_cfg(**over):
                                  max_seq=256, **over)
 
 
-def phase_train_parity() -> dict:
+def phase_train_parity(smi: str, cfg=None, tag="train_parity") -> dict:
     """Three steps of ``make_train_step(attention="flash")`` on the CPU and
     on the card, from the same weights and ``SyntheticCorpus`` batches:
     first-step gradients within TRAIN_TOL of the largest gradient of each
-    leaf, per-step losses within TRAIN_TOL relative."""
+    leaf, per-step losses within TRAIN_TOL relative. *cfg*: phase 5's
+    small f32 model by default (phase 23 passes it made MoE)."""
     from kubetpu_torch.jobs import model as model_lib
     from kubetpu_torch.jobs import train as train_lib
     from kubetpu_torch.jobs.data import SyntheticCorpus
 
-    cfg = _small_cfg()
+    cfg = cfg or _small_cfg()
     cpu_state, _ = train_lib.init_state(torch.Generator().manual_seed(11),
                                         cfg, device="cpu")
     it = SyntheticCorpus(cfg.vocab, seed=1).batches(2, 200, seed=2)
@@ -3582,13 +3611,17 @@ def phase_train_parity() -> dict:
                    for a, b in zip(grads["cuda"], grads["cpu"]))
     loss_err = max(abs(a - b) / abs(b)
                    for a, b in zip(losses["cuda"], losses["cpu"]))
-    row = dict(cfg="vocab 512, d 256, 2 layers, 4 heads / 2 kv, f32",
+    row = dict(card=torch.cuda.get_device_name(0), nvidia_smi=smi,
+               cfg="vocab 512, d 256, 2 layers, 4 heads / 2 kv, f32"
+               + (f", {cfg.n_experts} experts, capacity "
+                  f"{cfg.moe_capacity_factor}, top-{cfg.moe_top_k}, aux "
+                  f"{cfg.moe_aux_coeff}" if cfg.n_experts else ""),
                batch=2, seq=200, steps=3, losses_cpu=losses["cpu"],
                losses_cuda=losses["cuda"], loss_rel_err=loss_err,
                grad_rel_err=grad_err, tol=TRAIN_TOL)
-    line("train_parity", **row)
+    line(tag, **row)
     if not grad_err <= TRAIN_TOL or not loss_err <= TRAIN_TOL:
-        raise SystemExit(f"train parity: gradients {grad_err}, losses "
+        raise SystemExit(f"{tag}: gradients {grad_err}, losses "
                          f"{loss_err} above {TRAIN_TOL}")
     return row
 
@@ -3625,15 +3658,24 @@ def _zero_flash_counts():
     fa.flash_backward.dkv_wgmma_launches = 0
 
 
-def phase_train(smi: str):
+def phase_train(smi: str, cfg=None, tag="train", timed=5):
+    """The training step at batch 4 x seq 2048: *cfg* is the flagship
+    (phase 11) unless given (phase 23's MoE config)."""
     from kubetpu_torch.jobs import train as train_lib
     from kubetpu_torch.jobs.data import SyntheticCorpus
 
-    cfg = _flagship_train_cfg()
-    batch, seq, timed = 4, 2048, 5
+    cfg = cfg or _flagship_train_cfg()
+    batch, seq = 4, 2048
     state, opt = train_lib.init_state(
         torch.Generator(device="cuda").manual_seed(0), cfg, device="cuda")
     n_params = sum(p.numel() for p in state.params.parameters())
+    # model FLOPs count the parameters a token runs through: of each MoE
+    # block's experts, top_k of n_experts
+    n_active = n_params
+    if cfg.n_experts:
+        experts = sum(getattr(b, w).numel() for b in state.params.blocks
+                      for w in ("w_gate", "w_up", "w_down"))
+        n_active -= experts * (cfg.n_experts - cfg.moe_top_k) // cfg.n_experts
     step = train_lib.make_train_step(cfg, opt, attention="flash",
                                      device="cuda")
     it = SyntheticCorpus(cfg.vocab, seed=0).batches(batch, seq, seed=1)
@@ -3657,14 +3699,14 @@ def phase_train(smi: str):
                 cfg.n_layers * timed, 2 * cfg.n_layers * timed,
                 cfg.n_layers * timed, cfg.n_layers * timed)
     if counts != expected:
-        raise SystemExit(f"train: flash launches (forward, dq, dkv, "
+        raise SystemExit(f"{tag}: flash launches (forward, dq, dkv, "
                          f"forward wgmma, dq wgmma, dkv wgmma) {counts} != "
                          f"{expected}")
     if not all(np.isfinite(losses)):
-        raise SystemExit(f"train: non-finite losses {losses}")
+        raise SystemExit(f"{tag}: non-finite losses {losses}")
     step_s = wall / timed
     tokens_s = batch * seq / step_s
-    flops_per_token = 6 * n_params + 12 * cfg.n_layers * cfg.d_model * seq
+    flops_per_token = 6 * n_active + 12 * cfg.n_layers * cfg.d_model * seq
     peak_mem = torch.cuda.max_memory_allocated() / 1e9
 
     repeat = batches[1]                              # one batch, ten steps
@@ -3673,10 +3715,11 @@ def phase_train(smi: str):
         state, loss = step(state, *repeat)
         fit.append(float(loss))
     if not fit[-1] < fit[0]:
-        raise SystemExit(f"train: loss on a repeated batch did not fall: "
+        raise SystemExit(f"{tag}: loss on a repeated batch did not fall: "
                          f"{fit}")
     row = dict(card=torch.cuda.get_device_name(0), nvidia_smi=smi,
-               params=n_params, batch=batch, seq=seq, remat="full",
+               params=n_params, active_params=n_active, layers=cfg.n_layers,
+               experts=cfg.n_experts, batch=batch, seq=seq, remat="full",
                attention="flash", step_ms=step_s * 1e3, tokens_s=tokens_s,
                mfu=tokens_s * flops_per_token / BF16_FLOP_S,
                flops_per_token=flops_per_token, peak_mem_gb=peak_mem,
@@ -3685,7 +3728,7 @@ def phase_train(smi: str):
                                    dkv=counts[2], forward_wgmma=counts[3],
                                    dq_wgmma=counts[4], dkv_wgmma=counts[5],
                                    steps=timed))
-    line("train", **row)
+    line(tag, **row)
     return row, state, step, repeat
 
 
@@ -3853,6 +3896,399 @@ def phase_lora_train(base, smi) -> dict:
     return row
 
 
+# -- phases 20-23: int8 weights, mixture-of-experts, the rolling generate ----
+
+INT8W_RATIO = 0.56   # int8 weights' resident bytes against bf16's, at most
+
+
+def _held_arm(name, weights, cls, cfg, prompts, launches, weight_bytes,
+              **kw) -> tuple:
+    """One serving arm at phase 6's settings (8 slots, prefill budget 256,
+    DENSE_NEW new tokens, phase 6's staggered prompts): the server built
+    and warmed with the allocator's peak reset just before, then
+    ``_overlap_run``. Peak memory is what the arm holds at its peak: its
+    weights' resident bytes plus the peak allocated above what was
+    resident before the arm (pool, cache, activations, per-layer
+    dequantized temporaries), so that weights other arms keep resident do
+    not count. -> (row, server, run)."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    server = cls(cfg, weights, n_slots=8, max_seq=2048,
+                 max_new_tokens=DENSE_NEW, prefill_budget=256,
+                 device="cuda", **kw)
+    server.warmup()
+    server._smoke_stats = _instrument(server)
+    run = _overlap_run(server, prompts, launches)
+    torch.cuda.synchronize()
+    peak = weight_bytes + torch.cuda.max_memory_allocated() - base
+    ttft = server.metrics_summary()["ttft"]
+    row = dict(arm=name, card=torch.cuda.get_device_name(0),
+               requests=len(prompts), new_tokens=DENSE_NEW,
+               decode_toks_s=run["decode_toks_s"],
+               decode_step_ms=run["decode_step_ms"],
+               ttft_p50_ms=ttft["p50_ms"], wall_s=run["wall_s"],
+               weight_gb=weight_bytes / 1e9, peak_mem_gb=peak / 1e9,
+               paged_launches=run["paged_launches"])
+    return row, server, run
+
+
+def _reference_tokens(cls, cfg, weights, prompts, launches, **kw):
+    """Tokens and the top-two logit gaps (``_record_top2``) of a server of
+    *cls* on *weights* at phase 6's settings: the near-tie rule's
+    reference side."""
+    server = cls(cfg, weights, n_slots=8, max_seq=2048,
+                 max_new_tokens=DENSE_NEW, prefill_budget=256,
+                 device="cuda", **kw)
+    server._smoke_stats = _instrument(server)
+    rec = _record_top2(server)
+    out = _overlap_run(server, prompts, launches)["results"]
+    return out, _top2_gaps(rec)
+
+
+def phase_int8w(model, cfg, smi, launches):
+    """Int8 weights on the flagship (phase 6's model, prompts and
+    settings): ``quantize_params`` (per-output-channel scales; the
+    embedding and norms raw), then the bf16-weight ``PagedDecodeServer``
+    against int8 weights behind ``PagedDecodeServer`` over a bf16 pool and
+    over an int8 pool (both halves quantized) and behind ``DecodeServer``:
+    decode tokens/s, TTFT p50, peak memory (``_held_arm``) and, for the
+    bf16 pair, ten profiled steps (device busy a step). Gates: each int8
+    arm's tokens equal a server of its kind on the ``maybe_dequantize``d
+    weights under phase 16's near-tie rule; ``param_bytes`` at most
+    INT8W_RATIO of bf16's; the int8-weight paged arm's peak below the bf16
+    arm's; the split and wgmma (dense and int8) instances ran, SIMT not.
+    -> (rows, the int8 model)."""
+    from kubetpu_torch.jobs import quant
+    from kubetpu_torch.jobs.paged import PagedDecodeServer
+    from kubetpu_torch.jobs.serving import DecodeServer
+
+    t_phase = time.perf_counter()
+    prompts = _serve_prompts(cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    qmodel = quant.quantize_params(model)
+    torch.cuda.synchronize()
+    quantize_ms = (time.perf_counter() - t0) * 1e3
+    bytes_bf16, bytes_int8 = quant.param_bytes(model), quant.param_bytes(
+        qmodel)
+    phase_launches = {}
+    arms = (("bf16", model, bytes_bf16, PagedDecodeServer,
+             {"page_size": 16}),
+            ("int8w", qmodel, bytes_int8, PagedDecodeServer,
+             {"page_size": 16}),
+            ("int8w_int8kv", qmodel, bytes_int8, PagedDecodeServer,
+             {"page_size": 16, "kv_int8": True}),
+            ("int8w_dense", qmodel, bytes_int8, DecodeServer, {}))
+    rows, outs = {}, {}
+    for name, weights, nbytes, cls, kw in arms:
+        row, server, run = _held_arm(name, weights, cls, cfg, prompts,
+                                     phase_launches, nbytes, **kw)
+        outs[name] = run["results"]
+        if name in ("bf16", "int8w"):
+            row["profile"] = _ten_step_profile(server)
+        if cls is PagedDecodeServer:
+            server.check_invariants()
+        line("int8w", nvidia_smi=smi, **row)
+        rows[name] = row
+        del server
+    # the reference side: the same servers on the dequantized weights
+    deq = quant.maybe_dequantize(qmodel)
+    ties = {}
+    for name, _w, _b, cls, kw in arms[1:]:
+        want, gaps = _reference_tokens(cls, cfg, deq, prompts,
+                                       phase_launches, **kw)
+        ties[name] = _near_tie_check(outs[name], want, gaps, prompts)
+    del deq
+    torch.cuda.empty_cache()
+    for c, n in phase_launches.items():
+        launches[c] = launches.get(c, 0) + n
+    ratio = bytes_int8 / bytes_bf16
+    busy = {k: rows[k]["profile"]["device_busy_ms_per_step"]
+            for k in ("bf16", "int8w")}
+    gates = dict(param_bytes_bf16=bytes_bf16, param_bytes_int8=bytes_int8,
+                 param_bytes_ratio=ratio, ratio_limit=INT8W_RATIO,
+                 quantize_ms=quantize_ms,
+                 peak_mem_gb={k: r["peak_mem_gb"] for k, r in rows.items()},
+                 decode_toks_s={k: r["decode_toks_s"]
+                                for k, r in rows.items()},
+                 device_busy_ms_per_step=busy,
+                 near_tie={k: v["diverged"] for k, v in ties.items()},
+                 paged_launches=phase_launches,
+                 seconds=time.perf_counter() - t_phase)
+    line("int8w_gates", card=torch.cuda.get_device_name(0), nvidia_smi=smi,
+         **gates)
+    bad = {k: v["bad"] for k, v in ties.items() if v["bad"]}
+    if bad:
+        raise SystemExit(f"int8w: tokens differ from the dequantized "
+                         f"weights' beyond near-ties: {bad}")
+    if not ratio <= INT8W_RATIO:
+        raise SystemExit(f"int8w: param_bytes ratio {ratio} above "
+                         f"{INT8W_RATIO}")
+    if not rows["int8w"]["peak_mem_gb"] < rows["bf16"]["peak_mem_gb"]:
+        raise SystemExit(f"int8w: peak memory {gates['peak_mem_gb']}: the "
+                         f"int8 arm is not below bf16")
+    if (phase_launches["split_launches"] <= 0
+            or phase_launches["wgmma_launches"] <= 0
+            or phase_launches["wgmma_int8_launches"] <= 0
+            or phase_launches["simt_launches"]):
+        raise SystemExit(f"int8w: paged launches {phase_launches}")
+    rows["gates"] = gates
+    return rows, qmodel
+
+
+def _moe_cfg(cfg, **over):
+    """The flagship's widths with Mixtral-8x7B's routing: 8 experts, 2 a
+    token, capacity factor 2.0 (``tests/test_jobs.py:711``'s)."""
+    return dataclasses.replace(cfg, n_experts=8, moe_top_k=2,
+                               moe_capacity_factor=2.0, **over)
+
+
+def _moe_small_parity() -> dict:
+    """Phase 5's small f32 model made MoE (4 experts, top-2, capacity
+    2.0) behind ``PagedDecodeServer`` on the CPU and on the card (f32 q:
+    SIMT chunks, split decode): greedy tokens equal, phase 5's tie
+    exception aside (a first divergence where the CPU's top two logits
+    lie within F32_TOL)."""
+    from kubetpu_torch.jobs import model as model_lib
+    from kubetpu_torch.jobs.paged import PagedDecodeServer
+
+    cfg = _small_cfg(n_experts=4, moe_top_k=2, moe_capacity_factor=2.0)
+    cpu_model = model_lib.init_params(torch.Generator().manual_seed(7), cfg,
+                                      device="cpu")
+    models = {"cpu": cpu_model, "cuda": copy.deepcopy(cpu_model).to("cuda")}
+    rng = np.random.default_rng(8)
+    prompts = [rng.integers(0, cfg.vocab, n).tolist() for n in (5, 40, 23,
+                                                                 70)]
+    tokens = {}
+    for dev, model in models.items():
+        server = PagedDecodeServer(cfg, model, n_slots=3, max_seq=256,
+                                   max_new_tokens=16, page_size=16,
+                                   prefill_budget=32, device=dev)
+        rids = [server.enqueue(prompts[0])]
+        server.step()
+        rids += [server.enqueue(p) for p in prompts[1:]]
+        server.drain()
+        server.check_invariants()
+        tokens[dev] = [server.result(r) for r in rids]
+    mismatches = []
+    for a, b in zip(tokens["cpu"], tokens["cuda"]):
+        if a == b:
+            continue
+        i = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
+        top2 = torch.topk(model_lib.forward(
+            cpu_model, torch.tensor([a[:i]]), cfg)[0, -1], 2).values
+        mismatches.append({"step": i, "gap": float(top2[0] - top2[1])})
+    return dict(requests=len(prompts), tokens_equal=not mismatches,
+                mismatches=mismatches,
+                ok=all(m["gap"] <= F32_TOL for m in mismatches))
+
+
+def phase_moe(cfg, smi, launches) -> dict:
+    """Mixture-of-experts at the flagship's widths (``_moe_cfg``: 8
+    experts, top-2, capacity 2.0; ~3.65B parameters, random weights from
+    seed 0) behind ``PagedDecodeServer`` at phase 6's settings; a top-1
+    dense-dispatch arm (capacity factor 0) on the same weights; and the
+    top-2 model with int8 weights: decode tokens/s, TTFT p50, peak memory
+    and ten profiled steps with the MoE MLP's device time (a
+    ``record_function`` range around the dispatch: router, expert
+    products, combine; the int8 arm's per-layer dequantize runs before
+    it, outside the range). Gates: a 256-token prompt served alone in
+    one chunk gives first-token logits within LOGIT_TOL of ``forward`` on
+    the same 256 tokens (the same N = 256 rows in both dispatches);
+    ``_moe_small_parity``; split and wgmma ran on the flagship arms, SIMT
+    not."""
+    from kubetpu_torch.jobs import model as model_lib
+    from kubetpu_torch.jobs import quant
+    from kubetpu_torch.jobs.paged import PagedDecodeServer
+
+    t_phase = time.perf_counter()
+    mcfg = _moe_cfg(cfg)
+    model = model_lib.init_params(
+        torch.Generator(device="cuda").manual_seed(0), mcfg, device="cuda")
+    n_params = sum(p.numel() for p in model.parameters())
+    qmodel = quant.quantize_params(model)
+    prompts = _serve_prompts(mcfg)
+    phase_launches = {}
+    saved = (model_lib._moe_mlp_capacity, model_lib._moe_mlp)
+
+    def ranged(fn):
+        def run(*args, **kwargs):
+            with torch.profiler.record_function("moe_mlp"):
+                return fn(*args, **kwargs)
+        return run
+
+    arms = (("top2", mcfg, model, quant.param_bytes(model)),
+            ("top1_dense", dataclasses.replace(mcfg, moe_top_k=1,
+                                               moe_capacity_factor=0.0),
+             model, quant.param_bytes(model)),
+            ("top2_int8w", mcfg, qmodel, quant.param_bytes(qmodel)))
+    rows = {}
+    for name, acfg, weights, nbytes in arms:
+        row, server, run = _held_arm(name, weights, PagedDecodeServer, acfg,
+                                     prompts, phase_launches, nbytes,
+                                     page_size=16)
+        model_lib._moe_mlp_capacity = ranged(saved[0])
+        model_lib._moe_mlp = ranged(saved[1])
+        try:
+            prof = _ten_step_profile(server, {"moe_mlp": 0.0})
+        finally:
+            model_lib._moe_mlp_capacity, model_lib._moe_mlp = saved
+        moe_ms = prof["range_device_ms_per_step"]["moe_mlp"]
+        prof["moe_mlp_share_of_busy"] = (
+            moe_ms / prof["device_busy_ms_per_step"]
+            if prof["device_busy_ms_per_step"] else None)
+        row["profile"] = prof
+        if name == "top2":
+            # one 256-token prompt alone: one chunk of N = 256 rows
+            rng = np.random.default_rng(21)
+            alone = rng.integers(0, mcfg.vocab, 256).tolist()
+            rid = server.enqueue(alone)
+            server.drain()
+            server.pop_result(rid)
+            served = server._smoke_stats["first_logits"][tuple(alone)]
+            with torch.no_grad():
+                dense = model_lib.forward(
+                    model, torch.tensor([alone], device="cuda"), mcfg)
+            row["one_chunk_logit_max_diff_vs_forward"] = float(
+                (dense[0, -1].float() - served).abs().max())
+        server.check_invariants()
+        line("moe", nvidia_smi=smi, params=n_params, **row)
+        rows[name] = row
+        del server
+    del model, qmodel
+    torch.cuda.empty_cache()
+    for c, n in phase_launches.items():
+        launches[c] = launches.get(c, 0) + n
+    small = _moe_small_parity()
+    gap = rows["top2"]["one_chunk_logit_max_diff_vs_forward"]
+    gates = dict(one_chunk_logit_max_diff=gap, logit_tol=LOGIT_TOL,
+                 small_f32=small, paged_launches=phase_launches,
+                 seconds=time.perf_counter() - t_phase)
+    line("moe_gates", card=torch.cuda.get_device_name(0), nvidia_smi=smi,
+         **gates)
+    if not gap <= LOGIT_TOL:
+        raise SystemExit(f"moe: one-chunk logits {gap} off the forward's")
+    if not small["ok"]:
+        raise SystemExit(f"moe: the card's tokens differ from the CPU's on "
+                         f"the small f32 model: {small}")
+    if (phase_launches["split_launches"] <= 0
+            or phase_launches["wgmma_launches"] <= 0
+            or phase_launches["simt_launches"]):
+        raise SystemExit(f"moe: paged launches {phase_launches}")
+    rows["gates"] = gates
+    return rows
+
+
+ROLL_WINDOW = 512
+ROLL_BATCH, ROLL_PROMPT, ROLL_NEW = 4, 640, 64
+
+
+def _recorded_generate(gen, weights, prompt, n, factory_name):
+    """Run ``gen(weights, prompt, 0, n)`` with the sampler that the
+    generate loop builds from ``sampling.<factory_name>`` recording each
+    step's top-two logits -> (tokens, [(B, 2) per step] on the host,
+    seconds)."""
+    from kubetpu_torch.jobs import sampling
+
+    real = getattr(sampling, factory_name)
+    top2 = []
+
+    def factory(*args, **kwargs):
+        sample = real(*args, **kwargs)
+
+        def spy(logits, *a, **k):
+            top2.append(torch.topk(logits.float(), 2, dim=-1).values)
+            return sample(logits, *a, **k)
+        return spy
+
+    setattr(sampling, factory_name, factory)
+    try:
+        run = gen()
+    finally:
+        setattr(sampling, factory_name, real)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run(weights, prompt, 0, n)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return out, [t.cpu() for t in top2], seconds
+
+
+def phase_rolling(model, qmodel, cfg, smi) -> dict:
+    """``make_rolling_generate`` (a ring of ROLL_WINDOW cache slots a
+    layer) on the flagship with window 512, bf16 and int8 weights, against
+    ``make_generate`` (the dense cache) on the same windowed config: 4
+    prompts of 640 tokens (the ring wraps in prefill and again in decode),
+    64 new tokens greedy. Gate: each row's tokens equal the dense run's,
+    except that its first divergence may fall where the dense run's top
+    two logits lie within LOGIT_TOL. Reported: tokens/s of both loops and
+    the ring's bytes against the dense cache's."""
+    from kubetpu_torch.jobs import decode
+
+    t_phase = time.perf_counter()
+    wcfg = dataclasses.replace(cfg, window=ROLL_WINDOW)
+    rng = np.random.default_rng(23)
+    prompt = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (ROLL_BATCH, ROLL_PROMPT))).to("cuda")
+    ring = decode.init_ring_cache(wcfg, ROLL_BATCH, device="cuda")
+    dense = decode.init_kv_cache(wcfg, ROLL_BATCH, ROLL_PROMPT + ROLL_NEW,
+                                 device="cuda")
+    ring_bytes, dense_bytes = (sum(t.numel() * t.element_size() for t in c)
+                               for c in (ring, dense))
+    del ring, dense
+    rows = {}
+    for name, weights in (("bf16", model), ("int8w", qmodel)):
+        want, top2, dense_s = _recorded_generate(
+            lambda: decode.make_generate(wcfg), weights, prompt, ROLL_NEW,
+            "make_slot_sampler")
+        got, _t, ring_s = _recorded_generate(
+            lambda: decode.make_rolling_generate(wcfg), weights, prompt,
+            ROLL_NEW, "make_sampler")
+        gaps = {(tuple(prompt[b].tolist()), j): float(t[b, 0] - t[b, 1])
+                for j, t in enumerate(top2) for b in range(ROLL_BATCH)}
+        plist = prompt.tolist()
+        tie = _near_tie_check(got.tolist(), want.tolist(), gaps, plist)
+        rows[name] = dict(
+            tokens_equal=bool(torch.equal(got, want)),
+            diverged=tie["diverged"], bad=tie["bad"],
+            ring_toks_s=ROLL_BATCH * ROLL_NEW / ring_s,
+            dense_toks_s=ROLL_BATCH * ROLL_NEW / dense_s)
+    row = dict(card=torch.cuda.get_device_name(0), nvidia_smi=smi,
+               window=ROLL_WINDOW, batch=ROLL_BATCH, prompt=ROLL_PROMPT,
+               new_tokens=ROLL_NEW, ring_mb=ring_bytes / 1e6,
+               dense_cache_mb=dense_bytes / 1e6,
+               ring_over_dense=ring_bytes / dense_bytes, arms=rows,
+               logit_tol=LOGIT_TOL, seconds=time.perf_counter() - t_phase)
+    line("rolling", **row)
+    bad = {k: v["bad"] for k, v in rows.items() if v["bad"]}
+    if bad:
+        raise SystemExit(f"rolling: tokens differ from make_generate's "
+                         f"beyond near-ties: {bad}")
+    return row
+
+
+def phase_moe_train(smi) -> dict:
+    """MoE training: phase 10's small f32 model with 4 experts, capacity
+    1.5 and aux 0.01 three steps on the CPU and on the card
+    (``phase_train_parity``); then phase 21's top-2 config (the flagship's
+    widths, 8 experts, top-2, capacity 2.0, aux 0.01) cut to 2 layers at
+    phase 11's batch 4 x seq 2048, full remat, flash attention
+    (``phase_train``: step time, tokens/s, MFU over the parameters a token
+    runs through, peak memory, flash launches all wgmma, a loss that falls
+    on one repeated batch)."""
+    parity = phase_train_parity(
+        smi, _small_cfg(n_experts=4, moe_capacity_factor=1.5,
+                        moe_aux_coeff=0.01), tag="moe_train_parity")
+    cfg = _moe_cfg(_flagship_train_cfg(), n_layers=2, moe_aux_coeff=0.01)
+    row, state, _step, _repeat = phase_train(smi, cfg, tag="moe_train",
+                                             timed=3)
+    del state, _step, _repeat
+    torch.cuda.empty_cache()
+    return {"parity": parity, "train": row}
+
+
 def main(argv) -> int:
     record_path = None
     if argv[:1] == ["--record"] and len(argv) == 2:
@@ -3879,7 +4315,7 @@ def main(argv) -> int:
     del server
     torch.cuda.empty_cache()
     # the paged launches of every main-path phase: serve, prefix, window,
-    # wire, dense, spec, multilora, router
+    # wire, dense, spec, multilora, router, int8w, moe
     paged_launches = dict(serve["paged_launches"])
     prefix = phase_prefix(model, cfg, dev["nvidia_smi"], paged_launches)
     window = phase_window(model, cfg, dev["nvidia_smi"], paged_launches)
@@ -3889,9 +4325,13 @@ def main(argv) -> int:
     multilora = phase_multilora(model, cfg, dev["nvidia_smi"],
                                 paged_launches)
     router = phase_router(model, cfg, dev["nvidia_smi"], paged_launches)
-    del model
+    int8w, qmodel = phase_int8w(model, cfg, dev["nvidia_smi"],
+                                paged_launches)
+    rolling = phase_rolling(model, qmodel, cfg, dev["nvidia_smi"])
+    del model, qmodel
     torch.cuda.empty_cache()
-    train_parity = phase_train_parity()
+    moe = phase_moe(cfg, dev["nvidia_smi"], paged_launches)
+    train_parity = phase_train_parity(dev["nvidia_smi"])
     train, state, step, repeat = phase_train(dev["nvidia_smi"])
     train_prof = phase_train_profile(state, step, repeat)
     base = state.params                 # phase 18 fine-tunes on top of it
@@ -3900,10 +4340,11 @@ def main(argv) -> int:
     lora_train = phase_lora_train(base, dev["nvidia_smi"])
     del base
     torch.cuda.empty_cache()
+    moe_train = phase_moe_train(dev["nvidia_smi"])
 
     # the paged kernels at the main path's cases (launches: phases 6, 8, 9,
-    # 12, 15, 16, 17 and 19; the SIMT chunk's: phase 5 and phase 16's f32 arm,
-    # whose verify chunks take it too): the split and combine
+    # 12, 15, 16, 17, 19, 20 and 21; the SIMT chunk's: phase 5 and phase
+    # 16's f32 arm, whose verify chunks take it too): the split and combine
     # kernels at decode_bf16 (max_abs_err over every decode case), the
     # chunk kernel's dense instance at chunk_bf16_T256 (max_abs_err over
     # both dense wgmma cases), its int8 instance at the int8 storm arm's
@@ -3973,18 +4414,15 @@ def main(argv) -> int:
              library_ms=simt["library_ms"], ok=simt["ok"]),
     ]
     # the flash kernels at the main path's case (causal); max_abs_err and ok
-    # over all three cases; launches over phase 11's and phase 18's timed
-    # steps
-    for kind, name, replaces, launches in (
-            ("forward", "flash_forward", "kubetpu/ops/flash_attention.py:41",
-             train["flash_launches"]["forward"]
-             + lora_train["flash_launches"]["forward"]),
-            ("dq", "flash_backward_dq", "kubetpu/ops/flash_attention.py:141",
-             train["flash_launches"]["dq"]
-             + lora_train["flash_launches"]["dq"]),
-            ("dkv", "flash_backward_dkv", "kubetpu/ops/flash_attention.py:195",
-             train["flash_launches"]["dkv"]
-             + lora_train["flash_launches"]["dkv"])):
+    # over all three cases; launches over the timed steps of phases 11, 18
+    # and 23
+    trained = (train, lora_train, moe_train["train"])
+    for kind, name, replaces in (
+            ("forward", "flash_forward", "kubetpu/ops/flash_attention.py:41"),
+            ("dq", "flash_backward_dq", "kubetpu/ops/flash_attention.py:141"),
+            ("dkv", "flash_backward_dkv",
+             "kubetpu/ops/flash_attention.py:195")):
+        launches = sum(r["flash_launches"][kind] for r in trained)
         rows = [r for r in flash if r["kernel"] == kind]
         main_row = next(r for r in rows if r["case"] == "causal")
         kernels.append({
@@ -4006,7 +4444,8 @@ def main(argv) -> int:
               "main_path_paged_launches": paged_launches,
               "train_parity": train_parity,
               "train": train, "train_profile": train_prof,
-              "lora_train": lora_train,
+              "lora_train": lora_train, "int8w": int8w, "rolling": rolling,
+              "moe": moe, "moe_train": moe_train,
               "kernels": kernels}
     if record_path:
         os.makedirs(os.path.dirname(os.path.abspath(record_path)),

@@ -18,8 +18,13 @@ the cache end lands at ``S_max - T``, as ``lax.dynamic_update_slice``
 clamps it; the mask and the rotary positions keep the unclamped position.
 
 ``make_generate`` is the batch generate loop (greedy, or seeded sampling
-through the serving sampler). The ring cache (``make_rolling_generate``)
-is not ported yet (ROADMAP queue 1 item 2).
+through the serving sampler). ``make_rolling_generate`` generates on a
+sliding-window config from a ring of ``cfg.window`` cache slots a layer
+(``_ring_cache_io``), sampling through ``sampling.make_sampler``.
+
+int8 weights (``quant.quantize_params``) dequantize one layer at a time
+inside the layer loop (``_decode_block_core``) and the head per use, never
+as a whole-model copy.
 """
 
 from __future__ import annotations
@@ -30,7 +35,7 @@ import torch
 
 from kubetpu_torch.jobs import model as model_lib
 from kubetpu_torch.jobs.model import ModelConfig, Transformer, resolve_device
-from kubetpu_torch.jobs.quant import quantize_kv_chunk
+from kubetpu_torch.jobs.quant import maybe_dequantize, quantize_kv_chunk
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None):
@@ -205,13 +210,17 @@ def out_project(attn, wo, lora_l, scale: float):
 
 
 def _decode_block_core(cfg: ModelConfig, layer, x, cache, pos, cache_io,
-                       lora_l=None, lora_scale: float = 1.0):
+                       lora_l=None, lora_scale: float = 1.0,
+                       per_row: bool = False):
     """The transformer block of every cached decode path, parameterized on
     the cache strategy: ``cache_io(q, k, v, cache, pos) -> (attn, cache)``
     owns the write and the (banded) read; norms, projections (with each
     row's adapter deltas when *lora_l* holds per-row factors, the
     multi-LoRA path), rope at the absolute positions and the MLP are
-    shared. x: (B, T, D); pos an int or (B,)."""
+    shared. An int8 layer dequantizes here, for this layer only;
+    *per_row* makes each row its own MoE dispatch (``model._mlp``). x:
+    (B, T, D); pos an int or (B,)."""
+    layer = maybe_dequantize(layer)
     h = model_lib.rms_norm(x, layer.ln1)
     q = project("wq", h, layer.wq, lora_l, lora_scale)
     k = project("wk", h, layer.wk, lora_l, lora_scale)
@@ -222,8 +231,9 @@ def _decode_block_core(cfg: ModelConfig, layer, x, cache, pos, cache_io,
     k = model_lib.rope(k, positions, cfg.rope_theta, cfg.rope_llama3_scaling)
     attn, cache = cache_io(q, k, v, cache, pos)
     x = x + out_project(attn, layer.wo, lora_l, lora_scale)
-    x = x + model_lib._mlp(cfg, model_lib.rms_norm(x, layer.ln2), layer)
-    return x, cache
+    delta, _aux = model_lib._mlp(cfg, model_lib.rms_norm(x, layer.ln2), layer,
+                                 per_row)
+    return x + delta, cache
 
 
 def _layer(cache, i: int):
@@ -244,21 +254,28 @@ def _rows(cache, index):
 @torch.no_grad()
 def forward_chunk_io(cfg: ModelConfig, params: Transformer, tokens, cache,
                      pos, cache_io, lora=None, adapter_ids=None,
-                     lora_scale: float = 1.0):
+                     lora_scale: float = 1.0, per_row: bool = False):
     """The chunk forward over a cache strategy. tokens: (B, T) at positions
     ``pos..pos+T-1`` (pos an int or (B,)) -> (logits (B, T, V) float32,
     cache). The strategy writes the cache in place; the same tree comes
     back. ``lora`` (a stacked adapter tree, leaves (N, L, ...)) with
     ``adapter_ids`` (B,) on its device applies row b's adapter to row b
-    (``kubetpu_torch.jobs.multi_lora``), the factors gathered once."""
+    (``kubetpu_torch.jobs.multi_lora``), the factors gathered once.
+    *per_row*: each row is its own MoE capacity dispatch."""
     x = params.embed[tokens]                               # (B, T, D)
     sel = select_lora(lora, adapter_ids)
     for i, layer in enumerate(params.blocks):
         x, _ = _decode_block_core(cfg, layer, x, _layer(cache, i), pos,
-                                  cache_io, lora_layer(sel, i), lora_scale)
+                                  cache_io, lora_layer(sel, i), lora_scale,
+                                  per_row)
+    return _head(params, x), cache
+
+
+def _head(params: Transformer, x: torch.Tensor) -> torch.Tensor:
+    """Final norm and LM head (dequantized for this use) -> f32 logits."""
     x = model_lib.rms_norm(x, params.ln_f)
-    logits = torch.einsum("bsd,dv->bsv", x, params.head).float()
-    return logits, cache
+    return torch.einsum("bsd,dv->bsv", x,
+                        maybe_dequantize(params.head)).float()
 
 
 def forward_chunk(cfg: ModelConfig, params: Transformer, tokens, k_cache,
@@ -278,9 +295,11 @@ def forward_chunk_at_io(cfg: ModelConfig, params: Transformer, chunk, cache,
                         lora_scale: float = 1.0):
     """``forward_chunk_io`` at per-row positions pos (B,): serving slots
     and speculative rounds advance each sequence unevenly. Every cache
-    layout rides the same batched call."""
+    layout rides the same batched call. The JAX package vmaps this leg
+    over the batch, so each row is its own MoE capacity dispatch here too
+    (its N is the chunk's T, never the batch's rows)."""
     return forward_chunk_io(cfg, params, chunk, cache, pos, cache_io, lora,
-                            adapter_ids, lora_scale)
+                            adapter_ids, lora_scale, per_row=True)
 
 
 def forward_chunk_at(cfg: ModelConfig, params: Transformer, chunk, k_cache,
@@ -375,6 +394,101 @@ def make_generate(cfg: ModelConfig, temperature: float = 0.0,
                 logits, cache = forward_chunk_io(
                     cfg, params, token[:, None], cache, s_prompt + i,
                     cache_io)
+                logits = logits[:, 0]
+        generated = torch.stack(out, dim=1).to(prompt.dtype)
+        return torch.cat([prompt, generated], dim=1)
+
+    return generate
+
+
+def init_ring_cache(cfg: ModelConfig, batch: int, device=None):
+    """(k_rings, v_rings), each (L, B, W, H_kv, D) zeros in ``cfg.dtype``
+    with W = ``cfg.window``: the rolling generate's whole cache, whatever
+    the sequence length."""
+    device = resolve_device(device)
+    shape = (cfg.n_layers, batch, cfg.window, cfg.kv_heads, cfg.head_dim)
+    return (torch.zeros(shape, dtype=cfg.dtype, device=device),
+            torch.zeros(shape, dtype=cfg.dtype, device=device))
+
+
+def _attend_ring(q, k_ring, v_ring, q_pos: int, window: int,
+                 first_pos: int):
+    """One query a row over a ring cache: q (B, 1, H, D); rings (B, W,
+    H_kv, D). Slot j holds the unique position p = j (mod W) in
+    (q_pos - W, q_pos], visible once written (p >= *first_pos*, the
+    earliest position the ring ever held). Grouped-query aware; f32 scores
+    and softmax."""
+    b, t, h, d = q.shape
+    h_kv = k_ring.shape[2]
+    g = h // h_kv
+    qg = q.reshape(b, h_kv, g, d).float()
+    scores = torch.einsum("bkgd,bskd->bkgs", qg, k_ring.float()) * d ** -0.5
+    slots = torch.arange(window, device=q.device)
+    visible = q_pos - torch.remainder(q_pos - slots, window) >= first_pos
+    scores = scores.masked_fill(~visible, model_lib.NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgs,bskd->bkgd", probs, v_ring.float())
+    return out.reshape(b, t, h, d).to(q.dtype)
+
+
+def _ring_cache_io(window: int, first_pos: int):
+    """The O(window) ring strategy for one-token chunks: write at
+    ``pos % window`` (the entry overwritten is outside every later band),
+    attend over the W slots."""
+    def io(q, k, v, cache, pos):
+        k_l, v_l = cache
+        slot = pos % window
+        k_l[:, slot:slot + 1] = k.to(k_l.dtype)
+        v_l[:, slot:slot + 1] = v.to(v_l.dtype)
+        return _attend_ring(q, k_l, v_l, pos, window, first_pos), cache
+
+    return io
+
+
+def make_rolling_generate(cfg: ModelConfig, temperature: float = 0.0,
+                          top_k: Optional[int] = None,
+                          top_p: Optional[float] = None):
+    """``make_generate`` for sliding-window configs with an O(window)
+    cache: each layer's K/V live in a ring of ``cfg.window`` slots, so
+    generation memory is bounded by the window, not the sequence. Keys are
+    roped at their absolute positions before they enter the ring, so the
+    tokens equal ``make_generate``'s on the same windowed config. Prefill
+    is the batched windowed forward (``model.forward_with_kv``, dequantizing
+    an int8 model a layer at a time); the ring keeps its last
+    ``min(S_p, W)`` K/V.
+
+    -> ``generate(params, prompt (B, S_p), seed, num_steps) -> (B, S_p +
+    num_steps)``, sampling through ``sampling.make_sampler`` with one
+    ``torch.Generator`` seeded from *seed* (greedy when temperature == 0)."""
+    from kubetpu_torch.jobs.sampling import make_sampler
+
+    if cfg.window <= 0:
+        raise ValueError("make_rolling_generate needs cfg.window > 0")
+    w = cfg.window
+    sampler = make_sampler(temperature, top_k=top_k, top_p=top_p)
+
+    @torch.no_grad()
+    def generate(params: Transformer, prompt: torch.Tensor, seed: int,
+                 num_steps: int) -> torch.Tensor:
+        b, s_p = prompt.shape
+        dev = prompt.device
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(int(seed))
+        logits, ks, vs = model_lib.forward_with_kv(params, prompt, cfg)
+        k_rings, v_rings = init_ring_cache(cfg, b, device=dev)
+        first_pos = s_p - min(s_p, w)     # earliest position the ring holds
+        slots = torch.arange(first_pos, s_p, device=dev) % w
+        k_rings[:, :, slots] = ks[:, :, first_pos:].to(cfg.dtype)
+        v_rings[:, :, slots] = vs[:, :, first_pos:].to(cfg.dtype)
+        cache_io = _ring_cache_io(w, first_pos)
+        out = []
+        for i in range(num_steps):
+            token = sampler(logits, gen)
+            out.append(token)
+            if i + 1 < num_steps:     # the last token's K/V is never read
+                logits, _ = forward_chunk_io(
+                    cfg, params, token[:, None], (k_rings, v_rings),
+                    s_p + i, cache_io)
                 logits = logits[:, 0]
         generated = torch.stack(out, dim=1).to(prompt.dtype)
         return torch.cat([prompt, generated], dim=1)

@@ -33,8 +33,8 @@ from typing import Optional, Tuple
 import torch
 
 from kubetpu_torch.jobs import model as model_lib
-from kubetpu_torch.jobs.convert import _BLOCK_LEAVES
 from kubetpu_torch.jobs.model import ModelConfig, Transformer, resolve_device
+from kubetpu_torch.jobs.quant import require_unquantized
 from kubetpu_torch.jobs.train import (AdamW, TrainState, _resolve_attention,
                                       _trained_leaves, _uploader,
                                       make_optimizer, make_update_step)
@@ -82,8 +82,8 @@ class LoraConfig:
 
 
 def _check_targets(cfg: ModelConfig, lcfg: LoraConfig) -> None:
-    """The reference's MoE guard, kept for when MoE blocks are ported
-    (``ModelConfig`` refuses ``n_experts > 0`` today)."""
+    """The reference's MoE guard: MLP targets have no adapter layout over
+    the expert axis."""
     if cfg.n_experts > 0 and any(t in _MLP_TARGETS for t in lcfg.targets):
         raise ValueError(
             "MLP LoRA targets are unsupported for MoE configs (expert-axis "
@@ -142,7 +142,8 @@ def _merged_view(base: Transformer, lora: dict, lcfg: LoraConfig):
         deltas[t] = torch.einsum(_MERGE_EINSUM[t], a, b) * lcfg.scale
     blocks = []
     for i, blk in enumerate(base.blocks):
-        leaves = {name: getattr(blk, name) for name in _BLOCK_LEAVES}
+        leaves = {name: getattr(blk, name)
+                  for name in model_lib.block_leaves(base.cfg)}
         for t, delta in deltas.items():
             leaves[t] = leaves[t] + delta[i].to(leaves[t].dtype)
         blocks.append(SimpleNamespace(**leaves))
@@ -155,7 +156,8 @@ def merge_lora(base: Transformer, lora: dict,
                lcfg: LoraConfig) -> Transformer:
     """A new ``Transformer`` holding ``W + (alpha/r) * A @ B`` for every
     target (the export path; the servers decode it with no inference-time
-    overhead). *base* is left as it was."""
+    overhead). *base* is left as it was; an int8 base is refused."""
+    require_unquantized(base, "merge_lora")
     merged = copy.deepcopy(base)
     view = _merged_view(base, lora, lcfg)
     for blk, src in zip(merged.blocks, view.blocks):
@@ -211,6 +213,7 @@ def make_lora_train_step(cfg: ModelConfig, lcfg: LoraConfig,
                              skip_nonfinite=skip_nonfinite)
 
     def step(state: TrainState, base: Transformer, tokens, targets):
+        require_unquantized(base, "the LoRA train step")
         base.requires_grad_(False)
         return inner(state, base, up(tokens, torch.int64),
                      up(targets, torch.int64))

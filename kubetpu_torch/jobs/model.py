@@ -9,14 +9,24 @@ JAX package's layouts (``wq`` is ``(d, H, hd)``, ``wo`` is ``(H, hd, d)``,
 leading axis and runs one ``lax.scan``, the port holds one ``Block`` module
 per layer and loops over them in Python.
 
+The MLP branch (``_mlp``) is the reference's three-way one: dense SwiGLU,
+top-1 mixture-of-experts with dense one-hot dispatch (``_moe_mlp``), or
+top-k mixture-of-experts with capacity dispatch (``_moe_mlp_capacity``,
+``cfg.moe_capacity_factor > 0``), plus the switch-transformer load-balance
+term (``_moe_aux_from_probs``). The training forward, prefill, the dense
+decode path and the paged serving legs all reach MoE through ``_mlp`` and
+nowhere else. Capacity dispatch makes a token's output depend on the rows
+of the call (N and their order), so every leg feeds it the rows the JAX
+package's leg feeds: inactive slots and pad tokens included.
+
+A block or a head holding int8 ``quant.QTensor`` weights is dequantized
+where it is used, one layer at a time (``quant.maybe_dequantize``).
+
 Training: ``forward_hidden`` rematerializes each block under
 ``cfg.remat`` (``torch.utils.checkpoint``), and ``next_token_loss`` ends in
 the shared loss tail (``lm_loss_tail``: materialized or chunked logits,
-label smoothing, z-loss, per-position weights). ``forward`` alone runs
-without gradients.
-
-Mixture-of-experts blocks are not ported yet: a config with
-``n_experts > 0`` raises ``NotImplementedError``.
+label smoothing, z-loss, per-position weights) plus ``moe_aux_coeff`` times
+the summed aux term. ``forward`` alone runs without gradients.
 """
 
 from __future__ import annotations
@@ -29,6 +39,8 @@ from typing import Callable, Optional
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint, noop_context_fn
+
+from kubetpu_torch.jobs.quant import maybe_dequantize
 
 # attention core signature: (q, k, v) with shapes (B, S, H, D) -> (B, S, H, D)
 AttnFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
@@ -83,14 +95,29 @@ class ModelConfig:
     rope_llama3_scaling: Optional[tuple] = None
     # grouped-query attention: K/V heads (0 = n_heads)
     n_kv_heads: int = 0
-    # mixture-of-experts blocks: not ported yet (must stay 0)
+    # 0 = dense SwiGLU; > 0 = a mixture-of-experts MLP in every block
     n_experts: int = 0
+    # 0.0 = top-1 dense one-hot dispatch; > 0 = capacity dispatch: each
+    # expert takes at most int(capacity_factor * N / E) token-choices of a
+    # call of N rows, the rest ride the residual
+    moe_capacity_factor: float = 0.0
+    # switch-transformer load-balance coefficient: next_token_loss adds
+    # coeff * E * sum_e(frac_e * mean_prob_e) (0 = off)
+    moe_aux_coeff: float = 0.0
+    # experts a token on the capacity path (gate weights: the raw router
+    # probabilities; primary choices claim capacity before secondary ones)
+    moe_top_k: int = 1
 
     def __post_init__(self):
-        if self.n_experts > 0:
-            raise NotImplementedError(
-                "mixture-of-experts blocks (n_experts > 0) are not ported "
-                "to kubetpu_torch yet")
+        if self.moe_top_k < 1 or (self.n_experts
+                                  and self.moe_top_k > self.n_experts):
+            raise ValueError(
+                f"moe_top_k ({self.moe_top_k}) must be in [1, n_experts]")
+        if (self.moe_top_k > 1 and self.n_experts > 0
+                and self.moe_capacity_factor <= 0):
+            raise ValueError(
+                "moe_top_k > 1 requires the capacity dispatch path "
+                "(set moe_capacity_factor > 0)")
         if self.loss_chunk < 0:
             raise ValueError(f"loss_chunk must be >= 0, got {self.loss_chunk}")
         if not 0.0 <= self.label_smoothing < 1.0:
@@ -131,18 +158,15 @@ class ModelConfig:
 
 
 # The JAX package's ModelConfig, field by field in its order
-# (kubetpu/jobs/model.py:33-105), with the defaults of the fields the port
-# does not have, and its dtypes as that dataclass prints them: a migration
-# snapshot carries the config in that form, so both packages' servers
-# compare one string.
+# (kubetpu/jobs/model.py:33-105), and its dtypes as that dataclass prints
+# them: a migration snapshot carries the config in that form, so both
+# packages' servers compare one string.
 _REFERENCE_FIELDS = (
     "vocab", "d_model", "n_layers", "n_heads", "d_ff", "max_seq",
     "rope_theta", "dtype", "remat", "remat_policy", "n_experts",
     "moe_capacity_factor", "moe_aux_coeff", "moe_top_k", "loss_chunk",
     "label_smoothing", "z_loss", "window", "rope_llama3_scaling",
     "n_kv_heads")
-_REFERENCE_ONLY = {"moe_capacity_factor": 0.0, "moe_aux_coeff": 0.0,
-                   "moe_top_k": 1}
 _REFERENCE_DTYPES = {torch.float32: "float32", torch.bfloat16: "bfloat16",
                      torch.float16: "float16"}
 
@@ -157,32 +181,46 @@ def reference_config_repr(cfg: ModelConfig) -> str:
             text = (f"<class 'jax.numpy."
                     f"{_REFERENCE_DTYPES[cfg.dtype]}'>")
         else:
-            text = repr(_REFERENCE_ONLY[name] if name in _REFERENCE_ONLY
-                        else getattr(cfg, name))
+            text = repr(getattr(cfg, name))
         parts.append(f"{name}={text}")
     return f"ModelConfig({', '.join(parts)})"
+
 
 def _param(shape, cfg: ModelConfig, device) -> nn.Parameter:
     return nn.Parameter(torch.empty(shape, dtype=cfg.dtype, device=device),
                         requires_grad=False)
 
 
+def block_leaves(cfg: ModelConfig):
+    """A block's weight names, in the JAX package's ``blocks`` keys: the
+    MoE router joins the attention and MLP leaves when ``n_experts > 0``."""
+    moe = ("moe_router",) if cfg.n_experts > 0 else ()
+    return ("ln1", "ln2", "wq", "wk", "wv", "wo") + moe + (
+        "w_gate", "w_up", "w_down")
+
+
 class Block(nn.Module):
-    """One transformer layer's weights, in the JAX package's layouts."""
+    """One transformer layer's weights, in the JAX package's layouts: the
+    MLP's ``w_gate``/``w_up (d, f)`` and ``w_down (f, d)``, or with
+    ``n_experts = E`` the router ``moe_router (d, E)`` and the experts'
+    ``w_gate``/``w_up (E, d, f)`` and ``w_down (E, f, d)``."""
 
     def __init__(self, cfg: ModelConfig, device) -> None:
         super().__init__()
         d, h, hd, f, kv = (cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.d_ff,
                            cfg.kv_heads)
+        e = (cfg.n_experts,) if cfg.n_experts > 0 else ()
         self.ln1 = _param((d,), cfg, device)
         self.ln2 = _param((d,), cfg, device)
         self.wq = _param((d, h, hd), cfg, device)
         self.wk = _param((d, kv, hd), cfg, device)
         self.wv = _param((d, kv, hd), cfg, device)
         self.wo = _param((h, hd, d), cfg, device)
-        self.w_gate = _param((d, f), cfg, device)
-        self.w_up = _param((d, f), cfg, device)
-        self.w_down = _param((f, d), cfg, device)
+        if e:
+            self.moe_router = _param((d, cfg.n_experts), cfg, device)
+        self.w_gate = _param(e + (d, f), cfg, device)
+        self.w_up = _param(e + (d, f), cfg, device)
+        self.w_down = _param(e + (f, d), cfg, device)
 
 
 class Transformer(nn.Module):
@@ -207,7 +245,9 @@ def init_params(generator: torch.Generator, cfg: ModelConfig,
                 device=None) -> Transformer:
     """Random weights with ``kubetpu.jobs.model.init_params``'s shapes and
     scale rule (normal draws in ``cfg.dtype`` times ``d**-0.5``,
-    ``(H*hd)**-0.5`` for ``wo``, ``d_ff**-0.5`` for ``w_down``; norms at 1),
+    ``(H*hd)**-0.5`` for ``wo``, ``d_ff**-0.5`` for ``w_down``; norms at 1;
+    the MoE router and experts by the same rule, the router drawn last in
+    each block so that a dense config's draws do not move),
     drawn from *generator*, which must live on *device*. The numbers differ
     from ``jax.random``'s; tests that compare the two packages convert one
     tree with ``params_from_numpy`` instead."""
@@ -234,6 +274,8 @@ def init_params(generator: torch.Generator, cfg: ModelConfig,
             normal_(blk.w_gate, scale)
             normal_(blk.w_up, scale)
             normal_(blk.w_down, f ** -0.5)
+            if cfg.n_experts > 0:
+                normal_(blk.moe_router, scale)
         normal_(model.embed, scale)
         model.ln_f.fill_(1.0)
         normal_(model.head, scale)
@@ -304,17 +346,120 @@ def default_attn_fn(cfg: ModelConfig) -> AttnFn:
     return partial(dense_attention, causal=True, window=cfg.window)
 
 
-def _mlp(cfg: ModelConfig, h: torch.Tensor, layer: Block) -> torch.Tensor:
-    """The dense SwiGLU branch: silu(h W_gate) * (h W_up) W_down."""
-    gate = torch.nn.functional.silu(h @ layer.w_gate)
-    return (gate * (h @ layer.w_up)) @ layer.w_down
+def _top_k(probs: torch.Tensor, k: int):
+    """(values, indices) of the k largest entries along the last axis, the
+    lower index first among equal values (``jax.lax.top_k``'s order; a
+    stable descending sort, since ``torch.topk`` promises no order on
+    ties)."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _moe_aux_from_probs(probs: torch.Tensor, top_k: int = 1) -> torch.Tensor:
+    """Switch-transformer load-balance term from router probs (..., E):
+    E * sum_e(f_e * P_e), 1 when routing is uniform. f_e, the share of
+    token-assignments routed to e over all k choices, carries no gradient;
+    P_e, the mean router probability, does."""
+    probs = probs.reshape(-1, probs.shape[-1])
+    e = probs.shape[-1]
+    _, topk_idx = _top_k(probs, top_k)
+    frac = torch.nn.functional.one_hot(topk_idx, e).float().mean(dim=(0, 1))
+    return e * (frac.detach() * probs.mean(dim=0)).sum()
+
+
+def _moe_mlp(h: torch.Tensor, layer):
+    """Top-1 mixture-of-experts SwiGLU with dense one-hot dispatch: every
+    expert runs over every row (zeros off its route) and the one-hot
+    combine picks each row's expert, weighted by its router probability
+    -> (out (B, S, D), probs (B, S, E) f32)."""
+    router = torch.einsum("bsd,de->bse", h, layer.moe_router).float()
+    probs = torch.softmax(router, dim=-1)
+    one_hot = torch.nn.functional.one_hot(
+        torch.argmax(probs, dim=-1), probs.shape[-1]).to(h.dtype)
+    weight = (probs * one_hot).sum(dim=-1, keepdim=True).to(h.dtype)
+    expert_in = torch.einsum("bse,bsd->ebsd", one_hot, h)
+    gate = torch.nn.functional.silu(
+        torch.einsum("ebsd,edf->ebsf", expert_in, layer.w_gate))
+    up = torch.einsum("ebsd,edf->ebsf", expert_in, layer.w_up)
+    out = torch.einsum("ebsf,efd->ebsd", gate * up, layer.w_down)
+    return torch.einsum("ebsd,bse->bsd", out, one_hot) * weight, probs
+
+
+def _moe_mlp_capacity(h: torch.Tensor, layer, capacity_factor: float,
+                      top_k: int = 1, per_row: bool = False):
+    """Top-k mixture-of-experts with capacity dispatch -> (out (B, S, D),
+    probs (B*S, E) f32), the reference's ``_moe_mlp_capacity`` with its
+    one-hot dispatch and combine products done as gathers.
+
+    Of a call's N rows, each (row, rank) choice takes the next slot of its
+    expert's buffer of ``capacity = max(1, int(cf * N / E))`` slots,
+    counted rank-major (every row's primary choice before any secondary
+    one); a choice past capacity is dropped and the row keeps its residual.
+    The call is the whole (B, S) chunk (N = B*S), or with *per_row* each of
+    the B rows apart (N = S: the reference's legs that vmap over the
+    batch). The experts run on their (E, C, D) buffers in ``h.dtype`` (a
+    slot holds one row, so the gather equals the one-hot product exactly);
+    the combine sums each row's kept choices' outputs times the raw router
+    probability (no renormalisation) in f32."""
+    b, s, d = h.shape
+    g = b if per_row else 1                    # independent calls
+    n = b * s // g                             # rows a call
+    e = layer.moe_router.shape[-1]
+    k = top_k
+    tokens = h.reshape(g * n, d)
+    probs = torch.softmax((tokens @ layer.moe_router).float(), dim=-1)
+    gate_w, topi = _top_k(probs.view(g, n, e), k)              # (G, N, K)
+    c = max(1, int(capacity_factor * n / e))
+    # rank-major within a call: choice r = rank * N + row
+    expert = topi.transpose(1, 2).reshape(g, k * n)            # (G, K*N)
+    flat = torch.nn.functional.one_hot(expert, e).float()     # (G, K*N, E)
+    slot = (torch.cumsum(flat, dim=1) * flat).sum(dim=-1).long() - 1
+    call = torch.arange(g, device=h.device)[:, None]
+    dest = torch.where(slot < c, (call * e + expert) * c + slot,
+                       torch.full_like(slot, g * e * c))       # drop: past
+    row = call * n + torch.arange(k * n, device=h.device) % n
+    # each expert slot's source row (g*n = a zero row for an empty slot)
+    src = torch.full((g * e * c + 1,), g * n, dtype=torch.long,
+                     device=h.device)
+    src[dest.reshape(-1)] = row.reshape(-1)
+    padded = torch.cat([tokens, tokens.new_zeros(1, d)])
+    expert_in = padded[src[:-1]].view(g, e, c, d).transpose(0, 1)
+    expert_in = expert_in.reshape(e, g * c, d)                 # (E, G*C, D)
+    gate = torch.nn.functional.silu(torch.bmm(expert_in, layer.w_gate))
+    up = torch.bmm(expert_in, layer.w_up)
+    out = torch.bmm(gate * up, layer.w_down)                   # (E, G*C, D)
+    out = out.view(e, g, c, d).transpose(0, 1).reshape(g * e * c, d)
+    out = torch.cat([out.float(), out.new_zeros(1, d, dtype=torch.float32)])
+    picked = out[dest].view(g, k, n, d)
+    combined = (picked * gate_w.transpose(1, 2)[..., None]).sum(dim=1)
+    return combined.to(h.dtype).view(b, s, d), probs
+
+
+def _mlp(cfg: ModelConfig, h: torch.Tensor, layer, per_row: bool = False):
+    """The block's MLP branch -> (residual delta, aux term): dense SwiGLU,
+    top-1 dense-dispatch MoE, or capacity-dispatch MoE (*per_row*: each
+    batch row is its own dispatch, as under the reference's vmap); the aux
+    term is ``_moe_aux_from_probs`` when ``moe_aux_coeff > 0`` and 0.0
+    otherwise. The one site every leg's MLP goes through."""
+    if cfg.n_experts > 0 and cfg.moe_capacity_factor > 0:
+        out, probs = _moe_mlp_capacity(h, layer, cfg.moe_capacity_factor,
+                                       cfg.moe_top_k, per_row)
+    elif cfg.n_experts > 0:
+        out, probs = _moe_mlp(h, layer)
+    else:
+        gate = torch.nn.functional.silu(h @ layer.w_gate)
+        return (gate * (h @ layer.w_up)) @ layer.w_down, 0.0
+    if cfg.moe_aux_coeff > 0:
+        return out, _moe_aux_from_probs(probs, cfg.moe_top_k)
+    return out, 0.0
 
 
 def _block_with_aux(cfg: ModelConfig, attn_fn: AttnFn,
                     positions: torch.Tensor, x: torch.Tensor, layer: Block):
-    """One transformer block -> (x, aux, k, v): the MoE aux term (0.0 for
-    the dense blocks ported here) and the rotary-embedded K/V at kv-head
-    width, which is what a KV cache stores."""
+    """One transformer block -> (x, aux, k, v): the MoE aux term (0.0 when
+    off) and the rotary-embedded K/V at kv-head width, which is what a KV
+    cache stores. An int8 block dequantizes here, for this layer only."""
+    layer = maybe_dequantize(layer)
     h = rms_norm(x, layer.ln1)
     q = torch.einsum("bsd,dhk->bshk", h, layer.wq)
     k = torch.einsum("bsd,dhk->bshk", h, layer.wk)
@@ -324,12 +469,13 @@ def _block_with_aux(cfg: ModelConfig, attn_fn: AttnFn,
     n_rep = cfg.n_heads // cfg.kv_heads
     attn = attn_fn(q, repeat_kv(k, n_rep), repeat_kv(v, n_rep))
     x = x + torch.einsum("bshk,hkd->bsd", attn, layer.wo)
-    x = x + _mlp(cfg, rms_norm(x, layer.ln2), layer)
-    return x, 0.0, k, v
+    delta, aux = _mlp(cfg, rms_norm(x, layer.ln2), layer)
+    return x + delta, aux, k, v
 
 
 def _block_output(cfg, attn_fn, positions, x, layer):
-    return _block_with_aux(cfg, attn_fn, positions, x, layer)[0]
+    """(x, aux) of one block: what crosses a remat boundary."""
+    return _block_with_aux(cfg, attn_fn, positions, x, layer)[:2]
 
 
 def _remat_context_fn(cfg: ModelConfig):
@@ -373,23 +519,25 @@ def forward_hidden(params: Transformer, tokens: torch.Tensor,
     remat = cfg.remat and torch.is_grad_enabled()
     for layer in params.blocks:
         if remat:
-            # the dense blocks' aux term is 0.0: only x crosses the boundary
-            x = checkpoint(_block_output, cfg, attn_fn, positions, x, layer,
-                           use_reentrant=False,
-                           context_fn=_remat_context_fn(cfg))
+            x, a = checkpoint(_block_output, cfg, attn_fn, positions, x,
+                              layer, use_reentrant=False,
+                              context_fn=_remat_context_fn(cfg))
         else:
             x, a, _k, _v = _block_with_aux(cfg, attn_fn, positions, x, layer)
-            aux = aux + a
+        aux = aux + a
     return rms_norm(x, params.ln_f), aux
 
 
 @torch.no_grad()
 def forward(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig,
             attn_fn: Optional[AttnFn] = None,
-            positions: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Next-token logits: tokens (B, S) int -> (B, S, V)."""
-    x, _aux = forward_hidden(params, tokens, cfg, attn_fn, positions)
-    return torch.einsum("bsd,dv->bsv", x, params.head)
+            positions: Optional[torch.Tensor] = None,
+            return_aux: bool = False):
+    """Next-token logits: tokens (B, S) int -> (B, S, V); with
+    ``return_aux`` also the summed MoE load-balance term."""
+    x, aux = forward_hidden(params, tokens, cfg, attn_fn, positions)
+    logits = torch.einsum("bsd,dv->bsv", x, maybe_dequantize(params.head))
+    return (logits, aux) if return_aux else logits
 
 
 @torch.no_grad()
@@ -410,7 +558,8 @@ def forward_with_kv(params: Transformer, tokens: torch.Tensor,
         ks.append(k)
         vs.append(v)
     x = rms_norm(x, params.ln_f)
-    logits = torch.einsum("bsd,dv->bsv", x, params.head)[:, -1]
+    logits = torch.einsum("bsd,dv->bsv", x,
+                          maybe_dequantize(params.head))[:, -1]
     return logits.float(), torch.stack(ks), torch.stack(vs)
 
 
@@ -498,6 +647,10 @@ def next_token_loss(params: Transformer, tokens: torch.Tensor,
     """Mean causal LM cross-entropy, differentiable (it does not pass
     through the gradient-free ``forward``). ``targets`` is ``tokens``
     shifted by one (the data pipeline's job); ``weights`` (B, S) masks
-    positions out of the mean (pad positions of packed batches)."""
-    x, _aux = forward_hidden(params, tokens, cfg, attn_fn, positions)
-    return lm_loss_tail(x, params.head, targets, cfg, weights)
+    positions out of the mean (pad positions of packed batches). A MoE
+    config adds ``moe_aux_coeff`` times the summed load-balance term."""
+    x, aux = forward_hidden(params, tokens, cfg, attn_fn, positions)
+    loss = lm_loss_tail(x, params.head, targets, cfg, weights)
+    if cfg.n_experts > 0 and cfg.moe_aux_coeff > 0:
+        loss = loss + cfg.moe_aux_coeff * aux
+    return loss

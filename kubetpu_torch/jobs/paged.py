@@ -46,13 +46,13 @@ import numpy as np
 import torch
 
 from kubetpu_torch.jobs import model as model_lib
-from kubetpu_torch.jobs.decode import (_attend_cached, _layer,
+from kubetpu_torch.jobs.decode import (_attend_cached, _head, _layer,
                                        forward_chunk_io, lora_layer,
                                        out_project, project, select_lora)
 from kubetpu_torch.jobs.model import (ModelConfig, Transformer,
                                       reference_config_repr, resolve_device)
 from kubetpu_torch.jobs.prefix_cache import RadixPrefixCache
-from kubetpu_torch.jobs.quant import quantize_kv_chunk
+from kubetpu_torch.jobs.quant import maybe_dequantize, quantize_kv_chunk
 from kubetpu_torch.jobs.sampling import (chosen_logprob, make_slot_sampler,
                                          row_seed)
 from kubetpu_torch.jobs.serving import SlotServerBase, to_device
@@ -199,7 +199,8 @@ def _paged_forward(cfg: ModelConfig, params: Transformer, tokens, k_pages,
     v_l, table, pos)`` -> (B, T, H, D) reads them. Logits (B, T, V) f32.
     ``lora`` + ``adapter_ids`` (B,): each slot's adapter deltas around the
     attention, as ``decode.forward_chunk_io`` applies them (the factors
-    gathered once a forward)."""
+    gathered once a forward). An int8 model dequantizes one layer at a time
+    here, and the head per use."""
     t = tokens.shape[1]
     tpos = pos.long()[:, None] + torch.arange(t, device=pos.device)
     phys, offset = _write_targets(k_pages, table, tpos, write_enable)
@@ -208,6 +209,7 @@ def _paged_forward(cfg: ModelConfig, params: Transformer, tokens, k_pages,
     for i, layer in enumerate(params.blocks):
         k_l, v_l = _layer(k_pages, i), _layer(v_pages, i)
         lora_l = lora_layer(sel, i)
+        layer = maybe_dequantize(layer)
         h = model_lib.rms_norm(x, layer.ln1)
         q = project("wq", h, layer.wq, lora_l, lora_scale)
         k = project("wk", h, layer.wk, lora_l, lora_scale)
@@ -218,9 +220,10 @@ def _paged_forward(cfg: ModelConfig, params: Transformer, tokens, k_pages,
         _write_token_kv(v_l, v, phys, offset)
         attn = attend(q, k_l, v_l, table, pos)
         x = x + out_project(attn, layer.wo, lora_l, lora_scale)
-        x = x + model_lib._mlp(cfg, model_lib.rms_norm(x, layer.ln2), layer)
-    x = model_lib.rms_norm(x, params.ln_f)
-    return torch.einsum("bsd,dv->bsv", x, params.head).float()
+        delta, _aux = model_lib._mlp(cfg, model_lib.rms_norm(x, layer.ln2),
+                                     layer)
+        x = x + delta
+    return _head(params, x)
 
 
 @torch.no_grad()
@@ -439,7 +442,7 @@ class PagedDecodeServer(SlotServerBase):
                 "prefix_cache_pages is incompatible with windowed serving: "
                 "the ring table aliases logical pages onto a per-slot "
                 "physical ring, which cannot be shared across slots")
-        for p in params.parameters():
+        for p in params.state_dict().values():   # int8 buffers too
             if p.device.type != device.type:
                 raise ValueError(f"params live on {p.device}, the server "
                                  f"on {device}")

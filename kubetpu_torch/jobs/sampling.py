@@ -1,16 +1,21 @@
-"""Per-request token sampling for the serving paths (port of
-``kubetpu/jobs/sampling.py:86-162``): temperature, per-row top-k and
-nucleus (top-p) filters, and the raw-distribution logprob.
+"""Token sampling (port of ``kubetpu/jobs/sampling.py``): the static
+sampler of the generate loops (``make_sampler``: temperature, top-k and
+nucleus filters fixed when the sampler is built), the serving paths'
+per-request sampler (``make_slot_sampler``: per-row filters), and the
+raw-distribution logprob.
 
 Filters mask logits to ``NEG_INF`` so one categorical draw samples the
 renormalized distribution. Per-row draws come from a ``torch.Generator``
 seeded from ``(seed, rid, position)`` (``row_seed``), so a request's tokens
 depend on nothing else — not batch composition, chunking or step alignment.
-The numbers differ from ``jax.random``'s; only greedy decoding is held to
-the JAX package token for token.
+``make_sampler`` draws from the generator its caller passes. The numbers
+differ from ``jax.random``'s; only greedy decoding is held to the JAX
+package token for token.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
@@ -36,6 +41,57 @@ def row_seed(*parts: int) -> int:
     for p in parts:
         z = _mix64(z ^ (int(p) & _MASK64))
     return z >> 1
+
+
+def apply_top_k(logits: torch.Tensor, k: int) -> torch.Tensor:
+    """Everything below the k-th largest logit of each row -> ``NEG_INF``."""
+    if k <= 0:
+        raise ValueError("top_k must be positive")
+    k = min(k, logits.shape[-1])
+    thresh = torch.topk(logits, k, dim=-1).values[..., -1:]
+    return torch.where(logits < thresh, NEG_INF, logits)
+
+
+def apply_top_p(logits: torch.Tensor, p: float) -> torch.Tensor:
+    """Nucleus filter: keep the smallest set of tokens whose probabilities
+    reach *p* (the token that crosses p survives, and so does the top
+    token); ``p == 1`` returns the logits unchanged."""
+    if not 0.0 < p <= 1.0:
+        raise ValueError("top_p must be in (0, 1]")
+    if p >= 1.0:
+        return logits
+    sorted_desc = torch.sort(logits, dim=-1, descending=True).values
+    probs = torch.softmax(sorted_desc, dim=-1)
+    keep_sorted = (torch.cumsum(probs, dim=-1) - probs) < p
+    cutoff = torch.where(keep_sorted, sorted_desc,
+                         torch.full_like(sorted_desc, float("inf")))
+    cutoff = cutoff.amin(dim=-1, keepdim=True)
+    return torch.where(logits < cutoff, NEG_INF, logits)
+
+
+def make_sampler(temperature: float = 0.0, top_k: Optional[int] = None,
+                 top_p: Optional[float] = None):
+    """``sample(logits (..., V), generator) -> tokens (...)`` with the
+    filters fixed here: temperature, then top-k, then top-p, then one
+    categorical draw a row from *generator*. ``temperature == 0`` is greedy:
+    the exact argmax (the first index on ties, as ``jnp.argmax``), the
+    generator unused."""
+    if temperature < 0:
+        raise ValueError("temperature must be >= 0")
+
+    def sample(logits: torch.Tensor, generator=None) -> torch.Tensor:
+        if temperature <= 0.0:
+            return torch.argmax(logits, dim=-1)
+        x = logits.float() / temperature
+        if top_k is not None:
+            x = apply_top_k(x, top_k)
+        if top_p is not None:
+            x = apply_top_p(x, top_p)
+        probs = torch.softmax(x.reshape(-1, x.shape[-1]), dim=-1)
+        drawn = torch.multinomial(probs, 1, generator=generator)
+        return drawn.reshape(x.shape[:-1])
+
+    return sample
 
 
 def apply_top_k_rows(logits: torch.Tensor, k: torch.Tensor) -> torch.Tensor:

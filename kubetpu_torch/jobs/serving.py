@@ -1188,7 +1188,7 @@ class DecodeServer(SlotServerBase):
                  overlap: bool = False, queue_ttl: Optional[float] = None,
                  device=None) -> None:
         device = resolve_device(device)
-        for p in params.parameters():
+        for p in params.state_dict().values():   # int8 buffers too
             if p.device.type != device.type:
                 raise ValueError(f"params live on {p.device}, the server "
                                  f"on {device}")

@@ -397,7 +397,7 @@ class PagedSpeculativeDecodeServer(_SpecRoundsMixin, PagedDecodeServer):
             n_pages=n_pages, eos_id=eos_id, seed=seed, kv_int8=kv_int8,
             prefill_budget=prefill_budget, queue_ttl=queue_ttl,
             prefix_cache_pages=prefix_cache_pages, device=device)
-        for p in draft_params.parameters():
+        for p in draft_params.state_dict().values():
             if p.device.type != self.device.type:
                 raise ValueError(f"draft params live on {p.device}, the "
                                  f"server on {self.device}")

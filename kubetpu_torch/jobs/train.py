@@ -8,7 +8,9 @@ and dK/dV, through ``kubetpu_torch.ops.flash_attention``) or the plain
 The JAX package's default core, ``"ring"``, is a multi-device core
 (sequence parallelism over a mesh), as are the mesh specs (``param_specs``,
 ``batch_spec``) and shardings: they wait for the multi-device slice, and
-``attention="ring*"`` raises ``NotImplementedError`` here.
+``attention="ring*"`` raises ``NotImplementedError`` here (MoE's expert
+axis ``ep`` among them). Mixture-of-experts configs train here, with the
+load-balance term in the loss.
 
 Where JAX returns a new state, the port updates the parameters and the
 optimizer state in place (no second copy of the weights) and returns the
@@ -27,6 +29,7 @@ import torch
 
 from kubetpu_torch.jobs import model as model_lib
 from kubetpu_torch.jobs.model import ModelConfig, Transformer, resolve_device
+from kubetpu_torch.jobs.quant import require_unquantized
 
 
 @dataclasses.dataclass
@@ -153,7 +156,9 @@ class TrainState:
 def state_from_params(params: Transformer, optimizer: AdamW) -> TrainState:
     """A fresh ``TrainState`` training *params* (gradients turned on for
     every parameter; the serving legs stay gradient-free under
-    ``torch.no_grad``)."""
+    ``torch.no_grad``). An int8 model is refused: it has no gradient
+    path."""
+    require_unquantized(params, "training")
     for p in params.parameters():
         p.requires_grad_(True)
     return TrainState(params, optimizer.init(list(params.parameters())))
@@ -299,6 +304,7 @@ def make_eval_step(cfg: ModelConfig, attention: str = "flash", device=None):
 
     @torch.no_grad()
     def eval_step(params, tokens, targets):
+        require_unquantized(params, "make_eval_step")
         return model_lib.next_token_loss(params, up(tokens, torch.int64),
                                          up(targets, torch.int64), cfg,
                                          attn_fn)

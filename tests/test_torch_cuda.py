@@ -681,7 +681,7 @@ def test_drop_page_writes_equal_the_row_filtered_writes(cuda, kv_int8):
                                       pos)[:, None]
             x = x + torch.einsum("bshk,hkd->bsd", attn, layer.wo)
             x = x + model_lib._mlp(cfg, model_lib.rms_norm(x, layer.ln2),
-                                   layer)
+                                   layer)[0]
         x = model_lib.rms_norm(x, model.ln_f)
         return torch.einsum("bsd,dv->bsv", x, model.head).float()[:, 0]
 
@@ -984,3 +984,145 @@ def test_sampled_step_waits_on_its_own_event(cuda, overlap, monkeypatch):
     assert all(isinstance(e, torch.cuda.Event) for e in waited)
     assert all(any(e is d for d in dispatched) for e in waited)
     assert s["coverage"] >= 0.9, s
+
+
+# -- int8 weights, mixture-of-experts and the rolling generate -------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantize_and_dequantize_on_the_card(cuda, dtype):
+    """int8 values and scales of stacked, per-layer and whole-model
+    quantization on the card byte-equal to the CPU's; dequantized weights
+    equal; a quantized model serves through the card's legs."""
+    from kubetpu_torch.jobs import quant
+    from kubetpu_torch.jobs.model import ModelConfig, init_params
+
+    gen = torch.Generator().manual_seed(0)
+    for shape in ((64, 32), (2, 16, 4, 8), (2, 4, 16, 24)):
+        w = torch.randn(shape, generator=gen).to(dtype)
+        host, card = quant.quantize_tensor(w), quant.quantize_tensor(
+            w.to("cuda"))
+        assert torch.equal(card.scale.cpu(), host.scale), shape
+        assert torch.equal(card.q.cpu(), host.q), shape
+        assert torch.equal(card.dequantize().cpu(), host.dequantize()), shape
+    # the KV entries' quantization too (the int8 pools' write path)
+    kv = torch.randn(3, 16, 2, 64, generator=gen).to(dtype)
+    for a, b in zip(quant.quantize_kv_chunk(kv),
+                    quant.quantize_kv_chunk(kv.to("cuda"))):
+        assert torch.equal(b.cpu(), a)
+    cfg = ModelConfig(vocab=256, d_model=128, n_layers=2, n_heads=1,
+                      d_ff=256, n_experts=4, moe_capacity_factor=2.0,
+                      moe_top_k=2, dtype=dtype)
+    host = quant.quantize_params(init_params(
+        torch.Generator().manual_seed(1), cfg, device="cpu"))
+    card = quant.quantize_params(init_params(
+        torch.Generator().manual_seed(1), cfg, device="cpu").to("cuda"))
+    a, b = host.state_dict(), card.state_dict()
+    assert a.keys() == b.keys()
+    for k in a:
+        assert torch.equal(a[k], b[k].cpu()), k
+    assert quant.param_bytes(card) == quant.param_bytes(host)
+    layer = quant.maybe_dequantize(card.blocks[1])
+    assert torch.equal(layer.w_gate.cpu(),
+                       quant.maybe_dequantize(host.blocks[1]).w_gate)
+
+
+def _moe_layer(dev, seed=0, d=128, e=8, f=256):
+    from types import SimpleNamespace
+
+    gen = torch.Generator().manual_seed(seed)
+    leaves = {"moe_router": torch.randn(d, e, generator=gen) * d ** -0.5,
+              "w_gate": torch.randn(e, d, f, generator=gen) * d ** -0.5,
+              "w_up": torch.randn(e, d, f, generator=gen) * d ** -0.5,
+              "w_down": torch.randn(e, f, d, generator=gen) * f ** -0.5}
+    return SimpleNamespace(**{k: v.to(dev).requires_grad_(True)
+                              for k, v in leaves.items()})
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["dense", "top1", "top2_tight", "per_row"])
+def test_moe_mlp_on_the_card_matches_the_cpu(cuda, mode):
+    """Both dispatches (dense one-hot, capacity top-1 / top-2 / per row) in
+    f32 on the card against the CPU: outputs, router probabilities and
+    every gradient."""
+    from kubetpu_torch.jobs import model as model_lib
+
+    h = torch.randn(4, 33, 128, generator=torch.Generator().manual_seed(1))
+
+    def run(dev):
+        layer = _moe_layer(dev)
+        x = h.to(dev).requires_grad_(True)
+        if mode == "dense":
+            out, probs = model_lib._moe_mlp(x, layer)
+        else:
+            cf, k = {"top1": (2.0, 1), "top2_tight": (0.5, 2),
+                     "per_row": (1.0, 2)}[mode]
+            out, probs = model_lib._moe_mlp_capacity(
+                x, layer, cf, k, per_row=mode == "per_row")
+        aux = model_lib._moe_aux_from_probs(probs, 2)
+        loss = (out.square().sum() + aux)
+        grads = torch.autograd.grad(loss, [x] + list(vars(layer).values()))
+        return [t.detach().float().cpu() for t in (out, probs, *grads)]
+
+    for got, want in zip(run("cuda"), run("cpu")):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quantized", [False, True], ids=["f32", "int8"])
+def test_rolling_generate_on_the_card_matches_the_cpu(cuda, quantized):
+    """The ring-cache rolling generate of a small f32 windowed model, the
+    ring wrapping several times, on the card and on the CPU: equal greedy
+    tokens, and equal to ``make_generate`` on the card."""
+    from kubetpu_torch.jobs import decode, quant
+    from kubetpu_torch.jobs.model import ModelConfig, init_params
+
+    cfg = ModelConfig(vocab=256, d_model=128, n_layers=2, n_heads=2,
+                      d_ff=256, window=16)
+    host = init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    card = init_params(torch.Generator().manual_seed(0), cfg,
+                       device="cpu").to("cuda")
+    if quantized:
+        host, card = quant.quantize_params(host), quant.quantize_params(card)
+    prompt = torch.randint(0, cfg.vocab, (3, 24),
+                           generator=torch.Generator().manual_seed(2))
+    gen = decode.make_rolling_generate(cfg)
+    want = gen(host, prompt, 0, 40)
+    got = gen(card, prompt.to("cuda"), 0, 40)
+    assert torch.equal(got.cpu(), want)
+    dense = decode.make_generate(cfg)(card, prompt.to("cuda"), 0, 40)
+    assert torch.equal(got, dense)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_int8", [False, True], ids=["f32", "int8"])
+def test_moe_paged_server_on_the_card_matches_the_cpu(cuda, kv_int8):
+    """A small f32 top-2 capacity MoE model behind the paged server on the
+    card (paged kernels) and on the CPU (plain attention): equal greedy
+    tokens, the paged kernels ran."""
+    from kubetpu_torch.jobs.model import ModelConfig, init_params
+    from kubetpu_torch.jobs.paged import PagedDecodeServer
+
+    cfg = ModelConfig(vocab=256, d_model=128, n_layers=2, n_heads=2,
+                      d_ff=256, max_seq=256, n_experts=4, moe_top_k=2,
+                      moe_capacity_factor=2.0)
+    host = init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    gen = torch.Generator().manual_seed(4)
+    prompts = [torch.randint(0, cfg.vocab, (n,), generator=gen).tolist()
+               for n in (20, 45, 70)]
+    kw = dict(n_slots=3, max_seq=256, max_new_tokens=12, page_size=16,
+              prefill_budget=32, kv_int8=kv_int8)
+
+    def serve(model, dev):
+        server = PagedDecodeServer(cfg, model, device=dev, **kw)
+        rids = [server.enqueue(p) for p in prompts]
+        server.drain()
+        server.check_invariants()
+        return [server.pop_result(r) for r in rids]
+
+    want = serve(host, "cpu")
+    counts = _paged_counts()
+    got = serve(host.to("cuda"), "cuda")
+    moved = [b - a for a, b in zip(counts, _paged_counts())]
+    assert got == want
+    assert moved[1] > 0                               # split decode steps

@@ -41,7 +41,7 @@ def test_fresh_import_loads_no_jax_and_no_kubetpu():
                  "router.migration", "router.replica", "router.adapters",
                  "router.hashring", "router.pool", "router.server",
                  "router.autoscaler", "obs.slo", "obs.profile",
-                 "obs.exporter"):
+                 "obs.exporter", "jobs.quant", "jobs.sampling", "entry"):
         assert f"kubetpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"
@@ -167,10 +167,20 @@ def test_entry_points_default_to_the_card_and_raise_without_it():
                                           make_train_step)
     from kubetpu_torch.ops import flash_attention as fa
 
+    from kubetpu_torch.entry import entry
+    from kubetpu_torch.jobs.decode import init_ring_cache
+    from kubetpu_torch.jobs.quant import quantize_params
+
     cfg = ModelConfig(vocab=32, d_model=16, n_layers=1, n_heads=2, d_ff=32)
     model = init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         PagedDecodeServer(cfg, model)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PagedDecodeServer(cfg, quantize_params(model))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        entry()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_ring_cache(ModelConfig(window=4), 1)
     with pytest.raises(RuntimeError, match="CUDA"):
         init_params(torch.Generator().manual_seed(0), cfg)
     with pytest.raises(RuntimeError, match="CUDA"):

@@ -205,9 +205,11 @@ def test_lora_mlp_targets_dense_only():
                                   lcfg, device="cpu")
     assert lora["blocks"]["w_gate_b"].shape == (CFG.n_layers, 2, CFG.d_ff)
     assert lora["blocks"]["w_down_a"].shape == (CFG.n_layers, CFG.d_ff, 2)
-    # the port has no MoE blocks yet; the guard is kept for them
-    with pytest.raises(NotImplementedError):
-        dataclasses.replace(CFG, n_experts=2)
+    # MoE configs refuse MLP targets (no adapter layout over the experts)
+    with pytest.raises(ValueError, match="MoE"):
+        tlora.init_lora_params(torch.Generator().manual_seed(0),
+                               dataclasses.replace(CFG, n_experts=2), lcfg,
+                               device="cpu")
     with pytest.raises(ValueError, match="MoE"):
         tlora._check_targets(SimpleNamespace(n_experts=2), lcfg)
     tlora._check_targets(SimpleNamespace(n_experts=2), LCFG)

@@ -17,7 +17,7 @@ from kubetpu.jobs import sampling as jsampling
 from kubetpu_torch.jobs import model as tmodel
 from kubetpu_torch.jobs import quant as tquant
 from kubetpu_torch.jobs import sampling as tsampling
-from kubetpu_torch.jobs.convert import params_from_numpy
+from kubetpu_torch.jobs.convert import params_from_numpy, params_to_numpy
 
 torch.set_num_threads(1)
 
@@ -57,8 +57,9 @@ def test_params_from_numpy_rejects_a_mismatched_tree():
                         jmodel.init_params(jax.random.PRNGKey(0), jcfg))
     with pytest.raises(ValueError, match="shape"):
         params_from_numpy(tree, port_cfg(jcfg, d_ff=64), device="cpu")
-    with pytest.raises(NotImplementedError):
-        port_cfg(jcfg, n_experts=2)
+    # a dense tree lacks the MoE config's router (MoE blocks are ported)
+    with pytest.raises(KeyError, match="moe_router"):
+        params_from_numpy(tree, port_cfg(jcfg, n_experts=2), device="cpu")
 
 
 def test_init_params_shapes_and_scales():
@@ -136,3 +137,21 @@ def test_slot_sampler_greedy_rows_and_seeded_draws():
     assert torch.equal(a[1:], b)
     # row 1 draws inside its top-5
     assert int(a[1]) in set(torch.topk(logits[1], 5).indices.tolist())
+
+
+def test_entry_runs_the_tiny_forward():
+    """``kubetpu_torch.entry.entry`` is ``__graft_entry__.entry``'s
+    counterpart: the same tiny config, its forward on a (2, 32) batch."""
+    from kubetpu_torch.entry import entry, tiny_config
+
+    jcfg = _cfg()
+    assert tiny_config() == port_cfg(jcfg)
+    fn, (params, tokens) = entry(device="cpu")
+    out = fn(params, tokens)
+    assert tuple(tokens.shape) == (2, 32) and out.shape == (2, 32, jcfg.vocab)
+    assert torch.isfinite(out).all()
+    # the JAX forward on the same weights gives the same logits
+    ref = jmodel.forward(jax.tree.map(jnp.asarray, params_to_numpy(params)),
+                         jnp.asarray(tokens.numpy()), jcfg)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-4,
+                               rtol=1e-4)
