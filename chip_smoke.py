@@ -190,11 +190,45 @@ Phases, one line each, any failure exits non-zero:
    then phase 21's config with aux 0.01 cut to 2 layers at phase 11's
    shape: step time, tokens/s, MFU over the active parameters, peak
    memory, flash launches all wgmma, a falling loss on a repeated batch;
+24. text_data (after phase 23; phases 24-28 are the model's lifecycle,
+   at the flagship's widths, on one corpus): at least 64 MB of seeded text
+   (a word list under a small grammar, documents separated by a blank
+   line, the last 5% held out) through ``ByteTokenizer.encode_file`` (host
+   seconds, tokens/s), the native loader built at first use (seconds),
+   ``TokenFile.batches`` at 4 x 2048 (ms a batch and its share of phase
+   11's step: the data stall share), two workers' disjoint shards, and the
+   committed BPE fixture through the stdlib ``re`` (its vectors exactly,
+   no ``regex`` loaded);
+25. text_train: the flagship (phase 11's config) trained 200 steps on the
+   corpus with a synchronous ``save_checkpoint`` and an
+   ``AsyncCheckpointer`` save at step 100 (bytes, write seconds, the ms the
+   loop paid for the async save), ``evaluate`` on held-out windows (loss,
+   perplexity), ``restore_checkpoint`` onto the card and onto the CPU.
+   Gates in ``phase_text_train``'s docstring (restores byte-equal, the
+   resumed losses within 1e-4, a mangled file typed, flash 24 / 12 / 12 a
+   step, all wgmma, a falling loss);
+26. text_serve: the trained flagship behind ``PagedDecodeServer`` at phase
+   6's settings on string prompts cut from held-out text, answering text:
+   decode tokens/s, TTFT p50, phase 6's launch rule; tokens against
+   ``make_generate``'s under phase 16's near-tie rule, the text
+   round-tripping through ``ByteTokenizer``;
+27. distill: phase 16's quarter draft distilled 200 steps against the
+   trained flagship: greedy agreement before and after beside a 3-layer
+   ``truncated_draft``'s, then the speculative server (target + distilled
+   draft) against the plain one on phase 26's prompts, alternated:
+   tokens/s ratio, tokens per round, accepted share; the near-tie rule,
+   no speed gate;
+28. hf_import: seeded llama-layout state dicts at the flagship's widths
+   (MHA, and 4 KV heads under a llama3 ``rope_scaling``) imported onto the
+   card in bf16 (seconds, held peak memory against the weights' bytes),
+   each served at phase 6's prompts; a small f32 import's tokens on the
+   card equal the CPU's;
 14. the ``kernels`` JSON line, 8 kernels (launches: the paged split,
    combine and wgmma chunk kernels' — dense and int8 instances — over
-   phases 6, 8, 9, 12, 15, 16, 17, 19, 20 and 21, the SIMT chunk's over
-   phase 5, the flash kernels' over the timed steps of phases 11, 18 and
-   23), then the result line.
+   phases 6, 8, 9, 12, 15, 16, 17, 19, 20, 21, 26, 27 and 28, the SIMT
+   chunk's over phases 5, 16 and 28, the flash kernels' over the timed
+   steps of phases 11, 18 and 23 and every flash launch of phases 25 and
+   27), the script's wall time, then the result line.
 
 Nothing of JAX or of the ``kubetpu`` package is imported. ``--record PATH``
 also writes every measured number as one JSON file.
@@ -205,7 +239,9 @@ from __future__ import annotations
 import copy
 import dataclasses
 import json
+import gc
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -4289,7 +4325,798 @@ def phase_moe_train(smi) -> dict:
     return {"parity": parity, "train": row}
 
 
+# -- phases 24-28: the model lifecycle — text, training, checkpoint, serving,
+# distillation, import --------------------------------------------------------
+
+LIFE_DIR = os.path.join(ROOT, "build", "chip_smoke")   # git-ignored
+CORPUS_BYTES = 64 << 20     # at least 64 MB of text
+LIFE_BATCH, LIFE_SEQ = 4, 2048
+LIFE_STEPS = 200            # phase 25's training steps
+LIFE_SAVE_AT = 100          # the checkpoints, mid-run
+LIFE_RESUMED = 3            # steps compared after the restore
+RESUME_TOL = 1e-4           # relative, the resumed losses
+DISTILL_STEPS = 200
+DISTILL_LR = 1e-3
+DISTILL_PAIRS = 5           # plain / speculative pairs, alternated
+LIFE_NEW = 32               # new tokens a text request, phase 6's
+HF_WIDTHS = dict(vocab=32000, d=2048, layers=12, heads=16, d_ff=5632)
+
+# a small grammar: every sentence is determiner adjective noun verb
+# determiner adjective noun preposition determiner noun, and each word
+# prefers one word of the next slot's class (taken 80% of the time), so
+# the text is learnable beyond its spelling
+_WORDS = (
+    ("the", "a", "every", "one", "this", "that", "some", "no", "each",
+     "her", "his", "our"),
+    ("red", "quiet", "small", "ancient", "bright", "cold", "hungry",
+     "gentle", "broken", "golden", "hidden", "narrow", "rapid", "silent",
+     "tall", "wooden", "wild", "young", "pale", "heavy", "distant",
+     "sudden", "empty", "careful", "curious", "dusty", "green", "open",
+     "patient", "rough", "sharp", "sleepy"),
+    ("river", "teacher", "garden", "engine", "window", "mountain", "fox",
+     "lantern", "village", "sailor", "kettle", "letter", "market", "bridge",
+     "forest", "merchant", "tower", "harbor", "candle", "painter",
+     "library", "orchard", "island", "soldier", "clock", "meadow", "train",
+     "valley", "doctor", "castle", "farmer", "storm", "wagon", "poet",
+     "mirror", "temple", "rabbit", "cellar", "beacon", "compass"),
+    ("watches", "follows", "carries", "finds", "remembers", "builds",
+     "paints", "crosses", "guards", "answers", "opens", "hides", "visits",
+     "repairs", "counts", "lifts", "greets", "forgets", "measures",
+     "shelters", "chases", "describes", "sells", "borrows"),
+    ("near", "under", "beside", "behind", "across", "beyond", "inside",
+     "above", "toward", "around", "past", "along"))
+_TEMPLATE = (0, 1, 2, 3, 0, 1, 2, 4, 0, 2)
+
+
+def _corpus_text(seed: int, n_bytes: int) -> list:
+    """Documents (lists of sentences joined) of seeded text, together at
+    least *n_bytes* long once joined with ``"\\n\\n"``."""
+    rng = np.random.default_rng(seed)
+    words = [w for c in _WORDS for w in c]
+    first = np.cumsum([0] + [len(c) for c in _WORDS])
+    # each word's preferred successor in each class
+    pref = [rng.integers(0, len(c), size=len(words)) for c in _WORDS]
+    n = n_bytes // 60 + 1
+    cols, prev = [], None
+    for slot, c in enumerate(_TEMPLATE):
+        size = len(_WORDS[c])
+        w = rng.integers(0, size, n)
+        if prev is not None:
+            w = np.where(rng.random(n) < 0.8, pref[c][prev], w)
+        prev = first[c] + w
+        cols.append(prev)
+    idx = np.stack(cols, axis=1).tolist()
+    caps = [w.capitalize() for w in words]
+    sentences = [" ".join([caps[r[0]]] + [words[i] for i in r[1:]]) + "."
+                 for r in idx]
+    bounds = np.cumsum(rng.integers(8, 40, size=n))
+    docs, start = [], 0
+    for end in bounds:
+        if start >= n:
+            break
+        docs.append(" ".join(sentences[start:end]))
+        start = end
+    return docs
+
+
+def phase_text_data(smi: str, step_ms: float) -> dict:
+    """Phase 24: the corpus (seeded text, >= 64 MB, documents separated by
+    a blank line; the last 5% of documents held out), ``ByteTokenizer.
+    encode_file`` into two token files (host seconds, tokens/s), the
+    native loader built at first use (seconds), ``TokenFile.batches`` at
+    4 x 2048 (ms a batch, and its share of phase 11's step time: the data
+    stall share), two workers' shards (disjoint spans, every row the
+    file's tokens at the offset it was drawn from), and the committed BPE
+    fixture through the stdlib ``re`` (its vectors exactly, and no
+    ``regex`` module loaded)."""
+    from kubetpu_torch.jobs import native_data
+    from kubetpu_torch.jobs.data import ByteTokenizer
+    from kubetpu_torch.jobs.tokenizer import load_hf_tokenizer
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(LIFE_DIR, ignore_errors=True)
+    os.makedirs(LIFE_DIR)
+    t0 = time.perf_counter()
+    docs = _corpus_text(24, CORPUS_BYTES)
+    held_n = max(1, len(docs) // 20)
+    texts = {"train": "\n\n".join(docs[:-held_n]),
+             "held": "\n\n".join(docs[-held_n:])}
+    paths = {}
+    for name, text in texts.items():
+        paths[name] = os.path.join(LIFE_DIR, f"{name}.txt")
+        with open(paths[name], "w", encoding="utf-8") as f:
+            f.write(text)
+    gen_s = time.perf_counter() - t0
+    text_bytes = sum(len(t) for t in texts.values())
+    if text_bytes < CORPUS_BYTES:
+        raise SystemExit(f"text_data: corpus {text_bytes} bytes")
+    tok = ByteTokenizer()
+    t0 = time.perf_counter()
+    n_tokens = {name: tok.encode_file(paths[name], paths[name][:-4] + ".bin")
+                for name in paths}
+    encode_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    native_data._lib()                       # the first use builds it
+    load_s = time.perf_counter() - t0
+    files = {name: native_data.TokenFile(paths[name][:-4] + ".bin")
+             for name in paths}
+    if any(files[k].num_tokens != n_tokens[k] for k in files):
+        raise SystemExit("text_data: token counts differ from encode_file's")
+    it = files["train"].batches(LIFE_BATCH, LIFE_SEQ, seed=1)
+    next(it)
+    t0 = time.perf_counter()
+    for _ in range(50):
+        tokens, targets = next(it)
+    batch_ms = (time.perf_counter() - t0) / 50 * 1e3
+    ok_shift = bool((tokens[:, 1:] == targets[:, :-1]).all())
+    # two workers: each draws only from its half of the stream
+    flat = np.memmap(paths["train"][:-4] + ".bin", dtype=np.uint16, mode="r")
+    span = files["train"].num_tokens // 2
+    shards = {}
+    for w in (0, 1):
+        rows, _ = next(files["train"].batches(64, LIFE_SEQ, seed=5, worker=w,
+                                              num_workers=2))
+        offs = np.random.default_rng((5, w)).integers(
+            w * span, w * span + span - (LIFE_SEQ + 1) + 1, size=64)
+        rows_ok = all(np.array_equal(r, flat[o:o + LIFE_SEQ])
+                      for r, o in zip(rows, offs))
+        shards[w] = dict(rows_ok=rows_ok, lo=int(offs.min()),
+                         hi=int(offs.max()) + LIFE_SEQ + 1)
+    disjoint = (shards[0]["hi"] <= span <= shards[1]["lo"]
+                and shards[0]["rows_ok"] and shards[1]["rows_ok"])
+    del flat
+    # the committed BPE fixture, stdlib re only
+    t0 = time.perf_counter()
+    bpe = load_hf_tokenizer(os.path.join(ROOT, "tests", "fixtures",
+                                         "tiny_tokenizer.json"))
+    with open(os.path.join(ROOT, "tests", "fixtures",
+                           "tiny_tokenizer_vectors.json")) as f:
+        vectors = json.load(f)
+    bad_vectors = [t for t, ids in vectors.items() if bpe.encode(t) != ids]
+    bpe_s = time.perf_counter() - t0
+    regex_loaded = "regex" in sys.modules
+    row = dict(card=torch.cuda.get_device_name(0), nvidia_smi=smi,
+               text_bytes=text_bytes, documents=len(docs),
+               held_out_documents=held_n, generate_s=gen_s,
+               tokens=n_tokens, encode_s=encode_s,
+               encode_tokens_s=sum(n_tokens.values()) / encode_s,
+               loader_build_s=native_data.BUILD_SECONDS,
+               loader_load_s=load_s, batch=[LIFE_BATCH, LIFE_SEQ],
+               batch_ms=batch_ms, step_ms_phase11=step_ms,
+               data_stall_share=batch_ms / step_ms, targets_shifted=ok_shift,
+               shards=shards, shards_disjoint=disjoint,
+               bpe_vectors=len(vectors), bpe_mismatches=bad_vectors,
+               bpe_load_encode_s=bpe_s, regex_loaded=regex_loaded,
+               seconds=time.perf_counter() - t_phase)
+    line("text_data", **row)
+    if not ok_shift or not disjoint:
+        raise SystemExit(f"text_data: batches or shards wrong: {shards}")
+    if bad_vectors or regex_loaded or len(vectors) < 10:
+        raise SystemExit(f"text_data: BPE fixture {bad_vectors}, regex "
+                         f"loaded {regex_loaded}")
+    return row, files, texts["held"]
+
+
+def _leaves_equal(leaves, snapshot) -> bool:
+    return all(torch.equal(a, b.to(a.device)) for a, b in zip(leaves,
+                                                              snapshot))
+
+
+def _cpu_target(cfg, optimizer):
+    """A CPU train state of *cfg*'s structure, weights uninitialized (the
+    restore overwrites every tensor)."""
+    from kubetpu_torch.jobs import train as train_lib
+    from kubetpu_torch.jobs.model import Transformer
+
+    with torch.no_grad():
+        model = Transformer(cfg, torch.device("cpu"))
+    return train_lib.state_from_params(model, optimizer)
+
+
+def _flash_delta(run):
+    """run() with the flash counters zeroed just before and read just
+    after -> (its result, {forward, dq, dkv, *_wgmma})."""
+    _zero_flash_counts()
+    out = run()
+    torch.cuda.synchronize()
+    c = _flash_counts()
+    return out, dict(forward=c[0], dq=c[1], dkv=c[2], forward_wgmma=c[3],
+                     dq_wgmma=c[4], dkv_wgmma=c[5])
+
+
+def _add_counts(total: dict, more: dict) -> None:
+    for k, v in more.items():
+        total[k] = total.get(k, 0) + v
+
+
+def phase_text_train(smi: str, files) -> dict:
+    """Phase 25: the flagship (phase 11's config: full remat, flash) trained
+    LIFE_STEPS steps on ``TokenFile`` batches of the corpus, with a
+    synchronous ``save_checkpoint`` and an ``AsyncCheckpointer`` save at
+    step LIFE_SAVE_AT (bytes, write seconds, the ms the step loop paid
+    for the async save against a step's ms, the steps' ms while its
+    writer runs); ``evaluate`` on held-out windows; ``restore_checkpoint``
+    into a fresh state on the card and onto the CPU. Gates: the flash
+    launches of the training loop 24 / 12 / 12 a step, all wgmma; a
+    falling loss; both restores byte-equal to the state at the save; the
+    resumed run's next LIFE_RESUMED losses within RESUME_TOL relative of
+    the uninterrupted run's; a mangled checkpoint raises
+    ``CorruptCheckpointError``."""
+    from kubetpu_torch.jobs import checkpoint as ckpt
+    from kubetpu_torch.jobs import train as train_lib
+    from kubetpu_torch.jobs.data import evaluate
+
+    t_phase = time.perf_counter()
+    cfg = _flagship_train_cfg()
+    state, opt = train_lib.init_state(
+        torch.Generator(device="cuda").manual_seed(0), cfg, device="cuda")
+    step = train_lib.make_train_step(cfg, opt, attention="flash",
+                                     device="cuda")
+    it = files["train"].batches(LIFE_BATCH, LIFE_SEQ, seed=1)
+    state, _ = step(state, *next(it))                # warm-up
+    torch.cuda.synchronize()
+    launches, losses = {}, []
+
+    def run_steps(n):
+        nonlocal state
+        out = []
+        for _ in range(n):
+            state, loss = step(state, *next(it))
+            out.append(loss)
+        return [float(x) for x in out]
+
+    t0 = time.perf_counter()
+    first, counts = _flash_delta(lambda: run_steps(LIFE_SAVE_AT - 1))
+    loop_s = time.perf_counter() - t0
+    losses += first
+    _add_counts(launches, counts)
+    n = LIFE_SAVE_AT - 1
+    want = {"forward": 2 * cfg.n_layers * n, "dq": cfg.n_layers * n,
+            "dkv": cfg.n_layers * n, "forward_wgmma": 2 * cfg.n_layers * n,
+            "dq_wgmma": cfg.n_layers * n, "dkv_wgmma": cfg.n_layers * n}
+    if counts != want:
+        raise SystemExit(f"text_train: flash launches {counts} != {want}")
+    step_ms = loop_s / n * 1e3
+    # the checkpoints at step LIFE_SAVE_AT
+    snapshot = [t.detach().clone() for t in ckpt._leaves(state)]
+    saved_step = state.step
+    n_bytes = sum(t.numel() * t.element_size() for t in snapshot)
+    sync_dir = os.path.join(LIFE_DIR, "ckpt", str(saved_step))
+    async_dir = os.path.join(LIFE_DIR, "ckpt_async", str(saved_step))
+    t0 = time.perf_counter()
+    ckpt.save_checkpoint(sync_dir, state)
+    sync_s = time.perf_counter() - t0
+    file_bytes = os.path.getsize(os.path.join(sync_dir, ckpt.STATE_FILE))
+    saver = ckpt.AsyncCheckpointer()
+    t0 = time.perf_counter()
+    saver.save(async_dir, state)
+    paid_ms = (time.perf_counter() - t0) * 1e3
+    batches_after = [next(it) for _ in range(LIFE_RESUMED)]
+    t0 = time.perf_counter()
+
+    def straight_steps():
+        nonlocal state
+        out = []
+        for b in batches_after:
+            state, loss = step(state, *b)
+            out.append(float(loss))
+        return out
+
+    straight, counts = _flash_delta(straight_steps)
+    during_ms = (time.perf_counter() - t0) / LIFE_RESUMED * 1e3
+    _add_counts(launches, counts)
+    losses += straight
+    t0 = time.perf_counter()
+    saver.close()
+    async_wait_s = time.perf_counter() - t0
+    rest, counts = _flash_delta(
+        lambda: run_steps(LIFE_STEPS - LIFE_SAVE_AT - LIFE_RESUMED))
+    losses += rest
+    _add_counts(launches, counts)
+    held = files["held"].batches(LIFE_BATCH, LIFE_SEQ, seed=3)
+    eval_step = train_lib.make_eval_step(cfg, attention="flash",
+                                         device="cuda")
+    ev, counts = _flash_delta(
+        lambda: evaluate(eval_step, state.params, held, 4))
+    _add_counts(launches, counts)
+
+    # restore on the card, then resume from it
+    fresh, _ = train_lib.init_state(
+        torch.Generator(device="cuda").manual_seed(1), cfg, device="cuda")
+    t0 = time.perf_counter()
+    ckpt.restore_checkpoint(sync_dir, fresh)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    card_equal = (_leaves_equal(ckpt._leaves(fresh), snapshot)
+                  and fresh.step == saved_step)
+
+    def resumed_steps():
+        nonlocal fresh
+        out = []
+        for b in batches_after:
+            fresh, loss = step(fresh, *b)
+            out.append(float(loss))
+        return out
+
+    resumed, counts = _flash_delta(resumed_steps)
+    _add_counts(launches, counts)
+    gap = max(abs(a - b) / abs(b) for a, b in zip(resumed, straight))
+    del fresh
+    torch.cuda.empty_cache()
+    # the async files onto the CPU
+    host = _cpu_target(cfg, opt)
+    t0 = time.perf_counter()
+    ckpt.restore_checkpoint(async_dir, host)
+    cpu_restore_s = time.perf_counter() - t0
+    cpu_equal = (_leaves_equal(ckpt._leaves(host), snapshot)
+                 and host.step == saved_step
+                 and all(t.device.type == "cpu" for t in ckpt._leaves(host)))
+    del host, snapshot
+    # a mangled checkpoint: the sync file cut to half its length
+    path = os.path.join(sync_dir, ckpt.STATE_FILE)
+    os.truncate(path, file_bytes // 2)
+    probe = _cpu_target(dataclasses.replace(cfg, n_layers=1), opt)
+    try:
+        ckpt.restore_checkpoint(sync_dir, probe)
+        typed = False
+    except ckpt.CorruptCheckpointError:
+        typed = True
+    del probe
+    shutil.rmtree(os.path.join(LIFE_DIR, "ckpt"), ignore_errors=True)
+    shutil.rmtree(os.path.join(LIFE_DIR, "ckpt_async"), ignore_errors=True)
+    head, tail = np.mean(losses[:10]), np.mean(losses[-10:])
+    row = dict(card=torch.cuda.get_device_name(0), nvidia_smi=smi,
+               steps=len(losses) + 1, batch=[LIFE_BATCH, LIFE_SEQ],
+               step_ms=step_ms, tokens_s=LIFE_BATCH * LIFE_SEQ / step_ms * 1e3,
+               loss_first10=float(head), loss_last10=float(tail),
+               losses_every_10=losses[::10], eval=ev,
+               checkpoint=dict(step=saved_step, state_bytes=n_bytes,
+                               file_bytes=file_bytes, sync_write_s=sync_s,
+                               sync_gb_s=file_bytes / sync_s / 1e9,
+                               async_paid_ms=paid_ms,
+                               async_paid_over_step=paid_ms / step_ms,
+                               steps_during_write_ms=during_ms,
+                               async_wait_at_close_s=async_wait_s,
+                               card_restore_s=restore_s,
+                               cpu_restore_s=cpu_restore_s),
+               restored_card_equal=card_equal, restored_cpu_equal=cpu_equal,
+               straight_losses=straight, resumed_losses=resumed,
+               resumed_max_rel_gap=gap, resume_tol=RESUME_TOL,
+               mangled_raises_typed=typed, flash_launches=launches,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               seconds=time.perf_counter() - t_phase)
+    line("text_train", **row)
+    if not tail < head or not all(np.isfinite(losses)):
+        raise SystemExit(f"text_train: loss did not fall: {head} -> {tail}")
+    if not card_equal or not cpu_equal:
+        raise SystemExit(f"text_train: restore differs (card {card_equal}, "
+                         f"cpu {cpu_equal})")
+    if not gap <= RESUME_TOL:
+        raise SystemExit(f"text_train: resumed losses {resumed} vs "
+                         f"{straight}: gap {gap}")
+    if not typed:
+        raise SystemExit("text_train: a mangled checkpoint restored")
+    return row, state, cfg
+
+
+def _text_prompts(held: str) -> tuple:
+    """Phase 26's prompts: held-out text cut at SERVE_LENGTHS characters
+    (ASCII: one byte token each, after a BOS), each starting at a
+    sentence."""
+    import re
+
+    from kubetpu_torch.jobs.data import ByteTokenizer
+
+    tok = ByteTokenizer()
+    starts = [m.start() for m in re.finditer(r"[A-Z]", held)]
+    rng = np.random.default_rng(26)
+    texts = []
+    for n in SERVE_LENGTHS:
+        s = starts[int(rng.integers(0, len(starts) // 2))]
+        texts.append(held[s:s + n - 1])
+    return texts, [tok.encode(t, bos=True, eos=False) for t in texts]
+
+
+def _generate_top2(cfg, model, prompts, n) -> tuple:
+    """``make_generate``'s greedy tokens of each prompt alone, and the
+    top-two gaps of every row it sampled ({(prompt, index): gap})."""
+    from kubetpu_torch.jobs import decode
+
+    outs, gaps = [], {}
+    for p in prompts:
+        out, top2, _s = _recorded_generate(
+            lambda: decode.make_generate(cfg), model,
+            torch.tensor([p], device="cuda"), n, "make_slot_sampler")
+        outs.append(out[0].tolist())
+        for j, t in enumerate(top2):
+            gaps[(tuple(p), j)] = float(t[0, 0] - t[0, 1])
+    return outs, gaps
+
+
+def _paged_expected(cfg, st) -> dict:
+    """Phase 6's launch rule: one attention call per layer and decode step
+    (split + combine) or prefill chunk (wgmma), nothing on SIMT."""
+    n_dec, n_chunk = (cfg.n_layers * st[k] for k in ("steps", "chunks"))
+    return dict(launches=n_dec + n_chunk, split_launches=n_dec,
+                wgmma_launches=n_chunk, wgmma_int8_launches=0,
+                simt_launches=0)
+
+
+def phase_text_serve(model, cfg, held, smi, launches) -> dict:
+    """Phase 26: the restored-and-trained flagship behind
+    ``PagedDecodeServer`` at phase 6's settings, fed string prompts cut
+    from held-out text, answering decoded text: decode tokens/s, TTFT p50,
+    the paged launches (counters zeroed before, read after: phase 6's
+    rule, nothing on SIMT). Gates: the tokens equal ``make_generate``'s
+    under phase 16's near-tie rule, the decoded text encodes back to the
+    same byte ids."""
+    from kubetpu_torch.jobs.data import ByteTokenizer
+
+    t_phase = time.perf_counter()
+    texts, prompts = _text_prompts(held)
+    server = _flagship_server(model, cfg, max_new_tokens=LIFE_NEW)
+    run = _drive(server, [prompts], launches)
+    st = server._smoke_stats
+    want = _paged_expected(cfg, st)
+    got = {k: run["paged_launches"][k] for k in want}
+    ttft = server.metrics_summary()["ttft"]["p50_ms"]
+    del server
+    torch.cuda.empty_cache()
+    ref, gaps = _generate_top2(cfg, model, prompts, LIFE_NEW)
+    ties = _near_tie_check(run["results"], ref, gaps, prompts)
+    tok = ByteTokenizer()
+    answers, round_trip, other_ids = [], True, 0
+    for p, out in zip(prompts, run["results"]):
+        new = out[len(p):]
+        text = tok.decode(new)
+        answers.append(text)
+        byte_ids = [i for i in new if i < 256]
+        other_ids += len(new) - len(byte_ids)
+        round_trip &= tok.encode(text, bos=False, eos=False) == byte_ids
+    row = dict(card=torch.cuda.get_device_name(0), nvidia_smi=smi,
+               requests=len(prompts), prompt_chars=[len(t) for t in texts],
+               new_tokens=LIFE_NEW, decode_toks_s=run["decode_toks_s"],
+               ttft_p50_ms=ttft, wall_s=run["wall_s"],
+               paged_launches=run["paged_launches"], expected_launches=want,
+               tokens_equal_generate=sum(a == b for a, b in zip(
+                   run["results"], ref)),
+               diverged=ties["diverged"], round_trip=round_trip,
+               non_byte_ids=other_ids,
+               sample={"prompt_tail": texts[0][-60:], "answer": answers[0]},
+               seconds=time.perf_counter() - t_phase)
+    line("text_serve", **row)
+    if got != want:
+        raise SystemExit(f"text_serve: paged launches {got} != {want}")
+    if ties["bad"]:
+        raise SystemExit(f"text_serve: tokens differ from make_generate's "
+                         f"beyond near-ties: {ties['bad']}")
+    if not round_trip:
+        raise SystemExit(f"text_serve: decoded text does not round-trip: "
+                         f"{answers}")
+    return row, prompts
+
+
+def _timed_serve(server, prompts, launches, new_tokens, st) -> dict:
+    """Serve *prompts* at once on a warmed server: results, tokens/s over
+    the whole run and over the steps that ran no prefill chunk (*st*: the
+    server's chunk counter, ``_instrument`` or ``_instrument_spec``), the
+    paged launches (zeroed before, added to *launches*)."""
+    from kubetpu_torch.ops import paged_attention as pa
+
+    for c in _PAGED_COUNTERS:
+        setattr(pa.paged_attention, c, 0)
+    torch.cuda.synchronize()
+    t_start = time.perf_counter()
+    rids = [server.enqueue(p) for p in prompts]
+    decode_s, decode_tokens = 0.0, 0
+    while not server._idle():
+        chunks = st["chunks"]
+        t0 = time.perf_counter()
+        out = server.step()
+        dt = time.perf_counter() - t0
+        if st["chunks"] == chunks and out:
+            decode_s += dt
+            decode_tokens += sum(len(v) for v in out.values())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_start
+    counts = {c: getattr(pa.paged_attention, c) for c in _PAGED_COUNTERS}
+    _add_counts(launches, counts)
+    server.check_invariants()
+    return dict(results=[server.pop_result(r) for r in rids], wall_s=wall,
+                toks_s=len(prompts) * new_tokens / wall,
+                decode_toks_s=decode_tokens / decode_s if decode_s else None,
+                paged_launches=counts)
+
+
+def phase_distill(target, cfg, files, prompts, smi, launches) -> dict:
+    """Phase 27: phase 16's quarter draft (d 512, 3 layers, 4 heads, d_ff
+    1408, random from seed 7) distilled against the trained flagship on
+    the corpus (DISTILL_STEPS steps, flash on both, lr DISTILL_LR):
+    greedy agreement on held-out windows before and after, beside a
+    3-layer ``truncated_draft``'s; then ``PagedSpeculativeDecodeServer``
+    (target + distilled draft, gamma_max 4, adaptive) against the plain
+    ``PagedDecodeServer`` on phase 26's prompts with 64 new tokens,
+    DISTILL_PAIRS pairs alternated: tokens/s and its ratio over the whole
+    run and over the steps that ran no prefill chunk, tokens per round,
+    accepted share; then one profiled round beside ten profiled plain
+    steps (wall, device busy, idle share; the draft's and the verify's
+    device ms). Gates: agreement after > before; the speculative
+    tokens equal the plain server's under phase 16's near-tie rule. No
+    speed gate."""
+    from kubetpu_torch.jobs import distill
+    from kubetpu_torch.jobs import model as model_lib
+    from kubetpu_torch.jobs.paged import PagedDecodeServer
+    from kubetpu_torch.jobs.spec_serving import PagedSpeculativeDecodeServer
+    from kubetpu_torch.jobs.train import make_optimizer
+
+    t_phase = time.perf_counter()
+    qcfg = model_lib.ModelConfig(vocab=cfg.vocab, d_model=512, n_layers=3,
+                                 n_heads=4, d_ff=1408, max_seq=2048,
+                                 dtype=torch.bfloat16)
+    step, opt = distill.make_distill_step(
+        cfg, qcfg, make_optimizer(lr=DISTILL_LR), device="cuda")
+    dstate = distill.init_draft_state(
+        torch.Generator(device="cuda").manual_seed(7), qcfg, opt,
+        device="cuda")
+    held, _ = next(files["held"].batches(LIFE_BATCH, LIFE_SEQ, seed=4))
+    flash = {}
+
+    def agree(dc, d):
+        a, counts = _flash_delta(lambda: distill.agreement_rate(
+            cfg, dc, target, d, held))
+        _add_counts(flash, counts)
+        return a
+
+    before = agree(qcfg, dstate.params)
+    tcfg3, trunc = distill.truncated_draft(cfg, target, min(3, cfg.n_layers))
+    truncated = agree(tcfg3, trunc)
+    del trunc
+    it = files["train"].batches(LIFE_BATCH, LIFE_SEQ, seed=2)
+    dstate, _ = step(dstate, target, *next(it))       # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+
+    def steps():
+        nonlocal dstate
+        out = []
+        for _ in range(DISTILL_STEPS - 1):
+            dstate, loss = step(dstate, target, *next(it))
+            out.append(loss)
+        return [float(x) for x in out]
+
+    losses, counts = _flash_delta(steps)
+    distill_ms = (time.perf_counter() - t0) / (DISTILL_STEPS - 1) * 1e3
+    _add_counts(flash, counts)
+    after = agree(qcfg, dstate.params)
+    draft = dstate.params
+    for p in draft.parameters():
+        p.requires_grad_(False)
+    del dstate
+    torch.cuda.empty_cache()
+
+    kw = dict(n_slots=8, max_seq=2048, max_new_tokens=SPEC_NEW,
+              page_size=16, prefill_budget=256, device="cuda")
+    plain_srv = PagedDecodeServer(cfg, target, **kw)
+    plain_srv.warmup()
+    plain_st = _instrument(plain_srv)
+    rec = _record_top2(plain_srv)
+    spec_srv = PagedSpeculativeDecodeServer(cfg, qcfg, target, draft,
+                                            gamma_max=GAMMA_MAX,
+                                            adaptive_gamma=True, **kw)
+    spec_srv.warmup()
+    spec_st = _instrument_spec(spec_srv)
+    pairs = []
+    for i in range(DISTILL_PAIRS):
+        plain = _timed_serve(plain_srv, prompts, launches, SPEC_NEW,
+                             plain_st)
+        rounds0 = spec_srv._c_spec_rounds.value
+        prop0 = spec_srv._c_spec_proposed.value
+        acc0 = spec_srv._c_spec_accepted.value
+        spec = _timed_serve(spec_srv, prompts, launches, SPEC_NEW, spec_st)
+        rounds = spec_srv._c_spec_rounds.value - rounds0
+        proposed = spec_srv._c_spec_proposed.value - prop0
+        pairs.append(dict(
+            plain_toks_s=plain["toks_s"], spec_toks_s=spec["toks_s"],
+            ratio=spec["toks_s"] / plain["toks_s"],
+            plain_decode_toks_s=plain["decode_toks_s"],
+            spec_decode_toks_s=spec["decode_toks_s"],
+            decode_ratio=spec["decode_toks_s"] / plain["decode_toks_s"],
+            rounds=int(rounds),
+            accepted_share=((spec_srv._c_spec_accepted.value - acc0)
+                            / proposed if proposed else None),
+            plain=plain["results"], spec=spec["results"]))
+    gaps = _top2_gaps(rec)
+    # where a round's time goes, beside a plain decode step's
+    head = [p[:256] for p in prompts]
+    round_profile = _spec_round_profile(spec_srv, head)
+    step_profile = _ten_step_profile(plain_srv)
+    ties = _near_tie_check(pairs[0]["spec"], pairs[0]["plain"], gaps,
+                           prompts)
+    stable = all(p["plain"] == pairs[0]["plain"] and p["spec"]
+                 == pairs[0]["spec"] for p in pairs)
+    mean_tpr = spec_srv.mean_tokens_per_round()
+    del plain_srv, spec_srv
+    torch.cuda.empty_cache()
+    row = dict(card=torch.cuda.get_device_name(0), nvidia_smi=smi,
+               draft="d 512, 3 layers, 4 heads, d_ff 1408, bf16, seed 7",
+               distill_steps=DISTILL_STEPS, distill_step_ms=distill_ms,
+               distill_loss_first10=float(np.mean(losses[:10])),
+               distill_loss_last10=float(np.mean(losses[-10:])),
+               agreement_before=before, agreement_after=after,
+               agreement_truncated3=truncated,
+               agreement_windows=[LIFE_BATCH, LIFE_SEQ],
+               spec_new_tokens=SPEC_NEW, gamma_max=GAMMA_MAX,
+               pairs=[{k: v for k, v in p.items() if k not in ("plain",
+                                                              "spec")}
+                      for p in pairs],
+               ratio_median=float(np.median([p["ratio"] for p in pairs])),
+               decode_ratio_median=float(np.median(
+                   [p["decode_ratio"] for p in pairs])),
+               round_profile=round_profile, plain_step_profile=step_profile,
+               mean_tokens_per_round=mean_tpr,
+               tokens_equal_plain=sum(a == b for a, b in zip(
+                   pairs[0]["spec"], pairs[0]["plain"])),
+               runs_repeat_tokens=stable, diverged=ties["diverged"],
+               flash_launches=flash,
+               seconds=time.perf_counter() - t_phase)
+    line("distill", **row)
+    if not after > before:
+        raise SystemExit(f"distill: agreement {before} -> {after}")
+    if ties["bad"]:
+        raise SystemExit(f"distill: speculative tokens differ from the plain "
+                         f"server's beyond near-ties: {ties['bad']}")
+    return row
+
+
+def _llama_state_dict(gen, vocab, d, layers, heads, kv_heads, d_ff,
+                      dtype=torch.bfloat16) -> dict:
+    """A seeded state dict in ``LlamaForCausalLM``'s layout (torch Linear
+    weights (out, in), norms at one), on the CPU."""
+    hd = d // heads
+
+    def w(out, inp):
+        return (torch.randn((out, inp), generator=gen) * inp ** -0.5).to(
+            dtype)
+
+    sd = {"model.embed_tokens.weight": w(vocab, d)}
+    for i in range(layers):
+        p = f"model.layers.{i}."
+        sd.update({
+            p + "input_layernorm.weight": torch.ones(d, dtype=dtype),
+            p + "post_attention_layernorm.weight": torch.ones(d, dtype=dtype),
+            p + "self_attn.q_proj.weight": w(heads * hd, d),
+            p + "self_attn.k_proj.weight": w(kv_heads * hd, d),
+            p + "self_attn.v_proj.weight": w(kv_heads * hd, d),
+            p + "self_attn.o_proj.weight": w(d, heads * hd),
+            p + "mlp.gate_proj.weight": w(d_ff, d),
+            p + "mlp.up_proj.weight": w(d_ff, d),
+            p + "mlp.down_proj.weight": w(d, d_ff)})
+    sd["model.norm.weight"] = torch.ones(d, dtype=dtype)
+    sd["lm_head.weight"] = w(vocab, d)
+    return sd
+
+
+def _llama_namespace(vocab, d, layers, heads, kv_heads, d_ff, max_pos,
+                     **extra):
+    import types
+
+    return types.SimpleNamespace(
+        model_type="llama", vocab_size=vocab, hidden_size=d,
+        num_hidden_layers=layers, num_attention_heads=heads,
+        num_key_value_heads=kv_heads, intermediate_size=d_ff,
+        max_position_embeddings=max_pos, rms_norm_eps=1e-6,
+        rope_theta=10000.0, **extra)
+
+
+def phase_hf_import(smi: str, launches) -> dict:
+    """Phase 28: seeded llama-layout state dicts at the flagship's widths
+    (MHA, and GQA with 4 KV heads under a llama3 ``rope_scaling``
+    namespace), bf16 on the host, imported straight onto the card in bf16
+    by ``params_from_hf``: import seconds and the held peak memory against
+    the weights' bytes; each imported model serves phase 6's prompts
+    (every request its 32 tokens, the first token within LOGIT_TOL of a
+    dense forward's best, the paged launches by phase 6's rule); and a
+    small f32 import (vocab 512, d 256, 2 layers, 4 heads / 2 kv) serves
+    equal tokens on the card and on the CPU."""
+    import types
+
+    from kubetpu_torch.jobs import hf_import
+    from kubetpu_torch.jobs import model as model_lib
+    from kubetpu_torch.jobs.paged import PagedDecodeServer
+
+    t_phase = time.perf_counter()
+    widths = HF_WIDTHS
+    prompts = _serve_prompts(model_lib.ModelConfig(vocab=widths["vocab"]))
+    arms = {}
+    for name, kv, extra in (
+            ("mha", widths["heads"], {}),
+            ("gqa_llama3", 4, {"rope_scaling": {
+                "rope_type": "llama3", "factor": 8.0,
+                "low_freq_factor": 1.0, "high_freq_factor": 4.0,
+                "original_max_position_embeddings": 8192}})):
+        t0 = time.perf_counter()
+        sd = _llama_state_dict(torch.Generator().manual_seed(28), kv_heads=kv,
+                               **widths)
+        make_s = time.perf_counter() - t0
+        ns = _llama_namespace(widths["vocab"], widths["d"], widths["layers"],
+                              widths["heads"], kv, widths["d_ff"], 2048,
+                              **extra)
+        weight_bytes = sum(t.numel() * 2 for t in sd.values())
+        gc.collect()              # the last arm's server holds cycles
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model, cfg = hf_import.params_from_hf(
+            types.SimpleNamespace(config=ns, state_dict=lambda: sd),
+            dtype=torch.bfloat16, device="cuda")
+        torch.cuda.synchronize()
+        import_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        held = torch.cuda.memory_allocated() - base
+        del sd
+        cfg = dataclasses.replace(cfg, max_seq=2048)
+        server = _flagship_server(model, cfg, max_new_tokens=32)
+        run = _drive(server, [prompts], launches)
+        want = _paged_expected(cfg, server._smoke_stats)
+        got = {k: run["paged_launches"][k] for k in want}
+        i = SERVE_LENGTHS.index(max(SERVE_LENGTHS))
+        with torch.no_grad():
+            dense = model_lib.forward(
+                model, torch.tensor([prompts[i]], device="cuda"), cfg)[0, -1]
+        served = run["results"][i][len(prompts[i])]
+        first_gap = float(dense.float().max() - dense.float()[served])
+        ok = (got == want and first_gap <= LOGIT_TOL
+              and all(len(r) == len(p) + 32
+                      for r, p in zip(run["results"], prompts)))
+        arms[name] = dict(kv_heads=kv, rope_llama3=cfg.rope_llama3_scaling,
+                          state_dict_make_s=make_s, import_s=import_s,
+                          weight_bytes=weight_bytes, held_bytes=held,
+                          peak_bytes=peak, peak_over_weights=peak
+                          / weight_bytes, decode_toks_s=run["decode_toks_s"],
+                          paged_launches=run["paged_launches"],
+                          first_token_dense_gap=first_gap, ok=ok)
+        del server, model, dense
+        torch.cuda.empty_cache()
+    # the small f32 import: card tokens == CPU tokens
+    small = dict(vocab=512, d=256, layers=2, heads=4, kv_heads=2, d_ff=512)
+    sd = _llama_state_dict(torch.Generator().manual_seed(29),
+                           dtype=torch.float32, **small)
+    ns = _llama_namespace(small["vocab"], small["d"], small["layers"],
+                          small["heads"], small["kv_heads"], small["d_ff"],
+                          256)
+    rng = np.random.default_rng(28)
+    sp = [rng.integers(0, 512, n).tolist() for n in (5, 40, 23, 70)]
+    tokens = {}
+    for dev in ("cpu", "cuda"):
+        model, scfg = hf_import.params_from_hf(
+            types.SimpleNamespace(config=ns, state_dict=lambda: sd),
+            device=dev)
+        server = PagedDecodeServer(scfg, model, n_slots=3, max_seq=256,
+                                   max_new_tokens=16, page_size=16,
+                                   prefill_budget=32, device=dev)
+        if dev == "cuda":
+            run = _timed_serve(server, sp, launches, 16, _instrument(server))
+        else:
+            rids = [server.enqueue(p) for p in sp]
+            server.drain()
+            run = {"results": [server.pop_result(r) for r in rids]}
+        tokens[dev] = run["results"]
+    small_equal = tokens["cpu"] == tokens["cuda"]
+    row = dict(card=torch.cuda.get_device_name(0), nvidia_smi=smi,
+               widths=widths, arms=arms, small_f32_equal=small_equal,
+               seconds=time.perf_counter() - t_phase)
+    line("hf_import", **row)
+    bad = [k for k, v in arms.items() if not v["ok"]]
+    if bad or not small_equal:
+        raise SystemExit(f"hf_import: arms {bad} failed, small f32 equal "
+                         f"{small_equal}")
+    return row
+
+
 def main(argv) -> int:
+    t_script = time.perf_counter()
     record_path = None
     if argv[:1] == ["--record"] and len(argv) == 2:
         record_path = argv[1]
@@ -4315,7 +5142,8 @@ def main(argv) -> int:
     del server
     torch.cuda.empty_cache()
     # the paged launches of every main-path phase: serve, prefix, window,
-    # wire, dense, spec, multilora, router, int8w, moe
+    # wire, dense, spec, multilora, router, int8w, moe, text_serve, distill,
+    # hf_import
     paged_launches = dict(serve["paged_launches"])
     prefix = phase_prefix(model, cfg, dev["nvidia_smi"], paged_launches)
     window = phase_window(model, cfg, dev["nvidia_smi"], paged_launches)
@@ -4341,10 +5169,30 @@ def main(argv) -> int:
     del base
     torch.cuda.empty_cache()
     moe_train = phase_moe_train(dev["nvidia_smi"])
+    # the lifecycle: text -> corpus -> train -> checkpoint -> restore ->
+    # serve text -> distil a draft -> speculate; then the importer
+    text_data, files, held = phase_text_data(dev["nvidia_smi"],
+                                             train["step_ms"])
+    text_train, life_state, life_cfg = phase_text_train(dev["nvidia_smi"],
+                                                        files)
+    target = life_state.params
+    del life_state
+    torch.cuda.empty_cache()
+    text_serve, text_prompts = phase_text_serve(
+        target, life_cfg, held, dev["nvidia_smi"], paged_launches)
+    distill = phase_distill(target, life_cfg, files, text_prompts,
+                            dev["nvidia_smi"], paged_launches)
+    del target
+    for f in files.values():
+        f.close()
+    torch.cuda.empty_cache()
+    hf_import = phase_hf_import(dev["nvidia_smi"], paged_launches)
+    shutil.rmtree(LIFE_DIR, ignore_errors=True)
 
     # the paged kernels at the main path's cases (launches: phases 6, 8, 9,
-    # 12, 15, 16, 17, 19, 20 and 21; the SIMT chunk's: phase 5 and phase
-    # 16's f32 arm, whose verify chunks take it too): the split and combine
+    # 12, 15, 16, 17, 19, 20, 21, 26, 27 and 28; the SIMT chunk's: phase 5,
+    # phase 16's f32 arm, whose verify chunks take it too, and phase 28's
+    # small f32 import): the split and combine
     # kernels at decode_bf16 (max_abs_err over every decode case), the
     # chunk kernel's dense instance at chunk_bf16_T256 (max_abs_err over
     # both dense wgmma cases), its int8 instance at the int8 storm arm's
@@ -4408,15 +5256,16 @@ def main(argv) -> int:
         dict(paged, name="paged_attention_chunk_simt", instances="simt",
              launches=parity["paged_launches"]["simt_launches"]
              + paged_launches["simt_launches"],
-             launches_from="parity, spec", max_abs_err=simt["max_abs_err"],
+             launches_from="parity, spec, hf_import",
+             max_abs_err=simt["max_abs_err"],
              ms=simt["ms"], plain_ms=simt["plain_ms"],
              bound_ms=simt["bound_ms"], bound_by=simt["bound_by"],
              library_ms=simt["library_ms"], ok=simt["ok"]),
     ]
     # the flash kernels at the main path's case (causal); max_abs_err and ok
     # over all three cases; launches over the timed steps of phases 11, 18
-    # and 23
-    trained = (train, lora_train, moe_train["train"])
+    # and 23 and the training, evaluation and distillation of 25 and 27
+    trained = (train, lora_train, moe_train["train"], text_train, distill)
     for kind, name, replaces in (
             ("forward", "flash_forward", "kubetpu/ops/flash_attention.py:41"),
             ("dq", "flash_backward_dq", "kubetpu/ops/flash_attention.py:141"),
@@ -4445,8 +5294,12 @@ def main(argv) -> int:
               "train_parity": train_parity,
               "train": train, "train_profile": train_prof,
               "lora_train": lora_train, "int8w": int8w, "rolling": rolling,
-              "moe": moe, "moe_train": moe_train,
+              "moe": moe, "moe_train": moe_train, "text_data": text_data,
+              "text_train": text_train, "text_serve": text_serve,
+              "distill": distill, "hf_import": hf_import,
               "kernels": kernels}
+    record["wall_s"] = time.perf_counter() - t_script
+    line("wall", seconds=record["wall_s"])
     if record_path:
         os.makedirs(os.path.dirname(os.path.abspath(record_path)),
                     exist_ok=True)

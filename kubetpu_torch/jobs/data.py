@@ -1,8 +1,10 @@
 """Training data (port of ``kubetpu/jobs/data.py``): the deterministic
-synthetic LM corpus, document packing and evaluation.
+synthetic LM corpus, document packing, masked-LM batches, the byte-level
+tokenizer, evaluation and the synthetic image set.
 
 This is numpy code, copied so that the port imports nothing of
-``kubetpu``; for the same seeds it yields byte-equal batches. Batches stay
+``kubetpu``; for the same seeds it yields byte-equal batches, and
+``ByteTokenizer.encode_file`` writes a byte-equal corpus file. Batches stay
 host-side numpy; ``train.make_train_step``'s step uploads them.
 ``prefetch_to_mesh`` waits for the multi-device slice.
 """
@@ -177,6 +179,67 @@ def pack_documents(
         yield flush(rows, iso)
 
 
+def mlm_batches(
+    corpus: "SyntheticCorpus", batch: int, seq: int,
+    mask_rate: float = 0.15, seed: int = 0,
+) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+    """(tokens, mask_positions) batches for the encoder's masked-LM
+    objective: original tokens plus a bool mask of the positions to
+    corrupt/predict. Deterministic per seed; every row has at least one
+    masked position (an all-unmasked row contributes nothing)."""
+    rng = np.random.RandomState(seed + 1)
+    for tokens, _targets in corpus.batches(batch, seq, seed=seed):
+        mask = rng.rand(batch, seq) < mask_rate
+        none = ~mask.any(axis=1)
+        mask[none, rng.randint(0, seq, size=int(none.sum()))] = True
+        yield tokens, mask
+
+
+class ByteTokenizer:
+    """Byte-level tokenizer: UTF-8 bytes are token ids 0..255, with BOS=256
+    and EOS=257 (vocab 258). Zero vocabulary files, fully reversible, and
+    every possible input is in-distribution. For imported HF checkpoints
+    use the subword tokenizer, ``kubetpu_torch.jobs.tokenizer.
+    load_hf_tokenizer`` (byte-level BPE from ``tokenizer.json``, the same
+    encode/decode/encode_file surface)."""
+
+    BOS = 256
+    EOS = 257
+    vocab = 258
+
+    def encode(self, text: str, bos: bool = True, eos: bool = True):
+        ids = list(text.encode("utf-8"))
+        return ([self.BOS] if bos else []) + ids + ([self.EOS] if eos else [])
+
+    def decode(self, ids) -> str:
+        data = bytes(i for i in ids if 0 <= int(i) < 256)
+        return data.decode("utf-8", errors="replace")
+
+    def encode_file(self, text_path: str, out_path: str,
+                    doc_sep: str = "\n\n") -> int:
+        """Tokenize a text file into a flat binary corpus for the native
+        loader (``native_data.TokenFile``): documents split on *doc_sep*
+        each get BOS...EOS framing. Returns the token count. The output is
+        the uint16 format ``write_token_file`` produces, so
+        ``TokenFile(out_path).batches(...)`` feeds the train loop directly.
+        The ids are assembled as numpy byte arrays (the same file as
+        ``encode`` per document, without a Python int per byte)."""
+        from kubetpu_torch.jobs.native_data import write_token_file
+
+        with open(text_path, encoding="utf-8") as f:
+            text = f.read()
+        frame = (np.asarray([self.BOS], np.uint16),
+                 np.asarray([self.EOS], np.uint16))
+        parts = []
+        for doc in filter(None, text.split(doc_sep)):
+            parts += [frame[0],
+                      np.frombuffer(doc.encode("utf-8"), np.uint8), frame[1]]
+        tokens = (np.concatenate(parts).astype(np.uint16) if parts
+                  else np.zeros(0, np.uint16))
+        write_token_file(out_path, tokens, dtype=np.uint16)
+        return int(tokens.size)
+
+
 def evaluate(eval_step, params, batches: Iterable[Batch], n_batches: int):
     """Mean validation loss + perplexity over *n_batches* from *batches*.
 
@@ -197,3 +260,31 @@ def evaluate(eval_step, params, batches: Iterable[Batch], n_batches: int):
         "n_batches": len(losses),
         "n_tokens": n_tokens,
     }
+
+
+class SyntheticImages:
+    """Deterministic labeled images for the ViT family: each class is a
+    distinct low-frequency pattern plus noise — separable enough that a
+    small ViT measurably learns, reproducible from (n_classes, seed)."""
+
+    def __init__(self, image_size: int = 16, channels: int = 3,
+                 n_classes: int = 10, seed: int = 0):
+        self.image_size = image_size
+        self.channels = channels
+        self.n_classes = n_classes
+        rng = np.random.RandomState(seed)
+        self._prototypes = rng.randn(
+            n_classes, image_size, image_size, channels
+        ).astype(np.float32)
+
+    def batches(
+        self, batch: int, seed: int = 0, noise: float = 0.3
+    ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+        """Endless (images (B,H,W,C) float32, labels (B,) int32)."""
+        rng = np.random.RandomState(seed)
+        while True:
+            labels = rng.randint(0, self.n_classes, size=batch)
+            images = self._prototypes[labels] + noise * rng.randn(
+                batch, self.image_size, self.image_size, self.channels
+            ).astype(np.float32)
+            yield images, labels.astype(np.int32)

@@ -1126,3 +1126,93 @@ def test_moe_paged_server_on_the_card_matches_the_cpu(cuda, kv_int8):
     moved = [b - a for a, b in zip(counts, _paged_counts())]
     assert got == want
     assert moved[1] > 0                               # split decode steps
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_checkpoint_card_to_cpu_to_card(cuda, dtype, tmp_path):
+    """A train state trained on the card, written by ``save_checkpoint``
+    and by the ``AsyncCheckpointer`` (whose pinned snapshot must not see
+    the steps taken after ``save``), restores onto the CPU and back onto
+    the card byte-equal; training resumes on the card with the losses of
+    the uninterrupted run within 1e-4 relative."""
+    from kubetpu_torch.jobs import checkpoint as ckpt
+    from kubetpu_torch.jobs import train
+    from kubetpu_torch.jobs.data import SyntheticCorpus
+    from kubetpu_torch.jobs.model import ModelConfig
+
+    cfg = ModelConfig(vocab=256, d_model=128, n_layers=2, n_heads=2,
+                      d_ff=256, max_seq=128, dtype=dtype)
+    state, opt = train.init_state(
+        torch.Generator(device="cuda").manual_seed(0), cfg, device="cuda")
+    step = train.make_train_step(cfg, opt, device="cuda")
+    it = SyntheticCorpus(cfg.vocab, seed=1).batches(2, 128, seed=2)
+    batches = [next(it) for _ in range(6)]
+    for b in batches[:2]:
+        state, _ = step(state, *b)
+    snap = [t.detach().clone() for t in ckpt._leaves(state)]
+    ckpt.save_checkpoint(str(tmp_path / "sync"), state)
+    saver = ckpt.AsyncCheckpointer()
+    saver.save(str(tmp_path / "async"), state)
+    straight = []
+    for b in batches[2:]:
+        state, loss = step(state, *b)
+        straight.append(float(loss))
+    saver.close()
+    for name in ("sync", "async"):
+        host, _ = train.init_state(torch.Generator().manual_seed(5), cfg,
+                                   device="cpu")
+        ckpt.restore_checkpoint(str(tmp_path / name), host)
+        card, opt2 = train.init_state(
+            torch.Generator(device="cuda").manual_seed(6), cfg,
+            device="cuda")
+        for src, cpu_t, card_t in zip(snap, ckpt._leaves(host),
+                                      ckpt._leaves(card)):
+            assert cpu_t.device.type == "cpu"
+            assert torch.equal(cpu_t, src.cpu())
+        ckpt.save_checkpoint(str(tmp_path / (name + "_cpu")), host)
+        ckpt.restore_checkpoint(str(tmp_path / (name + "_cpu")), card)
+        for src, t in zip(snap, ckpt._leaves(card)):
+            assert t.device.type == "cuda" and torch.equal(t, src)
+        step2 = train.make_train_step(cfg, opt2, device="cuda")
+        resumed = []
+        for b in batches[2:]:
+            card, loss = step2(card, *b)
+            resumed.append(float(loss))
+        # the card's reductions may order sums differently run to run
+        assert all(abs(a - b) <= 1e-4 * abs(b)
+                   for a, b in zip(resumed, straight)), (resumed, straight)
+
+
+@pytest.mark.gpu
+def test_token_file_batches_feed_the_card(cuda, tmp_path):
+    """``TokenFile`` batches (the loader built at first use) upload to the
+    card as the train step's int64 tokens unchanged, and a train step and
+    an eval step consume them."""
+    import numpy as np
+
+    from kubetpu_torch.jobs import native_data, train
+    from kubetpu_torch.jobs.data import ByteTokenizer
+    from kubetpu_torch.jobs.model import ModelConfig
+
+    text = tmp_path / "t.txt"
+    text.write_text("\n\n".join(f"document {i}: the quick brown fox jumps "
+                                f"over the lazy dog {i * 7}" for i in
+                                range(200)))
+    n = ByteTokenizer().encode_file(str(text), str(tmp_path / "t.bin"))
+    cfg = ModelConfig(vocab=258, d_model=128, n_layers=1, n_heads=2,
+                      d_ff=256, max_seq=64)
+    state, opt = train.init_state(
+        torch.Generator(device="cuda").manual_seed(0), cfg, device="cuda")
+    step = train.make_train_step(cfg, opt, device="cuda")
+    evaluate = train.make_eval_step(cfg, device="cuda")
+    with native_data.TokenFile(str(tmp_path / "t.bin")) as tf:
+        assert tf.num_tokens == n
+        tokens, targets = next(tf.batches(4, 64, seed=3))
+        up = torch.from_numpy(tokens).to("cuda", torch.int64)
+        assert torch.equal(up.cpu(), torch.from_numpy(tokens).long())
+        assert int(up.max()) < ByteTokenizer.vocab
+        state, loss = step(state, tokens, targets)
+        assert np.isfinite(float(loss))
+        assert np.isfinite(float(evaluate(state.params, tokens, targets)))

@@ -41,7 +41,9 @@ def test_fresh_import_loads_no_jax_and_no_kubetpu():
                  "router.migration", "router.replica", "router.adapters",
                  "router.hashring", "router.pool", "router.server",
                  "router.autoscaler", "obs.slo", "obs.profile",
-                 "obs.exporter", "jobs.quant", "jobs.sampling", "entry"):
+                 "obs.exporter", "jobs.quant", "jobs.sampling", "entry",
+                 "jobs.native_data", "jobs.tokenizer", "jobs.checkpoint",
+                 "jobs.hf_import", "jobs.distill"):
         assert f"kubetpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"
@@ -74,6 +76,69 @@ def test_sources_import_neither_jax_nor_kubetpu():
         assert hit is None, f"{path}: {hit.group(0)!r}"
     assert len(paths) >= 20
     assert any("router" in p and p.endswith("replica.py") for p in paths)
+
+
+# what the card machine does not have: the lifecycle modules (tokenizer,
+# importer, checkpoint) must not reach for it
+FOREIGN = ("jax", "kubetpu", "transformers", "safetensors", "orbax", "regex")
+
+
+def test_lifecycle_modules_load_nothing_foreign_in_a_fresh_interpreter():
+    """The text, checkpoint, importer and distillation modules, imported
+    and exercised in a fresh interpreter (the BPE fixture loaded and
+    encoded through the stdlib ``re``, a checkpoint written and restored,
+    a namespace config imported, one distill step), leave jax, kubetpu,
+    transformers, safetensors, orbax and regex out of sys.modules."""
+    fixture = os.path.join(REPO, "tests", "fixtures", "tiny_tokenizer.json")
+    code = (
+        "import os, sys, tempfile, types, torch\n"
+        "torch.set_num_threads(1)\n"
+        "from kubetpu_torch.jobs import (checkpoint, data, distill, "
+        "hf_import, native_data, tokenizer, train)\n"
+        "from kubetpu_torch.jobs.model import ModelConfig\n"
+        f"tok = tokenizer.load_hf_tokenizer({fixture!r})\n"
+        "assert tok.decode(tok.encode('Héllo 123 wörld')) == "
+        "'Héllo 123 wörld'\n"
+        "cfg = ModelConfig(vocab=32, d_model=16, n_layers=1, n_heads=2, "
+        "d_ff=32)\n"
+        "st, opt = train.init_state(torch.Generator().manual_seed(0), cfg, "
+        "device='cpu')\n"
+        "d = tempfile.mkdtemp()\n"
+        "checkpoint.save_checkpoint(d + '/1', st)\n"
+        "checkpoint.restore_checkpoint(d + '/1', st)\n"
+        "ns = types.SimpleNamespace(vocab_size=32, hidden_size=16, "
+        "num_hidden_layers=1, num_attention_heads=2, intermediate_size=32, "
+        "max_position_embeddings=64)\n"
+        "assert hf_import.config_from_hf(ns).d_model == 16\n"
+        "step, _ = distill.make_distill_step(cfg, cfg, device='cpu')\n"
+        "import numpy as np\n"
+        "x = np.zeros((1, 8), np.int64)\n"
+        "step(distill.init_draft_state(torch.Generator().manual_seed(1), "
+        "cfg, opt, device='cpu'), st.params, x, x)\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FOREIGN!r})\n"
+        "print(bad)\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_sources_import_nothing_the_card_lacks():
+    """No source of the port, nor ``chip_smoke.py``, imports
+    transformers, safetensors, orbax or regex (lazy imports included)."""
+    pattern = re.compile(
+        r"^\s*(import|from)\s+(transformers|safetensors|orbax|regex)\b",
+        re.M)
+    paths = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _dirs, files in os.walk(PKG_DIR):
+        paths += [os.path.join(root, n) for n in files if n.endswith(".py")]
+    for path in paths:
+        with open(path) as f:
+            hit = pattern.search(f.read())
+        assert hit is None, f"{path}: {hit.group(0)!r}"
 
 
 # the router side holds no model: these files import no torch of their own
@@ -223,6 +288,25 @@ def test_entry_points_default_to_the_card_and_raise_without_it():
                               stack_adapters(lcfg, [adapter]))
     with pytest.raises(RuntimeError, match="CUDA"):
         lora_from_numpy(lora_to_numpy(adapter))
+    # the lifecycle entry points: the importer and distillation
+    import types
+
+    from kubetpu_torch.jobs import distill, hf_import
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        hf_import.params_from_hf({}, cfg=cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        hf_import.params_from_hf(types.SimpleNamespace(
+            config=types.SimpleNamespace(
+                vocab_size=32, hidden_size=16, num_hidden_layers=1,
+                num_attention_heads=2, intermediate_size=32,
+                max_position_embeddings=64),
+            state_dict=dict))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        distill.make_distill_step(cfg, cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        distill.init_draft_state(torch.Generator().manual_seed(0), cfg,
+                                 distill.make_optimizer())
     # the flash wrappers follow their tensors: the plain version on the
     # CPU, the kernel on the card, and anything else raises
     meta = torch.empty((1, 4, 2, 8), device="meta")
