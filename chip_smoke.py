@@ -1,6 +1,6 @@
 """Drive the PyTorch port (``kubetpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--record PATH]
+    python3 chip_smoke.py [--record PATH] [--phases 29-33]
 
 Phases, one line each, any failure exits non-zero:
 
@@ -29,7 +29,8 @@ Phases, one line each, any failure exits non-zero:
    the route ``_route`` takes and the fastest;
 4. flash: the forward, dQ and dK/dV kernels at the flagship training shape
    (B=4, S=2048, H=16, D=128, bf16; causal, causal with window 256, and
-   non-causal), each against its plain version, with the same timings
+   non-causal) and at ViT-B/16's (B=128, S=196, H=12, D=64, non-causal),
+   each against its plain version, with the same timings
    (SDPA forward and SDPA backward as the library yardsticks), the route
    that ran (the wgmma or SIMT instances), achieved TFLOP/s, and the
    instance's registers, spill bytes (``nvcc -Xptxas -v``) and shared
@@ -223,15 +224,52 @@ Phases, one line each, any failure exits non-zero:
    card in bf16 (seconds, held peak memory against the weights' bytes),
    each served at phase 6's prompts; a small f32 import's tokens on the
    card equal the CPU's;
-14. the ``kernels`` JSON line, 8 kernels (launches: the paged split,
+32. beam (after phase 27, on its trained flagship): ``make_beam_search``,
+   beam 4, 4 held-out prompts of 256 tokens, 64 steps, without EOS, with
+   EOS and with length penalty 0.6: ms a step against greedy's at batch
+   16, one profiled search (the parent gather's and the cache upcast's
+   device ms); gates in ``phase_beam``'s docstring (beam 1 equals greedy
+   under the near-tie rule, every beam's score against a teacher-forced
+   recompute, beyond it a search whose caches are left unreordered);
+29. encoder (after phase 28): the masked-LM encoder at phase 11's widths
+   and shape, ``attention="flash"`` (the flash kernels with
+   ``causal=False``): step ms, tokens/s, MFU, device busy, idle share,
+   peak memory beside phase 11's causal step; gates: 24 / 12 / 12 flash
+   launches a step, all wgmma; a falling loss; the loss within 0.02 of
+   the dense core's on the same batch and weights, and the final hidden
+   states within 0.05 of the dense core's at every position (a causal
+   core, the planted fault, beyond it);
+33. profiling (on phase 29's model): ``profiling.marginal_ms`` of the
+   flash forward at the encoder's shape three ways (eager calls, a CUDA
+   graph of n calls, CUDA events) and ``profiling.trace()`` around two
+   encoder steps (the trace names the three flash wgmma kernels);
+30. vit: ViT-B/16's widths on the repo's block (~114M parameters), batch
+   128 of ``SyntheticImages(224, 3, 1000)``, flash at D 64 over 196
+   patches: step ms, images/s, a no-grad forward at batch 256, the flash
+   forward at this shape against its bound; gates: all flash launches on
+   wgmma, a falling loss;
+31. seq2seq: the encoder-decoder at the flagship's widths (~1.63B
+   parameters) on a copy task, batch 4, 1024 + 1024 tokens: step ms,
+   tokens/s; then greedy generate on its weights (batch 8, source 512, 64
+   new): the cached path's logits at every step within 0.25 of a
+   teacher-forced ``decoder_forward``'s, cached against recompute tokens
+   under the near-tie rule, ms a token, device busy against wall; no flash
+   launch;
+14. the ``kernels`` JSON line, 14 kernels (launches: the paged split,
    combine and wgmma chunk kernels' — dense and int8 instances — over
    phases 6, 8, 9, 12, 15, 16, 17, 19, 20, 21, 26, 27 and 28, the SIMT
    chunk's over phases 5, 16 and 28, the flash kernels' over the timed
    steps of phases 11, 18 and 23 and every flash launch of phases 25 and
-   27), the script's wall time, then the result line.
+   27; then the three flash kernels' ``causal=False`` cases at the
+   encoder's shape, launches from phase 29's timed steps, and at ViT's,
+   from phase 30's timed steps and no-grad calls), the script's wall time,
+   then the result line.
 
 Nothing of JAX or of the ``kubetpu`` package is imported. ``--record PATH``
-also writes every measured number as one JSON file.
+also writes every measured number as one JSON file. ``--phases 29-33``
+runs phases 1, 2 and 4, then only the other families (29, 33, 30, 31, and
+32 on a random-weight flagship with ``SyntheticCorpus`` prompts) in a few
+minutes, and prints no ``kernels`` line.
 """
 
 from __future__ import annotations
@@ -724,6 +762,9 @@ def phase_verify_routes() -> list:
 # -- phase 4: the flash kernels against their plain versions -----------------
 
 FLASH_SHAPE = dict(B=4, S=2048, H=16, D=128)
+# ViT-B/16's attention (phase 30): 196 patches (a ragged last tile), 12
+# heads of 64
+VIT_FLASH_SHAPE = dict(B=128, S=196, H=12, D=64)
 
 
 def _visible_pairs(s: int, causal: bool, window: int) -> int:
@@ -736,12 +777,13 @@ def _visible_pairs(s: int, causal: bool, window: int) -> int:
     return sum(min(r + 1, window) for r in range(s))
 
 
-def _flash_bound(kind: str, causal: bool, window: int, itemsize: int):
-    """Least time for one call at FLASH_SHAPE: its operations (2 flops per
+def _flash_bound(kind: str, causal: bool, window: int, itemsize: int,
+                 shape=FLASH_SHAPE):
+    """Least time for one call at *shape*: its operations (2 flops per
     multiply-add, D per visible pair for each product recomputed: 2 in the
     forward, 3 in dQ, 4 in dK/dV) against its bytes (every (B, S, H, D)
     input read once and output written once, and the f32 lse / delta rows)."""
-    b, s, h, d = (FLASH_SHAPE[x] for x in "BSHD")
+    b, s, h, d = (shape[x] for x in "BSHD")
     products = {"forward": 2, "dq": 3, "dkv": 4}[kind]
     flops = 2 * d * products * b * h * _visible_pairs(s, causal, window)
     # forward: q k v out, lse; dQ: q k v dO dq, lse delta; dK/dV: q k v dO
@@ -775,13 +817,19 @@ def _ptxas(fragment: str, lib: str = "flash_attention") -> dict:
     raise SystemExit(f"ptxas: no report for {fragment}")
 
 
-# the instances phase 4 runs at FLASH_SHAPE, bf16 at D = 128: (route,
-# mangled-name fragment, kernel code of kubetpu_flash_smem_bytes)
+# the instances phase 4 runs, bf16 at D = 128 (FLASH_SHAPE) and D = 64
+# (VIT_FLASH_SHAPE): (route, mangled-name fragment less the head dim, kernel
+# code of kubetpu_flash_smem_bytes)
 _INSTANCES = {
-    "forward": ("wgmma", "flash_fwd_wgmma_kernelI13__nv_bfloat16Li128E", 0),
-    "dq": ("wgmma", "flash_bwd_dq_wgmma_kernelI13__nv_bfloat16Li128E", 1),
-    "dkv": ("wgmma", "flash_bwd_dkv_wgmma_kernelI13__nv_bfloat16Li128E", 2),
+    "forward": ("wgmma", "flash_fwd_wgmma_kernelI13__nv_bfloat16Li", 0),
+    "dq": ("wgmma", "flash_bwd_dq_wgmma_kernelI13__nv_bfloat16Li", 1),
+    "dkv": ("wgmma", "flash_bwd_dkv_wgmma_kernelI13__nv_bfloat16Li", 2),
 }
+# phase 4's cases: (name, causal, window, shape)
+FLASH_CASES = (("causal", True, 0, FLASH_SHAPE),
+               ("window256", True, 256, FLASH_SHAPE),
+               ("noncausal", False, 0, FLASH_SHAPE),
+               ("vit_noncausal", False, 0, VIT_FLASH_SHAPE))
 
 
 def _err_ok(x, ref, tol):
@@ -797,29 +845,28 @@ def phase_flash() -> list:
 
     from kubetpu_torch.ops import flash_attention as fa
 
-    b, s, h, d = (FLASH_SHAPE[x] for x in "BSHD")
-    gen = torch.Generator(device="cuda").manual_seed(4321)
-    q, k, v, g = (torch.randn((b, s, h, d), generator=gen, device="cuda",
-                              dtype=torch.bfloat16) for _ in range(4))
-    # SDPA's (B, H, S, D) layout, timed only; the port never calls it
-    qt, kt, vt, gt = (x.transpose(1, 2).contiguous() for x in (q, k, v, g))
     rows = []
-    if fa._route(q.dtype, d) != "wgmma":
-        raise SystemExit("flash: the flagship shape must take the wgmma "
-                         "route")
     builds = {}
-    for kind, (route, fragment, code) in _INSTANCES.items():
-        build = _ptxas(fragment)
-        build["dynamic_smem"] = fa._lib().kubetpu_flash_smem_bytes(
-            code, d, fa._ROUTE_CODE[route])
-        builds[kind] = build
-        if route == "wgmma" and (build["spill_stores"]
-                                 or build["spill_loads"]):
-            raise SystemExit(f"flash {kind}: the bf16 D={d} wgmma instance "
-                             f"spills: {build}")
-    for case, causal, window in (("causal", True, 0),
-                                 ("window256", True, 256),
-                                 ("noncausal", False, 0)):
+    for d in sorted({shape["D"] for _c, _a, _w, shape in FLASH_CASES}):
+        if fa._route(torch.bfloat16, d) != "wgmma":
+            raise SystemExit(f"flash: bf16 at D={d} must take the wgmma "
+                             "route")
+        for kind, (route, fragment, code) in _INSTANCES.items():
+            build = _ptxas(f"{fragment}{d}E")
+            build["dynamic_smem"] = fa._lib().kubetpu_flash_smem_bytes(
+                code, d, fa._ROUTE_CODE[route])
+            builds[kind, d] = build
+            if d == 128 and (build["spill_stores"] or build["spill_loads"]):
+                raise SystemExit(f"flash {kind}: the bf16 D={d} wgmma "
+                                 f"instance spills: {build}")
+    for case, causal, window, shape in FLASH_CASES:
+        b, s, h, d = (shape[x] for x in "BSHD")
+        gen = torch.Generator(device="cuda").manual_seed(4321)
+        q, k, v, g = (torch.randn((b, s, h, d), generator=gen, device="cuda",
+                                  dtype=torch.bfloat16) for _ in range(4))
+        # SDPA's (B, H, S, D) layout, timed only; the port never calls it
+        qt, kt, vt, gt = (x.transpose(1, 2).contiguous()
+                          for x in (q, k, v, g))
         before = (fa.flash_forward.wgmma_launches,
                   fa.flash_backward.dq_wgmma_launches,
                   fa.flash_backward.dkv_wgmma_launches)
@@ -873,20 +920,21 @@ def phase_flash() -> list:
         }
         for kind, (run, plain_ms, library_ms) in timed.items():
             bound_ms, bound_by, nbytes, flops = _flash_bound(
-                kind, causal, window, q.element_size())
+                kind, causal, window, q.element_size(), shape)
             ms = cuda_ms(run, iters=10, warmup=2)
             row = dict(kernel=kind, case=case, route=_INSTANCES[kind][0],
-                       build=builds[kind],
+                       build=builds[kind, d],
                        max_abs_err=max(e for e, _ in errs[kind]),
                        tol=BF16_TOL, ok=all(o for _, o in errs[kind]),
                        ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                        bound_by=bound_by, library_ms=library_ms,
                        bytes=nbytes, flops=flops,
                        tflop_s=flops / ms / 1e9,
-                       shape=dict(FLASH_SHAPE, causal=causal, window=window,
+                       shape=dict(shape, causal=causal, window=window,
                                   dtype="bf16"))
             line("flash", **row)
             rows.append(row)
+        del q, k, v, g, qt, kt, vt, gt, out, lse, delta, dq, dk, dv
         torch.cuda.empty_cache()
     bad = [(r["kernel"], r["case"], r["max_abs_err"]) for r in rows
            if not r["ok"]]
@@ -1443,6 +1491,28 @@ def phase_window(model, cfg, smi, launches) -> dict:
     return row
 
 
+def _event_sums(events, ranges, count=lambda ev: 1):
+    """(kernels, counts, range totals) of profiler events: see
+    ``_profiled``."""
+    from torch.autograd import DeviceType
+
+    kernels, found = {}, {}
+    counts = {"device_kernels": 0, "cpu_ops": 0}
+    for ev in events:
+        if ranges is not None and ev.key in ranges:
+            if ev.device_type != DeviceType.CUDA:
+                found[ev.key] = (found.get(ev.key, 0.0)
+                                 + ev.device_time_total)
+            continue
+        if ev.device_type != DeviceType.CUDA:
+            counts["cpu_ops"] += count(ev)
+            continue
+        kernels[ev.key] = (kernels.get(ev.key, 0.0)
+                           + ev.self_device_time_total)
+        counts["device_kernels"] += count(ev)
+    return kernels, counts, found
+
+
 def _profiled(run, ranges=None):
     """(wall us, {kernel name: device self time us}, {"device_kernels": the
     kernels run, "cpu_ops": the host-side operator calls, nested ones
@@ -1452,8 +1522,13 @@ def _profiled(run, ranges=None):
     idle share. *ranges*: a dict whose keys are ``record_function`` labels
     run() opens; each gets the device time (us) of the kernels launched
     inside it (the ranges' device-side annotations stay out of the busy
-    sum)."""
-    from torch.autograd import DeviceType
+    sum).
+
+    The sums run over the profiler's events one by one, not over
+    ``key_averages()``, which walks each op's subtree again for every
+    event it averages: on a window of 10^4 events (a flagship training
+    step) that walk, not the run, takes most of the phase. The two totals
+    are held equal by ``tests/test_torch_cuda.py``."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1463,21 +1538,9 @@ def _profiled(run, ranges=None):
         run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = {}
-    counts = {"device_kernels": 0, "cpu_ops": 0}
-    for ev in prof.key_averages():
-        if ranges is not None and ev.key in ranges:
-            if ev.device_type != DeviceType.CUDA:
-                ranges[ev.key] = getattr(ev, "device_time_total",
-                                         getattr(ev, "cuda_time_total", 0.0))
-            continue
-        if ev.device_type != DeviceType.CUDA:
-            counts["cpu_ops"] += ev.count
-            continue
-        us = getattr(ev, "self_device_time_total",
-                     getattr(ev, "self_cuda_time_total", 0.0))
-        kernels[ev.key] = kernels.get(ev.key, 0.0) + us
-        counts["device_kernels"] += ev.count
+    kernels, counts, found = _event_sums(prof.events(), ranges)
+    if ranges is not None:
+        ranges.update(found)
     return wall_us, kernels, counts
 
 
@@ -4513,15 +4576,19 @@ def _cpu_target(cfg, optimizer):
     return train_lib.state_from_params(model, optimizer)
 
 
+def _flash_dict(c) -> dict:
+    """``_flash_counts()`` by name."""
+    return dict(forward=c[0], dq=c[1], dkv=c[2], forward_wgmma=c[3],
+                dq_wgmma=c[4], dkv_wgmma=c[5])
+
+
 def _flash_delta(run):
     """run() with the flash counters zeroed just before and read just
     after -> (its result, {forward, dq, dkv, *_wgmma})."""
     _zero_flash_counts()
     out = run()
     torch.cuda.synchronize()
-    c = _flash_counts()
-    return out, dict(forward=c[0], dq=c[1], dkv=c[2], forward_wgmma=c[3],
-                     dq_wgmma=c[4], dkv_wgmma=c[5])
+    return out, _flash_dict(_flash_counts())
 
 
 def _add_counts(total: dict, more: dict) -> None:
@@ -5115,13 +5182,736 @@ def phase_hf_import(smi: str, launches) -> dict:
     return row
 
 
+# -- phases 29-33: the other model families ----------------------------------
+
+FAMILY_STEPS = 5            # timed train steps of phases 29 and 30
+S2S_STEPS = 3               # phase 31's (each profiled step costs the
+                            # profiler ~10 s of processing)
+MLM_RATE = 0.15
+ENC_LOSS_TOL = 0.02         # |flash - dense| masked-LM loss in nats: bf16
+                            # through 12 layers, averaged over ~1.2k masked
+                            # positions
+ENC_HIDDEN_TOL = 0.05       # the worst position's relative L2 gap between
+                            # the final hidden states under the step's flash
+                            # core and under the dense core: bf16 through 12
+                            # layers; a causal core (the planted fault) must
+                            # read above it
+VIT_BATCH, VIT_INFER_BATCH = 128, 256
+S2S_BATCH, S2S_SRC, S2S_TGT = 4, 1024, 1024
+S2S_GEN_BATCH, S2S_GEN_SRC, S2S_GEN_NEW = 8, 512, 64
+BEAM_K, BEAM_BATCH, BEAM_PROMPT, BEAM_STEPS = 4, 4, 256, 64
+BEAM_SCORE_TOL = 0.005      # nats a generated token: a top beam's score
+                            # against a teacher-forced recompute (bf16); a
+                            # search whose cache is left unreordered (the
+                            # planted fault) must read above it
+PROFILE_N = (4, 20)         # marginal_ms's two run lengths
+PROFILED_STEPS = 16         # decode steps of the profiled beam search and
+                            # seq2seq generate (the profiler's processing
+                            # grows with the kernels it saw)
+_WGMMA_FLASH = ("flash_fwd_wgmma_kernel", "flash_bwd_dq_wgmma_kernel",
+                "flash_bwd_dkv_wgmma_kernel")
+
+
+def _timed_window(step_once, n, tokens_per_step) -> dict:
+    """n calls of step_once() (each returns a device loss, read back inside
+    its step) under ``torch.profiler`` and a ``profiling.StepTimer``; the
+    flash counters zeroed just before and read just after, the peak memory
+    reset just before: losses, the timer's summary, the window's wall and
+    device busy ms, idle share, peak memory, flash launches."""
+    from kubetpu_torch.jobs.profiling import StepTimer
+
+    timer = StepTimer(tokens_per_step)
+    losses = []
+
+    def run():
+        for _ in range(n):
+            with timer.step():
+                losses.append(float(step_once()))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    (wall_us, kernels, _counts), flash = _flash_delta(lambda: _profiled(run))
+    busy = sum(kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
+    return dict(losses=losses, timer=timer.summary(),
+                step_ms=timer.summary()["p50_ms"], window_ms=wall_us / 1e3,
+                device_busy_ms_per_step=busy / n / 1e3,
+                idle_share=(1.0 - busy / wall_us) if busy else None,
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                top_kernels_ms_per_step=[(k[:60], v / n / 1e3)
+                                         for k, v in top],
+                flash_launches=flash)
+
+
+def _flash_gate(tag, flash, layers, steps, what="a step") -> None:
+    """Full remat: 2 forward, 1 dQ and 1 dK/dV launch a layer and step, every
+    one on the wgmma instances (none on SIMT)."""
+    want = dict(forward=2 * layers * steps, dq=layers * steps,
+                dkv=layers * steps)
+    want.update({f"{k}_wgmma": v for k, v in list(want.items())})
+    if flash != want:
+        raise SystemExit(f"{tag}: flash launches {flash} != {want} "
+                         f"({steps} x {what}, all wgmma)")
+
+
+def phase_encoder(smi: str, causal_step_ms: float):
+    """Phase 29: the masked-LM encoder at the flagship's widths (phase 11's
+    config: vocab 32000, d 2048, 12 layers, 16 heads, d_ff 5632, bf16, full
+    remat), batch 4 x 2048 from ``mlm_batches`` over ``SyntheticCorpus``,
+    mask rate 0.15, ``mask_id`` = vocab - 1, ``attention="flash"`` (the
+    flash kernels with ``causal=False``): one warm-up step, FAMILY_STEPS
+    timed steps on one repeated batch (so that the loss must fall, as on
+    phase 11's repeated batch) under ``torch.profiler`` (step ms from
+    ``StepTimer``,
+    tokens/s, MFU with 6N + 12·L·d·S a token, device busy, idle share,
+    peak memory), beside phase 11's causal step. Gates: 24 / 12 / 12 flash
+    launches a step, all wgmma; the loss falls over the timed steps; the
+    first timed step's loss within ENC_LOSS_TOL of ``attention="dense"``
+    on the same batch and weights; on that batch, the final hidden states
+    under the step's core within ENC_HIDDEN_TOL of the dense core's at
+    every position, and those under a causal flash core (a planted fault)
+    beyond it. Returns the state, step and a batch for phase 33."""
+    from functools import partial
+
+    from kubetpu_torch.jobs import encoder
+    from kubetpu_torch.jobs import train as train_lib
+    from kubetpu_torch.jobs.data import SyntheticCorpus, mlm_batches
+    from kubetpu_torch.ops.flash_attention import flash_attention
+
+    t_phase = time.perf_counter()
+    cfg = _flagship_train_cfg()
+    batch, seq = FLASH_SHAPE["B"], FLASH_SHAPE["S"]
+    mask_id = cfg.vocab - 1
+    state, opt = train_lib.init_state(
+        torch.Generator(device="cuda").manual_seed(29), cfg, device="cuda")
+    n_params = sum(p.numel() for p in state.params.parameters())
+    step = encoder.make_mlm_train_step(cfg, mask_id, opt, attention="flash",
+                                       device="cuda")
+    it = mlm_batches(SyntheticCorpus(cfg.vocab, seed=0), batch, seq,
+                     mask_rate=MLM_RATE, seed=29)
+    warm, timed = (tuple(torch.from_numpy(x).to("cuda") for x in next(it))
+                   for _ in range(2))
+    state, loss = step(state, *warm)                     # warm-up
+    with torch.no_grad():
+        dense = float(encoder.masked_lm_loss(state.params, *timed, mask_id,
+                                             cfg))
+        hidden_gap = _hidden_gaps(state.params, cfg, torch.where(
+            timed[1], mask_id, timed[0]), encoder.bidirectional_attention(
+                "flash", "encoder"), encoder.dense_bidirectional_attention,
+            partial(flash_attention, causal=True))
+
+    def one():
+        nonlocal state
+        state, loss = step(state, *timed)
+        return loss
+
+    win = _timed_window(one, FAMILY_STEPS, batch * seq)
+    losses = win["losses"]
+    tokens_s = batch * seq / (win["step_ms"] / 1e3)
+    flops_per_token = 6 * n_params + 12 * cfg.n_layers * cfg.d_model * seq
+    row = dict(card=torch.cuda.get_device_name(0), nvidia_smi=smi,
+               params=n_params, batch=batch, seq=seq, mask_rate=MLM_RATE,
+               masked_positions=int(timed[1].sum()),
+               data="one mlm_batches batch, repeated",
+               attention="flash, causal=False", remat="full",
+               tokens_s=tokens_s,
+               mfu=tokens_s * flops_per_token / BF16_FLOP_S,
+               flops_per_token=flops_per_token,
+               flops_term="6N + 12*L*d*S: the attention term counts full "
+                          "visibility (every query-key pair)",
+               causal_step_ms=causal_step_ms,
+               step_over_causal=win["step_ms"] / causal_step_ms,
+               dense_loss=dense, flash_step_loss=losses[0],
+               loss_gap=abs(losses[0] - dense), loss_tol=ENC_LOSS_TOL,
+               hidden_gap=hidden_gap, hidden_tol=ENC_HIDDEN_TOL,
+               seconds=time.perf_counter() - t_phase, **win)
+    line("encoder", **row)
+    _flash_gate("encoder", win["flash_launches"], cfg.n_layers, FAMILY_STEPS)
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise SystemExit(f"encoder: the loss did not fall: {losses}")
+    if not row["loss_gap"] <= ENC_LOSS_TOL:
+        raise SystemExit(f"encoder: flash loss {losses[0]} against dense "
+                         f"{dense}: gap above {ENC_LOSS_TOL}")
+    if not hidden_gap["step"] <= ENC_HIDDEN_TOL < hidden_gap["causal"]:
+        raise SystemExit(f"encoder: hidden-state gaps {hidden_gap} against "
+                         f"the dense core: the step's must be within "
+                         f"{ENC_HIDDEN_TOL}, the causal fault's beyond it")
+    return row, state, step, timed
+
+
+def _hidden_gaps(params, cfg, tokens, step_core, dense_core,
+                 fault_core) -> dict:
+    """The worst position's ||h - h_dense|| / ||h_dense|| over the final
+    hidden states of ``forward_hidden`` under the step's attention core
+    and under a planted fault's, against the dense core's."""
+    from kubetpu_torch.jobs.model import forward_hidden
+
+    ref = forward_hidden(params, tokens, cfg, attn_fn=dense_core)[0].float()
+    norm = torch.linalg.vector_norm(ref, dim=-1)
+    out = {}
+    for name, core in (("step", step_core), ("causal", fault_core)):
+        h = forward_hidden(params, tokens, cfg, attn_fn=core)[0].float()
+        out[name] = float((torch.linalg.vector_norm(h - ref, dim=-1)
+                           / norm).max())
+    return out
+
+
+def _trace_kernel_ms(path: str) -> tuple:
+    """(device kernel ms, the kernel names) of a Chrome trace."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    return (sum(e.get("dur", 0) for e in kernels) / 1e3,
+            {e.get("name", "") for e in kernels})
+
+
+def phase_profiling(state, step, batch, smi: str) -> dict:
+    """Phase 33: ``profiling.marginal_ms`` on the encoder's flash forward
+    (FLASH_SHAPE, ``causal=False``, each call's output the next call's q)
+    three ways: the slope of n eager calls, the slope of a replayed CUDA
+    graph of n calls, and CUDA events around back-to-back calls; then
+    ``profiling.trace()`` around two of phase 29's steps (StepTimer step
+    ms, the trace's kernel time against the steps' wall). Gates: one trace
+    file, naming the three flash wgmma kernels; 2 x 24 / 12 / 12 flash
+    launches in the traced steps, all wgmma."""
+    from kubetpu_torch.jobs import profiling
+    from kubetpu_torch.ops import flash_attention as fa
+
+    t_phase = time.perf_counter()
+    b, s, h, d = (FLASH_SHAPE[x] for x in "BSHD")
+    gen = torch.Generator(device="cuda").manual_seed(33)
+    q, k, v = (torch.randn((b, s, h, d), generator=gen, device="cuda",
+                           dtype=torch.bfloat16) for _ in range(3))
+
+    def chain(n):
+        out = q
+        for _ in range(n):
+            out, _lse = fa.flash_forward(out, k, v, False, 0)
+        return out
+
+    def eager(n):
+        return lambda: chain(n)[0, 0, 0, 0].float()
+
+    graphs = []
+
+    def graphed(n):
+        chain(n)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = chain(n)
+        graphs.append((graph, out))
+
+        def run():
+            graph.replay()
+            return out[0, 0, 0, 0].float()
+        return run
+
+    _zero_flash_counts()
+    ms = {"eager_slope": profiling.marginal_ms(eager, *PROFILE_N),
+          "graph_slope": profiling.marginal_ms(graphed, *PROFILE_N),
+          "cuda_events": cuda_ms(lambda: fa.flash_forward(q, k, v, False, 0),
+                                 iters=20)}
+    marginal_launches = _flash_dict(_flash_counts())
+    del graphs, q, k, v
+    torch.cuda.empty_cache()
+
+    trace_dir = os.path.join(LIFE_DIR, "trace")
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    timer = profiling.StepTimer(b * s)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_flash_counts()
+    t0 = time.perf_counter()
+    with profiling.trace(trace_dir):
+        for _ in range(2):
+            with timer.step():
+                state, loss = step(state, *batch)
+                float(loss)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    flash = _flash_dict(_flash_counts())
+    files = sorted(os.listdir(trace_dir)) if os.path.isdir(trace_dir) else []
+    busy_ms, names = (_trace_kernel_ms(os.path.join(trace_dir, files[0]))
+                      if len(files) == 1 else (0.0, set()))
+    named = {n: any(n in x for x in names) for n in _WGMMA_FLASH}
+    row = dict(card=torch.cuda.get_device_name(0), nvidia_smi=smi,
+               shape=dict(FLASH_SHAPE, causal=False, dtype="bf16"),
+               n=list(PROFILE_N), flash_forward_ms=ms,
+               eager_over_events=ms["eager_slope"] / ms["cuda_events"],
+               graph_over_events=ms["graph_slope"] / ms["cuda_events"],
+               marginal_flash_launches=marginal_launches,
+               trace_files=files,
+               trace_mb=(os.path.getsize(os.path.join(trace_dir, files[0]))
+                         / 1e6 if files else 0.0),
+               trace_names_flash_wgmma=named, traced_steps=2,
+               traced_step_ms=timer.summary(), traced_wall_ms=wall_ms,
+               trace_kernel_ms=busy_ms,
+               idle_share=1.0 - busy_ms / wall_ms if busy_ms else None,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               flash_launches=flash,
+               seconds=time.perf_counter() - t_phase)
+    line("profiling", **row)
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    if len(files) != 1 or not all(named.values()):
+        raise SystemExit(f"profiling: trace files {files}, flash wgmma "
+                         f"kernels named {named}")
+    _flash_gate("profiling", flash, _flagship_train_cfg().n_layers, 2)
+    return row
+
+
+def _vit_cfg():
+    from kubetpu_torch.jobs import model as model_lib
+    from kubetpu_torch.jobs.vision import VitConfig
+
+    # ViT-Base (Dosovitskiy et al. 2020, Table 1): 12 layers, hidden 768,
+    # MLP 3072, 12 heads; patch 16 at 224 pixels, 1000 classes; the repo's
+    # SwiGLU block (three MLP matrices) makes it ~114M parameters
+    return VitConfig(image_size=224, patch_size=16, channels=3,
+                     n_classes=1000,
+                     model=model_lib.ModelConfig(
+                         d_model=768, n_layers=12, n_heads=12, d_ff=3072,
+                         max_seq=196, dtype=torch.bfloat16, remat=True,
+                         remat_policy="full"))
+
+
+def phase_vit(smi: str, flash_rows) -> dict:
+    """Phase 30: ViT-B/16's widths on the repo's block (``_vit_cfg``),
+    batch 128 of ``SyntheticImages(224, 3, 1000)`` (its prototypes take
+    0.6 GB of host memory; the batches are made and uploaded before the
+    timed window, the generator's ms a batch on the ``vit_data`` line),
+    bf16, full remat, ``attention="flash"`` (D 64, 196 patches): one
+    warm-up and FAMILY_STEPS timed train steps cycling over two batches
+    (each seen more than once, so that the loss must fall) under
+    ``torch.profiler``
+    (step ms, images/s, device busy, idle share, peak memory), a no-grad
+    ``vit_forward`` at batch 256 (images/s), and phase 4's flash forward
+    at this shape against its bound. Gates: 24 / 12 / 12 flash launches a
+    step, all wgmma (and 12 forward a no-grad call); the loss falls."""
+    from kubetpu_torch.jobs import vision
+    from kubetpu_torch.jobs.data import SyntheticImages
+    from kubetpu_torch.jobs.encoder import bidirectional_attention
+
+    t_phase = time.perf_counter()
+    cfg = _vit_cfg()
+    t0 = time.perf_counter()
+    data = SyntheticImages(cfg.image_size, cfg.channels, cfg.n_classes,
+                           seed=30)
+    proto_s = time.perf_counter() - t0
+    it = data.batches(VIT_BATCH, seed=30)
+    n_batches = 3                        # a warm-up batch and two timed
+    t0 = time.perf_counter()
+    host = [next(it) for _ in range(n_batches)]
+    gen_ms = (time.perf_counter() - t0) / n_batches * 1e3
+    t0 = time.perf_counter()
+    batches = [(torch.from_numpy(i).to("cuda"), torch.from_numpy(l).to("cuda"))
+               for i, l in host]
+    torch.cuda.synchronize()
+    up_ms = (time.perf_counter() - t0) / n_batches * 1e3
+    line("vit_data", card=torch.cuda.get_device_name(0), nvidia_smi=smi,
+         prototypes_gb=data._prototypes.nbytes / 1e9,
+         prototypes_s=proto_s, batch=VIT_BATCH,
+         generator_ms_per_batch=gen_ms, upload_ms_per_batch=up_ms)
+    del data, host, it
+
+    state, opt = vision.init_vit_state(
+        torch.Generator(device="cuda").manual_seed(30), cfg, device="cuda")
+    n_params = sum(p.numel() for p in state.params.parameters())
+    step = vision.make_vit_train_step(cfg, opt, attention="flash",
+                                      device="cuda")
+    state, loss = step(state, *batches[0])               # warm-up
+    feed = iter(batches[1:] * FAMILY_STEPS)
+
+    def one():
+        nonlocal state
+        state, loss = step(state, *next(feed))
+        return loss
+
+    win = _timed_window(one, FAMILY_STEPS, VIT_BATCH)
+    losses = win["losses"]
+    images = torch.cat([batches[1][0], batches[2][0]])[:VIT_INFER_BATCH]
+    attn = bidirectional_attention("flash", "vit")
+
+    def infer():
+        with torch.no_grad():
+            return vision.vit_forward(state.params, images, cfg,
+                                      attn_fn=attn)
+
+    infer()
+    infer_ms, infer_flash = _flash_delta(lambda: cuda_ms(infer, iters=5,
+                                                         warmup=1))
+    fwd = next(r for r in flash_rows if r["case"] == "vit_noncausal"
+               and r["kernel"] == "forward")
+    mcfg = cfg.model
+    tokens = VIT_BATCH * cfg.n_patches
+    flops_per_token = (6 * n_params
+                       + 12 * mcfg.n_layers * mcfg.d_model * cfg.n_patches)
+    row = dict(card=torch.cuda.get_device_name(0), nvidia_smi=smi,
+               params=n_params,
+               widths="ViT-B/16 (Dosovitskiy et al. 2020, Table 1): 12 "
+                      "layers, d 768, MLP 3072, 12 heads, patch 16, 224 px, "
+                      "1000 classes; SwiGLU blocks",
+               batch=VIT_BATCH, patches=cfg.n_patches,
+               attention="flash, causal=False", remat="full",
+               images_s=VIT_BATCH / (win["step_ms"] / 1e3),
+               mfu=tokens / (win["step_ms"] / 1e3) * flops_per_token
+               / BF16_FLOP_S,
+               infer_batch=VIT_INFER_BATCH, infer_ms=infer_ms,
+               infer_images_s=VIT_INFER_BATCH / (infer_ms / 1e3),
+               infer_flash_launches=infer_flash,
+               flash_forward=dict(ms=fwd["ms"], bound_ms=fwd["bound_ms"],
+                                  bound_by=fwd["bound_by"],
+                                  library_ms=fwd["library_ms"],
+                                  shape=fwd["shape"]),
+               seconds=time.perf_counter() - t_phase, **win)
+    line("vit", **row)
+    _flash_gate("vit", win["flash_launches"], mcfg.n_layers, FAMILY_STEPS)
+    # the counted window holds cuda_ms's warm-up call and 5 timed calls
+    want = dict(forward=6 * mcfg.n_layers, dq=0, dkv=0,
+                forward_wgmma=6 * mcfg.n_layers, dq_wgmma=0, dkv_wgmma=0)
+    if infer_flash != want:
+        raise SystemExit(f"vit: no-grad forward flash launches "
+                         f"{infer_flash} != {want}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise SystemExit(f"vit: the loss did not fall: {losses}")
+    return row
+
+
+def phase_seq2seq(smi: str) -> dict:
+    """Phase 31: the encoder-decoder at the flagship's widths (both stacks
+    phase 11's config; ~1.63B parameters, 0.95B in the decoder with its
+    cross branch), trained on a copy task (target = source) at batch 4,
+    source 1024, target 1024: one warm-up and S2S_STEPS timed steps
+    (step ms, tokens/s, device busy, idle share, peak memory); then greedy
+    generate on the trained weights, batch 8, source 512, 64 new tokens,
+    ``cached=True`` (ms a token; device busy against wall over a profiled
+    PROFILED_STEPS-token generate) against
+    ``cached=False``. Gates: the cached path's f32 logits at every step
+    within LOGIT_TOL of ``decoder_forward``'s (f32 head) with the cached
+    path's own tokens teacher-forced (the same gap one position off is
+    reported beside it, as what a misplaced row would read); the cached
+    tokens equal the recompute's, a row's first divergence allowed only
+    where the recompute's top-two logit gap is within LOGIT_TOL (counted);
+    no flash launch anywhere in the phase (the family's attention is
+    dense, as in the JAX package)."""
+    from kubetpu_torch.jobs import seq2seq
+    from kubetpu_torch.jobs.data import SyntheticCorpus
+
+    t_phase = time.perf_counter()
+    cfg = _flagship_train_cfg()
+    _zero_flash_counts()
+    state, opt = seq2seq.init_seq2seq_state(
+        torch.Generator(device="cuda").manual_seed(31), cfg, device="cuda")
+    n_params = sum(p.numel() for p in state.params.parameters())
+    n_decoder = sum(p.numel() for p in state.params.decoder.parameters())
+    step = seq2seq.make_seq2seq_train_step(cfg, opt, device="cuda")
+    it = SyntheticCorpus(cfg.vocab, seed=31).batches(S2S_BATCH, S2S_SRC,
+                                                    seed=31)
+    batches = []
+    for _ in range(S2S_STEPS + 1):
+        src = torch.from_numpy(next(it)[0]).to("cuda")
+        tgt_in = torch.cat([torch.ones_like(src[:, :1]), src[:, :-1]], 1)
+        batches.append((src, tgt_in, src))
+    state, loss = step(state, *batches[0])               # warm-up
+    feed = iter(batches[1:])
+
+    def one():
+        nonlocal state
+        state, loss = step(state, *next(feed))
+        return loss
+
+    before = _flash_dict(_flash_counts())   # init and warm-up
+    win = _timed_window(one, S2S_STEPS, S2S_BATCH * (S2S_SRC + S2S_TGT))
+    params = state.params
+    del state, opt, step
+    torch.cuda.empty_cache()
+    src = torch.from_numpy(next(SyntheticCorpus(cfg.vocab, seed=32).batches(
+        S2S_GEN_BATCH, S2S_GEN_SRC, seed=32))[0]).to("cuda")
+    cached = seq2seq.make_seq2seq_generate(cfg, bos_id=1, device="cuda")
+    recompute = seq2seq.make_seq2seq_generate(cfg, bos_id=1, cached=False,
+                                              device="cuda")
+    # the warm-up run records the cached logits of every step
+    real_chunk, steps = seq2seq.decoder_forward_chunk, []
+
+    def recorded_chunk(*args):
+        out = real_chunk(*args)
+        steps.append(out[0][:, 0].float())
+        return out
+
+    seq2seq.decoder_forward_chunk = recorded_chunk
+    try:
+        toks_w = cached(params, src, S2S_GEN_NEW)
+    finally:
+        seq2seq.decoder_forward_chunk = real_chunk
+    with torch.no_grad():
+        memory = seq2seq.encode(params, src, cfg)
+        fed = torch.cat([torch.ones_like(toks_w[:, :1]), toks_w[:, :-1]], 1)
+        x, _aux = seq2seq.decoder_forward(params, fed, memory, cfg,
+                                          return_hidden=True)
+        forced = torch.einsum("btd,dv->btv", x.float(),
+                              params.decoder.head.float())
+        got = torch.stack(steps, 1)
+        forced_gap = float((got - forced).abs().max())
+        offset_gap = float((got[:, :-1] - forced[:, 1:]).abs().max())
+    del steps, got, forced
+    from kubetpu_torch.jobs.profiling import StepTimer
+
+    timer = StepTimer(S2S_GEN_BATCH * S2S_GEN_NEW)
+    with timer.step():
+        toks_c = cached(params, src, S2S_GEN_NEW).tolist()
+    gen_ms = timer.summary()["p50_ms"]
+    wall_us, kernels, _counts = _profiled(
+        lambda: cached(params, src, PROFILED_STEPS))
+    busy = sum(kernels.values())
+    t0 = time.perf_counter()
+    out_r = recompute(params, src, S2S_GEN_NEW)
+    rec_ms = (time.perf_counter() - t0) * 1e3
+    with torch.no_grad():
+        full = torch.cat([torch.ones_like(out_r[:, :1]), out_r], 1)
+        logits = seq2seq.decoder_forward(params, full, memory, cfg)
+        top2 = torch.topk(logits[:, :S2S_GEN_NEW].float(), 2, dim=-1).values
+    gaps = (top2[..., 0] - top2[..., 1]).cpu().numpy()
+    # phase 16's rule, each row keyed by its source
+    srcs = src.tolist()
+    ties = _near_tie_check(
+        [p + t for p, t in zip(srcs, toks_c)],
+        [p + t for p, t in zip(srcs, out_r.tolist())],
+        {(tuple(p), j): float(g) for p, row in zip(srcs, gaps)
+         for j, g in enumerate(row)}, srcs)
+    flash = {k: before[k] + win["flash_launches"][k] + v
+             for k, v in _flash_dict(_flash_counts()).items()}
+    row = dict(card=torch.cuda.get_device_name(0), nvidia_smi=smi,
+               params=n_params, decoder_params=n_decoder,
+               batch=S2S_BATCH, src=S2S_SRC, tgt=S2S_TGT, task="copy",
+               tokens_s=S2S_BATCH * (S2S_SRC + S2S_TGT)
+               / (win["step_ms"] / 1e3),
+               target_tokens_s=S2S_BATCH * S2S_TGT / (win["step_ms"] / 1e3),
+               gen=dict(batch=S2S_GEN_BATCH, src=S2S_GEN_SRC,
+                        new=S2S_GEN_NEW, cached_ms=gen_ms,
+                        cached_ms_per_token=gen_ms / S2S_GEN_NEW,
+                        recompute_ms=rec_ms,
+                        profiled_tokens=PROFILED_STEPS,
+                        profiled_wall_ms=wall_us / 1e3,
+                        device_busy_ms=busy / 1e3,
+                        idle_share=(1.0 - busy / wall_us) if busy else None,
+                        teacher_forced_logit_gap=forced_gap,
+                        one_position_off_gap=offset_gap,
+                        logit_tol=LOGIT_TOL,
+                        warmup_tokens_equal=toks_w.tolist() == toks_c,
+                        rows_equal=sum(a == b for a, b in zip(
+                            toks_c, out_r.tolist())),
+                        near_tie_divergences=len(ties["diverged"]),
+                        diverged=ties["diverged"]),
+               phase_flash_launches=flash,
+               seconds=time.perf_counter() - t_phase, **win)
+    line("seq2seq", **row)
+    if any(flash.values()):
+        raise SystemExit(f"seq2seq: flash launches {flash}: the family's "
+                         "attention is dense")
+    if not all(np.isfinite(win["losses"])):
+        raise SystemExit(f"seq2seq: non-finite losses {win['losses']}")
+    if not forced_gap <= LOGIT_TOL or toks_w.tolist() != toks_c:
+        raise SystemExit(f"seq2seq: cached logits {forced_gap} off the "
+                         f"teacher-forced decoder_forward's (bound "
+                         f"{LOGIT_TOL}), or the two cached runs differ")
+    if ties["bad"]:
+        raise SystemExit(f"seq2seq: cached tokens differ from the "
+                         f"recompute's beyond near-ties: {ties['bad']}")
+    return row
+
+
+def _teacher_forced_scores(model, cfg, seqs, s_p, eos_id, alpha) -> list:
+    """Each row's sum of generated-token log-probs from one forward over
+    the whole sequence (f32 head), up to and including its first EOS,
+    divided by the GNMT penalty when *alpha* > 0: the beam's invariant."""
+    from kubetpu_torch.jobs import model as model_lib
+
+    with torch.no_grad():
+        x, _aux = model_lib.forward_hidden(model, seqs[:, :-1], cfg)
+        logp = torch.log_softmax(
+            torch.einsum("bsd,dv->bsv", x.float(), model.head.float()), -1)
+        picked = torch.gather(logp[:, s_p - 1:], 2,
+                              seqs[:, s_p:, None])[..., 0].cpu().numpy()
+    gen = seqs[:, s_p:].cpu().numpy()
+    out = []
+    for lp, toks in zip(picked, gen):
+        n = len(toks)
+        if eos_id is not None and (toks == eos_id).any():
+            n = int(np.argmax(toks == eos_id)) + 1
+        total = float(lp[:n].sum())
+        if alpha > 0:
+            total /= ((5.0 + n) / 6.0) ** alpha
+        out.append(total)
+    return out
+
+
+def phase_beam(model, cfg, files, smi: str,
+               weights="phase 25's trained flagship") -> dict:
+    """Phase 32: ``make_beam_search`` on phase 25's trained flagship (the
+    weights phases 26-27 serve): beam 4, 4 held-out prompts of 256 tokens,
+    64 steps, without EOS, with EOS and with ``length_penalty=0.6`` (and
+    EOS): ms a step (StepTimer around each search) against greedy
+    ``make_generate``'s at batch B*K; one profiled search (device busy,
+    idle share over PROFILED_STEPS steps, the parent gather's device ms —
+    ``aten::index_select``, which also tiles the prompt's cache once — and
+    the f32 upcast of the
+    cache in ``decode._attend_cached``, timed in a ``record_function``
+    range, as a share of busy time). Gates: ``beam_size=1`` tokens equal
+    ``make_generate``'s greedy tokens under the near-tie rule; every
+    beam's score within BEAM_SCORE_TOL a generated token of a
+    teacher-forced recompute, and a search that leaves the caches
+    unreordered (a planted fault, without EOS) beyond it (on phase 25's
+    model the top beam alone read that fault to the bit as the sound run:
+    its cache row stays right while its parent stays beam 0); no flash
+    launch."""
+    from kubetpu_torch.jobs import beam, decode
+    from kubetpu_torch.jobs.data import ByteTokenizer
+    from kubetpu_torch.jobs.profiling import StepTimer
+
+    t_phase = time.perf_counter()
+    _zero_flash_counts()
+    prompts = torch.from_numpy(next(files["held"].batches(
+        BEAM_BATCH, BEAM_PROMPT, seed=32))[0]).long().to("cuda")
+    eos = ByteTokenizer.EOS
+    runs = {"no_eos": {}, "eos": {"eos_id": eos},
+            "penalty": {"eos_id": eos, "length_penalty": 0.6}}
+    rows, bad_scores = {}, []
+    for name, kw in runs.items():
+        search = beam.make_beam_search(cfg, BEAM_K, device="cuda", **kw)
+        timer = StepTimer(BEAM_BATCH * BEAM_K)
+        with timer.step():
+            seqs, scores = search(model, prompts, BEAM_STEPS)
+            scores = scores.cpu().numpy()
+        ref = np.reshape(_teacher_forced_scores(
+            model, cfg, seqs.flatten(0, 1), BEAM_PROMPT, kw.get("eos_id"),
+            kw.get("length_penalty", 0.0)), scores.shape)
+        err = float(np.max(np.abs(scores - ref)))
+        gen = seqs[:, :, BEAM_PROMPT:].cpu().numpy()
+        rows[name] = dict(ms=timer.summary()["p50_ms"],
+                          ms_per_step=timer.summary()["p50_ms"] / BEAM_STEPS,
+                          top_scores=scores[:, 0].tolist(),
+                          recomputed=ref[:, 0].tolist(), score_err=err,
+                          top_score_err=float(np.max(np.abs(
+                              scores[:, 0] - ref[:, 0]))),
+                          beams_with_eos=int((gen == eos).any(-1).sum()),
+                          distinct_top_beams=len({tuple(r) for r in
+                                                  gen[:, 0].tolist()}))
+        if not err <= BEAM_SCORE_TOL * BEAM_STEPS:
+            bad_scores.append((name, err))
+        del seqs
+    # the planted fault: each step forwards through the caches as the last
+    # step left them, not as the parent gather reordered them
+    real_one, held = beam._forward_one, {}
+
+    def unreordered(cfg_, params_, token, k_cache, v_cache, pos):
+        k_cache, v_cache = held.get("kv", (k_cache, v_cache))
+        out = real_one(cfg_, params_, token, k_cache, v_cache, pos)
+        held["kv"] = out[1:]
+        return out
+
+    beam._forward_one = unreordered
+    try:
+        seqs, scores = beam.make_beam_search(cfg, BEAM_K, device="cuda")(
+            model, prompts, BEAM_STEPS)
+    finally:
+        beam._forward_one = real_one
+    held.clear()
+    fault_err = float(np.max(np.abs(scores.cpu().numpy() - np.reshape(
+        _teacher_forced_scores(model, cfg, seqs.flatten(0, 1), BEAM_PROMPT,
+                               None, 0.0), scores.shape))))
+    del seqs, scores
+    # greedy at batch B*K, and beam_size=1 against greedy
+    greedy = decode.make_generate(cfg)
+    wide = prompts.repeat_interleave(BEAM_K, dim=0)
+    greedy(model, wide, 0, 2)
+    timer = StepTimer(BEAM_BATCH * BEAM_K)
+    with timer.step():
+        greedy(model, wide, 0, BEAM_STEPS).cpu()
+    greedy_ms = timer.summary()["p50_ms"]
+    g_out, top2, _s = _recorded_generate(lambda: decode.make_generate(cfg),
+                                         model, prompts, BEAM_STEPS,
+                                         "make_slot_sampler")
+    gaps = torch.stack([t[:, 0] - t[:, 1] for t in top2], 1).numpy()
+    one = beam.make_beam_search(cfg, 1, device="cuda")(model, prompts,
+                                                       BEAM_STEPS)[0][:, 0]
+    rows_p = prompts.tolist()
+    ties = _near_tie_check(
+        one.tolist(), g_out.tolist(),
+        {(tuple(p), j): float(g) for p, row in zip(rows_p, gaps)
+         for j, g in enumerate(row)}, rows_p)
+    # one profiled search: the parent gather and the cache's f32 upcast
+    from torch.profiler import record_function
+
+    real = decode._attend_cached
+
+    def attend(q, k_cache, v_cache, pos, window=0):
+        with record_function("beam.kv_upcast"):
+            k_cache, v_cache = k_cache.float(), v_cache.float()
+        return real(q, k_cache, v_cache, pos, window)
+
+    ranges = {"aten::index_select": 0.0, "beam.kv_upcast": 0.0}
+    search = beam.make_beam_search(cfg, BEAM_K, device="cuda")
+    decode._attend_cached = attend
+    try:
+        wall_us, kernels, counts = _profiled(
+            lambda: search(model, prompts, PROFILED_STEPS), ranges)
+    finally:
+        decode._attend_cached = real
+    busy = sum(kernels.values())
+    flash = _flash_dict(_flash_counts())
+    row = dict(card=torch.cuda.get_device_name(0), nvidia_smi=smi,
+               model=weights, beam=BEAM_K,
+               batch=BEAM_BATCH, prompt=BEAM_PROMPT, steps=BEAM_STEPS,
+               runs=rows, greedy_batch=BEAM_BATCH * BEAM_K,
+               greedy_ms=greedy_ms,
+               greedy_ms_per_step=greedy_ms / BEAM_STEPS,
+               beam_over_greedy=rows["no_eos"]["ms"] / greedy_ms,
+               beam1_rows_equal_greedy=sum(a == b for a, b in zip(
+                   one.tolist(), g_out.tolist())),
+               beam1_diverged=ties["diverged"],
+               profile=dict(steps=PROFILED_STEPS, wall_ms=wall_us / 1e3,
+                            device_busy_ms=busy / 1e3,
+                            idle_share=(1.0 - busy / wall_us) if busy
+                            else None,
+                            parent_gather_ms=ranges["aten::index_select"]
+                            / 1e3,
+                            parent_gather_ms_per_step=ranges[
+                                "aten::index_select"] / 1e3 / PROFILED_STEPS,
+                            kv_upcast_ms=ranges["beam.kv_upcast"] / 1e3,
+                            kv_upcast_share_of_busy=(
+                                ranges["beam.kv_upcast"] / busy)
+                            if busy else None,
+                            device_kernels=counts["device_kernels"]),
+               score_tol_per_token=BEAM_SCORE_TOL,
+               unreordered_fault_score_err=fault_err, flash_launches=flash,
+               seconds=time.perf_counter() - t_phase)
+    line("beam", **row)
+    if ties["bad"]:
+        raise SystemExit(f"beam: beam_size=1 differs from greedy beyond "
+                         f"near-ties: {ties['bad']}")
+    if bad_scores:
+        raise SystemExit(f"beam: beam scores off the teacher-forced "
+                         f"recompute by more than {BEAM_SCORE_TOL} a token: "
+                         f"{bad_scores}")
+    if not fault_err > BEAM_SCORE_TOL * BEAM_STEPS:
+        raise SystemExit(f"beam: the unreordered-cache fault reads "
+                         f"{fault_err}, within the bound "
+                         f"{BEAM_SCORE_TOL * BEAM_STEPS}")
+    if any(flash.values()):
+        raise SystemExit(f"beam: flash launches {flash}")
+    return row
+
+
 def main(argv) -> int:
     t_script = time.perf_counter()
     record_path = None
+    families_only = argv[-2:] == ["--phases", "29-33"]
+    if families_only:
+        argv = argv[:-2]
     if argv[:1] == ["--record"] and len(argv) == 2:
         record_path = argv[1]
     elif argv:
-        print("usage: python3 chip_smoke.py [--record PATH]", file=sys.stderr)
+        print("usage: python3 chip_smoke.py [--record PATH] "
+              "[--phases 29-33]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on the "
@@ -5132,6 +5922,8 @@ def main(argv) -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = phase_device()
     build = phase_build()
+    if families_only:
+        return main_families(dev, build, record_path, t_script)
     kern = phase_kernels()
     verify = phase_verify_routes()
     flash = phase_flash()
@@ -5182,11 +5974,23 @@ def main(argv) -> int:
         target, life_cfg, held, dev["nvidia_smi"], paged_launches)
     distill = phase_distill(target, life_cfg, files, text_prompts,
                             dev["nvidia_smi"], paged_launches)
+    beam = phase_beam(target, life_cfg, files, dev["nvidia_smi"])
     del target
     for f in files.values():
         f.close()
     torch.cuda.empty_cache()
     hf_import = phase_hf_import(dev["nvidia_smi"], paged_launches)
+    # the other families: the encoder (and phase 33 on its steps), ViT,
+    # seq2seq
+    encoder, enc_state, enc_step, enc_batch = phase_encoder(
+        dev["nvidia_smi"], train["step_ms"])
+    profiling = phase_profiling(enc_state, enc_step, enc_batch,
+                                dev["nvidia_smi"])
+    del enc_state, enc_step, enc_batch
+    torch.cuda.empty_cache()
+    vit = phase_vit(dev["nvidia_smi"], flash)
+    torch.cuda.empty_cache()
+    seq2seq = phase_seq2seq(dev["nvidia_smi"])
     shutil.rmtree(LIFE_DIR, ignore_errors=True)
 
     # the paged kernels at the main path's cases (launches: phases 6, 8, 9,
@@ -5266,13 +6070,14 @@ def main(argv) -> int:
     # over all three cases; launches over the timed steps of phases 11, 18
     # and 23 and the training, evaluation and distillation of 25 and 27
     trained = (train, lora_train, moe_train["train"], text_train, distill)
-    for kind, name, replaces in (
-            ("forward", "flash_forward", "kubetpu/ops/flash_attention.py:41"),
-            ("dq", "flash_backward_dq", "kubetpu/ops/flash_attention.py:141"),
-            ("dkv", "flash_backward_dkv",
-             "kubetpu/ops/flash_attention.py:195")):
+    flash_kernels = (
+        ("forward", "flash_forward", "kubetpu/ops/flash_attention.py:41"),
+        ("dq", "flash_backward_dq", "kubetpu/ops/flash_attention.py:141"),
+        ("dkv", "flash_backward_dkv", "kubetpu/ops/flash_attention.py:195"))
+    for kind, name, replaces in flash_kernels:
         launches = sum(r["flash_launches"][kind] for r in trained)
-        rows = [r for r in flash if r["kernel"] == kind]
+        rows = [r for r in flash if r["kernel"] == kind
+                and r["shape"]["S"] == FLASH_SHAPE["S"]]
         main_row = next(r for r in rows if r["case"] == "causal")
         kernels.append({
             "name": name, "route": "cuda", "instances": main_row["route"],
@@ -5285,6 +6090,29 @@ def main(argv) -> int:
             "library_ms": main_row["library_ms"],
             "ok": all(r["ok"] for r in rows),
         })
+    # their causal=False cases at the encoder's shape (phase 4's noncausal
+    # case: FLASH_SHAPE) and ViT's (VIT_FLASH_SHAPE), each with the
+    # launches of phase 29's timed steps or of phase 30's timed steps and
+    # no-grad calls
+    vit_launches = {k: vit["flash_launches"][k] + vit["infer_flash_launches"][k]
+                    for k in vit["flash_launches"]}
+    for tag, case, counts, phase in (
+            ("encoder", "noncausal", encoder["flash_launches"], "29"),
+            ("vit", "vit_noncausal", vit_launches, "30")):
+        for kind, name, replaces in flash_kernels:
+            r = next(r for r in flash if r["kernel"] == kind
+                     and r["case"] == case)
+            kernels.append({
+                "name": f"{name}_noncausal_{tag}", "route": "cuda",
+                "instances": r["route"],
+                "source": "kubetpu_torch/ops/csrc/flash_attention.cu",
+                "replaces": replaces, "launches": counts[kind],
+                "launches_from": f"phase {phase}",
+                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                "ok": r["ok"], "shape": r["shape"],
+            })
     record = {"device": dev, "build": build, "kernel_cases": kern,
               "flash_cases": flash, "parity": parity, "serve": serve,
               "profile": prof, "prefix": prefix, "window": window,
@@ -5296,8 +6124,9 @@ def main(argv) -> int:
               "lora_train": lora_train, "int8w": int8w, "rolling": rolling,
               "moe": moe, "moe_train": moe_train, "text_data": text_data,
               "text_train": text_train, "text_serve": text_serve,
-              "distill": distill, "hf_import": hf_import,
-              "kernels": kernels}
+              "distill": distill, "hf_import": hf_import, "beam": beam,
+              "encoder": encoder, "profiling": profiling, "vit": vit,
+              "seq2seq": seq2seq, "kernels": kernels}
     record["wall_s"] = time.perf_counter() - t_script
     line("wall", seconds=record["wall_s"])
     if record_path:
@@ -5307,6 +6136,42 @@ def main(argv) -> int:
             json.dump(record, f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def main_families(dev, build, record_path, t_script) -> int:
+    """``--phases 29-33``: phase 4, then 29, 33, 30 and 31 as the whole run
+    drives them, and 32 on a random-weight flagship (the whole run gives it
+    phase 25's trained one) with ``SyntheticCorpus`` prompts."""
+    from kubetpu_torch.jobs.data import SyntheticCorpus
+    from kubetpu_torch.jobs.model import init_params
+
+    smi = dev["nvidia_smi"]
+    record = {"device": dev, "build": build, "flash_cases": phase_flash()}
+    record["encoder"], state, step, batch = phase_encoder(smi, float("nan"))
+    record["profiling"] = phase_profiling(state, step, batch, smi)
+    del state, step, batch
+    torch.cuda.empty_cache()
+    record["vit"] = phase_vit(smi, record["flash_cases"])
+    torch.cuda.empty_cache()
+    record["seq2seq"] = phase_seq2seq(smi)
+    torch.cuda.empty_cache()
+    cfg = _flagship_train_cfg()
+    model = init_params(torch.Generator(device="cuda").manual_seed(32), cfg,
+                        device="cuda")
+    record["beam"] = phase_beam(
+        model, cfg, {"held": SyntheticCorpus(cfg.vocab, seed=32)}, smi,
+        weights="a random-weight flagship")
+    record["wall_s"] = time.perf_counter() - t_script
+    line("wall", seconds=record["wall_s"])
+    if record_path:
+        os.makedirs(os.path.dirname(os.path.abspath(record_path)),
+                    exist_ok=True)
+        with open(record_path, "w") as f:
+            json.dump(record, f, indent=1)
+    print(json.dumps({"ok": True, "phases": "29-33", "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0

@@ -9,4 +9,15 @@ train step, synthetic data, LoRA fine-tuning in ``lora``), and the model's
 lifecycle around them: the byte and BPE tokenizers (``data``,
 ``tokenizer``), the native token-file loader (``native_data``), checkpoint
 and resume (``checkpoint``), the HF llama importer (``hf_import``) and
-draft distillation (``distill``)."""
+draft distillation (``distill``).
+
+Submodules, imported by users:
+  ``beam`` (beam search over the dense KV cache),
+  ``profiling`` (``StepTimer``, ``marginal_ms``, ``torch.profiler`` traces),
+  ``encoder`` (the bidirectional masked-LM family),
+  ``vision`` (the ViT classification family),
+  ``seq2seq`` (the encoder-decoder family, cached greedy generate),
+  ``decode``, ``serving``, ``paged``, ``spec_serving``, ``speculative``,
+  ``multi_lora``, ``lora``, ``train``, ``data``, ``tokenizer``,
+  ``native_data``, ``checkpoint``, ``hf_import``, ``distill``, ``quant``,
+  ``sampling``, ``convert`` (weights across from the JAX package's trees)."""

@@ -14,6 +14,9 @@ across too: its ``QTensor`` leaves, read by duck typing (``.q``,
 dequantizing to the config's dtype. ``lora_from_numpy`` / ``lora_to_numpy``
 carry a LoRA adapter tree (``{"blocks": {leaf: (L, ...)}}``, the layer axis
 kept: the port's adapters are stacked like the reference's) the same way.
+``vit_params_from_numpy`` / ``vit_params_to_numpy`` and
+``seq2seq_params_from_numpy`` / ``seq2seq_params_to_numpy`` carry the ViT
+and encoder-decoder trees, un-stacking their blocks as above.
 """
 
 from __future__ import annotations
@@ -28,10 +31,83 @@ from torch import nn
 from kubetpu_torch.jobs.model import (ModelConfig, Transformer, block_leaves,
                                       resolve_device)
 from kubetpu_torch.jobs.quant import QTensor, require_unquantized
+from kubetpu_torch.jobs.seq2seq import CROSS_LEAVES, Seq2Seq
+from kubetpu_torch.jobs.vision import VisionTransformer, VitConfig
 
 
 def _is_qtensor(leaf) -> bool:
     return hasattr(leaf, "q") and hasattr(leaf, "scale")
+
+
+def _put(module: nn.Module, name: str, leaf, index, cfg: ModelConfig,
+         device, what: str) -> None:
+    """Replace parameter *name* of *module* with *leaf* (its slice *index*
+    of the layer axis, when given) on *device* in ``cfg.dtype``; a quantized
+    leaf becomes a ``QTensor``. Raises on a shape that disagrees."""
+    def tensor(arr, dtype=None) -> torch.Tensor:
+        arr = np.asarray(arr)
+        if dtype is None:      # through float32: numpy has no bfloat16, and
+            arr = arr.astype(np.float32)     # every model dtype round-trips
+        return torch.from_numpy(np.array(arr)).to(     # a writable copy
+            device=device, dtype=dtype or cfg.dtype)
+
+    want = tuple(getattr(module, name).shape)
+    if _is_qtensor(leaf):
+        q, scale = np.asarray(leaf.q), np.asarray(leaf.scale)
+        if index is not None:
+            q, scale = q[index], scale[index]
+        value = QTensor(tensor(q, torch.int8),
+                        tensor(scale, torch.float32), cfg.dtype)
+    else:
+        arr = np.asarray(leaf)
+        value = nn.Parameter(tensor(arr if index is None else arr[index]),
+                             requires_grad=False)
+    if tuple(value.shape) != want:
+        raise ValueError(f"{what}: shape {tuple(value.shape)} does not "
+                         f"match the config's {want}")
+    delattr(module, name)
+    setattr(module, name, value)
+
+
+def _put_all(module: nn.Module, np_tree: Mapping, top, leaves,
+             cfg: ModelConfig, device, prefix: str = "") -> None:
+    """*module*'s leaves *top* from the tree's top level and, for each of
+    its blocks, the leaves *leaves* from ``np_tree["blocks"]``, un-stacking
+    the layer axis. Raises ``KeyError`` on a missing leaf, ``ValueError`` on
+    a layer count or a shape that disagrees with *cfg*."""
+    def get(tree, name, where):
+        if name not in tree:
+            raise KeyError(f"{prefix}{where}{name}: missing from the tree")
+        return tree[name]
+
+    for name in top:
+        _put(module, name, get(np_tree, name, ""), None, cfg, device,
+             prefix + name)
+    blocks = get(np_tree, "blocks", "")
+    for name in leaves:
+        leaf = get(blocks, name, "blocks.")
+        layers = (np.asarray(leaf.q) if _is_qtensor(leaf)
+                  else np.asarray(leaf)).shape[0]
+        if layers != len(module.blocks):
+            raise ValueError(f"{prefix}blocks.{name}: {layers} layers, "
+                             f"config has {len(module.blocks)}")
+        for i, blk in enumerate(module.blocks):
+            _put(blk, name, leaf, i, cfg, device,
+                 f"{prefix}blocks.{name}[{i}]")
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    return t.detach().float().cpu().numpy()
+
+
+def _to_tree(module: nn.Module, top, leaves) -> dict:
+    """*module*'s weights as the JAX package's tree: the *top* leaves, and
+    ``blocks`` with each of *leaves* stacked on a leading layer axis."""
+    tree = {name: _numpy(getattr(module, name)) for name in top}
+    tree["blocks"] = {name: np.stack([_numpy(getattr(blk, name))
+                                      for blk in module.blocks])
+                      for name in leaves}
+    return tree
 
 
 def params_from_numpy(np_tree: Mapping, cfg: ModelConfig, device=None,
@@ -43,44 +119,8 @@ def params_from_numpy(np_tree: Mapping, cfg: ModelConfig, device=None,
     if dtype is not None and dtype != cfg.dtype:
         cfg = dataclasses.replace(cfg, dtype=dtype)
     model = Transformer(cfg, torch.device("meta"))
-
-    def tensor(arr, dtype=None) -> torch.Tensor:
-        arr = np.asarray(arr)
-        if dtype is None:      # through float32: numpy has no bfloat16, and
-            arr = arr.astype(np.float32)     # every model dtype round-trips
-        return torch.from_numpy(np.array(arr)).to(     # a writable copy
-            device=device, dtype=dtype or cfg.dtype)
-
-    def put(module: nn.Module, name: str, leaf, index, what: str) -> None:
-        want = tuple(getattr(module, name).shape)
-        if _is_qtensor(leaf):
-            q, scale = np.asarray(leaf.q), np.asarray(leaf.scale)
-            if index is not None:
-                q, scale = q[index], scale[index]
-            value = QTensor(tensor(q, torch.int8),
-                            tensor(scale, torch.float32), cfg.dtype)
-        else:
-            arr = np.asarray(leaf)
-            value = nn.Parameter(tensor(arr if index is None else arr[index]),
-                                 requires_grad=False)
-        if tuple(value.shape) != want:
-            raise ValueError(f"{what}: shape {tuple(value.shape)} does not "
-                             f"match the config's {want}")
-        delattr(module, name)
-        setattr(module, name, value)
-
-    blocks = np_tree["blocks"]
-    for name in ("embed", "ln_f", "head"):
-        put(model, name, np_tree[name], None, name)
-    for name in block_leaves(cfg):
-        leaf = blocks[name]
-        layers = (np.asarray(leaf.q) if _is_qtensor(leaf)
-                  else np.asarray(leaf)).shape[0]
-        if layers != cfg.n_layers:
-            raise ValueError(f"blocks.{name}: {layers} layers, config has "
-                             f"{cfg.n_layers}")
-        for i, blk in enumerate(model.blocks):
-            put(blk, name, leaf, i, f"blocks.{name}[{i}]")
+    _put_all(model, np_tree, ("embed", "ln_f", "head"), block_leaves(cfg),
+             cfg, device)
     return model
 
 
@@ -90,18 +130,66 @@ def params_to_numpy(model: Transformer) -> dict:
     (numpy has no bfloat16). An int8 model is refused: dequantize it
     first."""
     require_unquantized(model, "params_to_numpy")
+    return _to_tree(model, ("embed", "ln_f", "head"),
+                    block_leaves(model.cfg))
 
-    def arr(t: torch.Tensor) -> np.ndarray:
-        return t.detach().float().cpu().numpy()
 
-    return {
-        "embed": arr(model.embed),
-        "blocks": {name: np.stack([arr(getattr(blk, name))
-                                   for blk in model.blocks])
-                   for name in block_leaves(model.cfg)},
-        "ln_f": arr(model.ln_f),
-        "head": arr(model.head),
-    }
+_VIT_TOP = ("patch_proj", "pos_embed", "ln_f", "head_cls")
+
+
+def vit_params_from_numpy(np_tree: Mapping, cfg: VitConfig, device=None,
+                          dtype: Optional[torch.dtype] = None
+                          ) -> VisionTransformer:
+    """The port's ``VisionTransformer`` with the weights of the JAX
+    package's ViT tree (``{"patch_proj", "pos_embed", "blocks", "ln_f",
+    "head_cls"}`` as numpy arrays), on *device* (the card by default), in
+    *dtype* (``cfg.model.dtype`` by default). Raises on a missing leaf or a
+    shape that disagrees with *cfg*."""
+    device = resolve_device(device)
+    if dtype is not None and dtype != cfg.model.dtype:
+        cfg = dataclasses.replace(
+            cfg, model=dataclasses.replace(cfg.model, dtype=dtype))
+    model = VisionTransformer(cfg, torch.device("meta"))
+    _put_all(model, np_tree, _VIT_TOP, block_leaves(cfg.model), cfg.model,
+             device)
+    return model
+
+
+def vit_params_to_numpy(model: VisionTransformer) -> dict:
+    """A ``VisionTransformer``'s weights as the JAX package's ViT tree of
+    float32 numpy arrays."""
+    return _to_tree(model, _VIT_TOP, block_leaves(model.cfg.model))
+
+
+def seq2seq_params_from_numpy(np_tree: Mapping, cfg: ModelConfig,
+                              device=None,
+                              dtype: Optional[torch.dtype] = None) -> Seq2Seq:
+    """The port's ``Seq2Seq`` with the weights of the JAX package's tree
+    (``{"encoder": {"embed", "blocks", "ln_f"}, "decoder": {"embed",
+    "blocks" with the cross leaves, "ln_f", "head"}}`` as numpy arrays), on
+    *device* (the card by default), in *dtype* (``cfg.dtype`` by default).
+    Raises on a missing leaf or a shape that disagrees with *cfg*."""
+    device = resolve_device(device)
+    if dtype is not None and dtype != cfg.dtype:
+        cfg = dataclasses.replace(cfg, dtype=dtype)
+    model = Seq2Seq(cfg, torch.device("meta"))
+    for name in ("encoder", "decoder"):
+        if name not in np_tree:
+            raise KeyError(f"{name}: missing from the tree")
+    _put_all(model.encoder, np_tree["encoder"], ("embed", "ln_f"),
+             block_leaves(cfg), cfg, device, "encoder.")
+    _put_all(model.decoder, np_tree["decoder"], ("embed", "ln_f", "head"),
+             block_leaves(cfg) + CROSS_LEAVES, cfg, device, "decoder.")
+    return model
+
+
+def seq2seq_params_to_numpy(model: Seq2Seq) -> dict:
+    """A ``Seq2Seq``'s weights as the JAX package's tree of float32 numpy
+    arrays."""
+    leaves = block_leaves(model.cfg)
+    return {"encoder": _to_tree(model.encoder, ("embed", "ln_f"), leaves),
+            "decoder": _to_tree(model.decoder, ("embed", "ln_f", "head"),
+                                leaves + CROSS_LEAVES)}
 
 
 def lora_from_numpy(np_tree: Mapping, device=None,

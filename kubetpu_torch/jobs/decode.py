@@ -236,6 +236,16 @@ def _decode_block_core(cfg: ModelConfig, layer, x, cache, pos, cache_io,
     return x + delta, cache
 
 
+def _decode_block(cfg: ModelConfig, layer, x, k_cache_l, v_cache_l, pos):
+    """One block over a T-token chunk through this layer's dense cache
+    (B, S_max, H_kv, D), which takes the chunk's K/V in place ->
+    (x, k_cache_l, v_cache_l)."""
+    x, (k_cache_l, v_cache_l) = _decode_block_core(
+        cfg, layer, x, (k_cache_l, v_cache_l), pos,
+        _dense_cache_io(cfg.window))
+    return x, k_cache_l, v_cache_l
+
+
 def _layer(cache, i: int):
     """Layer *i*'s views of a cache tree (tuples of layer-leading tensors)."""
     if isinstance(cache, tuple):
@@ -288,6 +298,16 @@ def forward_chunk(cfg: ModelConfig, params: Transformer, tokens, k_cache,
                                  pos, _dense_cache_io(cfg.window), lora,
                                  adapter_ids, lora_scale)
     return logits, k_cache, v_cache
+
+
+def _forward_one(cfg: ModelConfig, params: Transformer, token, k_cache,
+                 v_cache, pos):
+    """Logits (B, V) f32 for one new token a row (token (B,)) at *pos*,
+    through the dense cache -> (logits, k_cache, v_cache): a T=1
+    ``forward_chunk``."""
+    logits, k_cache, v_cache = forward_chunk(cfg, params, token[:, None],
+                                             k_cache, v_cache, pos)
+    return logits[:, 0], k_cache, v_cache
 
 
 def forward_chunk_at_io(cfg: ModelConfig, params: Transformer, chunk, cache,

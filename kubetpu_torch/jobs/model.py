@@ -252,34 +252,49 @@ def init_params(generator: torch.Generator, cfg: ModelConfig,
     from ``jax.random``'s; tests that compare the two packages convert one
     tree with ``params_from_numpy`` instead."""
     device = resolve_device(device)
-    if generator.device.type != device.type:
-        raise ValueError(f"generator lives on {generator.device}, weights "
-                         f"on {device}")
-    d, h, hd, f = cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.d_ff
+    normal_ = normal_filler(generator, cfg.dtype, device)
     model = Transformer(cfg, device)
-    scale = d ** -0.5
-
-    def normal_(p: torch.Tensor, s: float) -> None:
-        p.copy_(torch.randn(p.shape, generator=generator, device=device,
-                            dtype=cfg.dtype) * s)
-
+    scale = cfg.d_model ** -0.5
     with torch.no_grad():
-        for blk in model.blocks:
-            blk.ln1.fill_(1.0)
-            blk.ln2.fill_(1.0)
-            normal_(blk.wq, scale)
-            normal_(blk.wk, scale)
-            normal_(blk.wv, scale)
-            normal_(blk.wo, (h * hd) ** -0.5)
-            normal_(blk.w_gate, scale)
-            normal_(blk.w_up, scale)
-            normal_(blk.w_down, f ** -0.5)
-            if cfg.n_experts > 0:
-                normal_(blk.moe_router, scale)
+        init_blocks_(model.blocks, cfg, normal_)
         normal_(model.embed, scale)
         model.ln_f.fill_(1.0)
         normal_(model.head, scale)
     return model
+
+
+def normal_filler(generator: torch.Generator, dtype: torch.dtype, device):
+    """``normal_(p, s)``: fill *p* in place with normal draws from
+    *generator* (which must live on *device*) in *dtype*, times *s*."""
+    if generator.device.type != device.type:
+        raise ValueError(f"generator lives on {generator.device}, weights "
+                         f"on {device}")
+
+    def normal_(p: torch.Tensor, s: float) -> None:
+        p.copy_(torch.randn(p.shape, generator=generator, device=device,
+                            dtype=dtype) * s)
+
+    return normal_
+
+
+def init_blocks_(blocks, cfg: ModelConfig, normal_) -> None:
+    """``init_params``'s rule for each block, in place and in its draw
+    order: norms at 1, the projections and the MLP normal, the MoE router
+    drawn last."""
+    d, h, hd, f = cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.d_ff
+    scale = d ** -0.5
+    for blk in blocks:
+        blk.ln1.fill_(1.0)
+        blk.ln2.fill_(1.0)
+        normal_(blk.wq, scale)
+        normal_(blk.wk, scale)
+        normal_(blk.wv, scale)
+        normal_(blk.wo, (h * hd) ** -0.5)
+        normal_(blk.w_gate, scale)
+        normal_(blk.w_up, scale)
+        normal_(blk.w_down, f ** -0.5)
+        if cfg.n_experts > 0:
+            normal_(blk.moe_router, scale)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
@@ -514,18 +529,28 @@ def forward_hidden(params: Transformer, tokens: torch.Tensor,
     if positions is None:
         positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                                  device=tokens.device)
-    x = params.embed[tokens]
+    x, aux = run_blocks(cfg, attn_fn, positions, params.embed[tokens],
+                        params.blocks)
+    return rms_norm(x, params.ln_f), aux
+
+
+def run_blocks(cfg: ModelConfig, attn_fn: AttnFn, positions: torch.Tensor,
+               x: torch.Tensor, blocks, body=_block_output):
+    """x (B, S, D) through every block -> (x, summed MoE aux term). Each
+    block is ``body(cfg, attn_fn, positions, x, layer) -> (x, aux)``,
+    recomputed in the backward under ``cfg.remat`` (``_remat_context_fn``)
+    when gradients are on."""
     aux = 0.0
     remat = cfg.remat and torch.is_grad_enabled()
-    for layer in params.blocks:
+    for layer in blocks:
         if remat:
-            x, a = checkpoint(_block_output, cfg, attn_fn, positions, x,
-                              layer, use_reentrant=False,
+            x, a = checkpoint(body, cfg, attn_fn, positions, x, layer,
+                              use_reentrant=False,
                               context_fn=_remat_context_fn(cfg))
         else:
-            x, a, _k, _v = _block_with_aux(cfg, attn_fn, positions, x, layer)
+            x, a = body(cfg, attn_fn, positions, x, layer)
         aux = aux + a
-    return rms_norm(x, params.ln_f), aux
+    return x, aux
 
 
 @torch.no_grad()

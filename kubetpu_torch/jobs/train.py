@@ -254,6 +254,16 @@ def _resolve_attention(attention: str, window: int = 0):
     raise ValueError(f"unknown attention {attention!r}")
 
 
+def refuse_mesh(mesh, what: str) -> None:
+    """Raise for a *mesh*: the port's entry points take a ``device``, and
+    sharding over a mesh waits for the multi-device slice."""
+    if mesh is not None:
+        raise NotImplementedError(
+            f"{what} over a mesh is a multi-device path; it waits for the "
+            "multi-device slice (ROADMAP.md, queue 1, item 8): pass "
+            "device= instead")
+
+
 def _uploader(device: torch.device):
     def up(x, dtype=None):
         t = torch.as_tensor(np.asarray(x)) if not torch.is_tensor(x) else x

@@ -1216,3 +1216,210 @@ def test_token_file_batches_feed_the_card(cuda, tmp_path):
         state, loss = step(state, tokens, targets)
         assert np.isfinite(float(loss))
         assert np.isfinite(float(evaluate(state.params, tokens, targets)))
+
+
+# -- the other model families: beam, encoder, ViT, seq2seq -------------------
+
+FAMILY_TOL = 1e-3       # small f32 models, card against CPU
+
+
+def _family_cfg(**over):
+    from kubetpu_torch.jobs.model import ModelConfig
+
+    return ModelConfig(**{**dict(vocab=256, d_model=128, n_layers=2,
+                                 n_heads=2, n_kv_heads=1, d_ff=256,
+                                 max_seq=256), **over})
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("eos_id", [None, 5], ids=["plain", "eos"])
+def test_beam_search_on_the_card_matches_the_cpu(cuda, eos_id):
+    """A small f32 model's beam search (K=4, length penalty 0.6) on the
+    card and on the CPU: equal tokens, scores within FAMILY_TOL."""
+    from kubetpu_torch.jobs import beam
+    from kubetpu_torch.jobs.model import init_params
+
+    cfg = _family_cfg()
+    host = init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    card = init_params(torch.Generator().manual_seed(0), cfg,
+                       device="cpu").to("cuda")
+    prompt = torch.randint(0, cfg.vocab, (3, 40),
+                           generator=torch.Generator().manual_seed(1))
+    kw = dict(length_penalty=0.6, eos_id=eos_id)
+    want = beam.make_beam_search(cfg, 4, device="cpu", **kw)(host, prompt, 12)
+    got = beam.make_beam_search(cfg, 4, **kw)(card, prompt, 12)
+    assert torch.equal(got[0].cpu(), want[0])
+    torch.testing.assert_close(got[1].cpu(), want[1], atol=FAMILY_TOL,
+                               rtol=FAMILY_TOL)
+
+
+@pytest.mark.gpu
+def test_encoder_and_vit_on_the_card_match_the_cpu(cuda):
+    """Encoder logits (flash core: the SIMT instances for f32) and ViT
+    logits of small f32 models on the card and on the CPU, within
+    FAMILY_TOL."""
+    import functools
+
+    from kubetpu_torch.jobs import encoder, vision
+    from kubetpu_torch.jobs.model import init_params
+    from kubetpu_torch.ops.flash_attention import flash_attention
+
+    cfg = _family_cfg()
+    attn = functools.partial(flash_attention, causal=False)
+    host = init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    card = init_params(torch.Generator().manual_seed(0), cfg,
+                       device="cpu").to("cuda")
+    tokens = torch.randint(0, cfg.vocab, (2, 100),
+                           generator=torch.Generator().manual_seed(1))
+    want = encoder.encoder_forward(host, tokens, cfg, attn_fn=attn)
+    got = encoder.encoder_forward(card, tokens.to("cuda"), cfg, attn_fn=attn)
+    torch.testing.assert_close(got.cpu(), want, atol=FAMILY_TOL,
+                               rtol=FAMILY_TOL)
+    vcfg = vision.VitConfig(image_size=56, patch_size=8, model=cfg)
+    host = vision.init_vit_params(torch.Generator().manual_seed(0), vcfg,
+                                  device="cpu")
+    card = vision.init_vit_params(torch.Generator().manual_seed(0), vcfg,
+                                  device="cpu").to("cuda")
+    images = torch.randn((3, 56, 56, 3),
+                         generator=torch.Generator().manual_seed(2))
+    with torch.no_grad():
+        want = vision.vit_forward(host, images, vcfg, attn_fn=attn)
+        got = vision.vit_forward(card, images.to("cuda"), vcfg, attn_fn=attn)
+    torch.testing.assert_close(got.cpu(), want, atol=FAMILY_TOL,
+                               rtol=FAMILY_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [0, 8])
+def test_seq2seq_on_the_card_matches_the_cpu(cuda, window):
+    """A small f32 encoder-decoder on the card and on the CPU: decoder
+    logits within FAMILY_TOL; the cached and recompute greedy generates'
+    tokens equal to the CPU's and to each other."""
+    from kubetpu_torch.jobs import seq2seq
+
+    cfg = _family_cfg(window=window)
+    host = seq2seq.init_seq2seq_params(torch.Generator().manual_seed(0), cfg,
+                                       device="cpu")
+    card = seq2seq.init_seq2seq_params(torch.Generator().manual_seed(0), cfg,
+                                       device="cpu").to("cuda")
+    gen = torch.Generator().manual_seed(1)
+    src = torch.randint(0, cfg.vocab, (3, 48), generator=gen)
+    tgt = torch.randint(0, cfg.vocab, (3, 20), generator=gen)
+    with torch.no_grad():
+        want = seq2seq.decoder_forward(host, tgt, seq2seq.encode(
+            host, src, cfg), cfg)
+        got = seq2seq.decoder_forward(card, tgt.to("cuda"), seq2seq.encode(
+            card, src.to("cuda"), cfg), cfg)
+    torch.testing.assert_close(got.cpu(), want, atol=FAMILY_TOL,
+                               rtol=FAMILY_TOL)
+    ref = seq2seq.make_seq2seq_generate(cfg, device="cpu")(host, src, 16)
+    for cached in (True, False):
+        out = seq2seq.make_seq2seq_generate(cfg, cached=cached)(card, src, 16)
+        assert torch.equal(out.cpu(), ref), cached
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", ["encoder_d128", "vit_d64_s196"])
+def test_bidirectional_steps_launch_the_wgmma_flash_kernels(cuda, family):
+    """A bf16 train step of each family with ``attention="flash"`` runs
+    every flash launch on the wgmma instances with ``causal=False``: the
+    encoder at D 128 (S 256), the ViT at D 64 over 196 patches (a ragged
+    last tile), full remat: 2 forward, 1 dQ and 1 dK/dV launch a layer.
+    The flash calls at the step's shape agree with the plain versions."""
+    from kubetpu_torch.jobs import encoder, train, vision
+    from kubetpu_torch.ops import flash_attention as fa
+
+    layers = 2
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    if family == "encoder_d128":
+        cfg = _family_cfg(d_model=256, n_heads=2, n_kv_heads=0,
+                          n_layers=layers, dtype=torch.bfloat16, remat=True)
+        state, opt = train.init_state(gen, cfg)
+        step = encoder.make_mlm_train_step(cfg, cfg.vocab - 1, opt, "flash")
+        tokens = torch.randint(0, cfg.vocab - 1, (2, 256), device="cuda")
+        batch = (tokens, torch.rand((2, 256), device="cuda") < 0.15)
+        b, s, h, d = 2, 256, 2, 128
+    else:
+        mcfg = _family_cfg(d_model=128, n_heads=2, n_kv_heads=0,
+                           n_layers=layers, dtype=torch.bfloat16, remat=True)
+        cfg = vision.VitConfig(image_size=224, patch_size=16, n_classes=10,
+                               model=mcfg)
+        state, opt = vision.init_vit_state(gen, cfg)
+        step = vision.make_vit_train_step(cfg, opt, "flash")
+        batch = (torch.randn((2, 224, 224, 3), device="cuda"),
+                 torch.randint(0, 10, (2,), device="cuda"))
+        b, s, h, d = 2, 196, 2, 64
+    assert fa._route(torch.bfloat16, d) == "wgmma"
+    calls = []
+    real = fa._dims            # every launch of the three kernels reads it
+
+    def spy(q, causal, window):
+        calls.append((tuple(q.shape), causal, window))
+        return real(q, causal, window)
+
+    before = _flash_counts(fa)
+    fa._dims = spy
+    try:
+        state, loss = step(state, *batch)
+        torch.cuda.synchronize()
+    finally:
+        fa._dims = real
+    moved = tuple(a - x for a, x in zip(_flash_counts(fa), before))
+    assert moved == (2 * layers, layers, layers, 2 * layers, layers, layers)
+    assert len(calls) == 4 * layers
+    assert set(calls) == {((b, s, h, d), False, 0)}
+    assert torch.isfinite(loss)
+    q, k, v, g = _flash_inputs(cuda, torch.bfloat16, b, s, h, d, seed=3)
+    out, lse = fa.flash_forward(q, k, v, False, 0)
+    grads = fa.flash_backward(q, k, v, out, lse, g, False, 0)
+    ref_out, _ = fa.flash_forward_reference(q, k, v, False, 0)
+    refs = fa.flash_backward_reference(q, k, v, out, lse, g, False, 0)
+    tol = FLASH_TOL[torch.bfloat16]
+    for x, ref in zip((out, *grads), (ref_out, *refs)):
+        torch.testing.assert_close(x.float(), ref.float(), atol=tol,
+                                   rtol=tol)
+
+
+@pytest.mark.gpu
+def test_profiler_event_sums_equal_key_averages(cuda):
+    """``chip_smoke._event_sums`` over a profiler's events one by one (the
+    sums every profiled phase reports) equals its sums over
+    ``key_averages()``: each kernel's device time, the kernel and operator
+    counts, and a ``record_function`` range's device time, over a few
+    greedy decode steps of a small bf16 model."""
+    import os
+    import sys
+
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from kubetpu_torch.jobs import decode
+    from kubetpu_torch.jobs.model import ModelConfig, init_params
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(__file__)))
+    import chip_smoke
+
+    cfg = ModelConfig(vocab=256, d_model=128, n_layers=2, n_heads=2,
+                      d_ff=256, dtype=torch.bfloat16)
+    model = init_params(torch.Generator(device="cuda").manual_seed(0), cfg,
+                        device="cuda")
+    prompt = torch.randint(0, cfg.vocab, (4, 32), device="cuda",
+                           generator=torch.Generator(
+                               device="cuda").manual_seed(1))
+    gen = decode.make_generate(cfg)
+    gen(model, prompt, 0, 2)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function("decode.steps"):
+            gen(model, prompt, 0, 6)
+        torch.cuda.synchronize()
+    got = chip_smoke._event_sums(prof.events(), {"decode.steps": 0.0})
+    want = chip_smoke._event_sums(prof.key_averages(), {"decode.steps": 0.0},
+                                  count=lambda ev: ev.count)
+    kernels, counts, found = got
+    assert counts["device_kernels"] > 0 and found["decode.steps"] > 0
+    assert counts == want[1]
+    for mine, theirs in ((kernels, want[0]), (found, want[2])):
+        assert mine.keys() == theirs.keys()
+        for key, us in mine.items():
+            assert us == pytest.approx(theirs[key], rel=1e-6, abs=1e-6)

@@ -43,7 +43,9 @@ def test_fresh_import_loads_no_jax_and_no_kubetpu():
                  "router.autoscaler", "obs.slo", "obs.profile",
                  "obs.exporter", "jobs.quant", "jobs.sampling", "entry",
                  "jobs.native_data", "jobs.tokenizer", "jobs.checkpoint",
-                 "jobs.hf_import", "jobs.distill"):
+                 "jobs.hf_import", "jobs.distill", "jobs.beam",
+                 "jobs.profiling", "jobs.encoder", "jobs.vision",
+                 "jobs.seq2seq"):
         assert f"kubetpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"
@@ -314,3 +316,87 @@ def test_entry_points_default_to_the_card_and_raise_without_it():
         fa.flash_forward(meta, meta, meta)
     with pytest.raises(ValueError, match="cuda or cpu"):
         fa.flash_attention(meta, meta, meta)
+
+
+def test_family_modules_load_nothing_foreign_in_a_fresh_interpreter():
+    """The beam, profiling, encoder, vision and seq2seq modules, imported
+    and exercised in a fresh interpreter (a beam search, a traced step of
+    each family, a seq2seq generate), leave jax and kubetpu out of
+    sys.modules."""
+    code = (
+        "import sys, tempfile, numpy as np, torch\n"
+        "torch.set_num_threads(1)\n"
+        "from kubetpu_torch.jobs import (beam, encoder, profiling, seq2seq, "
+        "vision)\n"
+        "from kubetpu_torch.jobs.model import ModelConfig, init_params\n"
+        "cfg = ModelConfig(vocab=32, d_model=16, n_layers=1, n_heads=2, "
+        "d_ff=32)\n"
+        "m = init_params(torch.Generator().manual_seed(0), cfg, "
+        "device='cpu')\n"
+        "beam.make_beam_search(cfg, 2, device='cpu')(m, np.ones((1, 4), "
+        "np.int64), 3)\n"
+        "from kubetpu_torch.jobs.train import state_from_params, "
+        "make_optimizer\n"
+        "opt = make_optimizer()\n"
+        "st = state_from_params(m, opt)\n"
+        "x = np.ones((1, 8), np.int64)\n"
+        "timer = profiling.StepTimer(8)\n"
+        "with profiling.trace(tempfile.mkdtemp()), timer.step():\n"
+        "    encoder.make_mlm_train_step(cfg, 31, opt, 'flash', "
+        "device='cpu')(st, x, x > 0)\n"
+        "vc = vision.VitConfig(image_size=8, patch_size=4, model=cfg)\n"
+        "vs, vo = vision.init_vit_state(torch.Generator(), vc, "
+        "device='cpu')\n"
+        "vision.make_vit_train_step(vc, vo, 'flash', device='cpu')(vs, "
+        "np.zeros((1, 8, 8, 3), np.float32), np.zeros(1, np.int64))\n"
+        "ss, so = seq2seq.init_seq2seq_state(torch.Generator(), cfg, "
+        "device='cpu')\n"
+        "seq2seq.make_seq2seq_train_step(cfg, so, device='cpu')(ss, x, x, "
+        "x)\n"
+        "seq2seq.make_seq2seq_generate(cfg, device='cpu')(ss.params, x, 2)\n"
+        "assert timer.summary()['count'] == 1\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'kubetpu'))\n"
+        "print(bad)\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_family_entry_points_default_to_the_card_and_raise_without_it():
+    """No device and no CUDA: the beam search, the masked-LM, ViT and
+    seq2seq steps, inits, generate and converters raise, never continue
+    silently on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is usable here")
+    from kubetpu_torch.jobs import beam, encoder, seq2seq, vision
+    from kubetpu_torch.jobs.convert import (seq2seq_params_from_numpy,
+                                            seq2seq_params_to_numpy,
+                                            vit_params_from_numpy,
+                                            vit_params_to_numpy)
+    from kubetpu_torch.jobs.model import ModelConfig
+
+    cfg = ModelConfig(vocab=32, d_model=16, n_layers=1, n_heads=2, d_ff=32)
+    vcfg = vision.VitConfig(image_size=8, patch_size=4, model=cfg)
+    gen = torch.Generator().manual_seed(0)
+    vit_tree = vit_params_to_numpy(vision.init_vit_params(gen, vcfg, "cpu"))
+    s2s_tree = seq2seq_params_to_numpy(seq2seq.init_seq2seq_params(
+        gen, cfg, "cpu"))
+    for call in (
+            lambda: beam.make_beam_search(cfg, 2),
+            lambda: encoder.make_mlm_train_step(cfg, 31),
+            lambda: vision.init_vit_params(gen, vcfg),
+            lambda: vision.init_vit_state(gen, vcfg),
+            lambda: vision.make_vit_train_step(vcfg),
+            lambda: seq2seq.init_seq2seq_params(gen, cfg),
+            lambda: seq2seq.init_seq2seq_state(gen, cfg),
+            lambda: seq2seq.make_seq2seq_train_step(cfg),
+            lambda: seq2seq.make_seq2seq_generate(cfg),
+            lambda: seq2seq.make_seq2seq_generate(cfg, cached=False),
+            lambda: vit_params_from_numpy(vit_tree, vcfg),
+            lambda: seq2seq_params_from_numpy(s2s_tree, cfg)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
