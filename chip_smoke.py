@@ -1,6 +1,6 @@
 """Drive the PyTorch port (``kubetpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--record PATH] [--phases 29-33]
+    python3 chip_smoke.py [--record PATH] [--phases 29-33|34-35]
 
 Phases, one line each, any failure exits non-zero:
 
@@ -29,7 +29,9 @@ Phases, one line each, any failure exits non-zero:
    the route ``_route`` takes and the fastest;
 4. flash: the forward, dQ and dK/dV kernels at the flagship training shape
    (B=4, S=2048, H=16, D=128, bf16; causal, causal with window 256, and
-   non-causal) and at ViT-B/16's (B=128, S=196, H=12, D=64, non-causal),
+   non-causal), at ViT-B/16's (B=128, S=196, H=12, D=64, non-causal) and
+   at the flash ring's per-step shape in phase 34 (B=2, S=2048, H=8,
+   D=128: the causal diagonal step, the non-causal visiting steps),
    each against its plain version, with the same timings
    (SDPA forward and SDPA backward as the library yardsticks), the route
    that ran (the wgmma or SIMT instances), achieved TFLOP/s, and the
@@ -255,21 +257,38 @@ Phases, one line each, any failure exits non-zero:
    teacher-forced ``decoder_forward``'s, cached against recompute tokens
    under the near-tie rule, ms a token, device busy against wall; no flash
    launch;
-14. the ``kernels`` JSON line, 14 kernels (launches: the paged split,
+34. mesh_train (after phase 31): the flagship at max_seq 4096 trained on a
+   {dp 2, sp 2, tp 2} world of 8 spawned ranks sharing the card (gloo; the
+   hops' CUDA tensors staged through pinned host memory),
+   ``attention="ring_flash"``, batch 4 x 4096, remat, AdamW, three steps,
+   against the one-card flash step on the same weights and batch (its own
+   process, first). Gates and readings in ``phase_mesh_train``'s
+   docstring: step 1's loss within ``MESH_LOSS_TOL`` and the planted fault
+   beyond it, each rank's flash launches a step, the flash ring against
+   the dense ring on every rank; step ms, bytes a step by axis and staged,
+   peak memory a rank and the card's total, the weights' gap after step 1;
+35. mesh_axes: the other legs of ``dryrun_multichip`` in one 8-rank world
+   at a small f32 width, then ``run_gang_worker`` on 2 ranks
+   (``phase_mesh_axes``'s docstring);
+14. the ``kernels`` JSON line, 17 kernels (launches: the paged split,
    combine and wgmma chunk kernels' — dense and int8 instances — over
    phases 6, 8, 9, 12, 15, 16, 17, 19, 20, 21, 26, 27 and 28, the SIMT
    chunk's over phases 5, 16 and 28, the flash kernels' over the timed
    steps of phases 11, 18 and 23 and every flash launch of phases 25 and
    27; then the three flash kernels' ``causal=False`` cases at the
    encoder's shape, launches from phase 29's timed steps, and at ViT's,
-   from phase 30's timed steps and no-grad calls), the script's wall time,
-   then the result line.
+   from phase 30's timed steps and no-grad calls; and the three at the
+   flash ring's per-step shape, B=2, S=2048, H=8, D=128, timed in phase 4
+   (``ring_step`` non-causal, ``ring_diag`` causal), launches from phase
+   34's three steps on all 8 ranks), the script's wall time, then the
+   result line.
 
 Nothing of JAX or of the ``kubetpu`` package is imported. ``--record PATH``
 also writes every measured number as one JSON file. ``--phases 29-33``
 runs phases 1, 2 and 4, then only the other families (29, 33, 30, 31, and
 32 on a random-weight flagship with ``SyntheticCorpus`` prompts) in a few
-minutes, and prints no ``kernels`` line.
+minutes, and prints no ``kernels`` line. ``--phases 34-35`` runs phases 1,
+2 and 4, then 34 and 35, and prints their three ``kernels`` entries.
 """
 
 from __future__ import annotations
@@ -765,6 +784,10 @@ FLASH_SHAPE = dict(B=4, S=2048, H=16, D=128)
 # ViT-B/16's attention (phase 30): 196 patches (a ragged last tile), 12
 # heads of 64
 VIT_FLASH_SHAPE = dict(B=128, S=196, H=12, D=64)
+# the flash ring's per-step kernel shape in phase 34: B = 4 / dp,
+# S_local = 4096 / sp, H = 16 / tp; the diagonal step is causal, each
+# visiting block's step non-causal
+RING_FLASH_SHAPE = dict(B=2, S=2048, H=8, D=128)
 
 
 def _visible_pairs(s: int, causal: bool, window: int) -> int:
@@ -829,7 +852,9 @@ _INSTANCES = {
 FLASH_CASES = (("causal", True, 0, FLASH_SHAPE),
                ("window256", True, 256, FLASH_SHAPE),
                ("noncausal", False, 0, FLASH_SHAPE),
-               ("vit_noncausal", False, 0, VIT_FLASH_SHAPE))
+               ("vit_noncausal", False, 0, VIT_FLASH_SHAPE),
+               ("ring_diag", True, 0, RING_FLASH_SHAPE),
+               ("ring_step", False, 0, RING_FLASH_SHAPE))
 
 
 def _err_ok(x, ref, tol):
@@ -5901,17 +5926,725 @@ def phase_beam(model, cfg, files, smi: str,
     return row
 
 
+# -- phases 34-35: the multi-device training path ---------------------------
+# N ranks time-sharing the one card, gloo between them (NCCL refuses two
+# ranks on one device); the collectives stage CUDA tensors through pinned
+# host buffers where gloo does not take them. What this measures is whether
+# the collectives and the ring are right, and what a step moves; no time
+# here stands for NVLink.
+
+MESH_AXES = {"dp": 2, "sp": 2, "tp": 2}     # dryrun_multichip's mesh at n=8
+MESH_BATCH, MESH_SEQ = 4, 4096              # bench_model.py's flagship shape
+MESH_STEPS = 3
+MESH_SEED = 34
+# |loss of the 8-rank ring_flash step - the one-card flash step's|, in
+# nats, at step 1 (the forward) and at step 2 (after one update): bf16
+# rounds the tp partial sums and the ring's merges in other places than
+# the one-card step. The card read 1.7e-4 at step 1 and 2.7e-4 at step 2
+# (PERF.md), and the planted faults read beyond it in every run
+MESH_LOSS_TOL = 2e-3
+# after step 1, over every rank's leaves: the largest relative L2 gap of
+# the weights to the reference's (sound 0.40%: bf16 rounding of the
+# weights) and of their change over the step to the reference's change
+# (sound 0.19: an update of ~2.5 bf16 ulps rounds either way). A skipped
+# update reads 1.0 on the change; the planted backward fault (gradients
+# not summed over sp) must read beyond both bounds
+MESH_PARAM_GAP_TOL = 6e-3
+MESH_UPDATE_GAP_TOL = 0.4
+# the flash ring against the dense ring on the same ranks, bf16: each
+# tensor's ||flash - dense|| / ||dense|| (out, dq, dk, dv); a ring that
+# drops its last visiting block must read beyond it
+MESH_RING_TOL = 2e-2
+MESH_WORLD_S = 900                          # a world's wall-clock limit
+SMALL_MESH_TOL = 1e-4                       # phase 35, f32: relative
+# phase 35's pipeline step runs at lr PIPE_LR and holds each element's
+# change to the one-card step's within PIPE_UPDATE_TOL steps, leaving out
+# elements whose reference gradient is zero to rounding (|g| <= 1e-6 of
+# the leaf's largest); a stage that gets no gradient misses by a step. An
+# element just above that cut still turns f32 rounding into a share of a
+# step through Adam's g / (|g| + eps): the CPU tests read up to 0.04
+PIPE_LR = 1e-2
+PIPE_UPDATE_TOL = 0.25
+
+def _mesh_train_cfg():
+    return dataclasses.replace(_flagship_train_cfg(), max_seq=MESH_SEQ)
+
+
+def _mesh_batch(cfg):
+    tokens = np.random.default_rng(MESH_SEED).integers(
+        0, cfg.vocab, (MESH_BATCH, MESH_SEQ))
+    return tokens, np.roll(tokens, -1, axis=1)
+
+
+def _rank_main(target, rank, world, store, args, q, init):
+    """One rank of a one-card world: ``cuda:0``, gloo through a file
+    store (unless the target joins a group itself); its result (or its
+    failure) goes to *q*."""
+    import datetime
+
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if init and world > 1:
+        dist.init_process_group(
+            "gloo", init_method=f"file://{store}", world_size=world,
+            rank=rank, timeout=datetime.timedelta(seconds=MESH_WORLD_S))
+    try:
+        q.put((rank, target(rank, world, args)))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _run_world(target, world: int, args, tag: str,
+               init: bool = True) -> list:
+    """*target*(rank, world, args) on *world* spawned ranks sharing the
+    card -> their results, rank order. A rank that fails, or a world past
+    ``MESH_WORLD_S``, fails the phase; every process is stopped.
+    ``init=False``: the target joins its process group itself."""
+    import multiprocessing as mp
+    import queue
+
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    os.makedirs(LIFE_DIR, exist_ok=True)
+    store = os.path.join(LIFE_DIR, f"{tag}-store-{os.getpid()}")
+    if os.path.exists(store):
+        os.remove(store)
+    procs = [ctx.Process(target=_rank_main,
+                         args=(target, r, world, store, args, q, init))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    out, deadline = {}, time.time() + MESH_WORLD_S
+    while len(out) < world and time.time() < deadline:
+        try:
+            rank, res = q.get(timeout=1.0)
+            out[rank] = res
+        except queue.Empty:
+            if any(p.exitcode not in (None, 0) for p in procs):
+                break
+    for p in procs:
+        p.join(timeout=max(1.0, deadline - time.time()) if len(out) == world
+               else 1.0)
+        if p.is_alive():
+            p.kill()
+            p.join()
+    codes = [p.exitcode for p in procs]
+    if len(out) < world or codes != [0] * world:
+        raise SystemExit(f"{tag}: world of {world} failed: exit codes "
+                         f"{codes}, results from ranks {sorted(out)}")
+    return [out[r] for r in range(world)]
+
+
+def _mesh_ref_rank(_rank, _world, args):
+    """The one-card reference: phase 34's weights and batch, the flash
+    step; the weights after step 1 saved for the world to compare."""
+    from kubetpu_torch.jobs import train as train_lib
+    from kubetpu_torch.jobs.model import init_params
+
+    cfg = _mesh_train_cfg()
+    model = init_params(torch.Generator(device="cuda").manual_seed(
+        MESH_SEED), cfg, device="cuda")
+    opt = train_lib.make_optimizer()
+    state = train_lib.state_from_params(model, opt)
+    step = train_lib.make_train_step(cfg, opt, attention="flash",
+                                     device="cuda")
+    batch = _mesh_batch(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms = [], []
+    for i in range(MESH_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = step(state, *batch)
+        losses.append(float(loss))
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            torch.save({k: v.detach().cpu() for k, v in
+                        state.params.state_dict().items()}, args["ref_path"])
+    return {"losses": losses, "step_ms": ms,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def _ring_check(mesh, rank: int, shape, causal: bool, tol: float,
+                plant: bool = False) -> dict:
+    """The flash ring (kernels) against the ring's plain version (the
+    dense ring) on this rank's block of one random input: forward and the
+    gradients of sum(out * cot), each tensor's ||flash - dense|| /
+    ||dense||. *plant*: the flash ring drops its last visiting block
+    (forward and backward; its hops still run)."""
+    from kubetpu_torch.jobs import ring_attention as ring_lib
+
+    gen = torch.Generator(device="cuda").manual_seed(100 + rank)
+    b, s, h, d = (shape[x] for x in "BSHD")
+    dtype = shape.get("dtype", torch.bfloat16)
+    q, k, v, cot = (torch.randn((b, s, h, d), generator=gen, device="cuda",
+                                dtype=dtype) for _ in range(4))
+    sound = ring_lib._visible
+    last = mesh.size(mesh.mesh_dim_names.index("sp")) - 1
+    res = {}
+    for impl in ("flash", "dense"):
+        if plant and impl == "flash":
+            ring_lib._visible = lambda t, i, c: t != last and sound(t, i, c)
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        out = ring_lib.make_ring_attention(mesh, impl=impl,
+                                           causal=causal)(*leaves)
+        grads = torch.autograd.grad((out.float() * cot.float()).sum(),
+                                    leaves)
+        ring_lib._visible = sound
+        res[impl] = (out.detach(), *grads)
+    errs = [float((x.float() - ref.float()).norm() / ref.float().norm())
+            for x, ref in zip(res["flash"], res["dense"])]
+    finite = all(bool(torch.isfinite(x).all()) for x in res["flash"])
+    return {"rel_err": max(errs), "ok": finite and max(errs) <= tol,
+            "tol": tol}
+
+
+def _leaf_ref(ref_sd, name, specs, mesh):
+    """This rank's slice of the reference's leaf *name*."""
+    from kubetpu_torch.jobs import train as train_lib
+
+    leaf = name.split(".")[-1]
+    spec = specs[leaf] if "." not in name else specs["blocks"][leaf][1:]
+    return train_lib._take(ref_sd[name], spec, mesh)
+
+
+def _step_gaps(params, init, after1, ref_sd, cfg, mesh):
+    """Over this rank's leaves: the largest relative L2 gap of the weights
+    after step 1 (*after1*) to the reference's, and of their change over
+    the step (from *init*) to the reference's change."""
+    from kubetpu_torch.jobs import train as train_lib
+
+    specs = train_lib.param_specs(cfg)
+    gap = upd = 0.0
+    for (name, _p), a, p0 in zip(params.named_parameters(), after1, init):
+        ref = _leaf_ref(ref_sd, name, specs, mesh).to("cuda").float()
+        gap = max(gap, float((a.float() - ref).norm() / ref.norm()))
+        d_ref = ref - p0.float()
+        upd = max(upd, float((a.float() - p0.float() - d_ref).norm()
+                             / d_ref.norm().clamp(min=1e-30)))
+    return gap, upd
+
+
+def _sync_without_sp(sound):
+    """The planted backward fault: ``train.grad_sync`` whose gradients are
+    not summed over sp (each sp rank updates with its own tokens' part)."""
+    def grad_sync(cfg, groups, pp=False):
+        sync = sound(cfg, groups, pp)
+        sync.reduce_axes = [tuple(a for a in axes if a != "sp")
+                            for axes in sync.reduce_axes]
+        return sync
+
+    return grad_sync
+
+
+def _mesh_train_rank(rank, world, args):
+    """Phase 34 on one rank: the ring check (and its planted fault), the
+    planted RoPE fault's loss, the three main-path steps (counts zeroed
+    just before, read just after), the weights after step 1 against the
+    reference's; then two steps with the planted backward fault."""
+    import torch.distributed as dist
+
+    from kubetpu_torch.jobs import collectives as col
+    from kubetpu_torch.jobs import train as train_lib
+    from kubetpu_torch.jobs.meshjob import make_mesh
+
+    cfg = _mesh_train_cfg()
+    mesh = make_mesh(MESH_AXES, device="cuda")
+    sp_idx = col.axis_index(mesh, "sp")
+    ring = {c: _ring_check(mesh, rank, RING_FLASH_SHAPE, c == "causal",
+                           MESH_RING_TOL) for c in ("causal", "noncausal")}
+    ring_fault = {c: _ring_check(mesh, rank, RING_FLASH_SHAPE,
+                                 c == "causal", MESH_RING_TOL, plant=True)
+                  for c in ("causal", "noncausal")}
+    state, opt = train_lib.init_state(
+        torch.Generator(device="cuda").manual_seed(MESH_SEED), cfg,
+        device="cuda", mesh=mesh)
+    torch.cuda.empty_cache()
+    batch = _mesh_batch(cfg)
+    # the planted fault: every sp rank's RoPE positions start at 0
+    sound = train_lib._positions
+    train_lib._positions = lambda _i, s, dev: sound(0, s, dev)
+    fault = float(train_lib.make_eval_step(cfg, "ring_flash", "cuda",
+                                           mesh)(state.params, *batch))
+    train_lib._positions = sound
+    init = [p.detach().clone() for p in state.params.parameters()]
+    step = train_lib.make_train_step(cfg, opt, attention="ring_flash",
+                                     device="cuda", mesh=mesh)
+    torch.cuda.synchronize()
+    dist.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_flash_counts()                              # zero just before
+    losses, ms, per_step, axis, staged = [], [], [], [], []
+    for i in range(MESH_STEPS):
+        before = _flash_counts()
+        col.reset_counters()
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        state, loss = step(state, *batch)
+        torch.cuda.synchronize()
+        dist.barrier()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+        per_step.append([a - b for a, b in zip(_flash_counts(), before)])
+        axis.append(dict(col.axis_bytes))
+        staged.append(col.stage_through_host.bytes)
+        if i == 0:
+            after1 = [p.detach().clone() for p in state.params.parameters()]
+    counts = _flash_counts()                          # read just after
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    smi_mem = None
+    if rank == 0:
+        smi_mem = subprocess.run(
+            ["nvidia-smi", "--query-gpu=memory.used,memory.total",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout.strip()
+    dist.barrier()
+    ref_sd = torch.load(args["ref_path"], mmap=True)
+    gap, upd = _step_gaps(state.params, init, after1, ref_sd, cfg, mesh)
+    # the planted backward fault, from the same weights: two steps whose
+    # gradients are not summed over sp
+    del state, step, init, after1
+    torch.cuda.empty_cache()
+    fstate, fopt = train_lib.init_state(
+        torch.Generator(device="cuda").manual_seed(MESH_SEED), cfg,
+        device="cuda", mesh=mesh)
+    finit = [p.detach().clone() for p in fstate.params.parameters()]
+    sound_sync = train_lib.grad_sync
+    train_lib.grad_sync = _sync_without_sp(sound_sync)
+    fstep = train_lib.make_train_step(cfg, fopt, attention="ring_flash",
+                                      device="cuda", mesh=mesh)
+    train_lib.grad_sync = sound_sync
+    fstate, _ = fstep(fstate, *batch)
+    fafter1 = [p.detach().clone() for p in fstate.params.parameters()]
+    fstate, floss2 = fstep(fstate, *batch)
+    fgap, fupd = _step_gaps(fstate.params, finit, fafter1, ref_sd, cfg,
+                            mesh)
+    expected = (2 * cfg.n_layers * (1 + sp_idx), cfg.n_layers * (1 + sp_idx),
+                cfg.n_layers * (1 + sp_idx)) * 2
+    return {"losses": losses, "step_ms": ms, "fault_loss": fault,
+            "ring": ring, "ring_fault": ring_fault,
+            "per_step_launches": per_step,
+            "expected_per_step": list(expected), "launches": list(counts),
+            "axis_bytes": axis, "staged_bytes": staged, "peak_mem_gb": peak,
+            "nvidia_smi_mem": smi_mem, "param_gap": gap, "update_gap": upd,
+            "bwd_fault_loss2": float(floss2), "bwd_fault_param_gap": fgap,
+            "bwd_fault_update_gap": fupd,
+            "sp_index": sp_idx, "tp_index": col.axis_index(mesh, "tp"),
+            "dp_index": col.axis_index(mesh, "dp")}
+
+
+def phase_mesh_train(smi: str) -> dict:
+    """Phase 34: the flagship at full width trained three steps on a
+    {dp 2, sp 2, tp 2} world of 8 ranks sharing the card,
+    ``attention="ring_flash"`` (the flash kernels in every ring step),
+    batch 4 x 4096, against the one-card flash step on the same weights
+    and batch (its own process, before the world). Gates: step 1's loss
+    within ``MESH_LOSS_TOL`` of the reference's, the planted fault (RoPE
+    positions not offset by the sp rank) beyond it; step 2's loss within
+    ``MESH_LOSS_TOL``, and the weights after step 1 and their change over
+    it within ``MESH_PARAM_GAP_TOL`` and ``MESH_UPDATE_GAP_TOL`` of the
+    reference's, the planted backward fault (gradients not summed over sp)
+    beyond all three; every rank's flash launches a step as its ring
+    position says (2 x 12 x (1 + sp index) forward under remat,
+    12 x (1 + sp index) dQ and dK/dV), all on the wgmma instances; the
+    flash ring against the dense ring on every rank at the step's kernel
+    shape within ``MESH_RING_TOL``, the ring that drops its last visiting
+    block beyond it; one loss on every rank, finite."""
+    cfg = _mesh_train_cfg()
+    ref_path = os.path.join(LIFE_DIR, "mesh_ref.pt")
+    os.makedirs(LIFE_DIR, exist_ok=True)
+    t0 = time.perf_counter()
+    (ref,) = _run_world(_mesh_ref_rank, 1, {"ref_path": ref_path},
+                        "mesh_train_ref")
+    ranks = _run_world(_mesh_train_rank, 8, {"ref_path": ref_path},
+                       "mesh_train")
+    os.remove(ref_path)
+    wall = time.perf_counter() - t0
+    r0 = ranks[0]
+    bad = []
+    if any(r["losses"] != r0["losses"] for r in ranks):
+        bad.append("ranks disagree on the loss")
+    if not all(np.isfinite(r0["losses"])):
+        bad.append(f"non-finite losses {r0['losses']}")
+    gap = abs(r0["losses"][0] - ref["losses"][0])
+    fault_gap = abs(r0["fault_loss"] - ref["losses"][0])
+    if not gap <= MESH_LOSS_TOL:
+        bad.append(f"step-1 loss {r0['losses'][0]} vs one-card "
+                   f"{ref['losses'][0]}: gap {gap} > {MESH_LOSS_TOL}")
+    if not fault_gap > MESH_LOSS_TOL:
+        bad.append(f"planted fault's loss gap {fault_gap} within the bound")
+    gap2 = abs(r0["losses"][1] - ref["losses"][1])
+    bwd_gap2 = abs(r0["bwd_fault_loss2"] - ref["losses"][1])
+    param_gap = max(r["param_gap"] for r in ranks)
+    update_gap = max(r["update_gap"] for r in ranks)
+    bwd_param_gap = max(r["bwd_fault_param_gap"] for r in ranks)
+    bwd_update_gap = max(r["bwd_fault_update_gap"] for r in ranks)
+    for what, sound, fault, tol in (
+            ("step-2 loss gap", gap2, bwd_gap2, MESH_LOSS_TOL),
+            ("weights' gap after step 1", param_gap, bwd_param_gap,
+             MESH_PARAM_GAP_TOL),
+            ("update's gap at step 1", update_gap, bwd_update_gap,
+             MESH_UPDATE_GAP_TOL)):
+        if not sound <= tol:
+            bad.append(f"{what} {sound} > {tol}")
+        if not fault > tol:
+            bad.append(f"backward fault's {what} {fault} within {tol}")
+    for rank, r in enumerate(ranks):
+        for s, got in enumerate(r["per_step_launches"]):
+            if got != r["expected_per_step"]:
+                bad.append(f"rank {rank} step {s}: flash launches {got} != "
+                           f"{r['expected_per_step']}")
+        for c, chk in r["ring"].items():
+            if not chk["ok"]:
+                bad.append(f"rank {rank}: {c} flash ring vs dense ring "
+                           f"{chk['rel_err']}")
+    ring_fault = max(chk["rel_err"] for r in ranks
+                     for chk in r["ring_fault"].values())
+    if not ring_fault > MESH_RING_TOL:
+        bad.append(f"the ring without its last visiting block reads "
+                   f"{ring_fault}, within {MESH_RING_TOL}")
+    launches = [sum(r["launches"][i] for r in ranks) for i in range(3)]
+    row = dict(
+        card=torch.cuda.get_device_name(0), nvidia_smi=smi,
+        setting="8 ranks time-sharing one card; gloo, host-staged",
+        mesh=MESH_AXES, batch=MESH_BATCH, seq=MESH_SEQ, layers=cfg.n_layers,
+        attention="ring_flash", remat="full",
+        losses=r0["losses"], ref_losses=ref["losses"], loss_gap=gap,
+        loss_tol=MESH_LOSS_TOL, fault_loss=r0["fault_loss"],
+        fault_gap=fault_gap, loss_gap_step2=gap2,
+        param_gap_max=param_gap, param_gap_tol=MESH_PARAM_GAP_TOL,
+        update_gap_max=update_gap, update_gap_tol=MESH_UPDATE_GAP_TOL,
+        bwd_fault=dict(loss2=r0["bwd_fault_loss2"], loss_gap_step2=bwd_gap2,
+                       param_gap_max=bwd_param_gap,
+                       update_gap_max=bwd_update_gap),
+        flash_per_step={f"rank{i}": r["per_step_launches"][0]
+                        for i, r in enumerate(ranks)},
+        flash_expected={f"rank{i}": r["expected_per_step"]
+                        for i, r in enumerate(ranks)},
+        flash_launches=dict(forward=launches[0], dq=launches[1],
+                            dkv=launches[2], steps=MESH_STEPS, ranks=8),
+        step_ms=r0["step_ms"], ref_step_ms=ref["step_ms"],
+        bytes_per_step_rank0={k: v for k, v in r0["axis_bytes"][-1].items()},
+        staged_bytes_per_step_rank0=r0["staged_bytes"][-1],
+        staged_bytes_per_step_all=sum(r["staged_bytes"][-1] for r in ranks),
+        peak_mem_gb_rank_max=max(r["peak_mem_gb"] for r in ranks),
+        ref_peak_mem_gb=ref["peak_mem_gb"],
+        nvidia_smi_mem=r0["nvidia_smi_mem"],
+        ring_check={f"rank{i}": r["ring"] for i, r in enumerate(ranks)},
+        ring_rel_err_max=max(chk["rel_err"] for r in ranks
+                             for chk in r["ring"].values()),
+        ring_tol=MESH_RING_TOL, ring_fault_rel_err_max=ring_fault,
+        wall_s=wall, ok=not bad)
+    line("mesh_train", **row)
+    if bad:
+        raise SystemExit("mesh_train: " + "; ".join(bad))
+    return row
+
+
+SMALL_MESH_KW = dict(vocab=512, d_model=256, n_layers=4, n_heads=4,
+                     d_ff=512, max_seq=512)
+
+
+def _small_mesh_batch(seed=35):
+    tokens = np.random.default_rng(seed).integers(
+        0, SMALL_MESH_KW["vocab"], (4, 256))
+    return tokens, np.roll(tokens, -1, axis=1)
+
+
+def _one_card_losses(cfg, tree, attention, batch, steps=1, lr=3e-4):
+    """The one-card step on *tree*'s weights -> (losses, weights)."""
+    from kubetpu_torch.jobs import train as train_lib
+    from kubetpu_torch.jobs.convert import params_from_numpy
+
+    opt = train_lib.make_optimizer(lr=lr)
+    state = train_lib.state_from_params(params_from_numpy(tree, cfg, "cuda"),
+                                        opt)
+    step = train_lib.make_train_step(cfg, opt, attention=attention,
+                                     device="cuda")
+    losses = [float(step(state, *batch)[1]) for _ in range(steps)]
+    return losses, state.params
+
+
+def _one_card_grads(cfg, tree, batch) -> dict:
+    """The gradient of the one-card loss at *tree*'s weights, as a tree."""
+    from kubetpu_torch.jobs import model as model_lib
+    from kubetpu_torch.jobs.convert import params_from_numpy, params_to_numpy
+
+    model = params_from_numpy(tree, cfg, "cuda")
+    leaves = list(model.parameters())
+    for p in leaves:
+        p.requires_grad_(True)
+    tokens, targets = (torch.as_tensor(x, device="cuda") for x in batch)
+    grads = torch.autograd.grad(model_lib.next_token_loss(
+        model, tokens, targets, cfg), leaves)
+    with torch.no_grad():
+        for p, g in zip(leaves, grads):
+            p.copy_(g)
+    return params_to_numpy(model)
+
+
+def _pipe_update_gap(tree, got, ref, grads) -> float:
+    """The largest |change of an element over one step - the reference
+    step's change|, in steps of PIPE_LR, over the elements whose reference
+    gradient is not zero to rounding (|g| > 1e-6 of the leaf's largest)."""
+    def leaves(t):
+        return [("embed", t["embed"]), ("ln_f", t["ln_f"]),
+                ("head", t["head"])] + sorted(t["blocks"].items())
+
+    worst = 0.0
+    for (_n, w0), (_, a), (_, r), (_, g) in zip(
+            leaves(tree), leaves(got), leaves(ref), leaves(grads)):
+        keep = np.abs(g) > 1e-6 * np.abs(g).max()
+        worst = max(worst, float(np.abs((a - w0) - (r - w0))[keep].max()))
+    return worst / PIPE_LR
+
+
+def _mesh_axes_rank(rank, world, args):
+    """Phase 35 on one rank: each leg's mesh step (and rank 0's one-card
+    references)."""
+    from kubetpu_torch.jobs import pipeline as pipe
+    from kubetpu_torch.jobs import train as train_lib
+    from kubetpu_torch.jobs.convert import (gather_params, params_to_numpy,
+                                            shard_params)
+    from kubetpu_torch.jobs.meshjob import make_mesh, make_multislice_mesh
+    from kubetpu_torch.jobs.model import ModelConfig, init_params
+
+    cfg = ModelConfig(**SMALL_MESH_KW)
+    tree = params_to_numpy(init_params(torch.Generator().manual_seed(35),
+                                       cfg, device="cpu"))
+    batch = _small_mesh_batch()
+    out = {}
+
+    def mesh_step(c, mesh, attention, steps=1):
+        opt = train_lib.make_optimizer()
+        state = train_lib.state_from_params(
+            shard_params(tree, c, mesh, "cuda"), opt)
+        step = train_lib.make_train_step(c, opt, attention=attention,
+                                         device="cuda", mesh=mesh)
+        return [float(step(state, *batch)[1]) for _ in range(steps)]
+
+    dp = make_mesh(MESH_AXES, device="cuda")
+    out["ring"] = mesh_step(cfg, dp, "ring", 2)
+    out["ring_flash"] = mesh_step(cfg, dp, "ring_flash")
+    wcfg = dataclasses.replace(cfg, window=8)
+    out["banded"] = mesh_step(wcfg, dp, "ring")
+    ms = make_multislice_mesh({"dcn": 2, "sp": 2, "tp": 2}, device="cuda")
+    out["multislice"] = mesh_step(cfg, ms, "ring", 2)
+    # the pipeline: {dp 1, pp 2, sp 2, tp 2}, two microbatches, one step
+    # at PIPE_LR; then the planted fault: the backward hop into stage 0
+    # sends zeros
+    pmesh = make_mesh({"dp": 1, "pp": 2, "sp": 2, "tp": 2}, device="cuda")
+
+    def pipe_step():
+        opt = train_lib.make_optimizer(lr=PIPE_LR)
+        pstate = train_lib.state_from_params(
+            shard_params(tree, cfg, pmesh, "cuda", pp=True), opt)
+        pstep = pipe.make_pipeline_train_step(cfg, pmesh, 2, opt,
+                                              device="cuda")
+        loss = float(pstep(pstate, *batch)[1])
+        return loss, gather_params(pstate.params, cfg, pmesh, pp=True)
+
+    ploss, ptree = pipe_step()
+    out["pipeline"] = [ploss]
+    sound_bwd = pipe._RecvPrev.backward
+    pipe._RecvPrev.backward = staticmethod(
+        lambda ctx, g: sound_bwd(ctx, torch.zeros_like(g)))
+    _fault_loss, ftree = pipe_step()
+    pipe._RecvPrev.backward = staticmethod(sound_bwd)
+    # the rings against their plain version and the one-card flash core:
+    # the flash ring, bidirectional and causal, vs the dense ring on the
+    # same ranks; the bidirectional ring vs non-causal one-card flash
+    sp_mesh = make_mesh({"sp": world}, device="cuda")
+    f32 = dict(B=2, S=64, H=4, D=64, dtype=torch.float32)
+    out["ring_check"] = {c: _ring_check(sp_mesh, rank, f32, c == "causal",
+                                        SMALL_MESH_TOL)
+                         for c in ("causal", "noncausal")}
+    out["bidir"] = _bidir_vs_one_card(sp_mesh, rank, world)
+    if rank == 0:
+        out["ref_flash"], _ = _one_card_losses(cfg, tree, "flash", batch, 2)
+        out["ref_dense_window"], _ = _one_card_losses(wcfg, tree, "dense",
+                                                      batch)
+        ref = params_to_numpy(_one_card_losses(cfg, tree, "flash", batch,
+                                               lr=PIPE_LR)[1])
+        grads = _one_card_grads(cfg, tree, batch)
+        out["pipeline_update_gap"] = _pipe_update_gap(tree, ptree, ref, grads)
+        out["pipeline_fault_update_gap"] = _pipe_update_gap(tree, ftree, ref,
+                                                            grads)
+    return out
+
+
+def _bidir_vs_one_card(mesh, rank, world) -> dict:
+    """The bidirectional flash ring over *mesh*'s sp ring against
+    ``flash_attention(causal=False)`` on one card, same input: this
+    rank's block of the output and of dq."""
+    from kubetpu_torch.jobs.ring_attention import make_ring_attention
+    from kubetpu_torch.ops.flash_attention import flash_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    q, k, v, cot = (torch.randn((2, 32 * world, 4, 64), generator=gen,
+                                device="cuda") for _ in range(4))
+    s = 32
+    blk = slice(rank * s, (rank + 1) * s)
+
+    def run(fn, *xs):
+        leaves = [x.clone().requires_grad_(True) for x in xs]
+        out = fn(*leaves)
+        return out.detach(), torch.autograd.grad((out * cot[:, :out.shape[1]]
+                                         if out.shape[1] == cot.shape[1]
+                                         else out * cot[:, blk]).sum(),
+                                        leaves)
+
+    one, one_g = run(lambda a, b, c: flash_attention(a, b, c, causal=False),
+                     q, k, v)
+    ring, ring_g = run(make_ring_attention(mesh, impl="flash", causal=False),
+                       q[:, blk].contiguous(), k[:, blk].contiguous(),
+                       v[:, blk].contiguous())
+    errs = [_err_ok(ring, one[:, blk], SMALL_MESH_TOL)] + [
+        _err_ok(g, w[:, blk], SMALL_MESH_TOL)
+        for g, w in zip(ring_g, one_g)]
+    return {"max_abs_err": max(e for e, _ in errs),
+            "ok": all(o for _, o in errs)}
+
+
+def _gang_rank(rank, world, args):
+    from kubetpu_torch.jobs.launch import LaunchConfig, run_gang_worker
+
+    return run_gang_worker(LaunchConfig(args["coordinator"], world, rank,
+                                        [0]), "gloo", local_rank=0, seed=0)
+
+
+def phase_mesh_axes(smi: str) -> dict:
+    """Phase 35: the other legs of ``dryrun_multichip`` in one 8-rank world
+    at a small f32 width (vocab 512, d 256, 4 layers, 4 heads, batch
+    4 x 256): the dense and the flash ring step on {dp 2, sp 2, tp 2}
+    against the one-card flash step; the banded ring (window 8) against
+    the one-card dense windowed step; {dcn 2, sp 2, tp 2} equal to
+    {dp 2, sp 2, tp 2} exactly; the pipeline {dp 1, pp 2, sp 2, tp 2}
+    against the one-card step (its loss, and each weight's change over a
+    step at ``PIPE_LR`` within ``PIPE_UPDATE_TOL`` steps, a pipeline whose
+    backward hop into stage 0 sends zeros beyond it); the flash ring, causal
+    and bidirectional, against the dense ring on the same ranks, and the
+    bidirectional flash ring against one-card non-causal flash; then
+    ``run_gang_worker`` on 2 ranks joined through a tcp coordinator.
+    Losses within ``SMALL_MESH_TOL`` relative."""
+    import socket
+
+    t0 = time.perf_counter()
+    ranks = _run_world(_mesh_axes_rank, 8, {}, "mesh_axes")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    gang = _run_world(_gang_rank, 2, {"coordinator": f"127.0.0.1:{port}"},
+                      "mesh_gang", init=False)
+    r0 = ranks[0]
+    bad = []
+
+    def close(a, b):
+        return abs(a - b) <= SMALL_MESH_TOL * abs(b)
+
+    for key in ("ring", "ring_flash", "banded", "multislice", "pipeline"):
+        if any(r[key] != r0[key] for r in ranks):
+            bad.append(f"{key}: ranks disagree")
+    if not close(r0["ring"][0], r0["ref_flash"][0]):
+        bad.append(f"dense ring {r0['ring']} vs flash {r0['ref_flash']}")
+    if not close(r0["ring"][1], r0["ref_flash"][1]):
+        bad.append(f"dense ring step 2 {r0['ring']} vs {r0['ref_flash']}")
+    if not close(r0["ring_flash"][0], r0["ref_flash"][0]):
+        bad.append(f"flash ring {r0['ring_flash']} vs {r0['ref_flash']}")
+    if not close(r0["banded"][0], r0["ref_dense_window"][0]):
+        bad.append(f"banded {r0['banded']} vs {r0['ref_dense_window']}")
+    if r0["multislice"] != r0["ring"]:
+        bad.append(f"multislice {r0['multislice']} != dp {r0['ring']}")
+    if not close(r0["pipeline"][0], r0["ref_flash"][0]):
+        bad.append(f"pipeline {r0['pipeline']} vs {r0['ref_flash']}")
+    if not r0["pipeline_update_gap"] <= PIPE_UPDATE_TOL:
+        bad.append(f"pipeline update gap {r0['pipeline_update_gap']} steps")
+    if not r0["pipeline_fault_update_gap"] > PIPE_UPDATE_TOL:
+        bad.append(f"pipeline with a zero backward hop: update gap "
+                   f"{r0['pipeline_fault_update_gap']} steps, in bound")
+    for rank, r in enumerate(ranks):
+        for c, chk in r["ring_check"].items():
+            if not chk["ok"]:
+                bad.append(f"rank {rank} {c}: {chk['rel_err']}")
+        if not r["bidir"]["ok"]:
+            bad.append(f"rank {rank} bidir_one_card: "
+                       f"{r['bidir']['max_abs_err']}")
+    if not (gang[0]["loss"] == gang[1]["loss"]
+            and np.isfinite(gang[0]["loss"])
+            and [g["process_count"] for g in gang] == [2, 2]):
+        bad.append(f"gang {gang}")
+    row = dict(card=torch.cuda.get_device_name(0), nvidia_smi=smi,
+               setting="8 ranks time-sharing one card; gloo, host-staged",
+               cfg=SMALL_MESH_KW, dtype="float32", tol=SMALL_MESH_TOL,
+               ring=r0["ring"], ring_flash=r0["ring_flash"],
+               ref_flash=r0["ref_flash"], banded=r0["banded"],
+               ref_dense_window=r0["ref_dense_window"],
+               multislice=r0["multislice"], pipeline=r0["pipeline"],
+               pipeline_lr=PIPE_LR,
+               pipeline_update_gap_steps=r0["pipeline_update_gap"],
+               pipeline_fault_update_gap_steps=r0[
+                   "pipeline_fault_update_gap"],
+               pipeline_update_tol_steps=PIPE_UPDATE_TOL,
+               ring_check_rel_err=max(c["rel_err"] for r in ranks
+                                      for c in r["ring_check"].values()),
+               bidir_max_err=max(r["bidir"]["max_abs_err"] for r in ranks),
+               gang_losses=[g["loss"] for g in gang],
+               wall_s=time.perf_counter() - t0, ok=not bad)
+    line("mesh_axes", **row)
+    if bad:
+        raise SystemExit("mesh_axes: " + "; ".join(bad))
+    return row
+
+
+def _mesh_kernel_rows(flash, mesh_train) -> list:
+    """The three flash kernels on phase 34's path: timed at the ring's
+    per-step shape (the visiting blocks' non-causal steps; the causal
+    diagonal step beside them), launches summed over the 8 ranks' three
+    main-path steps."""
+    rows = []
+    for kind, name, replaces in (
+            ("forward", "flash_forward", "kubetpu/ops/flash_attention.py:41"),
+            ("dq", "flash_backward_dq", "kubetpu/ops/flash_attention.py:141"),
+            ("dkv", "flash_backward_dkv",
+             "kubetpu/ops/flash_attention.py:195")):
+        step, diag = (next(r for r in flash if r["kernel"] == kind
+                           and r["case"] == case)
+                      for case in ("ring_step", "ring_diag"))
+        rows.append({
+            "name": f"{name}_mesh_ring", "route": "cuda",
+            "instances": step["route"],
+            "source": "kubetpu_torch/ops/csrc/flash_attention.cu",
+            "replaces": replaces,
+            "launches": mesh_train["flash_launches"][kind],
+            "launches_from": "phase 34, 8 ranks x 3 steps",
+            "max_abs_err": max(step["max_abs_err"], diag["max_abs_err"]),
+            "ms": step["ms"], "plain_ms": step["plain_ms"],
+            "bound_ms": step["bound_ms"], "bound_by": step["bound_by"],
+            "library_ms": step["library_ms"], "diag_ms": diag["ms"],
+            "diag_bound_ms": diag["bound_ms"],
+            "diag_library_ms": diag["library_ms"],
+            "ok": step["ok"] and diag["ok"], "shape": step["shape"]})
+    return rows
+
+
 def main(argv) -> int:
     t_script = time.perf_counter()
     record_path = None
-    families_only = argv[-2:] == ["--phases", "29-33"]
-    if families_only:
+    only = argv[-1] if argv[-2:-1] == ["--phases"] else None
+    if only is not None and only not in PHASE_RANGES:
+        print(f"chip_smoke: unknown --phases {only}", file=sys.stderr)
+        return 2
+    if only:
         argv = argv[:-2]
     if argv[:1] == ["--record"] and len(argv) == 2:
         record_path = argv[1]
     elif argv:
         print("usage: python3 chip_smoke.py [--record PATH] "
-              "[--phases 29-33]", file=sys.stderr)
+              f"[--phases {'|'.join(PHASE_RANGES)}]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on the "
@@ -5922,8 +6655,10 @@ def main(argv) -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = phase_device()
     build = phase_build()
-    if families_only:
-        return main_families(dev, build, record_path, t_script)
+    if only:
+        return finish({"device": dev, "build": build,
+                       **PHASE_RANGES[only](dev["nvidia_smi"])},
+                      t_script, record_path, only)
     kern = phase_kernels()
     verify = phase_verify_routes()
     flash = phase_flash()
@@ -5991,6 +6726,10 @@ def main(argv) -> int:
     vit = phase_vit(dev["nvidia_smi"], flash)
     torch.cuda.empty_cache()
     seq2seq = phase_seq2seq(dev["nvidia_smi"])
+    torch.cuda.empty_cache()
+    # the multi-device training path: worlds of ranks sharing the card
+    mesh_train = phase_mesh_train(dev["nvidia_smi"])
+    mesh_axes = phase_mesh_axes(dev["nvidia_smi"])
     shutil.rmtree(LIFE_DIR, ignore_errors=True)
 
     # the paged kernels at the main path's cases (launches: phases 6, 8, 9,
@@ -6077,7 +6816,7 @@ def main(argv) -> int:
     for kind, name, replaces in flash_kernels:
         launches = sum(r["flash_launches"][kind] for r in trained)
         rows = [r for r in flash if r["kernel"] == kind
-                and r["shape"]["S"] == FLASH_SHAPE["S"]]
+                and all(r["shape"][x] == FLASH_SHAPE[x] for x in "BSHD")]
         main_row = next(r for r in rows if r["case"] == "causal")
         kernels.append({
             "name": name, "route": "cuda", "instances": main_row["route"],
@@ -6113,6 +6852,7 @@ def main(argv) -> int:
                 "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                 "ok": r["ok"], "shape": r["shape"],
             })
+    kernels += _mesh_kernel_rows(flash, mesh_train)
     record = {"device": dev, "build": build, "kernel_cases": kern,
               "flash_cases": flash, "parity": parity, "serve": serve,
               "profile": prof, "prefix": prefix, "window": window,
@@ -6126,7 +6866,15 @@ def main(argv) -> int:
               "text_train": text_train, "text_serve": text_serve,
               "distill": distill, "hf_import": hf_import, "beam": beam,
               "encoder": encoder, "profiling": profiling, "vit": vit,
-              "seq2seq": seq2seq, "kernels": kernels}
+              "seq2seq": seq2seq, "mesh_train": mesh_train,
+              "mesh_axes": mesh_axes, "kernels": kernels}
+    return finish(record, t_script, record_path)
+
+
+def finish(record: dict, t_script: float, record_path, phases=None) -> int:
+    """The shared tail of a run: the wall line, the record (``--record``),
+    the ``kernels`` line where the run has one, and the contract's last
+    line (naming *phases* when ``--phases`` cut the run)."""
     record["wall_s"] = time.perf_counter() - t_script
     line("wall", seconds=record["wall_s"])
     if record_path:
@@ -6134,22 +6882,24 @@ def main(argv) -> int:
                     exist_ok=True)
         with open(record_path, "w") as f:
             json.dump(record, f, indent=1)
-    print(json.dumps({"kernels": kernels}), flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
+    if "kernels" in record:
+        print(json.dumps({"kernels": record["kernels"]}), flush=True)
+    print(json.dumps({"ok": True, **({"phases": phases} if phases else {}),
+                      "device": {
+                          "platform": "gpu",
+                          "kind": torch.cuda.get_device_name(0),
+                          "count": torch.cuda.device_count()}}), flush=True)
     return 0
 
 
-def main_families(dev, build, record_path, t_script) -> int:
+def run_families(smi: str) -> dict:
     """``--phases 29-33``: phase 4, then 29, 33, 30 and 31 as the whole run
     drives them, and 32 on a random-weight flagship (the whole run gives it
     phase 25's trained one) with ``SyntheticCorpus`` prompts."""
     from kubetpu_torch.jobs.data import SyntheticCorpus
     from kubetpu_torch.jobs.model import init_params
 
-    smi = dev["nvidia_smi"]
-    record = {"device": dev, "build": build, "flash_cases": phase_flash()}
+    record = {"flash_cases": phase_flash()}
     record["encoder"], state, step, batch = phase_encoder(smi, float("nan"))
     record["profiling"] = phase_profiling(state, step, batch, smi)
     del state, step, batch
@@ -6164,17 +6914,25 @@ def main_families(dev, build, record_path, t_script) -> int:
     record["beam"] = phase_beam(
         model, cfg, {"held": SyntheticCorpus(cfg.vocab, seed=32)}, smi,
         weights="a random-weight flagship")
-    record["wall_s"] = time.perf_counter() - t_script
-    line("wall", seconds=record["wall_s"])
-    if record_path:
-        os.makedirs(os.path.dirname(os.path.abspath(record_path)),
-                    exist_ok=True)
-        with open(record_path, "w") as f:
-            json.dump(record, f, indent=1)
-    print(json.dumps({"ok": True, "phases": "29-33", "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
-    return 0
+    return record
+
+
+def run_mesh(smi: str) -> dict:
+    """``--phases 34-35``: phase 4 (with the ring's cases), then 34 and 35
+    as the whole run drives them, and their three ``kernels`` entries."""
+    record = {"flash_cases": phase_flash()}
+    torch.cuda.empty_cache()
+    record["mesh_train"] = phase_mesh_train(smi)
+    record["mesh_axes"] = phase_mesh_axes(smi)
+    shutil.rmtree(LIFE_DIR, ignore_errors=True)
+    record["kernels"] = _mesh_kernel_rows(record["flash_cases"],
+                                          record["mesh_train"])
+    return record
+
+
+# ``--phases`` ranges: each runs phases 1, 2 and its own, then the shared
+# tail
+PHASE_RANGES = {"29-33": run_families, "34-35": run_mesh}
 
 
 if __name__ == "__main__":

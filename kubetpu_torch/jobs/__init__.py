@@ -9,7 +9,10 @@ train step, synthetic data, LoRA fine-tuning in ``lora``), and the model's
 lifecycle around them: the byte and BPE tokenizers (``data``,
 ``tokenizer``), the native token-file loader (``native_data``), checkpoint
 and resume (``checkpoint``), the HF llama importer (``hf_import``) and
-draft distillation (``distill``).
+draft distillation (``distill``); and the multi-device training path: the
+DeviceMesh (``meshjob``), the gang launch (``launch``), the collectives
+(``collectives``), ring attention (``ring_attention``), the sharded step
+(``train``) and the GPipe pipeline (``pipeline``).
 
 Submodules, imported by users:
   ``beam`` (beam search over the dense KV cache),
@@ -20,4 +23,6 @@ Submodules, imported by users:
   ``decode``, ``serving``, ``paged``, ``spec_serving``, ``speculative``,
   ``multi_lora``, ``lora``, ``train``, ``data``, ``tokenizer``,
   ``native_data``, ``checkpoint``, ``hf_import``, ``distill``, ``quant``,
-  ``sampling``, ``convert`` (weights across from the JAX package's trees)."""
+  ``sampling``, ``convert`` (weights across from the JAX package's trees),
+  ``meshjob``, ``launch``, ``collectives``, ``ring_attention``,
+  ``pipeline``."""

@@ -14,6 +14,8 @@ across too: its ``QTensor`` leaves, read by duck typing (``.q``,
 dequantizing to the config's dtype. ``lora_from_numpy`` / ``lora_to_numpy``
 carry a LoRA adapter tree (``{"blocks": {leaf: (L, ...)}}``, the layer axis
 kept: the port's adapters are stacked like the reference's) the same way.
+``shard_params`` / ``gather_params`` carry the tree to and from one
+rank's shard on a mesh (``train.param_specs``).
 ``vit_params_from_numpy`` / ``vit_params_to_numpy`` and
 ``seq2seq_params_from_numpy`` / ``seq2seq_params_to_numpy`` carry the ViT
 and encoder-decoder trees, un-stacking their blocks as above.
@@ -132,6 +134,59 @@ def params_to_numpy(model: Transformer) -> dict:
     require_unquantized(model, "params_to_numpy")
     return _to_tree(model, ("embed", "ln_f", "head"),
                     block_leaves(model.cfg))
+
+
+def shard_params(np_tree: Mapping, cfg: ModelConfig, mesh, device=None,
+                 pp: bool = False) -> Transformer:
+    """This rank's shard of the JAX package's numpy tree on *mesh*
+    (``train.param_specs``: heads, ff and vocab cut over tp; under *pp*
+    the stage's layers), as a ``Transformer`` of local shapes on *device*
+    (the card by default), gradients off."""
+    from kubetpu_torch.jobs import train as train_lib
+
+    device = resolve_device(device)
+    train_lib.check_mesh(cfg, mesh, pp)
+    specs = train_lib.param_specs(cfg, pp)
+    top = ("embed", "ln_f", "head")
+    local = {name: train_lib._take(np.asarray(np_tree[name]), specs[name],
+                                   mesh) for name in top}
+    local["blocks"] = {
+        name: train_lib._take(np.asarray(np_tree["blocks"][name]), spec,
+                              mesh)
+        for name, spec in specs["blocks"].items()}
+    from kubetpu_torch.jobs import collectives as col
+
+    model = Transformer(cfg, torch.device("meta"),
+                        tp=col.axis_size(mesh, "tp"),
+                        layers=len(train_lib.stage_layers(cfg, mesh)))
+    _put_all(model, local, top, block_leaves(cfg), cfg, device)
+    return model
+
+
+def gather_params(model: Transformer, cfg: ModelConfig, mesh,
+                  pp: bool = False) -> dict:
+    """The inverse of ``shard_params``: every rank's shards of *model*
+    gathered into the whole model's numpy tree (float32), on every rank."""
+    from kubetpu_torch.jobs import collectives as col
+    from kubetpu_torch.jobs import train as train_lib
+
+    specs = train_lib.param_specs(cfg, pp)
+
+    def whole(t, spec):
+        t = t.detach()
+        for dim, entry in enumerate(spec):
+            if isinstance(entry, str):
+                t = col.all_gather(t, col.group_of(mesh, entry), "gather",
+                                   dim)
+        return t.float().cpu().numpy()
+
+    tree = {name: whole(getattr(model, name), specs[name])
+            for name in ("embed", "ln_f", "head")}
+    tree["blocks"] = {
+        name: whole(torch.stack([getattr(blk, name) for blk in
+                                 model.blocks]), spec)
+        for name, spec in specs["blocks"].items()}
+    return tree
 
 
 _VIT_TOP = ("patch_proj", "pos_embed", "ln_f", "head_cls")

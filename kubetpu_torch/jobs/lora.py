@@ -19,7 +19,7 @@ applies unchanged.
 folded in, the base left as it was; the servers decode it with no
 inference-time cost.
 
-Not ported yet: ``lora_param_specs`` and the sharded step (the
+Not ported yet: ``lora_param_specs`` and the sharded LoRA step (the last
 multi-device slice, ROADMAP queue 1 item 8).
 """
 

@@ -203,12 +203,14 @@ class Block(nn.Module):
     """One transformer layer's weights, in the JAX package's layouts: the
     MLP's ``w_gate``/``w_up (d, f)`` and ``w_down (f, d)``, or with
     ``n_experts = E`` the router ``moe_router (d, E)`` and the experts'
-    ``w_gate``/``w_up (E, d, f)`` and ``w_down (E, f, d)``."""
+    ``w_gate``/``w_up (E, d, f)`` and ``w_down (E, f, d)``. With ``tp > 1``
+    it holds one tensor-parallel rank's shard: ``H/tp`` heads (and
+    ``H_kv/tp`` K/V heads) and ``d_ff/tp`` of the MLP."""
 
-    def __init__(self, cfg: ModelConfig, device) -> None:
+    def __init__(self, cfg: ModelConfig, device, tp: int = 1) -> None:
         super().__init__()
-        d, h, hd, f, kv = (cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.d_ff,
-                           cfg.kv_heads)
+        d, h, hd, f, kv = (cfg.d_model, cfg.n_heads // tp, cfg.head_dim,
+                           cfg.d_ff // tp, cfg.kv_heads // tp)
         e = (cfg.n_experts,) if cfg.n_experts > 0 else ()
         self.ln1 = _param((d,), cfg, device)
         self.ln2 = _param((d,), cfg, device)
@@ -226,16 +228,21 @@ class Block(nn.Module):
 class Transformer(nn.Module):
     """The whole model: ``embed (V, d)``, one ``Block`` per layer,
     ``ln_f (d,)`` and ``head (d, V)``. Constructed with uninitialized
-    weights; ``init_params`` or ``convert.params_from_numpy`` fill them."""
+    weights; ``init_params`` or ``convert.params_from_numpy`` fill them.
+    On a mesh a rank holds its shard (``train.shard_model``): *tp* splits
+    every block (``Block``) and the head's vocab, and a pipeline stage
+    holds *layers* of the ``n_layers`` blocks."""
 
-    def __init__(self, cfg: ModelConfig, device) -> None:
+    def __init__(self, cfg: ModelConfig, device, tp: int = 1,
+                 layers: Optional[int] = None) -> None:
         super().__init__()
         self.cfg = cfg
         self.embed = _param((cfg.vocab, cfg.d_model), cfg, device)
         self.blocks = nn.ModuleList(
-            [Block(cfg, device) for _ in range(cfg.n_layers)])
+            [Block(cfg, device, tp) for _ in range(
+                cfg.n_layers if layers is None else layers)])
         self.ln_f = _param((cfg.d_model,), cfg, device)
-        self.head = _param((cfg.d_model, cfg.vocab), cfg, device)
+        self.head = _param((cfg.d_model, cfg.vocab // tp), cfg, device)
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         return forward(self, tokens, self.cfg)

@@ -33,8 +33,9 @@ and live migration ships a slot's pages as stored (``PagedDecodeServer``).
 Every leg takes each slot's LoRA adapter deltas around the attention
 (``lora``, ``adapter_ids``): ``multi_lora.PagedMultiLoraDecodeServer``
 feeds them through the ``_admit_lora`` / ``_step_lora`` hooks, the plain
-server feeds none and runs no LoRA op. Not ported yet (a later slice):
-meshes (ROADMAP queue 1 item 8).
+server feeds none and runs no LoRA op. Not ported yet: the servers'
+``mesh=`` (the last multi-device slice, ROADMAP queue 1 item 8; the
+sharded training step is ``train.make_train_step(..., mesh=)``).
 """
 
 from __future__ import annotations

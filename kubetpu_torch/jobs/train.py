@@ -1,16 +1,21 @@
-"""Single-card training step (port of ``kubetpu/jobs/train.py``).
+"""The training step (port of ``kubetpu/jobs/train.py``), on one card or
+sharded over a mesh.
 
-loss -> gradients (``torch.autograd``) -> AdamW, on one card. The attention
-core is the hand-written flash kernels (``attention="flash"``: forward, dQ
-and dK/dV, through ``kubetpu_torch.ops.flash_attention``) or the plain
-``dense_attention``; both honor ``cfg.window``.
+loss -> gradients (``torch.autograd``) -> AdamW. The attention core is the
+hand-written flash kernels (``attention="flash"``: forward, dQ and dK/dV,
+through ``kubetpu_torch.ops.flash_attention``), the plain
+``dense_attention``, or on a mesh the rings (``"ring"``, ``"ring_flash"``:
+``ring_attention``); all honor ``cfg.window``. Mixture-of-experts configs
+train on one card, with the load-balance term in the loss.
 
-The JAX package's default core, ``"ring"``, is a multi-device core
-(sequence parallelism over a mesh), as are the mesh specs (``param_specs``,
-``batch_spec``) and shardings: they wait for the multi-device slice, and
-``attention="ring*"`` raises ``NotImplementedError`` here (MoE's expert
-axis ``ep`` among them). Mixture-of-experts configs train here, with the
-load-balance term in the loss.
+With ``mesh=`` (a ``meshjob`` DeviceMesh over dp, sp, tp and dcn) every
+rank runs its shard of the step: ``param_specs`` / ``batch_spec`` say
+which dimension shards on which axis, ``shard_model`` cuts a rank's
+shard, the blocks run tensor-parallel through autograd-aware collectives
+(``collectives``) and the loss tail is vocab-parallel. Not taken here yet
+(the last multi-device slice, ROADMAP queue 1 item 8): the expert axis
+``ep`` (MoE over a mesh), the other families' sharded steps, and
+``prefetch_to_mesh``. ``pipeline`` adds the pp axis.
 
 Where JAX returns a new state, the port updates the parameters and the
 optimizer state in place (no second copy of the weights) and returns the
@@ -22,14 +27,19 @@ from __future__ import annotations
 import dataclasses
 import math
 from functools import partial
-from typing import List, Optional
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from torch.utils.checkpoint import checkpoint
+
+from kubetpu_torch.jobs import collectives as col
 from kubetpu_torch.jobs import model as model_lib
-from kubetpu_torch.jobs.model import ModelConfig, Transformer, resolve_device
+from kubetpu_torch.jobs.model import (ModelConfig, Transformer, repeat_kv,
+                                      resolve_device, rms_norm, rope)
 from kubetpu_torch.jobs.quant import require_unquantized
+from kubetpu_torch.jobs.ring_attention import make_ring_attention
 
 
 @dataclasses.dataclass
@@ -101,14 +111,19 @@ class AdamW:
     @torch.no_grad()
     def update(self, grads: List[torch.Tensor], state: OptState,
                params: List[torch.Tensor],
-               ok: Optional[torch.Tensor] = None) -> None:
+               ok: Optional[torch.Tensor] = None,
+               sq_norm=None) -> None:
         """One update, in place on *params* and *state*. With *ok* (a device
-        bool scalar) false, nothing changes: no host sync decides it."""
+        bool scalar) false, nothing changes: no host sync decides it.
+        *sq_norm* (``grads -> squared global norm``) replaces the local sum
+        of squares where *grads* are one rank's shards of a sharded
+        model."""
         if self.clip_norm is not None:
             # optax.clip_by_global_norm: scale by max_norm / norm only when
             # the norm reaches max_norm
-            g_norm = torch.sqrt(sum((g.float() * g.float()).sum()
-                                    for g in grads))
+            g_norm = torch.sqrt(
+                sq_norm(grads) if sq_norm is not None
+                else sum((g.float() * g.float()).sum() for g in grads))
             keep = g_norm < self.clip_norm
             grads = [torch.where(keep, g, (g / g_norm.to(g.dtype))
                                  * self.clip_norm) for g in grads]
@@ -165,11 +180,17 @@ def state_from_params(params: Transformer, optimizer: AdamW) -> TrainState:
 
 
 def init_state(generator: torch.Generator, cfg: ModelConfig,
-               optimizer: Optional[AdamW] = None, device=None):
+               optimizer: Optional[AdamW] = None, device=None, mesh=None,
+               pp: bool = False):
     """-> (TrainState, optimizer): random weights from *generator* (which
-    lives on *device*, the card by default) and a zero optimizer state."""
+    lives on *device*, the card by default) and a zero optimizer state.
+    With *mesh*, every rank draws the whole model from the same seed and
+    keeps its shard (``shard_model``; *pp*: its pipeline stage's layers),
+    so the shards are those of the one-card model of that seed."""
     optimizer = optimizer or make_optimizer()
     params = model_lib.init_params(generator, cfg, resolve_device(device))
+    if mesh is not None:
+        params = shard_model(params, cfg, mesh, pp)
     return state_from_params(params, optimizer), optimizer
 
 
@@ -182,7 +203,7 @@ def _trained_leaves(params) -> List[torch.Tensor]:
 
 
 def make_update_step(loss_fn, optimizer: AdamW, accum_steps: int = 1,
-                     skip_nonfinite: bool = False):
+                     skip_nonfinite: bool = False, sync=None):
     """The train-step body: value and gradients of ``loss_fn(params,
     *batch)``, then the optimizer. *params* is a ``Transformer`` or a LoRA
     adapter tree (``{"blocks": {leaf: tensor}}``). Returns ``step(state, *batch) -> (state,
@@ -193,7 +214,10 @@ def make_update_step(loss_fn, optimizer: AdamW, accum_steps: int = 1,
     of the microbatch means, the full batch's mean for an unweighted loss.
     ``skip_nonfinite``: when the loss or any gradient is not finite, the
     parameters and the optimizer state stay as they were (decided on the
-    device) and the step counter still advances."""
+    device) and the step counter still advances. *sync* (a ``GradSync``,
+    on a mesh) sums each rank's gradients over the ranks that share the
+    leaf, gives the clip its global norm and makes the finite check
+    global."""
 
     def grads_of(params, batch):
         loss = loss_fn(params, *batch)
@@ -224,27 +248,377 @@ def make_update_step(loss_fn, optimizer: AdamW, accum_steps: int = 1,
             loss = loss / accum_steps
             grads = [(g / accum_steps).to(p.dtype)
                      for p, g in zip(leaves, grad_sum)]
+        if sync is not None:
+            grads = sync.reduce(grads)
         ok = None
         if skip_nonfinite:
             ok = torch.isfinite(loss)
             for g in grads:
                 ok = ok & torch.isfinite(g).all()
-        optimizer.update(list(grads), state.opt_state, leaves, ok)
+            if sync is not None:
+                ok = sync.all_ok(ok)
+        if sync is None:
+            optimizer.update(list(grads), state.opt_state, leaves, ok)
+        else:
+            optimizer.update(list(grads), state.opt_state, leaves, ok,
+                             sq_norm=sync.sq_norm)
         state.step += 1
         return state, loss
 
     return train_step
 
 
-def _resolve_attention(attention: str, window: int = 0):
-    """The attention core: 'flash' (the CUDA flash kernels through
-    ``flash_attention``; their plain versions for CPU tensors) or 'dense'
-    (``dense_attention``), both banded by ``window``."""
-    if attention.startswith("ring"):
+# ---------------------------------------------------------------------------
+# The mesh: which dimension of each leaf and of the batch shards on which
+# axis (the JAX package's param_specs / batch_spec), each rank's shard of a
+# model, and the step over dp x sp x tp (x dcn). GSPMD inserts the
+# collectives for the JAX package; here they are explicit and autograd-aware
+# (collectives.py): column-parallel q/k/v and gate/up behind ``copy_to``,
+# row-parallel wo and w_down into ``reduce_from``, and a vocab-parallel loss
+# tail. Every collective of a step runs in the same order on every rank,
+# also when remat replays a block's forward in the backward.
+# ---------------------------------------------------------------------------
+
+
+def param_specs(cfg: ModelConfig, pp: bool = False) -> dict:
+    """The axis each dimension of each leaf shards on, as the JAX
+    package's ``PartitionSpec`` tuples (the blocks' leading layer axis
+    included: ``"pp"`` under *pp*, else None): heads of wq/wk/wv/wo, the ff
+    of w_gate/w_up/w_down and the head's vocab on tp; experts on ep."""
+    L = "pp" if pp else None
+    blocks = {"ln1": (L, None), "ln2": (L, None),
+              "wq": (L, None, "tp", None), "wk": (L, None, "tp", None),
+              "wv": (L, None, "tp", None), "wo": (L, "tp", None, None)}
+    if cfg.n_experts > 0:
+        blocks.update({"moe_router": (L, None, None),
+                       "w_gate": (L, "ep", None, "tp"),
+                       "w_up": (L, "ep", None, "tp"),
+                       "w_down": (L, "ep", "tp", None)})
+    else:
+        blocks.update({"w_gate": (L, None, "tp"), "w_up": (L, None, "tp"),
+                       "w_down": (L, "tp", None)})
+    return {"embed": (None, None), "blocks": blocks, "ln_f": (None,),
+            "head": (None, "tp")}
+
+
+def batch_spec(mesh=None) -> tuple:
+    """(B, S) tokens: the batch on the data axes (``dcn`` and ``dp`` on a
+    multislice mesh: the only traffic between slices is the gradients'),
+    the sequence on sp."""
+    if mesh is not None and "dcn" in (mesh.mesh_dim_names or ()):
+        return (("dcn", "dp"), "sp")
+    return ("dp", "sp")
+
+
+def _entry_index(mesh, entry) -> Tuple[int, int]:
+    """(this rank's index, count) along a spec entry: an axis name, a
+    tuple of names (flattened, outermost first) or None."""
+    names = (() if entry is None else
+             (entry,) if isinstance(entry, str) else tuple(entry))
+    idx, count = 0, 1
+    for name in names:
+        n = col.axis_size(mesh, name)
+        idx, count = idx * n + col.axis_index(mesh, name), count * n
+    return idx, count
+
+
+def _take(x, spec, mesh):
+    """This rank's block of *x* (a numpy array or a tensor) under *spec*:
+    each dimension cut into its axis's count of equal parts."""
+    index = []
+    for dim, entry in enumerate(spec):
+        i, n = _entry_index(mesh, entry)
+        if x.shape[dim] % n:
+            raise ValueError(f"dimension {dim} of size {x.shape[dim]} does "
+                             f"not split over {entry!r} ({n})")
+        size = x.shape[dim] // n
+        index.append(slice(i * size, (i + 1) * size))
+    return x[tuple(index)]
+
+
+def check_mesh(cfg: ModelConfig, mesh, pp: bool = False) -> None:
+    """Raise on what the sharded step does not take: axes other than
+    dcn/dp/sp/tp (and pp under *pp*), mixture-of-experts blocks (the
+    expert axis ep waits for the last slice, ROADMAP.md queue 1 item 8),
+    and tp that does not divide heads, K/V heads, d_ff and vocab."""
+    allowed = {"dcn", "dp", "sp", "tp"} | ({"pp"} if pp else set())
+    extra = set(mesh.mesh_dim_names) - allowed
+    if extra:
+        raise ValueError(f"mesh axes {sorted(extra)} are not taken here "
+                         f"(allowed: {sorted(allowed)})")
+    if cfg.n_experts > 0:
         raise NotImplementedError(
-            f"attention={attention!r} is a multi-device core (ring attention "
-            "over a sequence-parallel mesh); it waits for the multi-device "
-            "slice (ROADMAP.md, queue 1, item 8)")
+            "mixture-of-experts blocks over a mesh (the expert axis ep) wait "
+            "for the last multi-device slice (ROADMAP.md, queue 1, item 8)")
+    tp = col.axis_size(mesh, "tp")
+    for name, n in (("n_heads", cfg.n_heads), ("kv heads", cfg.kv_heads),
+                    ("d_ff", cfg.d_ff), ("vocab", cfg.vocab)):
+        if n % tp:
+            raise ValueError(f"tp={tp} does not divide {name} ({n})")
+    if pp and cfg.n_layers % col.axis_size(mesh, "pp"):
+        raise ValueError(f"pp={col.axis_size(mesh, 'pp')} does not divide "
+                         f"n_layers ({cfg.n_layers})")
+
+
+def stage_layers(cfg: ModelConfig, mesh) -> range:
+    """The layers this rank's pipeline stage holds (all of them without
+    a pp axis)."""
+    n = cfg.n_layers // col.axis_size(mesh, "pp")
+    first = col.axis_index(mesh, "pp") * n
+    return range(first, first + n)
+
+
+def shard_model(full: Transformer, cfg: ModelConfig, mesh,
+                pp: bool = False) -> Transformer:
+    """This rank's shard of *full* (``param_specs``), as a new
+    ``Transformer`` of local shapes on *full*'s device; gradients off, as
+    ``init_params`` leaves them."""
+    check_mesh(cfg, mesh, pp)
+    specs = param_specs(cfg, pp)
+    layers = stage_layers(cfg, mesh)
+    local = Transformer(cfg, torch.device("meta"),
+                        tp=col.axis_size(mesh, "tp"), layers=len(layers))
+
+    def put(module, name, value):
+        delattr(module, name)
+        setattr(module, name, torch.nn.Parameter(
+            value.detach().clone(memory_format=torch.contiguous_format),
+            requires_grad=False))
+
+    with torch.no_grad():
+        for name in ("embed", "ln_f", "head"):
+            put(local, name, _take(getattr(full, name), specs[name], mesh))
+        for blk, i in zip(local.blocks, layers):
+            for name, spec in specs["blocks"].items():
+                put(blk, name, _take(getattr(full.blocks[i], name),
+                                     spec[1:], mesh))
+    return local
+
+
+class GradSync:
+    """The cross-rank half of a sharded update. Each leaf's gradient is
+    summed over the axes whose ranks each hold a part of it (the data axes
+    and sp always: every rank's loss is the global mean, so its gradient
+    is its own tokens' share; pp too for a leaf only one stage computes),
+    in f32 buckets; a leaf replicated over tp is never summed over tp
+    (every tp rank computed all of it). The squared global norm sums each
+    leaf's squares over the axes it is sharded on and counts a replicated
+    leaf once; the finite check holds on every rank or on none."""
+
+    BUCKET = 1 << 26      # f32 elements a reduction carries (256 MiB)
+
+    def __init__(self, groups: col.MeshGroups,
+                 reduce_axes: Sequence[Tuple[str, ...]],
+                 shard_axes: Sequence[Tuple[str, ...]]) -> None:
+        self.groups = groups
+        self.reduce_axes = list(reduce_axes)
+        self.shard_axes = list(shard_axes)
+
+    @torch.no_grad()
+    def reduce(self, grads: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        out = list(grads)
+        by_axes: dict = {}
+        for i, axes in enumerate(self.reduce_axes):
+            by_axes.setdefault(axes, []).append(i)
+        for axes, idx in by_axes.items():
+            group = self.groups.over(*axes)
+            if group is None:
+                continue
+            label = "dp" if set(axes) & {"dcn", "dp"} else axes[0]
+            bucket: List[int] = []
+            for pos, i in enumerate(idx):
+                bucket.append(i)
+                size = sum(out[j].numel() for j in bucket)
+                if size >= self.BUCKET or pos == len(idx) - 1:
+                    flat = torch.cat([out[j].float().reshape(-1)
+                                      for j in bucket])
+                    col.all_reduce_(flat, group, label)
+                    for j, part in zip(bucket, flat.split(
+                            [out[j].numel() for j in bucket])):
+                        out[j] = part.view_as(out[j]).to(out[j].dtype)
+                    bucket = []
+        return out
+
+    @torch.no_grad()
+    def sq_norm(self, grads: Sequence[torch.Tensor]) -> torch.Tensor:
+        total = None
+        by_axes: dict = {}
+        for g, axes in zip(grads, self.shard_axes):
+            sq = (g.float() * g.float()).sum()
+            by_axes[axes] = by_axes.get(axes, 0.0) + sq
+        for axes, sq in by_axes.items():
+            sq = col.all_reduce_(sq.reshape(1).clone(),
+                                 self.groups.over(*axes), "norm")[0]
+            total = sq if total is None else total + sq
+        return total
+
+    @torch.no_grad()
+    def all_ok(self, ok: torch.Tensor) -> torch.Tensor:
+        flag = ok.to(torch.float32).reshape(1)
+        col.all_reduce_(flag, self.groups.over(
+            *self.groups.mesh.mesh_dim_names), "ok",
+            op=torch.distributed.ReduceOp.MIN)
+        return flag[0] > 0
+
+
+def grad_sync(cfg: ModelConfig, groups: col.MeshGroups,
+              pp: bool = False) -> GradSync:
+    """The ``GradSync`` of a rank's shard (``shard_model``), its leaves in
+    the order of ``Transformer.parameters()``, read off a meta-device
+    model of the shard's shapes."""
+    mesh = groups.mesh
+    specs = param_specs(cfg, pp)
+    data_sp = tuple(a for a in ("dcn", "dp", "sp")
+                    if a in mesh.mesh_dim_names)
+    shard = Transformer(cfg, torch.device("meta"),
+                        tp=col.axis_size(mesh, "tp"),
+                        layers=len(stage_layers(cfg, mesh)))
+    reduce_axes, shard_axes = [], []
+    for name, _ in shard.named_parameters():
+        leaf = name.split(".")[-1]
+        spec = specs["blocks"][leaf] if "." in name else specs[leaf]
+        sharded = tuple(a for a in spec if a in mesh.mesh_dim_names)
+        # only the first stage embeds: the others' embed gradients are 0
+        extra = ("pp",) if pp and leaf == "embed" else ()
+        reduce_axes.append(data_sp + extra)
+        shard_axes.append(sharded)
+    return GradSync(groups, reduce_axes, shard_axes)
+
+
+def _positions(sp_index: int, s_local: int, device) -> torch.Tensor:
+    """The RoPE positions of sp rank *sp_index*'s block: its global
+    positions ``sp_index * s_local ...``."""
+    return torch.arange(sp_index * s_local, (sp_index + 1) * s_local,
+                        dtype=torch.int32, device=device)
+
+
+def _tp_block(cfg: ModelConfig, attn_fn, positions, x, layer, tp_group):
+    """One block on this rank's shard -> (x, 0.0): q/k/v and gate/up
+    column-parallel behind ``copy_to``, wo and w_down row-parallel into
+    ``reduce_from`` (the all-reduce over tp)."""
+    h = col.copy_to(rms_norm(x, layer.ln1), tp_group)
+    q = torch.einsum("bsd,dhk->bshk", h, layer.wq)
+    k = torch.einsum("bsd,dhk->bshk", h, layer.wk)
+    v = torch.einsum("bsd,dhk->bshk", h, layer.wv)
+    q = rope(q, positions, cfg.rope_theta, cfg.rope_llama3_scaling)
+    k = rope(k, positions, cfg.rope_theta, cfg.rope_llama3_scaling)
+    n_rep = cfg.n_heads // cfg.kv_heads
+    attn = attn_fn(q, repeat_kv(k, n_rep), repeat_kv(v, n_rep))
+    x = x + col.reduce_from(torch.einsum("bshk,hkd->bsd", attn, layer.wo),
+                            tp_group)
+    h = col.copy_to(rms_norm(x, layer.ln2), tp_group)
+    delta = (torch.nn.functional.silu(h @ layer.w_gate)
+             * (h @ layer.w_up)) @ layer.w_down
+    return x + col.reduce_from(delta, tp_group), 0.0
+
+
+def _vocab_parallel_sums(x, head, targets, weights, cfg: ModelConfig,
+                         tp_group, vocab_start: int):
+    """(sum of weighted per-position losses, sum of weights) of this
+    rank's positions, with the head's vocab split over tp: the
+    log-sum-exp, the target's logit and (for label smoothing) the mean
+    logit are sums over the vocab shards (``reduce_from``), so the value
+    is ``lm_loss_tail``'s per-position loss, label smoothing and z-loss
+    included."""
+    logits = torch.einsum("bsd,dv->bsv", col.copy_to(x, tp_group),
+                          head).float()
+    m = logits.detach().amax(dim=-1, keepdim=True)
+    col.all_reduce_(m, tp_group, "tp", torch.distributed.ReduceOp.MAX)
+    lse = m[..., 0] + torch.log(col.reduce_from(
+        torch.exp(logits - m).sum(dim=-1), tp_group))
+    local = targets.long() - vocab_start
+    mine = (local >= 0) & (local < head.shape[1])
+    tgt = torch.gather(logits, -1, local.clamp(0, head.shape[1] - 1)[
+        ..., None])[..., 0]
+    tgt = col.reduce_from(torch.where(mine, tgt, 0.0), tp_group)
+    nll = lse - tgt
+    if cfg.label_smoothing > 0:
+        mean_logit = col.reduce_from(logits.sum(dim=-1), tp_group) / cfg.vocab
+        nll = ((1.0 - cfg.label_smoothing) * nll
+               - cfg.label_smoothing * (mean_logit - lse))
+    if cfg.z_loss > 0:
+        nll = nll + cfg.z_loss * lse.square()
+    return (nll * weights).sum(), weights.sum()
+
+
+def sharded_loss_tail(x, head, targets, weights, cfg: ModelConfig,
+                      groups: col.MeshGroups):
+    """The global mean loss from this rank's final-norm hidden states
+    (B_local, S_local, D): the vocab-parallel per-position losses
+    (streamed over ``cfg.loss_chunk`` positions at a time when set, each
+    chunk recomputed in the backward), numerator and denominator summed
+    over the data axes and sp. Identical on every rank."""
+    tp_group = groups.over("tp")
+    vocab_start = col.axis_index(groups.mesh, "tp") * head.shape[1]
+    if weights is None:
+        weights = torch.ones(targets.shape, dtype=torch.float32,
+                             device=x.device)
+    weights = weights.float()
+    s_local = x.shape[1]
+    chunk = cfg.loss_chunk or s_local
+    if s_local % chunk:
+        raise ValueError(f"loss_chunk ({chunk}) must divide the rank's "
+                         f"sequence block ({s_local})")
+    num = torch.zeros((), dtype=torch.float32, device=x.device)
+    den = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c0 in range(0, s_local, chunk):
+        args = (x[:, c0:c0 + chunk], head, targets[:, c0:c0 + chunk],
+                weights[:, c0:c0 + chunk], cfg, tp_group, vocab_start)
+        if cfg.loss_chunk and torch.is_grad_enabled():
+            n, w = checkpoint(_vocab_parallel_sums, *args,
+                              use_reentrant=False)
+        else:
+            n, w = _vocab_parallel_sums(*args)
+        num, den = num + n, den + w
+    data_sp = groups.over("dcn", "dp", "sp")
+    num = col.reduce_from(num, data_sp, "dp")
+    den = col.reduce_from(den.detach(), data_sp, "dp")
+    return num / torch.clamp(den, min=1.0)
+
+
+def local_batch(x, mesh):
+    """This rank's block of a global (B, S) batch array: rows on the data
+    axes, columns on sp (``batch_spec``)."""
+    return _take(x, batch_spec(mesh), mesh)
+
+
+def _mesh_loss_fn(cfg: ModelConfig, attn_fn, groups: col.MeshGroups):
+    mesh = groups.mesh
+    body = partial(_tp_block, tp_group=groups.over("tp"))
+    sp_index = col.axis_index(mesh, "sp")
+
+    def loss_fn(params, tokens, targets, weights=None):
+        tokens, targets = local_batch(tokens, mesh), local_batch(targets,
+                                                                 mesh)
+        if weights is not None:
+            weights = local_batch(weights, mesh)
+        positions = _positions(sp_index, tokens.shape[1], tokens.device)
+        x, _aux = model_lib.run_blocks(cfg, attn_fn, positions,
+                                       params.embed[tokens], params.blocks,
+                                       body=body)
+        x = rms_norm(x, params.ln_f)
+        return sharded_loss_tail(x, params.head, targets, weights, cfg,
+                                 groups)
+
+    return loss_fn
+
+
+def _resolve_attention(attention: str, window: int = 0, mesh=None):
+    """The attention core: 'ring' / 'ring_flash' (sequence-parallel over
+    the mesh's sp ring: the dense ring, or the flash kernels in every ring
+    step; with ``window`` both take the banded ring; without a mesh, a
+    ring of one), 'flash' (the CUDA
+    flash kernels through ``flash_attention``; their plain versions for CPU
+    tensors) or 'dense' (``dense_attention``), all banded by ``window``.
+    'flash' and 'dense' see only the rank's own block, so a mesh with
+    sp > 1 takes a ring."""
+    if attention in ("ring", "ring_flash"):
+        impl = "flash" if attention == "ring_flash" else "dense"
+        return make_ring_attention(mesh, impl=impl, window=window)
+    if attention in ("flash", "dense") and col.axis_size(mesh, "sp") > 1:
+        raise ValueError(f"attention={attention!r} sees only this rank's "
+                         "sequence block; an sp > 1 mesh takes 'ring' or "
+                         "'ring_flash'")
     if attention == "flash":
         from kubetpu_torch.ops.flash_attention import flash_attention
 
@@ -255,13 +629,13 @@ def _resolve_attention(attention: str, window: int = 0):
 
 
 def refuse_mesh(mesh, what: str) -> None:
-    """Raise for a *mesh*: the port's entry points take a ``device``, and
-    sharding over a mesh waits for the multi-device slice."""
+    """Raise for a *mesh*: this entry point takes a ``device``; its
+    sharded form waits for the last multi-device slice (ROADMAP.md, queue
+    1, item 8)."""
     if mesh is not None:
         raise NotImplementedError(
-            f"{what} over a mesh is a multi-device path; it waits for the "
-            "multi-device slice (ROADMAP.md, queue 1, item 8): pass "
-            "device= instead")
+            f"{what} over a mesh waits for the last multi-device slice "
+            "(ROADMAP.md, queue 1, item 8): pass device= instead")
 
 
 def _uploader(device: torch.device):
@@ -275,24 +649,38 @@ def _uploader(device: torch.device):
 def make_train_step(cfg: ModelConfig, optimizer: Optional[AdamW] = None,
                     attention: str = "flash", accum_steps: int = 1,
                     skip_nonfinite: bool = False, weighted: bool = False,
-                    device=None):
-    """The full training step on one card: loss -> gradients -> AdamW.
+                    device=None, mesh=None):
+    """The full training step: loss -> gradients -> AdamW.
 
     Pass the optimizer returned by ``init_state``. ``attention``: 'flash'
-    (default) or 'dense'. ``weighted=True`` makes the step ``(state,
-    tokens, targets, weights)`` with per-position loss weights (the
-    packed-batch path). Batches may be numpy arrays (uploaded to *device*,
-    the card by default) or tensors already there."""
+    (default) or 'dense'; on a mesh also 'ring' or 'ring_flash'.
+    ``weighted=True`` makes the step ``(state, tokens, targets, weights)``
+    with per-position loss weights (the packed-batch path). Batches may be
+    numpy arrays (uploaded to *device*, the card by default) or tensors
+    already there.
+
+    With *mesh* (``meshjob.make_mesh``: axes dp, sp, tp, and dcn for
+    multislice) every rank of the mesh calls the step with the same GLOBAL
+    batch and ``init_state(..., mesh=mesh)``'s state; each computes its
+    block (``local_batch``) on its shard of the model and returns the
+    global mean loss. Gradients are summed over dp x sp (x dcn) and never
+    over tp; ``accum_steps`` splits the global batch as on one card."""
     optimizer = optimizer or make_optimizer()
     up = _uploader(resolve_device(device))
-    attn_fn = _resolve_attention(attention, cfg.window)
-
-    def loss_fn(params, tokens, targets, weights=None):
-        return model_lib.next_token_loss(params, tokens, targets, cfg,
-                                         attn_fn, weights=weights)
+    attn_fn = _resolve_attention(attention, cfg.window, mesh)
+    if mesh is None:
+        def loss_fn(params, tokens, targets, weights=None):
+            return model_lib.next_token_loss(params, tokens, targets, cfg,
+                                             attn_fn, weights=weights)
+        sync = None
+    else:
+        check_mesh(cfg, mesh)
+        groups = col.MeshGroups(mesh)
+        loss_fn = _mesh_loss_fn(cfg, attn_fn, groups)
+        sync = grad_sync(cfg, groups)
 
     step = make_update_step(loss_fn, optimizer, accum_steps=accum_steps,
-                            skip_nonfinite=skip_nonfinite)
+                            skip_nonfinite=skip_nonfinite, sync=sync)
 
     def train_step(state: TrainState, tokens, targets, *weights):
         if len(weights) != int(weighted):
@@ -305,18 +693,25 @@ def make_train_step(cfg: ModelConfig, optimizer: Optional[AdamW] = None,
     return train_step
 
 
-def make_eval_step(cfg: ModelConfig, attention: str = "flash", device=None):
+def make_eval_step(cfg: ModelConfig, attention: str = "flash", device=None,
+                   mesh=None):
     """``eval_step(params, tokens, targets) -> loss`` without gradients,
     through the same attention core as training, so that it measures the
-    training objective (a windowed config evaluates banded)."""
+    training objective (a windowed config evaluates banded). On a *mesh*
+    every rank passes the global batch and gets the global mean."""
     up = _uploader(resolve_device(device))
-    attn_fn = _resolve_attention(attention, cfg.window)
+    attn_fn = _resolve_attention(attention, cfg.window, mesh)
+    if mesh is not None:
+        check_mesh(cfg, mesh)
+        mesh_loss = _mesh_loss_fn(cfg, attn_fn, col.MeshGroups(mesh))
 
     @torch.no_grad()
     def eval_step(params, tokens, targets):
         require_unquantized(params, "make_eval_step")
-        return model_lib.next_token_loss(params, up(tokens, torch.int64),
-                                         up(targets, torch.int64), cfg,
+        tokens, targets = up(tokens, torch.int64), up(targets, torch.int64)
+        if mesh is not None:
+            return mesh_loss(params, tokens, targets)
+        return model_lib.next_token_loss(params, tokens, targets, cfg,
                                          attn_fn)
 
     return eval_step

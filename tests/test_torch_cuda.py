@@ -1423,3 +1423,139 @@ def test_profiler_event_sums_equal_key_averages(cuda):
         assert mine.keys() == theirs.keys()
         for key, us in mine.items():
             assert us == pytest.approx(theirs[key], rel=1e-6, abs=1e-6)
+
+
+# -- the multi-device training path in a world of ranks sharing cuda:0 -------
+# gloo (NCCL refuses two ranks on one device); the ranks' CUDA tensors are
+# staged through pinned host buffers where gloo does not take them
+
+
+def _ring_inputs(dtype, b=1, s=256, h=2, d=128, seed=3):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal((b, s, h, d)).astype(np.float32)
+            for _ in range(4)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,causal", [("bfloat16", True),
+                                          ("bfloat16", False),
+                                          ("float32", True)])
+def test_two_rank_flash_ring_on_one_card_matches_flash(cuda, tmp_path, dtype,
+                                                       causal):
+    """A 2-rank flash ring on cuda:0 launches the three flash kernels (rank
+    r of a causal ring: 1 + r forward, dQ and dK/dV launches; every rank
+    of a bidirectional one: 2 each) and matches the one-card flash core,
+    forward and gradients (bf16: the kernels' own tolerance; f32: 1e-4)."""
+    import numpy as np
+
+    from kubetpu_torch.ops.flash_attention import flash_attention
+    from torch_mesh_worlds import spawn
+
+    q, k, v, cot = _ring_inputs(dtype)
+    res = spawn("ring", 2, tmp_path, {"device": "cuda", "cases": [dict(
+        impl="flash", causal=causal, window=0, dtype=dtype, q=q, k=k, v=v,
+        cot=cot)]})
+    tdt = getattr(torch, dtype)
+    qt, kt, vt = (torch.from_numpy(x).to(cuda, tdt).requires_grad_(True)
+                  for x in (q, k, v))
+    out = flash_attention(qt, kt, vt, causal=causal)
+    grads = torch.autograd.grad(
+        (out * torch.from_numpy(cot).to(cuda, tdt)).sum(), (qt, kt, vt))
+    tol = 3e-2 if dtype == "bfloat16" else 1e-4
+    got = np.concatenate([r["cases"][0]["out"] for r in res], axis=1)
+    np.testing.assert_allclose(got, out.float().detach().cpu().numpy(),
+                               rtol=tol, atol=tol)
+    for j, g in enumerate(grads):
+        got = np.concatenate([r["cases"][0]["grads"][j] for r in res], axis=1)
+        np.testing.assert_allclose(got, g.float().cpu().numpy(), rtol=tol,
+                                   atol=tol, err_msg="qkv"[j])
+    for rank, r in enumerate(res):
+        n = 1 + rank if causal else 2
+        assert r["cases"][0]["launches"] == {"forward": n, "dq": n, "dkv": n}
+        assert r["foreign"] == []
+
+
+def _small_tree(cfg):
+    from kubetpu_torch.jobs.convert import params_to_numpy
+    from kubetpu_torch.jobs.model import init_params
+
+    return params_to_numpy(init_params(torch.Generator().manual_seed(0), cfg,
+                                       device="cpu"))
+
+
+@pytest.mark.gpu
+def test_sharded_step_on_one_card_matches_the_one_card_step(cuda, tmp_path):
+    """The checks phase 34 needs, state by state, at a small f32 width on
+    an 8-rank {dp 2, sp 2, tp 2} world sharing cuda:0: the shards gather
+    back to the weights bit for bit; the step's losses (1e-5 relative)
+    and each weight's change over two ring_flash steps at lr 1e-2 (within
+    a tenth of a step, leaving out elements whose one-card gradient is
+    zero to rounding at both steps) match the one-card flash step's; each
+    rank launched its flash kernels as its ring position says; the sp hops
+    were staged through the host and every axis moved bytes."""
+    import numpy as np
+
+    from kubetpu_torch.jobs import model as model_lib
+    from kubetpu_torch.jobs import train as ttrain
+    from kubetpu_torch.jobs.convert import params_from_numpy, params_to_numpy
+    from kubetpu_torch.jobs.model import ModelConfig
+    from torch_mesh_worlds import spawn
+
+    lr = 1e-2
+    kw = dict(vocab=128, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2,
+              d_ff=128, max_seq=128)
+    cfg = ModelConfig(**kw)
+    tree = _small_tree(cfg)
+    rng = np.random.default_rng(1)
+    batches = []
+    for _ in range(2):
+        tok = rng.integers(0, kw["vocab"], (4, 64))
+        batches.append((tok, np.roll(tok, -1, axis=1)))
+    mesh = {"dp": 2, "sp": 2, "tp": 2}
+    res = spawn("train", 8, tmp_path, {"device": "cuda", "cases": [
+        dict(cfg=kw, mesh=mesh, attention="ring_flash", params=tree,
+             batches=[]),
+        dict(cfg=kw, mesh=mesh, attention="ring_flash", params=tree,
+             batches=batches, opt={"lr": lr})]})
+    for k in tree["blocks"]:
+        np.testing.assert_array_equal(res[0]["cases"][0]["params"]["blocks"][k],
+                                      tree["blocks"][k])
+    opt = ttrain.make_optimizer(lr=lr)
+    state = ttrain.state_from_params(params_from_numpy(tree, cfg, cuda), opt)
+    step = ttrain.make_train_step(cfg, opt, attention="flash", device=cuda)
+    want, noise = [], None
+    for tok, tgt in batches:
+        leaves = list(state.params.parameters())
+        grads = torch.autograd.grad(model_lib.next_token_loss(
+            state.params, torch.as_tensor(tok, device=cuda),
+            torch.as_tensor(tgt, device=cuda), cfg), leaves)
+        # zero to rounding: nonzero but within 1e-6 of the leaf's largest
+        flags = [((g != 0) & (g.abs() <= 1e-6 * g.abs().max())).cpu()
+                 for g in grads]
+        noise = flags if noise is None else [a & b for a, b in
+                                             zip(noise, flags)]
+        want.append(float(step(state, tok, tgt)[1]))
+    got = res[0]["cases"][1]
+    np.testing.assert_allclose(got["losses"], want, rtol=1e-5)
+    want_params = params_to_numpy(state.params)
+    names = [n for n, _ in state.params.named_parameters()]
+    for k in ("embed", "ln_f", "head", *want_params["blocks"]):
+        top = k in ("embed", "ln_f", "head")
+        keep = ~(noise[names.index(k)].numpy() if top else np.stack(
+            [noise[names.index(f"blocks.{i}.{k}")].numpy()
+             for i in range(cfg.n_layers)]))
+        pick = (lambda t: t[k]) if top else (lambda t: t["blocks"][k])
+        moved = (pick(got["params"]) - pick(tree))[keep]
+        ref = (pick(want_params) - pick(tree))[keep]
+        assert np.abs(ref).max() > 0.5 * lr, k
+        np.testing.assert_allclose(moved, ref, atol=0.1 * lr, rtol=0,
+                                   err_msg=k)
+    for rank, r in enumerate(res):
+        c = r["cases"][1]
+        n = 2 * 2 * (1 + rank % 4 // 2)   # 2 steps x 2 layers x ring pos
+        assert c["launches"] == {"forward": n, "dq": n, "dkv": n}, rank
+        assert c["losses"] == got["losses"]
+        assert c["staged_bytes"] > 0
+        assert all(c["axis_bytes"].get(a, 0) > 0 for a in ("sp", "tp", "dp"))

@@ -162,9 +162,10 @@ def test_mlm_refuses_an_unknown_attention_and_a_mesh():
                                     mesh=object(), device="cpu")
 
 
-def assert_updates_match(before, after, jbefore, jafter, jgrads):
+def assert_updates_match(before, after, jbefore, jafter, jgrads,
+                         tol=UPDATE_TOL):
     """Each leaf's change over the steps (after - before) equals the JAX
-    step's within UPDATE_TOL, element by element. Left out are only the
+    step's within *tol*, element by element. Left out are only the
     elements whose reference gradient is nonzero but zero to rounding at
     every step (``|g| <= GRAD_ZERO * max|g|`` over the leaf): there Adam's
     ``g / (|g| + eps)`` turns rounding into a move of up to lr either way.
@@ -177,7 +178,7 @@ def assert_updates_match(before, after, jbefore, jafter, jgrads):
         moved, ref = (a - b)[keep], (np.asarray(ja) - np.asarray(jb))[keep]
         name = jax.tree_util.keystr(path)
         assert np.abs(ref).max() > 0.5 * STEP_LR, name
-        np.testing.assert_allclose(moved, ref, atol=UPDATE_TOL, rtol=0,
+        np.testing.assert_allclose(moved, ref, atol=tol, rtol=0,
                                    err_msg=name)
     jax.tree_util.tree_map_with_path(check, before, after, jbefore, jafter,
                                      *jgrads)

@@ -45,7 +45,9 @@ def test_fresh_import_loads_no_jax_and_no_kubetpu():
                  "jobs.native_data", "jobs.tokenizer", "jobs.checkpoint",
                  "jobs.hf_import", "jobs.distill", "jobs.beam",
                  "jobs.profiling", "jobs.encoder", "jobs.vision",
-                 "jobs.seq2seq"):
+                 "jobs.seq2seq", "jobs.meshjob", "jobs.launch",
+                 "jobs.collectives", "jobs.ring_attention",
+                 "jobs.pipeline"):
         assert f"kubetpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"
@@ -400,3 +402,20 @@ def test_family_entry_points_default_to_the_card_and_raise_without_it():
             lambda: seq2seq_params_from_numpy(s2s_tree, cfg)):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
+
+
+def test_spawned_mesh_worker_loads_neither_jax_nor_kubetpu(tmp_path):
+    """A rank of a 2-rank gloo world (the multi-device tests' worker,
+    started from this jax-holding process) runs the flash ring and its
+    backward with jax and kubetpu out of its sys.modules."""
+    import numpy as np
+
+    from torch_mesh_worlds import spawn
+
+    rng = np.random.default_rng(0)
+    q, k, v, cot = (rng.standard_normal((1, 8, 2, 4)).astype(np.float32)
+                    for _ in range(4))
+    res = spawn("ring", 2, tmp_path, {"cases": [dict(
+        impl="flash", causal=True, window=0, q=q, k=k, v=v, cot=cot)]})
+    assert [r["foreign"] for r in res] == [[], []]
+    assert res[0]["cases"][0]["out"].shape == (1, 4, 2, 4)

@@ -318,9 +318,19 @@ def test_evaluate_matches_jax():
 
 
 def test_ring_cores_wait_for_the_multi_device_slice():
+    """The ring cores are ported (the sharded step over a mesh is
+    tests/test_torch_sharded_train.py): without a mesh each is a ring of
+    one, the same step as the flash core's; an unknown core raises."""
     cfg = port_cfg(JCFG)
-    for name in ("ring", "ring_flash"):
-        with pytest.raises(NotImplementedError, match="multi-device"):
-            ttrain.make_train_step(cfg, attention=name, device="cpu")
+    tokens, targets = _batches(1)[0]
+    losses = []
+    for name in ("flash", "ring", "ring_flash"):
+        opt = ttrain.make_optimizer()
+        state = ttrain.state_from_params(
+            _port_model(_jax_params(), cfg), opt)
+        step = ttrain.make_train_step(cfg, opt, attention=name, device="cpu")
+        losses.append(float(step(state, tokens, targets)[1]))
+    assert abs(losses[1] - losses[0]) <= 1e-6 * losses[0]
+    assert abs(losses[2] - losses[0]) <= 1e-6 * losses[0]
     with pytest.raises(ValueError, match="unknown attention"):
         ttrain.make_train_step(cfg, attention="sparse", device="cpu")
