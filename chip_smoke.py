@@ -93,8 +93,8 @@ Phases, one line each, any failure exits non-zero:
    phase 6's flagship, prompts and settings behind ``DecodeServer`` (bf16
    and int8 caches) and ``PagedDecodeServer``, each with ``overlap`` off
    and on: decode tokens/s, step wall time, one profiled window of ten
-   steps each (device busy time, idle share), then the paged pair three
-   more times each, alternated (``dense_alternation``). Gates: overlap's
+   steps each (device busy time, idle share), then the paged pair twice
+   more each, alternated (``dense_alternation``). Gates: overlap's
    tokens equal the pipeline-off tokens exactly on every server; the dense
    first-token logits within 0.25 of the paged server's; a counter of
    ``torch.cuda.synchronize``, event waits, ``.item()``, ``.cpu()`` and
@@ -115,7 +115,7 @@ Phases, one line each, any failure exits non-zero:
    tenants, 32 new tokens: the plain ``PagedDecodeServer`` and the packed
    ``PagedMultiLoraDecodeServer`` over bf16 (profiled: device busy, idle
    share, kernels a step, the LoRA gather's and deltas' device ms; then
-   both run again three times each, alternated), int8 and with
+   both run again twice each, alternated), int8 and with
    ``overlap``; each tenant alone on its merged weights
    (n_slots=1, in turn); ``SpecMultiLoraDecodeServer`` with phase 16's
    quarter draft; hot load and evict on the wire (two port replicas, an
@@ -575,14 +575,30 @@ def _paged_builds(cases) -> dict:
     return builds
 
 
-def phase_kernels() -> list:
+def _tp4_cases() -> list:
+    """Phase 36's shapes at a tp-4 rank of the flagship (16 heads over tp
+    4: H = H_kv = 4 a rank): the decode step over phase 3's ragged 8085
+    keys and the T=256 chunk at 768, drawn from their own generator so
+    that ``--phases 34-36`` runs them on the same data."""
+    gen = torch.Generator(device="cuda").manual_seed(1236)
+    ragged = [2048, 1717, 1403, 1111, 877, 530, 301, 96]
+    return [("decode_bf16_tp4", _paged_case(gen, ragged, 1, 0, False,
+                                            torch.bfloat16, h=4, h_kv=4)),
+            ("chunk_bf16_T256_tp4", _paged_case(gen, [1024], 256, 0, False,
+                                                torch.bfloat16, h=4,
+                                                h_kv=4))]
+
+
+def phase_kernels(names=None) -> list:
     """The paged kernels at the flagship serving shapes: the decode cases
     on the split route (the split kernel and the combine kernel each
     against its plain version, and the call against the plain attention),
     among them the windowed server's decode over a ring table; the chunk
     cases on the wgmma route (T=256 mid-prompt, and the storm's 64-token
-    tail at a 1024-token prefix hit), over dense and over int8 pages; and
-    the SIMT route at the parity phase's f32 chunk shape."""
+    tail at a 1024-token prefix hit), over dense and over int8 pages; the
+    SIMT route at the parity phase's f32 chunk shape; and the decode and
+    the T=256 chunk at a tp-4 rank's heads (phase 36). *names*: only those
+    cases."""
     from kubetpu_torch.ops import paged_attention as pa
 
     gen = torch.Generator(device="cuda").manual_seed(1234)
@@ -610,7 +626,9 @@ def phase_kernels() -> list:
         ("chunk_f32_parity_T32", _paged_case(gen, [70, 40, 64], 32, 0, False,
                                              torch.float32, h=4, h_kv=2,
                                              d=64)),
-    ]
+    ] + _tp4_cases()
+    if names is not None:
+        cases = [c for c in cases if c[0] in names]
     builds = _paged_builds(cases)
     rows = []
     for name, case in cases:
@@ -1230,8 +1248,8 @@ def _instrument(server) -> dict:
         if res is not None:
             st["chunks"] += 1
             st["prefill_tokens"] += take
-            if final:
-                st["first_logits"][tuple(prompt)] = seen.pop("r")
+            if final:      # None where a dp rank ran another rank's slot
+                st["first_logits"][tuple(prompt)] = seen.pop("r", None)
         return res
 
     server._device_step = counted_step
@@ -2211,7 +2229,7 @@ def phase_dense(model, cfg, smi, launches) -> dict:
     (bf16 and int8 caches) and behind ``PagedDecodeServer``, each with
     ``overlap`` off and on: decode tokens/s, step wall time and one
     profiled window of ten steps (device busy time, idle share); then the
-    paged pair again three times each, alternated. Gates:
+    paged pair again twice each, alternated. Gates:
     overlap's tokens equal the pipeline-off tokens exactly on every
     server; the dense first-token logits within LOGIT_TOL of the paged
     server's; the host-sync counter reads 0 inside every dispatched step
@@ -2250,10 +2268,10 @@ def phase_dense(model, cfg, smi, launches) -> dict:
             del server
             torch.cuda.empty_cache()
     # the paged server's decode tokens/s with overlap off and on, run
-    # again in alternation (off, on, on, off, off, on) on the same two
-    # servers: the host's noise between arms is as large as the effect
+    # again in alternation (off, on, on, off) on the same two servers: the
+    # host's noise between arms is as large as the effect
     alt = {False: [], True: []}
-    for overlap in (False, True, True, False, False, True):
+    for overlap in (False, True, True, False):
         run = _overlap_run(paged[overlap], prompts, launches)
         if run["results"] != runs["paged"]:
             raise SystemExit("dense: an alternation run's tokens differ")
@@ -2781,12 +2799,12 @@ def _ml_arm(arm, server, prompts, adapters, smi, launches,
 
 def _ml_alternation(servers, prompts, first, smi, launches) -> dict:
     """The plain and the packed server's staggered runs again, alternated
-    (plain, packed, packed, plain, plain, packed): one pair a run sits
-    inside the host's noise. *servers*: {arm: (server, adapters)}; each
+    (plain, packed, packed, plain): one pair a run sits inside the host's
+    noise. *servers*: {arm: (server, adapters)}; each
     run's tokens must repeat *first*[arm]. Decode tokens/s of every run
     and the medians' ratio."""
     alt = {"plain": [], "packed": []}
-    for arm in ("plain", "packed", "packed", "plain", "plain", "packed"):
+    for arm in ("plain", "packed", "packed", "plain"):
         server, adapters = servers[arm]
         run = _overlap_run(server, prompts, launches, adapters)
         if run["results"] != first[arm]:
@@ -3070,7 +3088,7 @@ def phase_multilora(model, cfg, smi, launches) -> dict:
     eight tenants (adapters 0, 9, ..., 63), 32 new tokens, 8 slots,
     ``prefill_budget=256``. Arms: the plain ``PagedDecodeServer`` (what
     the adapters cost), the packed ``PagedMultiLoraDecodeServer`` over a
-    bf16 pool (both again three times each, alternated: one pair is
+    bf16 pool (both again twice each, alternated: one pair is
     inside the host's noise), over an int8 pool and with ``overlap``; each tenant alone
     on its merged weights at n_slots=1 in turn, over a bf16 and an int8
     pool (the packed arms' references, pool for pool); the speculative
@@ -4425,7 +4443,7 @@ LIFE_RESUMED = 3            # steps compared after the restore
 RESUME_TOL = 1e-4           # relative, the resumed losses
 DISTILL_STEPS = 200
 DISTILL_LR = 1e-3
-DISTILL_PAIRS = 5           # plain / speculative pairs, alternated
+DISTILL_PAIRS = 3           # plain / speculative pairs, alternated
 LIFE_NEW = 32               # new tokens a text request, phase 6's
 HF_WIDTHS = dict(vocab=32000, d=2048, layers=12, heads=16, d_ff=5632)
 
@@ -6004,9 +6022,12 @@ def _run_world(target, world: int, args, tag: str,
     card -> their results, rank order. A rank that fails, or a world past
     ``MESH_WORLD_S``, fails the phase; every process is stopped.
     ``init=False``: the target joins its process group itself."""
+    import gc
     import multiprocessing as mp
     import queue
 
+    gc.collect()              # the ranks share the card and the host
+    torch.cuda.empty_cache()
     ctx = mp.get_context("spawn")
     q = ctx.Queue()
     os.makedirs(LIFE_DIR, exist_ok=True)
@@ -6355,7 +6376,8 @@ def _small_mesh_batch(seed=35):
     return tokens, np.roll(tokens, -1, axis=1)
 
 
-def _one_card_losses(cfg, tree, attention, batch, steps=1, lr=3e-4):
+def _one_card_losses(cfg, tree, attention, batch, steps=1, lr=3e-4,
+                     accum=1):
     """The one-card step on *tree*'s weights -> (losses, weights)."""
     from kubetpu_torch.jobs import train as train_lib
     from kubetpu_torch.jobs.convert import params_from_numpy
@@ -6364,13 +6386,14 @@ def _one_card_losses(cfg, tree, attention, batch, steps=1, lr=3e-4):
     state = train_lib.state_from_params(params_from_numpy(tree, cfg, "cuda"),
                                         opt)
     step = train_lib.make_train_step(cfg, opt, attention=attention,
-                                     device="cuda")
+                                     accum_steps=accum, device="cuda")
     losses = [float(step(state, *batch)[1]) for _ in range(steps)]
     return losses, state.params
 
 
-def _one_card_grads(cfg, tree, batch) -> dict:
-    """The gradient of the one-card loss at *tree*'s weights, as a tree."""
+def _one_card_grads(cfg, tree, batch, accum=1) -> dict:
+    """The gradient of the one-card loss at *tree*'s weights, as a tree
+    (the micro-batches' mean under *accum*, as the step takes it)."""
     from kubetpu_torch.jobs import model as model_lib
     from kubetpu_torch.jobs.convert import params_from_numpy, params_to_numpy
 
@@ -6379,25 +6402,32 @@ def _one_card_grads(cfg, tree, batch) -> dict:
     for p in leaves:
         p.requires_grad_(True)
     tokens, targets = (torch.as_tensor(x, device="cuda") for x in batch)
-    grads = torch.autograd.grad(model_lib.next_token_loss(
-        model, tokens, targets, cfg), leaves)
+    micro = tokens.shape[0] // accum
+    grads = [sum(g) / accum for g in zip(*(torch.autograd.grad(
+        model_lib.next_token_loss(model, tokens[i * micro:(i + 1) * micro],
+                                  targets[i * micro:(i + 1) * micro], cfg),
+        leaves) for i in range(accum)))]
     with torch.no_grad():
         for p, g in zip(leaves, grads):
             p.copy_(g)
     return params_to_numpy(model)
 
 
+def _flat(tree, path=()) -> list:
+    """(path, array) of every leaf of a nested dict, in key order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _flat(tree[k], path + (k,))]
+    return [(path, np.asarray(tree))]
+
+
 def _pipe_update_gap(tree, got, ref, grads) -> float:
     """The largest |change of an element over one step - the reference
     step's change|, in steps of PIPE_LR, over the elements whose reference
-    gradient is not zero to rounding (|g| > 1e-6 of the leaf's largest)."""
-    def leaves(t):
-        return [("embed", t["embed"]), ("ln_f", t["ln_f"]),
-                ("head", t["head"])] + sorted(t["blocks"].items())
-
+    gradient is not zero to rounding (|g| > 1e-6 of the leaf's largest):
+    a model's or an adapter's tree."""
     worst = 0.0
     for (_n, w0), (_, a), (_, r), (_, g) in zip(
-            leaves(tree), leaves(got), leaves(ref), leaves(grads)):
+            _flat(tree), _flat(got), _flat(ref), _flat(grads)):
         keep = np.abs(g) > 1e-6 * np.abs(g).max()
         worst = max(worst, float(np.abs((a - w0) - (r - w0))[keep].max()))
     return worst / PIPE_LR
@@ -6464,6 +6494,8 @@ def _mesh_axes_rank(rank, world, args):
                                         SMALL_MESH_TOL)
                          for c in ("causal", "noncausal")}
     out["bidir"] = _bidir_vs_one_card(sp_mesh, rank, world)
+    out.update(_ep_legs(rank))
+    out.update(_lora_leg(rank, cfg, tree, batch))
     if rank == 0:
         out["ref_flash"], _ = _one_card_losses(cfg, tree, "flash", batch, 2)
         out["ref_dense_window"], _ = _one_card_losses(wcfg, tree, "dense",
@@ -6474,6 +6506,159 @@ def _mesh_axes_rank(rank, world, args):
         out["pipeline_update_gap"] = _pipe_update_gap(tree, ptree, ref, grads)
         out["pipeline_fault_update_gap"] = _pipe_update_gap(tree, ftree, ref,
                                                             grads)
+    return out
+
+
+# phase 35's expert-axis legs: the {dp 2, ep 4} step with capacity
+# dispatch at tests/test_jobs.py's ep config, fed by the global batch and
+# by prefetch_to_mesh; the five-axis pipeline at _dryrun_pipeline's factors
+# and config (capacity 2.0, E = 2 ep, two microbatches)
+EP_KW = dict(vocab=64, d_model=32, n_layers=2, n_heads=4, d_ff=64,
+             max_seq=64, n_experts=4, moe_capacity_factor=1.5)
+EP_AXES = {"dp": 2, "ep": 4}
+FIVE_KW = dict(vocab=128, d_model=64, n_layers=4, n_heads=4, d_ff=128,
+               max_seq=128, n_experts=4, moe_capacity_factor=2.0)
+FIVE_AXES = {"dp": 2, "pp": 2, "sp": 1, "tp": 1, "ep": 2}
+FIVE_MICRO = 2
+
+
+def _tree_of(cfg, seed) -> dict:
+    from kubetpu_torch.jobs.convert import params_to_numpy
+    from kubetpu_torch.jobs.model import init_params
+
+    return params_to_numpy(init_params(torch.Generator().manual_seed(seed),
+                                       cfg, device="cpu"))
+
+
+def _ep_legs(rank) -> dict:
+    """The ep step (one step at PIPE_LR, the weights gathered; the same
+    step fed by ``prefetch_to_mesh``, whose blocks must be
+    ``local_batch``'s) and the five-axis pipeline step; rank 0 also runs
+    the one-card references (the pipeline's with ``accum_steps`` = its
+    microbatches: a capacity dispatch spans one microbatch) and their
+    gradients."""
+    from kubetpu_torch.jobs import pipeline as pipe
+    from kubetpu_torch.jobs import train as train_lib
+    from kubetpu_torch.jobs.convert import (gather_params, params_to_numpy,
+                                            shard_params)
+    from kubetpu_torch.jobs.data import prefetch_to_mesh
+    from kubetpu_torch.jobs.meshjob import make_mesh
+    from kubetpu_torch.jobs.model import ModelConfig
+
+    out = {}
+    ecfg = ModelConfig(**EP_KW)
+    etree = _tree_of(ecfg, 36)
+    tokens = np.random.default_rng(36).integers(0, ecfg.vocab, (4, 32))
+    ebatch = (tokens, np.roll(tokens, -1, axis=1))
+    emesh = make_mesh(EP_AXES, device="cuda")
+
+    def ep_step(batches):
+        opt = train_lib.make_optimizer(lr=PIPE_LR)
+        state = train_lib.state_from_params(
+            shard_params(etree, ecfg, emesh, "cuda"), opt)
+        step = train_lib.make_train_step(ecfg, opt, attention="dense",
+                                         device="cuda", mesh=emesh)
+        losses = [float(step(state, *b)[1]) for b in batches]
+        return losses, gather_params(state.params, ecfg, emesh)
+
+    out["ep"], ep_tree = ep_step([ebatch])
+    staged = list(prefetch_to_mesh(iter([ebatch]), emesh, device="cuda"))
+    out["ep_prefetch_blocks_ok"] = all(
+        np.array_equal(x.cpu().numpy(),
+                       train_lib.local_batch(np.asarray(y), emesh))
+        for x, y in zip(staged[0], ebatch))
+    out["ep_prefetch"], _ = ep_step(staged)
+    fcfg = ModelConfig(**FIVE_KW)
+    ftree = _tree_of(fcfg, 37)
+    tokens = np.random.default_rng(37).integers(0, fcfg.vocab, (4, 32))
+    fbatch = (tokens, np.roll(tokens, -1, axis=1))
+    fmesh = make_mesh(FIVE_AXES, device="cuda")
+    opt = train_lib.make_optimizer(lr=PIPE_LR)
+    fstate = train_lib.state_from_params(
+        shard_params(ftree, fcfg, fmesh, "cuda", pp=True), opt)
+    fstep = pipe.make_pipeline_train_step(fcfg, fmesh, FIVE_MICRO, opt,
+                                          device="cuda")
+    out["five_axis"] = [float(fstep(fstate, *fbatch)[1])]
+    five_tree = gather_params(fstate.params, fcfg, fmesh, pp=True)
+    if rank == 0:
+        out["ref_ep"], ref = _one_card_losses(ecfg, etree, "dense", ebatch,
+                                              lr=PIPE_LR)
+        out["ep_update_gap"] = _pipe_update_gap(
+            etree, ep_tree, params_to_numpy(ref),
+            _one_card_grads(ecfg, etree, ebatch))
+        out["ref_five_axis"], ref = _one_card_losses(
+            fcfg, ftree, "dense", fbatch, lr=PIPE_LR, accum=FIVE_MICRO)
+        out["five_axis_update_gap"] = _pipe_update_gap(
+            ftree, five_tree, params_to_numpy(ref),
+            _one_card_grads(fcfg, ftree, fbatch, accum=FIVE_MICRO))
+    return out
+
+
+def _lora_leg(rank, cfg, tree, batch) -> dict:
+    """The sharded LoRA step on {dp 2, sp 2, tp 2} with ``ring_flash``,
+    one step at PIPE_LR from a rank-8 adapter whose B factors are drawn
+    off zero (every factor has a gradient); rank 0 runs the one-card LoRA
+    step (flash) and its gradient."""
+    from kubetpu_torch.jobs import collectives as col
+    from kubetpu_torch.jobs import lora as lora_lib
+    from kubetpu_torch.jobs import model as model_lib
+    from kubetpu_torch.jobs import train as train_lib
+    from kubetpu_torch.jobs.convert import (lora_to_numpy, params_from_numpy,
+                                            shard_params)
+    from kubetpu_torch.jobs.meshjob import make_mesh
+
+    lcfg = lora_lib.LoraConfig(rank=8, alpha=16.0)
+
+    def adapter():
+        a = lora_lib.init_lora_params(torch.Generator().manual_seed(38),
+                                      cfg, lcfg, device="cpu")
+        gen = torch.Generator().manual_seed(39)
+        for t in lcfg.targets:
+            b = a["blocks"][f"{t}_b"]
+            a["blocks"][f"{t}_b"] = torch.randn(b.shape, generator=gen) * 0.05
+        return {"blocks": {k: v.to("cuda") for k, v in a["blocks"].items()}}
+
+    def step_of(lora, base, mesh=None, attention="flash"):
+        for v in lora["blocks"].values():
+            v.requires_grad_(True)
+        opt = train_lib.make_optimizer(lr=PIPE_LR)
+        state = train_lib.TrainState(
+            lora, opt.init(train_lib._trained_leaves(lora)))
+        step = lora_lib.make_lora_train_step(cfg, lcfg, opt,
+                                             attention=attention,
+                                             device="cuda", mesh=mesh)
+        return float(step(state, base, *batch)[1]), state.params
+
+    mesh = make_mesh(MESH_AXES, device="cuda")
+    loss, lora = step_of(lora_lib.shard_lora(adapter(), mesh),
+                         shard_params(tree, cfg, mesh, "cuda"), mesh,
+                         "ring_flash")
+    whole = {}
+    for k, v in lora["blocks"].items():
+        spec = lora_lib._leaf_spec(k)
+        t = v.detach()
+        if "tp" in spec:
+            t = col.all_gather(t, col.group_of(mesh, "tp"), "gather",
+                               spec.index("tp"))
+        whole[k] = t.float().cpu().numpy()
+    out = {"lora": [loss]}
+    if rank == 0:
+        start = lora_to_numpy(adapter())
+        base = params_from_numpy(tree, cfg, "cuda")
+        out["ref_lora"], ref = step_of(adapter(), base)
+        out["ref_lora"] = [out["ref_lora"]]
+        probe = adapter()
+        leaves = train_lib._trained_leaves(probe)
+        for v in leaves:
+            v.requires_grad_(True)
+        tokens, targets = (torch.as_tensor(x, device="cuda") for x in batch)
+        grads = torch.autograd.grad(model_lib.next_token_loss(
+            lora_lib._merged_view(base, probe, lcfg), tokens, targets, cfg),
+            leaves)
+        out["lora_update_gap"] = _pipe_update_gap(
+            start, {"blocks": whole}, lora_to_numpy(ref),
+            {"blocks": {k: g.float().cpu().numpy() for k, g in
+                        zip(sorted(probe["blocks"]), grads)}})
     return out
 
 
@@ -6528,7 +6713,12 @@ def phase_mesh_axes(smi: str) -> dict:
     step at ``PIPE_LR`` within ``PIPE_UPDATE_TOL`` steps, a pipeline whose
     backward hop into stage 0 sends zeros beyond it); the flash ring, causal
     and bidirectional, against the dense ring on the same ranks, and the
-    bidirectional flash ring against one-card non-causal flash; then
+    bidirectional flash ring against one-card non-causal flash; the
+    expert axis (``_ep_legs``: the {dp 2, ep 4} step with capacity
+    dispatch, also fed by ``prefetch_to_mesh``, and the five-axis pipeline
+    {dp 2, pp 2, ep 2, sp 1}) and the sharded LoRA step on {dp 2, sp 2,
+    tp 2} with ``ring_flash`` (``_lora_leg``), each against the one-card
+    step, its loss and each weight's change as the pipeline's; then
     ``run_gang_worker`` on 2 ranks joined through a tcp coordinator.
     Losses within ``SMALL_MESH_TOL`` relative."""
     import socket
@@ -6577,6 +6767,19 @@ def phase_mesh_axes(smi: str) -> dict:
             and np.isfinite(gang[0]["loss"])
             and [g["process_count"] for g in gang] == [2, 2]):
         bad.append(f"gang {gang}")
+    for key in ("ep", "ep_prefetch", "five_axis", "lora"):
+        if any(r[key] != r0[key] for r in ranks):
+            bad.append(f"{key}: ranks disagree")
+    for key in ("ep", "five_axis", "lora"):
+        if not close(r0[key][0], r0[f"ref_{key}"][0]):
+            bad.append(f"{key} {r0[key]} vs one card {r0[f'ref_{key}']}")
+        if not r0[f"{key}_update_gap"] <= PIPE_UPDATE_TOL:
+            bad.append(f"{key} update gap {r0[f'{key}_update_gap']} steps")
+    if r0["ep_prefetch"] != r0["ep"] or not all(
+            r["ep_prefetch_blocks_ok"] for r in ranks):
+        bad.append(f"prefetch_to_mesh: blocks ok "
+                   f"{[r['ep_prefetch_blocks_ok'] for r in ranks]}, losses "
+                   f"{r0['ep_prefetch']} vs {r0['ep']}")
     row = dict(card=torch.cuda.get_device_name(0), nvidia_smi=smi,
                setting="8 ranks time-sharing one card; gloo, host-staged",
                cfg=SMALL_MESH_KW, dtype="float32", tol=SMALL_MESH_TOL,
@@ -6593,11 +6796,441 @@ def phase_mesh_axes(smi: str) -> dict:
                                       for c in r["ring_check"].values()),
                bidir_max_err=max(r["bidir"]["max_abs_err"] for r in ranks),
                gang_losses=[g["loss"] for g in gang],
+               ep_cfg=EP_KW, ep_axes=EP_AXES, ep=r0["ep"],
+               ref_ep=r0["ref_ep"], ep_prefetch=r0["ep_prefetch"],
+               ep_update_gap_steps=r0["ep_update_gap"],
+               five_axis_cfg=FIVE_KW, five_axis_axes=FIVE_AXES,
+               five_axis=r0["five_axis"], ref_five_axis=r0["ref_five_axis"],
+               five_axis_update_gap_steps=r0["five_axis_update_gap"],
+               lora=r0["lora"], ref_lora=r0["ref_lora"],
+               lora_update_gap_steps=r0["lora_update_gap"],
                wall_s=time.perf_counter() - t0, ok=not bad)
     line("mesh_axes", **row)
     if bad:
         raise SystemExit("mesh_axes: " + "; ".join(bad))
     return row
+
+
+# -- phase 36: serving over a mesh -------------------------------------------
+
+# _serving_mesh_factors(flagship, 8): tp as wide as heads, kv heads, d_ff
+# and vocab allow next to dp 2
+SERVE_MESH_AXES = {"dp": 2, "tp": 4}
+SERVE_MESH_KINDS = ("paged", "dense", "spec", "lora")
+SERVE_MESH_TENANTS = (0, 9)            # two of phase 17's rank-8 adapters
+SERVE_MESH_NEW = 8                     # new tokens a request (phase 6: 32)
+SERVE_FAULT_PROMPTS = 3                # the planted fault's requests
+GEN_MESH_STEPS = 8
+
+
+def _serve_cfg():
+    from kubetpu_torch.jobs import model as model_lib
+
+    return model_lib.ModelConfig(vocab=32000, d_model=2048, n_layers=12,
+                                 n_heads=16, d_ff=5632, max_seq=2048,
+                                 dtype=torch.bfloat16)
+
+
+def _serve_models() -> dict:
+    """Phase 6's flagship (seed 0), phase 16's quarter draft (seed 7) and
+    two of phase 17's rank-8 adapters, all on the card."""
+    from kubetpu_torch.jobs import model as model_lib
+    from kubetpu_torch.jobs.lora import LoraConfig
+
+    cfg = _serve_cfg()
+    qcfg = model_lib.ModelConfig(vocab=cfg.vocab, d_model=512, n_layers=3,
+                                 n_heads=4, d_ff=1408, max_seq=2048,
+                                 dtype=torch.bfloat16)
+    lcfg = LoraConfig(rank=8, alpha=16.0)
+
+    def init(c, seed):
+        return model_lib.init_params(
+            torch.Generator(device="cuda").manual_seed(seed), c,
+            device="cuda")
+
+    return dict(cfg=cfg, model=init(cfg, 0), qcfg=qcfg, quarter=init(qcfg, 7),
+                lcfg=lcfg,
+                ads=_tenant_adapters(cfg, lcfg, SERVE_MESH_TENANTS))
+
+
+def _serve_server(kind, m, mesh):
+    """A server of *kind* at phase 6's settings (8 slots, max_seq 2048,
+    prefill budget 256; pages of 16) but SERVE_MESH_NEW new tokens, over
+    *mesh* (None: one card)."""
+    from kubetpu_torch.jobs.multi_lora import PagedMultiLoraDecodeServer
+    from kubetpu_torch.jobs.paged import PagedDecodeServer
+    from kubetpu_torch.jobs.serving import DecodeServer
+    from kubetpu_torch.jobs.spec_serving import PagedSpeculativeDecodeServer
+
+    kw = dict(n_slots=8, max_seq=2048, max_new_tokens=SERVE_MESH_NEW,
+              prefill_budget=256, device="cuda", mesh=mesh)
+    if kind == "dense":
+        return DecodeServer(m["cfg"], m["model"], **kw)
+    kw["page_size"] = 16
+    if kind == "spec":
+        return PagedSpeculativeDecodeServer(m["cfg"], m["qcfg"], m["model"],
+                                            m["quarter"], gamma_max=GAMMA_MAX,
+                                            **kw)
+    if kind == "lora":
+        return PagedMultiLoraDecodeServer(m["cfg"], m["model"], m["lcfg"],
+                                          m["ads"], **kw)
+    return PagedDecodeServer(m["cfg"], m["model"], **kw)
+
+
+class _Collectives:
+    """Counts the collective calls (each one a host sync under gloo)
+    while open; ``close`` restores the functions and returns the count."""
+
+    NAMES = ("all_reduce_", "all_gather", "broadcast_")
+
+    def __init__(self) -> None:
+        from kubetpu_torch.jobs import collectives as col
+
+        self.col, self.n = col, 0
+        self._saved = {n: getattr(col, n) for n in self.NAMES}
+        for name, fn in self._saved.items():
+            setattr(col, name, self._counted(fn))
+
+    def _counted(self, fn):
+        def run(*args, **kwargs):
+            self.n += 1
+            return fn(*args, **kwargs)
+        return run
+
+    def close(self) -> int:
+        for name, fn in self._saved.items():
+            setattr(self.col, name, fn)
+        return self.n
+
+
+def _serve_lifecycle(kind, server, prompts, top2=False,
+                     logits=False) -> dict:
+    """``_dryrun_serving``'s staggered lifecycle at phase 6's prompts: two
+    submitted, one step, the others enqueued, drain. Paged counters,
+    per-axis bytes and collective calls are zeroed just before and read
+    just after; each step's wall ms and whether it ran a prefill chunk
+    are kept; with *logits* each prompt's first-token logits too."""
+    from kubetpu_torch.jobs import collectives as col
+    from kubetpu_torch.ops import paged_attention as pa
+
+    picks = ([{"adapter": i % len(SERVE_MESH_TENANTS)}
+              for i in range(len(prompts))] if kind == "lora"
+             else [{}] * len(prompts))
+    st = _instrument(server)
+    rec = _record_top2(server) if top2 else None
+    syncs = _SyncCounter(server)
+    torch.cuda.synchronize()
+    for c in _PAGED_COUNTERS:
+        setattr(pa.paged_attention, c, 0)
+    col.reset_counters()
+    colls = _Collectives()
+    steps = []
+
+    def step():
+        chunks = st["chunks"]
+        t0 = time.perf_counter()
+        out = server.step()
+        steps.append(((time.perf_counter() - t0) * 1e3,
+                      sum(len(v) for v in out.values()),
+                      st["chunks"] > chunks))
+
+    t_start = time.perf_counter()
+    rids = [server.submit(p, **x) for p, x in zip(prompts[:2], picks[:2])]
+    step()
+    rids += [server.enqueue(p, **x) for p, x in zip(prompts[2:], picks[2:])]
+    while not server._idle():
+        step()
+        if len(steps) > 10_000:
+            raise SystemExit(f"mesh_serve {kind}: did not converge")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_start
+    n_coll = colls.close()
+    sync = syncs.close()
+    launches = {c: getattr(pa.paged_attention, c) for c in _PAGED_COUNTERS}
+    axis_bytes = dict(col.axis_bytes)
+    server.check_lockstep()
+    if hasattr(server, "check_invariants"):
+        server.check_invariants()
+    decode = [(ms, n) for ms, n, chunk in steps if not chunk and n]
+    return dict(tokens=[server.result(r) for r in rids], wall_s=wall,
+                steps=len(steps), decode_steps=st["steps"],
+                chunks=st["chunks"],
+                decode_toks_s=(sum(n for _, n in decode)
+                               / (sum(ms for ms, _ in decode) / 1e3)
+                               if decode else None),
+                step_ms=float(np.median([ms for ms, _ in decode]))
+                if decode else None,
+                launches=launches,
+                bytes_per_step={k: v / len(steps)
+                                for k, v in axis_bytes.items()},
+                collectives_per_step=n_coll / len(steps),
+                host_syncs=sync,
+                gaps=_top2_gaps(rec) if rec is not None else None,
+                first_logits=[st["first_logits"][tuple(p)].cpu().numpy()
+                              for p in prompts] if logits else None)
+
+
+def _generate_legs(mesh) -> dict:
+    """``make_generate`` at phase 35's small f32 width, plain and at window
+    8, over *mesh* (None: one card): 4 prompts of 16, 8 new tokens."""
+    from kubetpu_torch.jobs.convert import params_from_numpy
+    from kubetpu_torch.jobs.decode import make_generate
+    from kubetpu_torch.jobs.model import ModelConfig
+
+    cfg = ModelConfig(**SMALL_MESH_KW)
+    model = params_from_numpy(_tree_of(cfg, 35), cfg, "cuda")
+    prompt = torch.from_numpy(np.random.default_rng(36).integers(
+        0, cfg.vocab, (4, 16))).to("cuda")
+    return {w: make_generate(dataclasses.replace(cfg, window=w), mesh=mesh)(
+        model, prompt, 0, GEN_MESH_STEPS).cpu().tolist() for w in (0, 8)}
+
+
+class _NoWoReduce:
+    """The collectives module for ``decode`` and ``paged`` with
+    ``reduce_from`` the identity: the planted fault of phase 36 (``wo``'s
+    partial sums stay each rank's own, in the prefill chunks and the
+    decode steps; the MLP's, in ``model``, are still summed)."""
+
+    def __init__(self, col) -> None:
+        self._col = col
+
+    def __getattr__(self, name):
+        return getattr(self._col, name)
+
+    @staticmethod
+    def reduce_from(x, group, axis="tp"):
+        return x
+
+
+def _host_mem_gb() -> dict:
+    """This process's resident set (``VmRSS``) and the host's available
+    memory, GB, from ``/proc``, each None where the kernel does not report
+    it: a world's host footprint."""
+    def field(path, name):
+        with open(path) as f:
+            for ln in f:
+                if ln.startswith(name):
+                    return int(ln.split()[1]) / 1e6
+        return None
+
+    return {"rss_gb": field("/proc/self/status", "VmRSS:"),
+            "available_gb": field("/proc/meminfo", "MemAvailable:")}
+
+
+def _mesh_serve_rank(rank, world, args):
+    """Phase 36 on one rank (*world* 1: the one-card reference, with the
+    top-2 logits the near-tie rule reads): the four servers' lifecycles,
+    the planted fault (meshed only), the generate legs, peak memory."""
+    import torch.distributed as dist
+
+    from kubetpu_torch.jobs import decode, paged
+    from kubetpu_torch.jobs.meshjob import make_mesh
+
+    mesh = make_mesh(SERVE_MESH_AXES, device="cuda") if world > 1 else None
+    m = _serve_models()
+    prompts = _serve_prompts(m["cfg"])
+    torch.cuda.reset_peak_memory_stats()
+    out = {}
+    for kind in SERVE_MESH_KINDS:
+        server = _serve_server(kind, m, mesh)
+        if kind == "paged":
+            server.warmup()
+        out[kind] = _serve_lifecycle(kind, server, prompts,
+                                     top2=mesh is None and kind != "spec",
+                                     logits=kind == "paged")
+        del server
+        torch.cuda.empty_cache()
+    if mesh is not None:
+        sound = paged.col
+        decode.col = paged.col = _NoWoReduce(sound)
+        try:
+            out["fault"] = _serve_lifecycle(
+                "paged", _serve_server("paged", m, mesh),
+                prompts[:SERVE_FAULT_PROMPTS], logits=True)
+        finally:
+            decode.col = paged.col = sound
+    out["generate"] = _generate_legs(mesh)
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["host"] = _host_mem_gb()
+    if mesh is not None:
+        dist.barrier()
+        if rank == 0:
+            out["smi_used_mb"] = subprocess.run(
+                ["nvidia-smi", "--query-gpu=memory.used",
+                 "--format=csv,noheader,nounits"], capture_output=True,
+                text=True).stdout.strip()
+        dist.barrier()
+    return out
+
+
+def phase_mesh_serve(smi: str) -> dict:
+    """Phase 36: the servers over {dp 2, tp 4} (``dryrun_multichip``'s
+    serving mesh at n = 8 for the flagship) in an 8-rank world sharing the
+    card, against the one-card servers on the same weights, run first in
+    a process of their own. Each of ``PagedDecodeServer``,
+    ``DecodeServer`` (slots on dp), the paged speculative server (phase
+    16's quarter draft, whole on every rank) and
+    ``PagedMultiLoraDecodeServer`` (two rank-8 adapters) runs phase 6's
+    settings and prompts, ``SERVE_MESH_NEW`` new tokens a request, in
+    ``_dryrun_serving``'s staggered lifecycle.
+
+    Gates: every rank emits the same tokens; each server's tokens equal
+    the one-card server's under phase 16's near-tie rule (the first
+    divergence of a request may fall only where the one-card run's top two
+    logits lie within LOGIT_TOL; the speculative server's read the plain
+    paged run's), and the paged server's first-token logits on every rank
+    within LOGIT_TOL of the one card's; a paged server whose ``wo`` partial
+    sums are not reduced over tp (``_NoWoReduce``, on its first
+    ``SERVE_FAULT_PROMPTS`` prompts) must fail that gate; the paged
+    servers launch the split and
+    combine kernels on every decode step and the wgmma chunk on every
+    prefill chunk, 12 a layer stack, and the SIMT kernel never;
+    ``make_generate(mesh=)`` at phase 35's f32 width, plain and at window
+    8, returns the one-card call's tokens exactly on every rank. Readings:
+    decode tokens/s and step ms of the world and the one card, host syncs
+    and collective calls a step, bytes a step by axis, paged launches a
+    rank, peak memory a rank and the card's total."""
+    t0 = time.perf_counter()
+    host_before = _host_mem_gb()
+    line("mesh_serve_start", host=host_before)
+    ref = _run_world(_mesh_serve_rank, 1, {}, "mesh_serve_ref")[0]
+    t_ref = time.perf_counter() - t0
+    ranks = _run_world(_mesh_serve_rank, 8, {}, "mesh_serve")
+    all_prompts = _serve_prompts(_serve_cfg())
+    layers = _serve_cfg().n_layers
+    bad, rows = [], {}
+    r0 = ranks[0]
+    for kind in SERVE_MESH_KINDS + ("fault",):
+        prompts = (all_prompts[:SERVE_FAULT_PROMPTS] if kind == "fault"
+                   else all_prompts)
+        if any(r[kind]["tokens"] != r0[kind]["tokens"] for r in ranks):
+            bad.append(f"{kind}: ranks emit different tokens")
+        # the one-card run of the same server (the fault's: the sound
+        # paged one), and the top-2 gaps of the one-card run whose sampler
+        # saw the stream (the speculative server's: the plain paged one)
+        want = ref["paged" if kind == "fault" else kind]["tokens"][
+            :len(prompts)]
+        gaps = ref["paged" if kind in ("spec", "fault") else kind]["gaps"]
+        ties = _near_tie_check(r0[kind]["tokens"], want, gaps, prompts)
+        emitted = [(a[len(p):], b[len(p):]) for p, a, b in zip(
+            prompts, r0[kind]["tokens"], want)]
+        rows[kind] = dict(
+            tokens_equal=sum(a == b for a, b in emitted),
+            mismatch_share=(sum(x != y for a, b in emitted
+                                for x, y in zip(a, b))
+                            / sum(len(a) for a, _ in emitted)),
+            diverged=ties["diverged"], bad=len(ties["bad"]))
+        if kind != "fault" and ties["bad"]:
+            bad.append(f"{kind}: tokens diverge from the one-card server "
+                       f"away from a near-tie: {ties['bad']}")
+    # the first-token logits of every rank's paged run against the one
+    # card's: bf16 noise (phase 6's LOGIT_TOL) for the sound server
+    gaps = {k: max(float(np.abs(a - b).max()) for r in ranks
+                   for a, b in zip(r[k]["first_logits"],
+                                   ref["paged"]["first_logits"]))
+            for k in ("paged", "fault")}
+    if gaps["paged"] > LOGIT_TOL:
+        bad.append(f"paged: first-token logits {gaps['paged']} from the one "
+                   f"card's (bound {LOGIT_TOL})")
+    if not rows["fault"]["bad"] and gaps["fault"] <= LOGIT_TOL:
+        bad.append("the planted fault (wo not reduced over tp) passes the "
+                   f"gate: logit gap {gaps['fault']}, near-tie rule held")
+    for kind in ("paged", "spec", "lora"):
+        for rank, r in enumerate(ranks):
+            got = r[kind]
+            n = got["launches"]
+            # the speculative server's rounds are verify chunks: wgmma
+            if n["simt_launches"] or not n["wgmma_launches"] or (
+                    kind != "spec" and not n["split_launches"]):
+                bad.append(f"{kind} rank {rank}: paged launches {n}")
+            if kind != "spec" and (
+                    n["split_launches"] != layers * got["decode_steps"]
+                    or n["wgmma_launches"] != layers * got["chunks"]):
+                bad.append(f"{kind} rank {rank}: {n} for "
+                           f"{got['decode_steps']} decode steps and "
+                           f"{got['chunks']} chunks")
+    for rank, r in enumerate(ranks):
+        if r["generate"] != ref["generate"]:
+            bad.append(f"make_generate rank {rank}: tokens differ from the "
+                       f"one card's")
+    total = {c: sum(r[k]["launches"][c] for r in ranks
+                    for k in ("paged", "spec", "lora"))
+             for c in _PAGED_COUNTERS}
+    paged_r0 = r0["paged"]
+    row = dict(
+        card=torch.cuda.get_device_name(0), nvidia_smi=smi,
+        setting="8 ranks time-sharing one card; gloo",
+        axes=SERVE_MESH_AXES, kinds=list(SERVE_MESH_KINDS),
+        near_tie=rows, logit_gap=gaps["paged"], fault_logit_gap=gaps["fault"],
+        logit_tol=LOGIT_TOL, new_tokens=SERVE_MESH_NEW,
+        decode_toks_s=paged_r0["decode_toks_s"],
+        one_card_decode_toks_s=ref["paged"]["decode_toks_s"],
+        step_ms=paged_r0["step_ms"],
+        one_card_step_ms=ref["paged"]["step_ms"],
+        per_kind={k: dict(decode_toks_s=r0[k]["decode_toks_s"],
+                          one_card_decode_toks_s=ref[k]["decode_toks_s"],
+                          step_ms=r0[k]["step_ms"],
+                          one_card_step_ms=ref[k]["step_ms"],
+                          wall_s=r0[k]["wall_s"],
+                          one_card_wall_s=ref[k]["wall_s"],
+                          steps=r0[k]["steps"],
+                          bytes_per_step=r0[k]["bytes_per_step"],
+                          collectives_per_step=r0[k][
+                              "collectives_per_step"],
+                          host_syncs=r0[k]["host_syncs"],
+                          launches=r0[k]["launches"])
+                  for k in SERVE_MESH_KINDS},
+        paged_launches_per_decode_step={
+            c: paged_r0["launches"][c] / max(paged_r0["decode_steps"], 1)
+            for c in ("split_launches", "combine_launches")},
+        paged_wgmma_per_chunk=(paged_r0["launches"]["wgmma_launches"]
+                               / max(paged_r0["chunks"], 1)),
+        launches_all_ranks=total,
+        peak_mem_gb_per_rank=max(r["peak_mem_gb"] for r in ranks),
+        one_card_peak_mem_gb=ref["peak_mem_gb"],
+        smi_memory_used_mb=r0["smi_used_mb"],
+        host_per_rank=[r["host"] for r in ranks], host_before=host_before,
+        generate_equal=all(r["generate"] == ref["generate"] for r in ranks),
+        ref_wall_s=t_ref, wall_s=time.perf_counter() - t0, ok=not bad)
+    line("mesh_serve", **row)
+    if bad:
+        raise SystemExit("mesh_serve: " + "; ".join(bad))
+    return row
+
+
+def _tp4_kernel_rows(kern, mesh_serve) -> list:
+    """The split and the wgmma chunk kernels at a tp-4 rank's heads (phase
+    3's tp4 cases), launches summed over phase 36's 8 ranks and its paged
+    servers' main-path runs."""
+    case = {r["case"]: r for r in kern}
+    dec, chunk = case["decode_bf16_tp4"], case["chunk_bf16_T256_tp4"]
+    launches = mesh_serve["launches_all_ranks"]
+    paged = dict(route="cuda",
+                 source="kubetpu_torch/ops/csrc/paged_attention.cu",
+                 replaces="kubetpu/ops/paged_attention.py:65",
+                 launches_from="phase 36, 8 ranks")
+    return [
+        dict(paged, name="paged_attention_split_tp4", instances="split",
+             launches=launches["split_launches"],
+             max_abs_err=dec["split"]["max_err"], ms=dec["split"]["ms"],
+             plain_ms=dec["split"]["plain_ms"],
+             bound_ms=dec["split"]["bound_ms"],
+             bound_by=dec["split"]["bound_by"], library_ms=None,
+             call_ms=dec["ms"], call_bound_ms=dec["bound_ms"],
+             call_library_ms=dec["library_ms"],
+             combine_launches=launches["combine_launches"],
+             combine_ms=dec["combine"]["ms"],
+             combine_bound_ms=dec["combine"]["bound_ms"],
+             grid=dec["grid"], splits=dec["splits"], ok=dec["ok"],
+             shape=dec["shape"]),
+        dict(paged, name="paged_attention_chunk_tp4", instances="wgmma",
+             launches=launches["wgmma_launches"],
+             max_abs_err=chunk["max_abs_err"], ms=chunk["ms"],
+             plain_ms=chunk["plain_ms"], bound_ms=chunk["bound_ms"],
+             bound_by=chunk["bound_by"], library_ms=chunk["library_ms"],
+             grid=chunk["grid"], key_splits=chunk["key_splits"],
+             ok=chunk["ok"], shape=chunk["shape"]),
+    ]
 
 
 def _mesh_kernel_rows(flash, mesh_train) -> list:
@@ -6730,6 +7363,7 @@ def main(argv) -> int:
     # the multi-device training path: worlds of ranks sharing the card
     mesh_train = phase_mesh_train(dev["nvidia_smi"])
     mesh_axes = phase_mesh_axes(dev["nvidia_smi"])
+    mesh_serve = phase_mesh_serve(dev["nvidia_smi"])
     shutil.rmtree(LIFE_DIR, ignore_errors=True)
 
     # the paged kernels at the main path's cases (launches: phases 6, 8, 9,
@@ -6853,6 +7487,7 @@ def main(argv) -> int:
                 "ok": r["ok"], "shape": r["shape"],
             })
     kernels += _mesh_kernel_rows(flash, mesh_train)
+    kernels += _tp4_kernel_rows(kern, mesh_serve)
     record = {"device": dev, "build": build, "kernel_cases": kern,
               "flash_cases": flash, "parity": parity, "serve": serve,
               "profile": prof, "prefix": prefix, "window": window,
@@ -6867,7 +7502,8 @@ def main(argv) -> int:
               "distill": distill, "hf_import": hf_import, "beam": beam,
               "encoder": encoder, "profiling": profiling, "vit": vit,
               "seq2seq": seq2seq, "mesh_train": mesh_train,
-              "mesh_axes": mesh_axes, "kernels": kernels}
+              "mesh_axes": mesh_axes, "mesh_serve": mesh_serve,
+              "kernels": kernels}
     return finish(record, t_script, record_path)
 
 
@@ -6918,21 +7554,26 @@ def run_families(smi: str) -> dict:
 
 
 def run_mesh(smi: str) -> dict:
-    """``--phases 34-35``: phase 4 (with the ring's cases), then 34 and 35
-    as the whole run drives them, and their three ``kernels`` entries."""
-    record = {"flash_cases": phase_flash()}
+    """``--phases 34-36``: phase 4 (with the ring's cases) and phase 3's
+    tp-4 cases, then 34, 35 and 36 as the whole run drives them, and their
+    five ``kernels`` entries."""
+    record = {"flash_cases": phase_flash(),
+              "kernel_cases": phase_kernels(
+                  names=[n for n, _ in _tp4_cases()])}
     torch.cuda.empty_cache()
     record["mesh_train"] = phase_mesh_train(smi)
     record["mesh_axes"] = phase_mesh_axes(smi)
+    record["mesh_serve"] = phase_mesh_serve(smi)
     shutil.rmtree(LIFE_DIR, ignore_errors=True)
-    record["kernels"] = _mesh_kernel_rows(record["flash_cases"],
-                                          record["mesh_train"])
+    record["kernels"] = (
+        _mesh_kernel_rows(record["flash_cases"], record["mesh_train"])
+        + _tp4_kernel_rows(record["kernel_cases"], record["mesh_serve"]))
     return record
 
 
 # ``--phases`` ranges: each runs phases 1, 2 and its own, then the shared
 # tail
-PHASE_RANGES = {"29-33": run_families, "34-35": run_mesh}
+PHASE_RANGES = {"29-33": run_families, "34-36": run_mesh}
 
 
 if __name__ == "__main__":

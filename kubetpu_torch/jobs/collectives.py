@@ -15,6 +15,9 @@ What GSPMD inserts for the JAX package, the port calls by hand:
   flash ring's own backward.
 - ``send_to`` / ``recv_from``, ``broadcast_``, ``all_reduce_`` and
   ``all_gather``: the pipeline's, the optimizer's and the tests'.
+- ``ModelShard``: the groups a sharded model's forward reduces over (tp,
+  the MoE experts' tp x ep, the data axes a capacity dispatch spans),
+  which ``train.shard_model`` attaches to the shard it cuts.
 
 Every hop is ``batch_isend_irecv``: each rank posts its send and its
 receive together, so no ring deadlocks on blocking sends.
@@ -38,7 +41,8 @@ between the card and pinned host memory, both ways.
 from __future__ import annotations
 
 import collections
-from typing import Callable, Dict, List, Sequence, Tuple
+import dataclasses
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -307,6 +311,70 @@ class MeshGroups:
                 if me in line:
                     self._groups[axes] = group
         return self._groups[axes]
+
+
+_GROUPS: Dict[int, MeshGroups] = {}
+
+
+def groups_of(mesh) -> MeshGroups:
+    """The one ``MeshGroups`` of *mesh*, so that every user of a mesh
+    shares its sub-groups (each made once, collectively)."""
+    groups = _GROUPS.get(id(mesh))
+    if groups is None or groups.mesh is not mesh:
+        groups = _GROUPS[id(mesh)] = MeshGroups(mesh)
+    return groups
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelShard:
+    """What a rank's shard of a model reduces over in its forward:
+
+    - ``tp``: the tensor-parallel group (``copy_to`` before q/k/v and the
+      MLP's inputs, ``reduce_from`` after ``wo`` and the MLP, the LM
+      head's vocab shards gathered into whole logits);
+    - ``moe``: the group over tp x ep a mixture-of-experts MLP sums its
+      partial outputs over (the rank's experts' ff shard), with
+      ``ep_index`` / ``ep_size`` naming the rank's experts;
+    - ``data``: the group over the data axes one MoE capacity dispatch
+      spans (the JAX package dispatches over the global batch), its ranks
+      ordered batch block-major: ``data_blocks`` = (batch blocks,
+      sequence blocks). None where every call dispatches on its own rows.
+    """
+
+    tp: object = None
+    moe: object = None
+    ep_index: int = 0
+    ep_size: int = 1
+    data: object = None
+    data_blocks: Tuple[int, int] = (1, 1)
+
+    def __deepcopy__(self, memo):
+        return self         # process groups are shared, never copied
+
+    def with_data(self, groups: MeshGroups,
+                  axes: Sequence[str]) -> "ModelShard":
+        """This shard with its capacity dispatch spanning *axes* (the
+        batch axes, then sp when listed)."""
+        mesh = groups.mesh
+        seq = axis_size(mesh, "sp") if "sp" in axes else 1
+        total = 1
+        for a in axes:
+            total *= axis_size(mesh, a)
+        return dataclasses.replace(self, data=groups.over(*axes),
+                                   data_blocks=(total // seq, seq))
+
+
+def model_shard(mesh, moe: bool = False,
+                data_axes: Sequence[str] = ()) -> ModelShard:
+    """The ``ModelShard`` of *mesh* (a mixture-of-experts model's when
+    *moe*), its groups made now: every rank calls this at the same point.
+    *data_axes*: the axes one MoE capacity dispatch spans."""
+    groups = groups_of(mesh)
+    shard = ModelShard(
+        tp=groups.over("tp"),
+        moe=groups.over("tp", "ep") if moe else None,
+        ep_index=axis_index(mesh, "ep"), ep_size=axis_size(mesh, "ep"))
+    return shard.with_data(groups, data_axes) if data_axes else shard
 
 
 def axis_index(mesh, name: str) -> int:

@@ -139,9 +139,10 @@ def params_to_numpy(model: Transformer) -> dict:
 def shard_params(np_tree: Mapping, cfg: ModelConfig, mesh, device=None,
                  pp: bool = False) -> Transformer:
     """This rank's shard of the JAX package's numpy tree on *mesh*
-    (``train.param_specs``: heads, ff and vocab cut over tp; under *pp*
-    the stage's layers), as a ``Transformer`` of local shapes on *device*
-    (the card by default), gradients off."""
+    (``train.param_specs``: heads, ff and vocab cut over tp, experts over
+    ep; under *pp* the stage's layers), as a ``Transformer`` of local
+    shapes on *device* (the card by default) carrying its ``ModelShard``,
+    gradients off."""
     from kubetpu_torch.jobs import train as train_lib
 
     device = resolve_device(device)
@@ -156,10 +157,9 @@ def shard_params(np_tree: Mapping, cfg: ModelConfig, mesh, device=None,
         for name, spec in specs["blocks"].items()}
     from kubetpu_torch.jobs import collectives as col
 
-    model = Transformer(cfg, torch.device("meta"),
-                        tp=col.axis_size(mesh, "tp"),
-                        layers=len(train_lib.stage_layers(cfg, mesh)))
+    model = train_lib.local_model(cfg, mesh, torch.device("meta"), pp)
     _put_all(model, local, top, block_leaves(cfg), cfg, device)
+    model.shard = col.model_shard(mesh, moe=cfg.n_experts > 0)
     return model
 
 

@@ -5,12 +5,13 @@ tokenizer, evaluation and the synthetic image set.
 This is numpy code, copied so that the port imports nothing of
 ``kubetpu``; for the same seeds it yields byte-equal batches, and
 ``ByteTokenizer.encode_file`` writes a byte-equal corpus file. Batches stay
-host-side numpy; ``train.make_train_step``'s step uploads them.
-``prefetch_to_mesh`` waits for the multi-device slice.
+host-side numpy; ``train.make_train_step``'s step uploads them, or
+``prefetch_to_mesh`` stages each rank's block ahead of a sharded step.
 """
 
 from __future__ import annotations
 
+import collections
 import itertools
 from typing import Iterable, Iterator, Optional, Sequence, Tuple
 
@@ -177,6 +178,66 @@ def pack_documents(
                 bounds[0].append(len(piece))
     if any(rows):
         yield flush(rows, iso)
+
+
+def prefetch_to_mesh(it: Iterable, mesh, depth: int = 2,
+                     device=None) -> Iterator[tuple]:
+    """Each batch of *it* as this rank's blocks on *device* (the card by
+    default), *depth* batches ahead: every tuple entry (tokens, targets,
+    and weights from ``pack_documents``, any arity, order kept) cut to the
+    rank's block (``train.local_batch``: rows on the data axes, columns on
+    sp), tokens and targets int64, further entries f32. On the card a
+    block is copied from pinned host memory on a side stream, and the
+    consumer's stream waits on that copy's event when the batch is
+    yielded; on the CPU the same code runs synchronously. The blocks are
+    marked local, so a sharded step (``make_train_step(..., mesh=)``)
+    takes them as they are."""
+    import torch
+
+    from kubetpu_torch.jobs.model import resolve_device
+    from kubetpu_torch.jobs.train import LOCAL_BLOCK, local_batch
+
+    device = resolve_device(device)
+    cuda = device.type == "cuda"
+    stream = torch.cuda.Stream(device) if cuda else None
+    queue: collections.deque = collections.deque()
+
+    def put(batch):
+        blocks = []
+        for i, x in enumerate(batch):
+            host = np.ascontiguousarray(local_batch(np.asarray(x), mesh),
+                                        np.int64 if i < 2 else np.float32)
+            t = torch.from_numpy(host)
+            if cuda:
+                t = t.pin_memory()
+                with torch.cuda.stream(stream):
+                    t = t.to(device, non_blocking=True)
+            setattr(t, LOCAL_BLOCK, True)
+            blocks.append(t)
+        event = None
+        if cuda:
+            event = torch.cuda.Event()
+            event.record(stream)
+        queue.append((tuple(blocks), event))
+
+    def ready():
+        blocks, event = queue.popleft()
+        if event is not None:
+            consumer = torch.cuda.current_stream(device)
+            consumer.wait_event(event)
+            for t in blocks:
+                t.record_stream(consumer)
+        return blocks
+
+    it = iter(it)
+    for batch in itertools.islice(it, depth):
+        put(batch)
+    for batch in it:
+        out = ready()
+        put(batch)
+        yield out
+    while queue:
+        yield ready()
 
 
 def mlm_batches(

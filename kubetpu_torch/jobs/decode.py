@@ -25,6 +25,15 @@ sliding-window config from a ring of ``cfg.window`` cache slots a layer
 int8 weights (``quant.quantize_params``) dequantize one layer at a time
 inside the layer loop (``_decode_block_core``) and the head per use, never
 as a whole-model copy.
+
+A model shard (``train.shard_model``) decodes tensor-parallel through its
+``collectives.ModelShard``: ``copy_to`` before q/k/v and the MLP,
+``reduce_from`` after ``wo`` (its LoRA delta inside the sum: its input is
+the rank's heads) and after the MLP, the cache holding the rank's
+``H_kv/tp`` heads (``init_kv_cache(..., tp=)``), and the head's vocab
+shards gathered into whole f32 logits before any sampler, so every rank
+samples from the same row. ``make_generate(..., mesh=)`` puts the prompt
+batch on dp and gathers the generated rows.
 """
 
 from __future__ import annotations
@@ -33,29 +42,32 @@ from typing import Optional
 
 import torch
 
+from kubetpu_torch.jobs import collectives as col
 from kubetpu_torch.jobs import model as model_lib
 from kubetpu_torch.jobs.model import ModelConfig, Transformer, resolve_device
 from kubetpu_torch.jobs.quant import maybe_dequantize, quantize_kv_chunk
 
 
-def init_kv_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None):
+def init_kv_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None,
+                  tp: int = 1):
     """(k_cache, v_cache), each (L, B, S_max, H_kv, D) zeros in
     ``cfg.dtype``: the cache holds only the kv heads under grouped-query
-    attention."""
+    attention (a tp rank's ``H_kv/tp`` of them)."""
     device = resolve_device(device)
-    shape = (cfg.n_layers, batch, max_seq, cfg.kv_heads, cfg.head_dim)
+    shape = (cfg.n_layers, batch, max_seq, cfg.kv_heads // tp, cfg.head_dim)
     return (torch.zeros(shape, dtype=cfg.dtype, device=device),
             torch.zeros(shape, dtype=cfg.dtype, device=device))
 
 
 def init_kv_cache_int8(cfg: ModelConfig, batch: int, max_seq: int,
-                       device=None):
+                       device=None, tp: int = 1):
     """int8 KV cache: ((k_q, k_scale), (v_q, v_scale)) with int8 values
     (L, B, S_max, H_kv, D) and per-token, per-head f32 scales
-    (L, B, S_max, H_kv, 1). Entries quantize at write time
-    (``quant.quantize_kv_chunk``) and dequantize on read."""
+    (L, B, S_max, H_kv, 1) (a tp rank's ``H_kv/tp`` heads). Entries
+    quantize at write time (``quant.quantize_kv_chunk``) and dequantize on
+    read."""
     device = resolve_device(device)
-    shape = (cfg.n_layers, batch, max_seq, cfg.kv_heads, cfg.head_dim)
+    shape = (cfg.n_layers, batch, max_seq, cfg.kv_heads // tp, cfg.head_dim)
     sshape = shape[:-1] + (1,)
 
     def pair():
@@ -211,17 +223,20 @@ def out_project(attn, wo, lora_l, scale: float):
 
 def _decode_block_core(cfg: ModelConfig, layer, x, cache, pos, cache_io,
                        lora_l=None, lora_scale: float = 1.0,
-                       per_row: bool = False):
+                       per_row: bool = False, shard=None):
     """The transformer block of every cached decode path, parameterized on
     the cache strategy: ``cache_io(q, k, v, cache, pos) -> (attn, cache)``
     owns the write and the (banded) read; norms, projections (with each
     row's adapter deltas when *lora_l* holds per-row factors, the
     multi-LoRA path), rope at the absolute positions and the MLP are
     shared. An int8 layer dequantizes here, for this layer only;
-    *per_row* makes each row its own MoE dispatch (``model._mlp``). x:
-    (B, T, D); pos an int or (B,)."""
+    *per_row* makes each row its own MoE dispatch (``model._mlp``). On a
+    *shard* the rank's heads run between ``copy_to`` and the
+    ``reduce_from`` that also sums ``wo``'s LoRA delta. x: (B, T, D); pos
+    an int or (B,)."""
+    tp = None if shard is None else shard.tp
     layer = maybe_dequantize(layer)
-    h = model_lib.rms_norm(x, layer.ln1)
+    h = col.copy_to(model_lib.rms_norm(x, layer.ln1), tp)
     q = project("wq", h, layer.wq, lora_l, lora_scale)
     k = project("wk", h, layer.wk, lora_l, lora_scale)
     v = project("wv", h, layer.wv, lora_l, lora_scale)
@@ -230,9 +245,10 @@ def _decode_block_core(cfg: ModelConfig, layer, x, cache, pos, cache_io,
     q = model_lib.rope(q, positions, cfg.rope_theta, cfg.rope_llama3_scaling)
     k = model_lib.rope(k, positions, cfg.rope_theta, cfg.rope_llama3_scaling)
     attn, cache = cache_io(q, k, v, cache, pos)
-    x = x + out_project(attn, layer.wo, lora_l, lora_scale)
+    x = x + col.reduce_from(out_project(attn, layer.wo, lora_l, lora_scale),
+                            tp)
     delta, _aux = model_lib._mlp(cfg, model_lib.rms_norm(x, layer.ln2), layer,
-                                 per_row)
+                                 per_row, shard)
     return x + delta, cache
 
 
@@ -264,28 +280,34 @@ def _rows(cache, index):
 @torch.no_grad()
 def forward_chunk_io(cfg: ModelConfig, params: Transformer, tokens, cache,
                      pos, cache_io, lora=None, adapter_ids=None,
-                     lora_scale: float = 1.0, per_row: bool = False):
+                     lora_scale: float = 1.0, per_row: bool = False,
+                     shard=None):
     """The chunk forward over a cache strategy. tokens: (B, T) at positions
     ``pos..pos+T-1`` (pos an int or (B,)) -> (logits (B, T, V) float32,
     cache). The strategy writes the cache in place; the same tree comes
     back. ``lora`` (a stacked adapter tree, leaves (N, L, ...)) with
     ``adapter_ids`` (B,) on its device applies row b's adapter to row b
     (``kubetpu_torch.jobs.multi_lora``), the factors gathered once.
-    *per_row*: each row is its own MoE capacity dispatch."""
+    *per_row*: each row is its own MoE capacity dispatch. *shard*
+    defaults to the model's own (``Transformer.shard``)."""
+    if shard is None:
+        shard = getattr(params, "shard", None)
     x = params.embed[tokens]                               # (B, T, D)
     sel = select_lora(lora, adapter_ids)
     for i, layer in enumerate(params.blocks):
         x, _ = _decode_block_core(cfg, layer, x, _layer(cache, i), pos,
                                   cache_io, lora_layer(sel, i), lora_scale,
-                                  per_row)
-    return _head(params, x), cache
+                                  per_row, shard)
+    return _head(params, x, shard), cache
 
 
-def _head(params: Transformer, x: torch.Tensor) -> torch.Tensor:
-    """Final norm and LM head (dequantized for this use) -> f32 logits."""
+def _head(params: Transformer, x: torch.Tensor, shard=None) -> torch.Tensor:
+    """Final norm and LM head (dequantized for this use) -> f32 logits,
+    a shard's vocab shards gathered over tp into the whole row."""
     x = model_lib.rms_norm(x, params.ln_f)
-    return torch.einsum("bsd,dv->bsv", x,
-                        maybe_dequantize(params.head)).float()
+    return model_lib.shard_logits(
+        torch.einsum("bsd,dv->bsv", x, maybe_dequantize(params.head)).float(),
+        shard)
 
 
 def forward_chunk(cfg: ModelConfig, params: Transformer, tokens, k_cache,
@@ -333,17 +355,17 @@ def forward_chunk_at(cfg: ModelConfig, params: Transformer, chunk, k_cache,
     return logits, k_cache, v_cache
 
 
-def _prefill_with(cfg, params, tokens, write, attn_fn=None):
+def _prefill_with(cfg, params, tokens, write, attn_fn=None, shard=None):
     """The prefill body: one batched forward over the whole prompt
     (``model.forward_with_kv``), K/V landing in the cache through *write*."""
     logits, ks, vs = model_lib.forward_with_kv(params, tokens, cfg,
-                                               attn_fn=attn_fn)
+                                               attn_fn=attn_fn, shard=shard)
     write(ks, vs)
     return logits
 
 
 def prefill(cfg: ModelConfig, params: Transformer, tokens, k_cache, v_cache,
-            attn_fn=None):
+            attn_fn=None, shard=None):
     """Fill the cache from one batched forward over the prompt (B, S_p) ->
     (last position's logits (B, V) f32, k_cache, v_cache)."""
     def write(ks, vs):
@@ -351,12 +373,12 @@ def prefill(cfg: ModelConfig, params: Transformer, tokens, k_cache, v_cache,
         k_cache[:, :, :s] = ks.to(k_cache.dtype)
         v_cache[:, :, :s] = vs.to(v_cache.dtype)
 
-    logits = _prefill_with(cfg, params, tokens, write, attn_fn)
+    logits = _prefill_with(cfg, params, tokens, write, attn_fn, shard)
     return logits, k_cache, v_cache
 
 
 def prefill_int8(cfg: ModelConfig, params: Transformer, tokens, cache,
-                 attn_fn=None):
+                 attn_fn=None, shard=None):
     """``prefill`` for the int8 cache: the prompt's K/V quantize into it in
     one shot -> (logits, cache)."""
     (kq, ksc), (vq, vsc) = cache
@@ -370,53 +392,95 @@ def prefill_int8(cfg: ModelConfig, params: Transformer, tokens, cache,
         vq[:, :, :s] = v8
         vsc[:, :, :s] = vscale
 
-    return _prefill_with(cfg, params, tokens, write, attn_fn), cache
+    return _prefill_with(cfg, params, tokens, write, attn_fn, shard), cache
 
 
 def make_generate(cfg: ModelConfig, temperature: float = 0.0,
                   top_k: Optional[int] = None, top_p: Optional[float] = None,
-                  kv_int8: bool = False):
+                  kv_int8: bool = False, mesh=None):
     """``generate(params, prompt (B, S_p), seed, num_steps) -> (B, S_p +
     num_steps)`` tokens. Greedy when temperature == 0; otherwise row b's
     draw at position q is seeded from (seed, b, q) through the serving
     sampler (``sampling.make_slot_sampler``: temperature, top-k and
     nucleus compose). ``kv_int8=True`` stores the cache in int8 with
     per-token, per-head scales. One loop body serves both layouts: only
-    the (init, prefill, cache_io) triple differs."""
+    the (init, prefill, cache_io) triple differs.
+
+    With *mesh* (dp and tp axes; every rank calls ``generate`` with the
+    same whole prompt batch, and *params* the whole model, cut here, or
+    its ``train.shard_model`` shard): each dp rank decodes its block of
+    the rows into a (L, B/dp, S, H_kv/tp, D) cache (the JAX package's
+    ``kv_cache_specs``), tensor-parallel over tp, and the generated rows
+    are gathered over dp, so every rank returns the whole batch. A MoE
+    capacity dispatch spans the rows of every dp rank, as one call over
+    the batch does."""
     from kubetpu_torch.jobs.sampling import make_slot_sampler, row_seed
 
     sampler = make_slot_sampler()
+    tp, groups = 1, None
+    if mesh is not None:
+        from kubetpu_torch.jobs.train import check_mesh
+
+        check_mesh(cfg, mesh)
+        if col.axis_size(mesh, "sp") > 1:
+            raise ValueError("make_generate over a mesh takes dp and tp "
+                             "(sp is a training axis)")
+        groups = col.groups_of(mesh)
+        tp = col.axis_size(mesh, "tp")
 
     @torch.no_grad()
     def generate(params: Transformer, prompt: torch.Tensor, seed: int,
                  num_steps: int) -> torch.Tensor:
+        shard, r0 = None, 0
+        if mesh is not None:
+            if getattr(params, "shard", None) is None:
+                from kubetpu_torch.jobs.train import shard_model
+
+                params = shard_model(params, cfg, mesh)
+            shard = params.shard.with_data(groups, ("dp",))
+            r0, dp = col.axis_index(mesh, "dp"), col.axis_size(mesh, "dp")
+            if prompt.shape[0] % dp:
+                raise ValueError(f"dp={dp} does not divide the batch "
+                                 f"({prompt.shape[0]})")
+            rows = prompt.shape[0] // dp
+            r0 *= rows
+            prompt = prompt[r0:r0 + rows]
         b, s_prompt = prompt.shape
         max_seq = s_prompt + num_steps
         dev = prompt.device
         if kv_int8:
-            cache = init_kv_cache_int8(cfg, b, max_seq, device=dev)
-            logits, cache = prefill_int8(cfg, params, prompt, cache)
+            cache = init_kv_cache_int8(cfg, b, max_seq, device=dev, tp=tp)
+            logits, cache = prefill_int8(cfg, params, prompt, cache,
+                                         shard=shard)
             cache_io = _int8_cache_io(cfg.window)
         else:
-            cache = init_kv_cache(cfg, b, max_seq, device=dev)
-            logits, *cache = prefill(cfg, params, prompt, *cache)
+            cache = init_kv_cache(cfg, b, max_seq, device=dev, tp=tp)
+            logits, *cache = prefill(cfg, params, prompt, *cache,
+                                     shard=shard)
             cache = tuple(cache)
             cache_io = _dense_cache_io(cfg.window)
         out = []
         for i in range(num_steps):
             seeds = None
             if temperature > 0:
-                seeds = [row_seed(seed, r, s_prompt + i) for r in range(b)]
+                seeds = [row_seed(seed, r0 + r, s_prompt + i)
+                         for r in range(b)]
             token = sampler(logits, temperature, top_k or 0, top_p or 1.0,
                             seeds)
             out.append(token)
             if i + 1 < num_steps:     # the last token's K/V is never read
                 logits, cache = forward_chunk_io(
                     cfg, params, token[:, None], cache, s_prompt + i,
-                    cache_io)
+                    cache_io, shard=shard)
                 logits = logits[:, 0]
-        generated = torch.stack(out, dim=1).to(prompt.dtype)
-        return torch.cat([prompt, generated], dim=1)
+        generated = torch.cat([prompt, torch.stack(out, dim=1).to(
+            prompt.dtype)], dim=1)
+        if groups is not None:
+            # token ids ride as f32 (exact below 2**24: the dtypes gloo
+            # takes on CUDA tensors)
+            generated = col.all_gather(generated.float(), groups.over("dp"),
+                                       "dp_tokens", dim=0).to(prompt.dtype)
+        return generated
 
     return generate
 

@@ -19,8 +19,13 @@ applies unchanged.
 folded in, the base left as it was; the servers decode it with no
 inference-time cost.
 
-Not ported yet: ``lora_param_specs`` and the sharded LoRA step (the last
-multi-device slice, ROADMAP queue 1 item 8).
+Over a mesh the factor that carries a tp-sharded base axis is cut on tp
+(``lora_param_specs``, ``shard_lora``) and the rank axis stays whole, so
+the merge of a rank's factors lands on its shard of the base
+(``train.shard_model``): ``make_lora_train_step(..., mesh=)`` runs the
+sharded step's loss on the merged shards and sums each factor's gradient
+over the data axes, and over tp where the factor is replicated there (its
+gradient is then the rank's heads' part).
 """
 
 from __future__ import annotations
@@ -32,12 +37,15 @@ from typing import Optional, Tuple
 
 import torch
 
+from kubetpu_torch.jobs import collectives as col
 from kubetpu_torch.jobs import model as model_lib
 from kubetpu_torch.jobs.model import ModelConfig, Transformer, resolve_device
 from kubetpu_torch.jobs.quant import require_unquantized
-from kubetpu_torch.jobs.train import (AdamW, TrainState, _resolve_attention,
-                                      _trained_leaves, _uploader,
-                                      make_optimizer, make_update_step)
+from kubetpu_torch.jobs.train import (AdamW, GradSync, TrainState,
+                                      _mesh_loss_fn, _resolve_attention,
+                                      _take, _trained_leaves, _uploader,
+                                      check_mesh, make_optimizer,
+                                      make_update_step)
 
 # per-target factor layout: A carries the base weight's IN dims, B its OUT
 # dims, so delta = A @ B lands in the base's exact shape (layer axis
@@ -52,6 +60,18 @@ _MERGE_EINSUM = {
     "w_down": "lfr,lrd->lfd",
 }
 _MLP_TARGETS = ("w_gate", "w_up", "w_down")
+
+# per-target (A spec, B spec): the factor that carries the base weight's
+# tp-sharded axis keeps it on tp; the rank axis is always whole
+_FACTOR_SPECS = {
+    "wq": ((None, None, None), (None, None, "tp", None)),
+    "wk": ((None, None, None), (None, None, "tp", None)),
+    "wv": ((None, None, None), (None, None, "tp", None)),
+    "wo": ((None, "tp", None, None), (None, None, None)),
+    "w_gate": ((None, None, None), (None, None, "tp")),
+    "w_up": ((None, None, None), (None, None, "tp")),
+    "w_down": ((None, "tp", None), (None, None, None)),
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -166,18 +186,65 @@ def merge_lora(base: Transformer, lora: dict,
     return merged
 
 
+def lora_param_specs(cfg: ModelConfig, lcfg: LoraConfig) -> dict:
+    """The axis each dimension of each factor shards on (the JAX package's
+    ``PartitionSpec`` tuples, the layer axis first), consistent with
+    ``train.param_specs``: whichever base axis is on tp stays on tp in the
+    factor that carries it; the rank axis is replicated."""
+    _check_targets(cfg, lcfg)
+    blocks = {}
+    for t in lcfg.targets:
+        blocks[f"{t}_a"], blocks[f"{t}_b"] = _FACTOR_SPECS[t]
+    return {"blocks": blocks}
+
+
+def _leaf_spec(key: str) -> tuple:
+    target, factor = key.rsplit("_", 1)
+    return _FACTOR_SPECS[target][0 if factor == "a" else 1]
+
+
+def shard_lora(tree: dict, mesh, stacked: bool = False) -> dict:
+    """This rank's slices of an adapter tree of tensors by
+    ``lora_param_specs`` (a *stacked* tree's leaves lead with the adapter
+    axis (N, L, ...)), as contiguous copies."""
+    lead = (None,) if stacked else ()
+    return {"blocks": {
+        k: _take(v, lead + _leaf_spec(k), mesh).contiguous().clone()
+        for k, v in tree["blocks"].items()}}
+
+
+def lora_grad_sync(lora: dict, mesh) -> GradSync:
+    """The ``GradSync`` of a rank's adapter slices (leaves in sorted key
+    order): every factor's gradient summed over the data axes and sp, and
+    over tp for a factor replicated there (each tp rank computed its
+    heads' part); the norm counts a tp-sharded factor's squares over tp."""
+    groups = col.groups_of(mesh)
+    data_sp = tuple(a for a in ("dcn", "dp", "sp")
+                    if a in mesh.mesh_dim_names)
+    reduce_axes, shard_axes = [], []
+    for k in sorted(lora["blocks"]):
+        on_tp = "tp" in _leaf_spec(k)
+        reduce_axes.append(data_sp + (() if on_tp else ("tp",)))
+        shard_axes.append(("tp",) if on_tp else ())
+    return GradSync(groups, reduce_axes, shard_axes)
+
+
 def lora_param_count(lora: dict) -> int:
     return sum(v.numel() for v in lora["blocks"].values())
 
 
 def init_lora_state(generator: torch.Generator, cfg: ModelConfig,
                     lcfg: LoraConfig, optimizer: Optional[AdamW] = None,
-                    device=None):
+                    device=None, mesh=None):
     """-> (TrainState over the adapters only, optimizer): fresh adapters
     from *generator* with gradients on, and a zero AdamW state for them.
-    The base model is not part of the state: pass it to the step."""
+    The base model is not part of the state: pass it to the step. With
+    *mesh* every rank draws the whole adapter from the same seed and keeps
+    its slices (``shard_lora``)."""
     optimizer = optimizer or make_optimizer()
     lora = init_lora_params(generator, cfg, lcfg, device)
+    if mesh is not None:
+        lora = shard_lora(lora, mesh)
     for v in lora["blocks"].values():
         v.requires_grad_(True)
     return TrainState(lora, optimizer.init(_trained_leaves(lora))), optimizer
@@ -186,13 +253,20 @@ def init_lora_state(generator: torch.Generator, cfg: ModelConfig,
 def make_lora_train_step(cfg: ModelConfig, lcfg: LoraConfig,
                          optimizer: Optional[AdamW] = None,
                          attention: str = "flash", accum_steps: int = 1,
-                         skip_nonfinite: bool = False, device=None):
+                         skip_nonfinite: bool = False, device=None,
+                         mesh=None):
     """``step(state, base, tokens, targets) -> (state, loss)``: the loss of
     the merged weights, gradients into A and B only, AdamW on the adapter
     state in place. *base* is frozen (``requires_grad_(False)``) and never
     written. ``attention``: 'flash' (default: the flash kernels on the
-    card) or 'dense'. Batches may be numpy arrays (uploaded to *device*,
-    the card by default) or tensors already there."""
+    card) or 'dense'; on a mesh also 'ring' or 'ring_flash' (the flash
+    kernels in every ring step). Batches may be numpy arrays (uploaded to
+    *device*, the card by default) or tensors already there.
+
+    With *mesh* every rank passes its ``train.shard_model`` shard of the
+    base, ``init_lora_state(..., mesh=)``'s state and the GLOBAL batch;
+    the loss is the sharded step's on this rank's block
+    (``train.local_batch``) and gradients meet in ``lora_grad_sync``."""
     _check_targets(cfg, lcfg)
     if accum_steps > 1:
         # the base rides in the batch position of make_update_step, whose
@@ -203,14 +277,24 @@ def make_lora_train_step(cfg: ModelConfig, lcfg: LoraConfig,
             "state is tiny, activation memory matches the base model's")
     optimizer = optimizer or make_optimizer()
     up = _uploader(resolve_device(device))
-    attn_fn = _resolve_attention(attention, cfg.window)
+    attn_fn = _resolve_attention(attention, cfg.window, mesh)
+    sync = None
+    if mesh is None:
+        def loss_fn(lora, base, tokens, targets):
+            return model_lib.next_token_loss(_merged_view(base, lora, lcfg),
+                                             tokens, targets, cfg, attn_fn)
+    else:
+        check_mesh(cfg, mesh)
+        mesh_loss = _mesh_loss_fn(cfg, attn_fn, col.groups_of(mesh))
+        specs = lora_param_specs(cfg, lcfg)
+        sync = lora_grad_sync(specs, mesh)
 
-    def loss_fn(lora, base, tokens, targets):
-        return model_lib.next_token_loss(_merged_view(base, lora, lcfg),
-                                         tokens, targets, cfg, attn_fn)
+        def loss_fn(lora, base, tokens, targets):
+            return mesh_loss(_merged_view(base, lora, lcfg), tokens,
+                             targets)
 
     inner = make_update_step(loss_fn, optimizer,
-                             skip_nonfinite=skip_nonfinite)
+                             skip_nonfinite=skip_nonfinite, sync=sync)
 
     def step(state: TrainState, base: Transformer, tokens, targets):
         require_unquantized(base, "the LoRA train step")

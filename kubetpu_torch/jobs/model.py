@@ -22,6 +22,15 @@ package's leg feeds: inactive slots and pad tokens included.
 A block or a head holding int8 ``quant.QTensor`` weights is dequantized
 where it is used, one layer at a time (``quant.maybe_dequantize``).
 
+On a mesh a rank holds its shard (``train.shard_model``), which carries its
+``collectives.ModelShard``: the block runs tensor-parallel (``copy_to``
+before q/k/v and the MLP, ``reduce_from`` after ``wo`` and the MLP), a MoE
+MLP runs the rank's experts (``ep``) on its ff shard and sums its partial
+combine over tp x ep, a capacity dispatch counts slots over the global
+batch (``ModelShard.data``), and the head's vocab shards are gathered into
+whole logits. Tokens are replicated over ``ep``, as the JAX package's
+``batch_spec`` leaves them, so the expert exchange is that sum.
+
 Training: ``forward_hidden`` rematerializes each block under
 ``cfg.remat`` (``torch.utils.checkpoint``), and ``next_token_loss`` ends in
 the shared loss tail (``lm_loss_tail``: materialized or chunked logits,
@@ -40,6 +49,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint, noop_context_fn
 
+from kubetpu_torch.jobs import collectives as col
 from kubetpu_torch.jobs.quant import maybe_dequantize
 
 # attention core signature: (q, k, v) with shapes (B, S, H, D) -> (B, S, H, D)
@@ -205,13 +215,15 @@ class Block(nn.Module):
     ``n_experts = E`` the router ``moe_router (d, E)`` and the experts'
     ``w_gate``/``w_up (E, d, f)`` and ``w_down (E, f, d)``. With ``tp > 1``
     it holds one tensor-parallel rank's shard: ``H/tp`` heads (and
-    ``H_kv/tp`` K/V heads) and ``d_ff/tp`` of the MLP."""
+    ``H_kv/tp`` K/V heads) and ``d_ff/tp`` of the MLP; with ``ep > 1``
+    ``E/ep`` of the experts (the router keeps all ``E``)."""
 
-    def __init__(self, cfg: ModelConfig, device, tp: int = 1) -> None:
+    def __init__(self, cfg: ModelConfig, device, tp: int = 1,
+                 ep: int = 1) -> None:
         super().__init__()
         d, h, hd, f, kv = (cfg.d_model, cfg.n_heads // tp, cfg.head_dim,
                            cfg.d_ff // tp, cfg.kv_heads // tp)
-        e = (cfg.n_experts,) if cfg.n_experts > 0 else ()
+        e = (cfg.n_experts // ep,) if cfg.n_experts > 0 else ()
         self.ln1 = _param((d,), cfg, device)
         self.ln2 = _param((d,), cfg, device)
         self.wq = _param((d, h, hd), cfg, device)
@@ -230,16 +242,20 @@ class Transformer(nn.Module):
     ``ln_f (d,)`` and ``head (d, V)``. Constructed with uninitialized
     weights; ``init_params`` or ``convert.params_from_numpy`` fill them.
     On a mesh a rank holds its shard (``train.shard_model``): *tp* splits
-    every block (``Block``) and the head's vocab, and a pipeline stage
-    holds *layers* of the ``n_layers`` blocks."""
+    every block (``Block``) and the head's vocab, *ep* the experts, and a
+    pipeline stage holds *layers* of the ``n_layers`` blocks; ``shard`` is
+    then the ``collectives.ModelShard`` its forward reduces over (None for
+    a whole model)."""
+
+    shard: Optional[col.ModelShard] = None
 
     def __init__(self, cfg: ModelConfig, device, tp: int = 1,
-                 layers: Optional[int] = None) -> None:
+                 layers: Optional[int] = None, ep: int = 1) -> None:
         super().__init__()
         self.cfg = cfg
         self.embed = _param((cfg.vocab, cfg.d_model), cfg, device)
         self.blocks = nn.ModuleList(
-            [Block(cfg, device, tp) for _ in range(
+            [Block(cfg, device, tp, ep) for _ in range(
                 cfg.n_layers if layers is None else layers)])
         self.ln_f = _param((cfg.d_model,), cfg, device)
         self.head = _param((cfg.d_model, cfg.vocab // tp), cfg, device)
@@ -377,38 +393,97 @@ def _top_k(probs: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def _moe_aux_from_probs(probs: torch.Tensor, top_k: int = 1) -> torch.Tensor:
+def _moe_aux_from_probs(probs: torch.Tensor, top_k: int = 1,
+                        data=None) -> torch.Tensor:
     """Switch-transformer load-balance term from router probs (..., E):
     E * sum_e(f_e * P_e), 1 when routing is uniform. f_e, the share of
     token-assignments routed to e over all k choices, carries no gradient;
-    P_e, the mean router probability, does."""
+    P_e, the mean router probability, does. With *data* (a group over the
+    data axes, each rank holding an equal block of the batch) both means
+    run over the global batch, as the JAX package computes them."""
     probs = probs.reshape(-1, probs.shape[-1])
     e = probs.shape[-1]
     _, topk_idx = _top_k(probs, top_k)
-    frac = torch.nn.functional.one_hot(topk_idx, e).float().mean(dim=(0, 1))
-    return e * (frac.detach() * probs.mean(dim=0)).sum()
+    if data is None:
+        frac = torch.nn.functional.one_hot(topk_idx, e).float().mean(
+            dim=(0, 1))
+        return e * (frac.detach() * probs.mean(dim=0)).sum()
+    n = probs.shape[0] * col.group_size(data)
+    counts = torch.nn.functional.one_hot(topk_idx, e).float().sum(
+        dim=(0, 1))
+    counts = col.all_reduce_(counts.detach().contiguous(), data, "moe")
+    p_sum = col.reduce_from(probs.sum(dim=0), data, "moe")
+    return e * ((counts / (n * top_k)) * (p_sum / n)).sum()
 
 
-def _moe_mlp(h: torch.Tensor, layer):
+def _experts_of(layer, shard) -> tuple:
+    """(first expert, experts) this rank holds: all of them without an
+    ``ep`` shard."""
+    el = layer.w_gate.shape[0]
+    return (0 if shard is None else shard.ep_index * el), el
+
+
+def _moe_mlp(h: torch.Tensor, layer, shard=None):
     """Top-1 mixture-of-experts SwiGLU with dense one-hot dispatch: every
     expert runs over every row (zeros off its route) and the one-hot
     combine picks each row's expert, weighted by its router probability
-    -> (out (B, S, D), probs (B, S, E) f32)."""
+    -> (out (B, S, D), probs (B, S, E) f32). On a *shard* the rank runs
+    its experts on its ff shard and the partial combine is summed over tp
+    x ep."""
+    moe = None if shard is None else shard.moe
     router = torch.einsum("bsd,de->bse", h, layer.moe_router).float()
     probs = torch.softmax(router, dim=-1)
     one_hot = torch.nn.functional.one_hot(
         torch.argmax(probs, dim=-1), probs.shape[-1]).to(h.dtype)
     weight = (probs * one_hot).sum(dim=-1, keepdim=True).to(h.dtype)
-    expert_in = torch.einsum("bse,bsd->ebsd", one_hot, h)
+    e0, el = _experts_of(layer, shard)
+    one_hot = one_hot[..., e0:e0 + el]
+    expert_in = torch.einsum("bse,bsd->ebsd", one_hot, col.copy_to(h, moe))
     gate = torch.nn.functional.silu(
         torch.einsum("ebsd,edf->ebsf", expert_in, layer.w_gate))
     up = torch.einsum("ebsd,edf->ebsf", expert_in, layer.w_up)
     out = torch.einsum("ebsf,efd->ebsd", gate * up, layer.w_down)
-    return torch.einsum("ebsd,bse->bsd", out, one_hot) * weight, probs
+    out = (torch.einsum("ebsd,bse->bsd", out, one_hot)
+           * col.copy_to(weight, moe))
+    return col.reduce_from(out, moe), probs
+
+
+def _capacity_slots(expert: torch.Tensor, e: int) -> torch.Tensor:
+    """Each choice's 0-based slot in its expert's buffer: *expert* (G,
+    K*N) rank-major choices (every row's primary choice before any
+    secondary one), counted in order within each call."""
+    flat = torch.nn.functional.one_hot(expert, e).float()     # (G, K*N, E)
+    return (torch.cumsum(flat, dim=1) * flat).sum(dim=-1).long() - 1
+
+
+def _global_slots(topi: torch.Tensor, b: int, s: int, e: int, shard):
+    """(slots of this rank's choices (1, K*N) rank-major, capacity rows N
+    of the call) when one capacity dispatch spans the data group's global
+    batch: the group's choices are gathered (its ranks batch block-major,
+    each an equal (B, S) block), slots counted over the global order, and
+    this rank's picked out."""
+    import torch.distributed as dist
+
+    data = shard.data
+    nb, ns = shard.data_blocks
+    k = topi.shape[-1]
+    me = dist.get_group_rank(data, dist.get_rank())
+    bi, si = divmod(me, ns)
+    # expert ids as f32 (exact below 2**24): the dtypes gloo takes on CUDA
+    every = col.all_gather(topi.reshape(1, b, s, k).float(), data, "moe")
+    every = every.view(nb, ns, b, s, k).permute(0, 2, 1, 3, 4)
+    n_all = nb * b * ns * s
+    expert = every.reshape(n_all, k).long().t().reshape(1, k * n_all)
+    slot = _capacity_slots(expert, e)
+    rows = ((bi * b + torch.arange(b, device=topi.device))[:, None]
+            * (ns * s) + si * s + torch.arange(s, device=topi.device))
+    pick = (torch.arange(k, device=topi.device)[:, None] * n_all
+            + rows.reshape(1, -1)).reshape(1, -1)
+    return torch.gather(slot, 1, pick), n_all
 
 
 def _moe_mlp_capacity(h: torch.Tensor, layer, capacity_factor: float,
-                      top_k: int = 1, per_row: bool = False):
+                      top_k: int = 1, per_row: bool = False, shard=None):
     """Top-k mixture-of-experts with capacity dispatch -> (out (B, S, D),
     probs (B*S, E) f32), the reference's ``_moe_mlp_capacity`` with its
     one-hot dispatch and combine products done as gathers.
@@ -422,67 +497,92 @@ def _moe_mlp_capacity(h: torch.Tensor, layer, capacity_factor: float,
     batch). The experts run on their (E, C, D) buffers in ``h.dtype`` (a
     slot holds one row, so the gather equals the one-hot product exactly);
     the combine sums each row's kept choices' outputs times the raw router
-    probability (no renormalisation) in f32."""
+    probability (no renormalisation) in f32.
+
+    On a *shard* the rank runs its ``E/ep`` experts on its ff shard over
+    its own rows' choices (the others' slots stay empty), the partial
+    combine is summed over tp x ep, and with ``shard.data`` the slots and
+    the capacity are those of the global batch."""
     b, s, d = h.shape
     g = b if per_row else 1                    # independent calls
     n = b * s // g                             # rows a call
     e = layer.moe_router.shape[-1]
     k = top_k
+    moe = None if shard is None else shard.moe
     tokens = h.reshape(g * n, d)
     probs = torch.softmax((tokens @ layer.moe_router).float(), dim=-1)
     gate_w, topi = _top_k(probs.view(g, n, e), k)              # (G, N, K)
-    c = max(1, int(capacity_factor * n / e))
     # rank-major within a call: choice r = rank * N + row
     expert = topi.transpose(1, 2).reshape(g, k * n)            # (G, K*N)
-    flat = torch.nn.functional.one_hot(expert, e).float()     # (G, K*N, E)
-    slot = (torch.cumsum(flat, dim=1) * flat).sum(dim=-1).long() - 1
+    if shard is not None and shard.data is not None and not per_row:
+        slot, n_cap = _global_slots(topi, b, s, e, shard)
+    else:
+        slot, n_cap = _capacity_slots(expert, e), n
+    c = max(1, int(capacity_factor * n_cap / e))
+    e0, el = _experts_of(layer, shard)
     call = torch.arange(g, device=h.device)[:, None]
-    dest = torch.where(slot < c, (call * e + expert) * c + slot,
-                       torch.full_like(slot, g * e * c))       # drop: past
+    mine = (expert >= e0) & (expert < e0 + el) & (slot < c)
+    dest = torch.where(mine, (call * el + expert - e0) * c + slot,
+                       torch.full_like(slot, g * el * c))      # drop: past
     row = call * n + torch.arange(k * n, device=h.device) % n
     # each expert slot's source row (g*n = a zero row for an empty slot)
-    src = torch.full((g * e * c + 1,), g * n, dtype=torch.long,
+    src = torch.full((g * el * c + 1,), g * n, dtype=torch.long,
                      device=h.device)
     src[dest.reshape(-1)] = row.reshape(-1)
-    padded = torch.cat([tokens, tokens.new_zeros(1, d)])
-    expert_in = padded[src[:-1]].view(g, e, c, d).transpose(0, 1)
-    expert_in = expert_in.reshape(e, g * c, d)                 # (E, G*C, D)
+    x = col.copy_to(tokens, moe)
+    padded = torch.cat([x, x.new_zeros(1, d)])
+    expert_in = padded[src[:-1]].view(g, el, c, d).transpose(0, 1)
+    expert_in = expert_in.reshape(el, g * c, d)                # (E, G*C, D)
     gate = torch.nn.functional.silu(torch.bmm(expert_in, layer.w_gate))
     up = torch.bmm(expert_in, layer.w_up)
     out = torch.bmm(gate * up, layer.w_down)                   # (E, G*C, D)
-    out = out.view(e, g, c, d).transpose(0, 1).reshape(g * e * c, d)
+    out = out.view(el, g, c, d).transpose(0, 1).reshape(g * el * c, d)
     out = torch.cat([out.float(), out.new_zeros(1, d, dtype=torch.float32)])
     picked = out[dest].view(g, k, n, d)
+    gate_w = col.copy_to(gate_w, moe)
     combined = (picked * gate_w.transpose(1, 2)[..., None]).sum(dim=1)
+    combined = col.reduce_from(combined, moe)
     return combined.to(h.dtype).view(b, s, d), probs
 
 
-def _mlp(cfg: ModelConfig, h: torch.Tensor, layer, per_row: bool = False):
+def _mlp(cfg: ModelConfig, h: torch.Tensor, layer, per_row: bool = False,
+         shard=None):
     """The block's MLP branch -> (residual delta, aux term): dense SwiGLU,
     top-1 dense-dispatch MoE, or capacity-dispatch MoE (*per_row*: each
     batch row is its own dispatch, as under the reference's vmap); the aux
     term is ``_moe_aux_from_probs`` when ``moe_aux_coeff > 0`` and 0.0
-    otherwise. The one site every leg's MLP goes through."""
+    otherwise. The one site every leg's MLP goes through. On a *shard* the
+    input is ``copy_to``'d and the output ``reduce_from``'d over the
+    rank's group (tp; tp x ep for experts); the router runs replicated,
+    outside that pair."""
     if cfg.n_experts > 0 and cfg.moe_capacity_factor > 0:
         out, probs = _moe_mlp_capacity(h, layer, cfg.moe_capacity_factor,
-                                       cfg.moe_top_k, per_row)
+                                       cfg.moe_top_k, per_row, shard)
     elif cfg.n_experts > 0:
-        out, probs = _moe_mlp(h, layer)
+        out, probs = _moe_mlp(h, layer, shard)
     else:
+        tp = None if shard is None else shard.tp
+        h = col.copy_to(h, tp)
         gate = torch.nn.functional.silu(h @ layer.w_gate)
-        return (gate * (h @ layer.w_up)) @ layer.w_down, 0.0
+        return col.reduce_from((gate * (h @ layer.w_up)) @ layer.w_down,
+                               tp), 0.0
     if cfg.moe_aux_coeff > 0:
-        return out, _moe_aux_from_probs(probs, cfg.moe_top_k)
+        data = None if shard is None or per_row else shard.data
+        return out, _moe_aux_from_probs(probs, cfg.moe_top_k, data)
     return out, 0.0
 
 
 def _block_with_aux(cfg: ModelConfig, attn_fn: AttnFn,
-                    positions: torch.Tensor, x: torch.Tensor, layer: Block):
+                    positions: torch.Tensor, x: torch.Tensor, layer: Block,
+                    shard=None):
     """One transformer block -> (x, aux, k, v): the MoE aux term (0.0 when
     off) and the rotary-embedded K/V at kv-head width, which is what a KV
-    cache stores. An int8 block dequantizes here, for this layer only."""
+    cache stores. An int8 block dequantizes here, for this layer only. On
+    a *shard* the rank's heads run behind ``copy_to`` and ``wo``'s partial
+    sums meet in ``reduce_from`` (its K/V are its heads')."""
+    tp = None if shard is None else shard.tp
     layer = maybe_dequantize(layer)
-    h = rms_norm(x, layer.ln1)
+    h = col.copy_to(rms_norm(x, layer.ln1), tp)
     q = torch.einsum("bsd,dhk->bshk", h, layer.wq)
     k = torch.einsum("bsd,dhk->bshk", h, layer.wk)
     v = torch.einsum("bsd,dhk->bshk", h, layer.wv)
@@ -490,14 +590,24 @@ def _block_with_aux(cfg: ModelConfig, attn_fn: AttnFn,
     k = rope(k, positions, cfg.rope_theta, cfg.rope_llama3_scaling)
     n_rep = cfg.n_heads // cfg.kv_heads
     attn = attn_fn(q, repeat_kv(k, n_rep), repeat_kv(v, n_rep))
-    x = x + torch.einsum("bshk,hkd->bsd", attn, layer.wo)
-    delta, aux = _mlp(cfg, rms_norm(x, layer.ln2), layer)
+    x = x + col.reduce_from(torch.einsum("bshk,hkd->bsd", attn, layer.wo),
+                            tp)
+    delta, aux = _mlp(cfg, rms_norm(x, layer.ln2), layer, shard=shard)
     return x + delta, aux, k, v
 
 
-def _block_output(cfg, attn_fn, positions, x, layer):
+def _block_output(cfg, attn_fn, positions, x, layer, shard=None):
     """(x, aux) of one block: what crosses a remat boundary."""
-    return _block_with_aux(cfg, attn_fn, positions, x, layer)[:2]
+    return _block_with_aux(cfg, attn_fn, positions, x, layer, shard)[:2]
+
+
+def shard_logits(logits: torch.Tensor, shard) -> torch.Tensor:
+    """Whole-vocabulary logits from a rank's vocab shard (..., V/tp): the
+    tp group's shards gathered along the last axis (identity without a
+    shard)."""
+    if shard is None:
+        return logits
+    return col.all_gather(logits, shard.tp, "tp_logits", dim=-1)
 
 
 def _remat_context_fn(cfg: ModelConfig):
@@ -530,14 +640,17 @@ def forward_hidden(params: Transformer, tokens: torch.Tensor,
                    cfg: ModelConfig, attn_fn: Optional[AttnFn] = None,
                    positions: Optional[torch.Tensor] = None):
     """The block stack without the LM head -> (final-norm hidden states
-    (B, S, D), summed MoE aux term)."""
+    (B, S, D), summed MoE aux term); a shard's blocks through its
+    collectives."""
     if attn_fn is None:
         attn_fn = default_attn_fn(cfg)
     if positions is None:
         positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                                  device=tokens.device)
     x, aux = run_blocks(cfg, attn_fn, positions, params.embed[tokens],
-                        params.blocks)
+                        params.blocks,
+                        body=partial(_block_output,
+                                     shard=getattr(params, "shard", None)))
     return rms_norm(x, params.ln_f), aux
 
 
@@ -568,17 +681,24 @@ def forward(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig,
     """Next-token logits: tokens (B, S) int -> (B, S, V); with
     ``return_aux`` also the summed MoE load-balance term."""
     x, aux = forward_hidden(params, tokens, cfg, attn_fn, positions)
-    logits = torch.einsum("bsd,dv->bsv", x, maybe_dequantize(params.head))
+    logits = shard_logits(
+        torch.einsum("bsd,dv->bsv", x, maybe_dequantize(params.head)),
+        getattr(params, "shard", None))
     return (logits, aux) if return_aux else logits
 
 
 @torch.no_grad()
 def forward_with_kv(params: Transformer, tokens: torch.Tensor,
-                    cfg: ModelConfig, attn_fn: Optional[AttnFn] = None):
+                    cfg: ModelConfig, attn_fn: Optional[AttnFn] = None,
+                    shard=None):
     """The batched forward that also returns every layer's rotary-embedded
     K/V: the prefill of the dense decode cache (the same block as
     training, so prefill cannot drift from the trained model) -> (last
-    position's logits (B, V) f32, ks (L, B, S, H_kv, D), vs likewise)."""
+    position's logits (B, V) f32, ks (L, B, S, H_kv, D), vs likewise).
+    *shard* defaults to the model's own (``Transformer.shard``): a shard's
+    K/V are its heads', its logits the whole vocabulary's."""
+    if shard is None:
+        shard = getattr(params, "shard", None)
     if attn_fn is None:
         attn_fn = default_attn_fn(cfg)
     positions = torch.arange(tokens.shape[1], dtype=torch.int32,
@@ -586,13 +706,15 @@ def forward_with_kv(params: Transformer, tokens: torch.Tensor,
     x = params.embed[tokens]
     ks, vs = [], []
     for layer in params.blocks:
-        x, _aux, k, v = _block_with_aux(cfg, attn_fn, positions, x, layer)
+        x, _aux, k, v = _block_with_aux(cfg, attn_fn, positions, x, layer,
+                                        shard)
         ks.append(k)
         vs.append(v)
     x = rms_norm(x, params.ln_f)
     logits = torch.einsum("bsd,dv->bsv", x,
                           maybe_dequantize(params.head))[:, -1]
-    return logits.float(), torch.stack(ks), torch.stack(vs)
+    return (shard_logits(logits.float(), shard), torch.stack(ks),
+            torch.stack(vs))
 
 
 def _position_losses(logits, targets, label_smoothing: float,

@@ -43,6 +43,13 @@ Two multi-tenant rules ride along on the paged servers:
 The stack is held in the model's dtype (a bf16 model serves bf16 factors:
 torch does not mix dtypes in a matmul); an adapter's name is the
 fingerprint of the tree as given.
+
+Over a mesh (``mesh=``, through the base servers) every rank holds its
+slices of the stack (``lora.shard_lora`` by ``lora.lora_param_specs``, cut
+at upload and at every hot load), so each rank's deltas run on its heads;
+``wo``'s delta is summed with ``wo``'s partial output over tp. Every
+upload and bind happens on every rank: they are host calls every rank
+receives.
 """
 
 from __future__ import annotations
@@ -53,7 +60,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from kubetpu_torch.jobs.lora import _MLP_TARGETS, LoraConfig
+from kubetpu_torch.jobs.lora import _MLP_TARGETS, LoraConfig, shard_lora
 from kubetpu_torch.jobs.model import ModelConfig, Transformer, resolve_device
 from kubetpu_torch.jobs.paged import PagedDecodeServer
 from kubetpu_torch.jobs.serving import DecodeServer
@@ -144,9 +151,13 @@ class _MultiLoraHostMixin:
     scale) and ``_init_lora_slots`` after it (``n_slots`` and the registry
     exist then)."""
 
-    def _init_multi_lora(self, lcfg: LoraConfig, lora_stack: dict) -> None:
+    def _init_multi_lora(self, lcfg: LoraConfig, lora_stack: dict,
+                         mesh=None) -> None:
         self.n_adapters = next(iter(lora_stack["blocks"].values())).shape[0]
         self._lora_scale = lcfg.scale
+        self._lora_mesh = mesh
+        if mesh is not None:
+            lora_stack = shard_lora(lora_stack, mesh, stacked=True)
         self.lora_stack = lora_stack
         self._rid_adapter: Dict[int, int] = {}
         self._submit_adapter: Optional[int] = None
@@ -248,7 +259,7 @@ class MultiLoraDecodeServer(_MultiLoraHostMixin, DecodeServer):
         device = resolve_device(kw.get("device"))
         stack = {"blocks": {k: v.to(device=device, dtype=cfg.dtype)
                             for k, v in lora_stack["blocks"].items()}}
-        self._init_multi_lora(lcfg, stack)
+        self._init_multi_lora(lcfg, stack, kw.get("mesh"))
         super().__init__(cfg, params, **kw)
         self._init_lora_slots()
 
@@ -288,7 +299,7 @@ class _PagedMultiLoraMixin(_MultiLoraHostMixin):
             stack = {"blocks": {
                 k: torch.cat([v, v.new_zeros((cap - n,) + v.shape[1:])])
                 for k, v in stack["blocks"].items()}}
-        self._init_multi_lora(lcfg, stack)
+        self._init_multi_lora(lcfg, stack, kw.get("mesh"))
         self._adapter_names: List[Optional[str]] = [None] * cap
         self._resident: Dict[str, int] = {}
         self._adapter_lru = [0] * cap
@@ -372,6 +383,12 @@ class _PagedMultiLoraMixin(_MultiLoraHostMixin):
             raise ValueError(
                 f"adapter targets {sorted(adapter['blocks'])} do not match "
                 f"the stack's {keys}")
+        if self._lora_mesh is not None:
+            # this rank's slices of the adapter, as the stack holds them
+            adapter = shard_lora(
+                {"blocks": {k: _leaf_tensor(v)
+                            for k, v in adapter["blocks"].items()}},
+                self._lora_mesh)
         for k in keys:
             want = tuple(self.lora_stack["blocks"][k].shape[1:])
             got = tuple(adapter["blocks"][k].shape)

@@ -33,9 +33,17 @@ and live migration ships a slot's pages as stored (``PagedDecodeServer``).
 Every leg takes each slot's LoRA adapter deltas around the attention
 (``lora``, ``adapter_ids``): ``multi_lora.PagedMultiLoraDecodeServer``
 feeds them through the ``_admit_lora`` / ``_step_lora`` hooks, the plain
-server feeds none and runs no LoRA op. Not ported yet: the servers'
-``mesh=`` (the last multi-device slice, ROADMAP queue 1 item 8; the
-sharded training step is ``train.make_train_step(..., mesh=)``).
+server feeds none and runs no LoRA op.
+
+Over a mesh (``PagedDecodeServer(..., mesh=)``) the parameters are a tp
+shard and the pool holds each rank's ``H_kv/tp`` heads; the page axis is
+not sharded and the pool is replicated over dp (the JAX package's
+layout), so table gathers stay local and every rank runs every slot. The
+split, combine and chunk kernels run on the rank's heads. Snapshots and
+exported spans gather the heads over tp (the whole array, as the JAX
+package's ``device_get`` of a sharded pool returns it); restores and
+injected spans keep each rank's heads; the host tier holds each rank's
+own heads.
 """
 
 from __future__ import annotations
@@ -45,7 +53,9 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from kubetpu_torch.jobs import collectives as col
 from kubetpu_torch.jobs import model as model_lib
 from kubetpu_torch.jobs.decode import (_attend_cached, _head, _layer,
                                        forward_chunk_io, lora_layer,
@@ -62,12 +72,13 @@ from kubetpu_torch.ops.paged_attention import (paged_attention,
 
 
 def init_page_pool(cfg: ModelConfig, n_pages: int, page_size: int,
-                   kv_int8: bool = False, device=None):
+                   kv_int8: bool = False, device=None, tp: int = 1):
     """(k_pages, v_pages), each (L, n_pages, page_size, H_kv, D) in
     ``cfg.dtype`` — or, with ``kv_int8``, each an (int8 values, f32 scales
-    (..., H_kv, 1)) pair."""
+    (..., H_kv, 1)) pair; a tp rank's pool holds ``H_kv/tp`` heads."""
     device = resolve_device(device)
-    shape = (cfg.n_layers, n_pages, page_size, cfg.kv_heads, cfg.head_dim)
+    shape = (cfg.n_layers, n_pages, page_size, cfg.kv_heads // tp,
+             cfg.head_dim)
 
     def zeros(shp, dtype):
         return torch.zeros(shp, dtype=dtype, device=device)
@@ -201,7 +212,12 @@ def _paged_forward(cfg: ModelConfig, params: Transformer, tokens, k_pages,
     ``lora`` + ``adapter_ids`` (B,): each slot's adapter deltas around the
     attention, as ``decode.forward_chunk_io`` applies them (the factors
     gathered once a forward). An int8 model dequantizes one layer at a time
-    here, and the head per use."""
+    here, and the head per use. A model shard (``Transformer.shard``) runs
+    its heads tensor-parallel: ``copy_to`` before the projections,
+    ``reduce_from`` after ``wo`` (with its LoRA delta) and the MLP, and the
+    logits gathered whole."""
+    shard = getattr(params, "shard", None)
+    tp = None if shard is None else shard.tp
     t = tokens.shape[1]
     tpos = pos.long()[:, None] + torch.arange(t, device=pos.device)
     phys, offset = _write_targets(k_pages, table, tpos, write_enable)
@@ -211,7 +227,7 @@ def _paged_forward(cfg: ModelConfig, params: Transformer, tokens, k_pages,
         k_l, v_l = _layer(k_pages, i), _layer(v_pages, i)
         lora_l = lora_layer(sel, i)
         layer = maybe_dequantize(layer)
-        h = model_lib.rms_norm(x, layer.ln1)
+        h = col.copy_to(model_lib.rms_norm(x, layer.ln1), tp)
         q = project("wq", h, layer.wq, lora_l, lora_scale)
         k = project("wk", h, layer.wk, lora_l, lora_scale)
         v = project("wv", h, layer.wv, lora_l, lora_scale)
@@ -220,11 +236,12 @@ def _paged_forward(cfg: ModelConfig, params: Transformer, tokens, k_pages,
         _write_token_kv(k_l, k, phys, offset)
         _write_token_kv(v_l, v, phys, offset)
         attn = attend(q, k_l, v_l, table, pos)
-        x = x + out_project(attn, layer.wo, lora_l, lora_scale)
+        x = x + col.reduce_from(
+            out_project(attn, layer.wo, lora_l, lora_scale), tp)
         delta, _aux = model_lib._mlp(cfg, model_lib.rms_norm(x, layer.ln2),
-                                     layer)
+                                     layer, shard=shard)
         x = x + delta
-    return _head(params, x)
+    return _head(params, x, shard)
 
 
 @torch.no_grad()
@@ -409,7 +426,17 @@ class PagedDecodeServer(SlotServerBase):
 
     Multi-tenant LoRA serving is the subclass
     ``multi_lora.PagedMultiLoraDecodeServer``. ``declare_slos`` and
-    ``enable_profiler`` are the base's; ``mesh`` is not ported yet."""
+    ``enable_profiler`` are the base's.
+
+    ``mesh=`` (dp and tp axes; ``SlotServerBase``): the parameters are cut
+    by ``train.param_specs`` and the pool holds the rank's ``H_kv/tp``
+    heads, replicated over dp with the page axis whole, so every rank runs
+    every slot and the host scheduler alike. ``snapshot_slot``,
+    ``snapshot_pages`` and ``export_prefix_span`` gather the heads over tp
+    (the one-card layout); ``restore_slot`` and ``inject_prefix`` keep
+    each rank's heads of it; every rank must make each of these calls.
+    ``check_invariants`` also compares every rank's table, free list and
+    scheduler state (``check_lockstep``)."""
 
     # the two device legs, called through the instance so that
     # ``enable_profiler`` can watch them (the JAX server's ``_prefill_chunk``
@@ -426,7 +453,7 @@ class PagedDecodeServer(SlotServerBase):
                  kv_int8: bool = False, prefill_budget: int = 0,
                  overlap: bool = False, queue_ttl: Optional[float] = None,
                  prefix_cache_pages: int = 0, pool_frac: float = 1.0,
-                 host_tier_bytes: int = 0, device=None) -> None:
+                 host_tier_bytes: int = 0, device=None, mesh=None) -> None:
         device = resolve_device(device)
         if not 0.0 < pool_frac <= 1.0:
             raise ValueError("pool_frac must be in (0, 1]")
@@ -451,7 +478,7 @@ class PagedDecodeServer(SlotServerBase):
                          eos_id, temperature=temperature, top_k=top_k,
                          top_p=top_p, seed=seed,
                          prefill_budget=prefill_budget, overlap=overlap,
-                         queue_ttl=queue_ttl, device=device)
+                         queue_ttl=queue_ttl, device=device, mesh=mesh)
         self.page_size = page_size
         self._min_bucket = page_size
         # _seq_margin(): positions past max_seq a slot's table must cover
@@ -465,9 +492,13 @@ class PagedDecodeServer(SlotServerBase):
         self.pool_pages = max(1, int(base_pages * self.pool_frac))
         self.kv_int8 = kv_int8
         # the stores hold the drop page past the addressable pool
+        tp = col.axis_size(mesh, "tp")
+        self._tp_group = None if mesh is None else self._groups.over("tp")
+        self._heads = (col.axis_index(mesh, "tp") * (cfg.kv_heads // tp),
+                       (col.axis_index(mesh, "tp") + 1) * (cfg.kv_heads // tp))
         self._k_store, self._v_store = init_page_pool(
             cfg, self.pool_pages + 1, page_size, kv_int8=kv_int8,
-            device=device)
+            device=device, tp=tp)
         self.k_pages = _pool_view(self._k_store, self.pool_pages)
         self.v_pages = _pool_view(self._v_store, self.pool_pages)
         self._free: List[int] = list(range(self.pool_pages))
@@ -823,23 +854,44 @@ class PagedDecodeServer(SlotServerBase):
             yield from zip(pool if isinstance(pool, tuple) else (pool,),
                            names)
 
-    def _gather_phys_pages(self, phys_list) -> dict:
+    def _whole_heads(self, t: torch.Tensor) -> torch.Tensor:
+        """A CPU copy of stored-layout pages (heads on axis 3) with every
+        tp rank's heads: gathered over tp (through host tensors under
+        gloo, which takes every stored dtype there), as they are on one
+        card."""
+        if self._tp_group is None:
+            return t.cpu()
+        dev = ("cpu" if dist.get_backend(self._tp_group) == "gloo"
+               else self.device)
+        return col.all_gather(t.to(dev), self._tp_group, "tp_pages",
+                              dim=3).cpu()
+
+    def _gather_phys_pages(self, phys_list, whole: bool = False) -> dict:
         """CPU copies of physical pool pages in their stored dtype and
         layout (page axis 1; int8 pools as the quantized values and scales,
         never dequantized): the spill's and the export's one designed
-        device->host sync."""
+        device->host sync. *whole*: every tp rank's heads
+        (``_whole_heads``), else this rank's."""
         phys = torch.as_tensor(np.asarray(phys_list, np.int64),
                                device=self.device)
-        return {name: pool[:, phys].cpu() for pool, name in self._pool_fields()}
+        out = {name: pool[:, phys] for pool, name in self._pool_fields()}
+        return {name: self._whole_heads(t) if whole else t.cpu()
+                for name, t in out.items()}
 
-    def _upload_host_pages(self, pages: dict, phys_list) -> None:
+    def _upload_host_pages(self, pages: dict, phys_list,
+                           whole: bool = False) -> None:
         """Write a stored-layout page dict of CPU tensors into the pool at
         physical pages *phys_list*: the fill's and the inject's designed
-        host->device copy."""
+        host->device copy. *whole*: the dict holds every tp rank's heads,
+        of which this rank keeps its own."""
         phys = torch.as_tensor(np.asarray(phys_list, np.int64),
                                device=self.device)
+        h0, h1 = self._heads
         for pool, name in self._pool_fields():
-            pool[:, phys] = pages[name].to(self.device, pool.dtype)
+            arr = pages[name]
+            if whole and self._tp_group is not None:
+                arr = arr[:, :, :, h0:h1]
+            pool[:, phys] = arr.to(self.device, pool.dtype)
 
     def prefix_local_pages(self, prompt: List[int]) -> int:
         """Full pages of *prompt* this server covers across both local
@@ -870,9 +922,9 @@ class PagedDecodeServer(SlotServerBase):
                 parts.append({k: v[:, :jp] for k, v in node.host.items()})
             else:
                 parts.append(self._gather_phys_pages(node.pages[:jp]))
-        out = {name: _host_array(torch.cat(
-            [p[name] for p in parts], dim=1)[:, from_page:n_pages]
-            .contiguous())
+        out = {name: _host_array(self._whole_heads(torch.cat(
+            [_cpu_tensor(p[name]) for p in parts], dim=1)[:, from_page:n_pages]
+            .contiguous()))
             for name in self._page_field_names()}
         self._c_tier_bytes["peer"].inc(
             sum(a.nbytes for a in out.values()))
@@ -935,7 +987,7 @@ class PagedDecodeServer(SlotServerBase):
         if alloc:
             self._upload_host_pages(
                 {name: _cpu_tensor(arr[:, col0:])
-                 for name, arr in pages.items()}, alloc)
+                 for name, arr in pages.items()}, alloc, whole=True)
         donated = [-1] * hbm_cov + alloc
         consumed = tree.insert(tokens, donated)
         assert all(p >= 0 for p in consumed), \
@@ -1100,6 +1152,11 @@ class PagedDecodeServer(SlotServerBase):
                 assert node.refcount == pins.get(id(node), 0), (
                     f"node refcount {node.refcount} != "
                     f"{pins.get(id(node), 0)} live pins")
+        self.check_lockstep()
+
+    def _host_state(self) -> list:
+        return super()._host_state() + [self._table.tolist(),
+                                        list(self._free)]
 
     # -- live KV migration ---------------------------------------------------
 
@@ -1118,8 +1175,8 @@ class PagedDecodeServer(SlotServerBase):
         sync a handoff span pays."""
         row = self._table[slot, from_page:to_page]
         assert (row >= 0).all(), "live pages unmapped under a gather"
-        return {name: _host_array(t)
-                for name, t in self._gather_phys_pages(row).items()}
+        return {name: _host_array(t) for name, t in
+                self._gather_phys_pages(row, whole=True).items()}
 
     def snapshot_pages(self, rid: int, from_page: int,
                        to_page: int) -> dict:
@@ -1293,7 +1350,7 @@ class PagedDecodeServer(SlotServerBase):
             self._upload_host_pages(
                 {name: _cpu_tensor(snap["pages"][name])[:, use - ship_from:]
                  for name in self._page_field_names()},
-                self._table[slot, use:n_live])
+                self._table[slot, use:n_live], whole=True)
         rid = self._restore_request(snap, slot)
         self.pos[slot] = int(snap["pos"])
         self.last[slot] = int(snap["last"])

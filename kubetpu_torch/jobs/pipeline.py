@@ -1,6 +1,5 @@
-"""Pipeline parallelism: GPipe over a ``pp`` mesh axis, composing with dp, sp
-and tp (port of ``kubetpu/jobs/pipeline.py``; the expert axis ep waits for
-the last multi-device slice).
+"""Pipeline parallelism: GPipe over a ``pp`` mesh axis, composing with dp, sp,
+tp and ep (port of ``kubetpu/jobs/pipeline.py``).
 
 Each pp rank holds one stage: ``n_layers / pp`` contiguous ``Block``s of
 the model (``train.shard_model(..., pp=True)``), tp-sharded as in the
@@ -17,6 +16,15 @@ reaches every pp rank by a broadcast (the reference's psum over pp), where
 the loss tail runs alike on every stage, outside the stages. sp composes:
 the ring runs inside each stage, over the stage's own sp group. The
 reference's loss and update are the bar, not its tick order.
+
+Microbatch m is the reference's: rows ``m*b .. (m+1)*b - 1`` of the global
+batch, each data rank holding its block of every microbatch
+(``pipeline_rows``). A mixture-of-experts stage runs its experts over ep
+(``collectives.ModelShard``), a capacity dispatch spanning the
+microbatch's rows over the data axes and each sp block on its own, as the
+reference's region (manual over pp and sp, automatic over dp) computes
+it; the reference's pipeline loss has no load-balance term, nor has this
+one.
 
 Two anchors keep autograd's pruning from skipping a hop: the embedding is
 the input of ``_RecvPrev`` on every stage but the first (its gradient
@@ -91,7 +99,8 @@ def _stage_runner(cfg: ModelConfig, groups: col.MeshGroups,
 
         nxt, prev = col.ring_peers(pp_group)
         last_rank = dist.get_global_rank(pp_group, n_stages - 1)
-    body = partial(train_lib._tp_block, tp_group=groups.over("tp"))
+    body = partial(model_lib._block_output,
+                   shard=train_lib.step_shard(cfg, groups, ("dcn", "dp")))
     sp_index = col.axis_index(mesh, "sp")
 
     def run(params, tokens):
@@ -130,6 +139,27 @@ def _stage_runner(cfg: ModelConfig, groups: col.MeshGroups,
     return run
 
 
+def pipeline_rows(x, mesh, n_microbatches: int):
+    """This rank's block of a global (M*B, S) batch for the pipeline: of
+    every microbatch (B consecutive rows) the rank's rows on the data
+    axes, microbatch by microbatch, and its columns on sp. A block
+    ``prefetch_to_mesh`` cut (consecutive rows) is refused: the pipeline
+    takes the global batch."""
+    if getattr(x, train_lib.LOCAL_BLOCK, False):
+        raise ValueError("the pipeline takes the global batch, not "
+                         "prefetch_to_mesh's blocks (its microbatches are "
+                         "the reference's rows)")
+    idx, n = train_lib._entry_index(mesh, train_lib.batch_spec(mesh)[0])
+    rows, s = x.shape[0], x.shape[1]
+    if rows % (n_microbatches * n):
+        raise ValueError(f"{rows} rows do not split into {n_microbatches} "
+                         f"microbatches over {n} data ranks")
+    per = rows // (n_microbatches * n)
+    x = x.reshape(n_microbatches, n, per, *x.shape[1:])[:, idx]
+    x = x.reshape(n_microbatches * per, s, *x.shape[3:])
+    return train_lib._take(x, (None, "sp"), mesh)
+
+
 def _attention(cfg: ModelConfig, mesh, use_ring: bool, ring_impl: str):
     # built (and validated) even when use_ring is off, so a wrong impl
     # raises here
@@ -148,19 +178,20 @@ def make_pipeline_forward(cfg: ModelConfig, mesh, n_microbatches: int,
                           device=None):
     """``forward(params, tokens) -> logits`` through the pipeline: every
     rank passes the global (M*B, S) batch and gets its block's logits
-    (rows on the data axes, positions on sp) over the whole vocabulary;
+    (``pipeline_rows``: of every microbatch its rows on the data axes, and
+    its positions on sp) over the whole vocabulary;
     ``forward.hidden`` gives the final-norm hidden states instead. The
     embedding and the head run outside the stages. ``ring_impl="flash"``
     runs the flash kernels in every ring step."""
     train_lib.check_mesh(cfg, mesh, pp=True)
     up = train_lib._uploader(resolve_device(device))
-    groups = col.MeshGroups(mesh)
+    groups = col.groups_of(mesh)
     run = _stage_runner(cfg, groups, n_microbatches,
                         _attention(cfg, mesh, use_ring, ring_impl))
 
     @torch.no_grad()
     def forward_hidden(params, tokens):
-        tokens = train_lib.local_batch(up(tokens, torch.int64), mesh)
+        tokens = pipeline_rows(up(tokens, torch.int64), mesh, n_microbatches)
         return run(params, tokens)[0]
 
     @torch.no_grad()
@@ -185,8 +216,8 @@ def pipeline_loss_fn(cfg: ModelConfig, groups: col.MeshGroups,
                         _attention(cfg, mesh, use_ring, ring_impl))
 
     def loss_fn(params, tokens, targets):
-        tokens = train_lib.local_batch(tokens, mesh)
-        targets = train_lib.local_batch(targets, mesh)
+        tokens = pipeline_rows(tokens, mesh, n_microbatches)
+        targets = pipeline_rows(targets, mesh, n_microbatches)
         x, sent = run(params, tokens)
         loss = train_lib.sharded_loss_tail(x, params.head, targets, None,
                                            cfg, groups)
@@ -210,7 +241,7 @@ def make_pipeline_train_step(cfg: ModelConfig, mesh, n_microbatches: int,
     optimizer = optimizer or train_lib.make_optimizer()
     train_lib.check_mesh(cfg, mesh, pp=True)
     up = train_lib._uploader(resolve_device(device))
-    groups = col.MeshGroups(mesh)
+    groups = col.groups_of(mesh)
     step = train_lib.make_update_step(
         pipeline_loss_fn(cfg, groups, n_microbatches, use_ring, ring_impl),
         optimizer, sync=train_lib.grad_sync(cfg, groups, pp=True))

@@ -48,6 +48,22 @@ device legs of ``_build_dense_legs`` (a prefill chunk of one slot through
 ``decode.forward_chunk_at_io``). The speculative servers draft on the same
 dense cache.
 
+Over a mesh (``mesh=``, a ``meshjob`` DeviceMesh over dp and tp) a server
+is SPMD, one process a rank: every rank builds the same server and
+receives the same calls (``submit``, ``enqueue``, ``step``, ``drain``, the
+migration legs), every rank runs the whole host scheduler (admission,
+buckets, pages, the prefix tree), and the device work is sharded. The
+parameters are cut by ``train.param_specs`` (``train.shard_model``), the
+blocks run tensor-parallel, and the logits reach every rank of a tp group
+whole, so every rank samples the same tokens. ``DecodeServer`` puts slots
+on dp when dp divides ``n_slots`` (a rank runs its own slots' legs and
+each step's tokens, and each prefill's first token, are shared over dp
+before routing); the paged servers replicate the pool over dp, as the
+JAX package does. No decision may read a clock: a meshed server refuses
+``queue_ttl`` (and ``enqueue``'s ``ttl``), whose expiry would differ
+between ranks and leave one rank a step its peers never take;
+``check_lockstep`` compares every rank's host state by digest.
+
 The signal layer is the JAX package's, off by default: ``declare_slos``
 attaches an SLO engine (``obs.slo``) over the server's registry, evaluated
 from inside ``step()``, and ``enable_profiler`` the sampled profiler
@@ -60,6 +76,7 @@ before.
 
 from __future__ import annotations
 
+import hashlib
 import time
 from typing import Dict, List, Optional, Tuple
 
@@ -67,6 +84,7 @@ import numpy as np
 import torch
 
 from kubetpu_torch.core.metrics import LatencyRecorder
+from kubetpu_torch.jobs import collectives as col
 from kubetpu_torch.jobs.decode import (_dense_cache_io, _int8_cache_io,
                                        _rows, forward_chunk_at_io,
                                        forward_chunk_io, init_kv_cache,
@@ -153,10 +171,24 @@ class SlotServerBase:
                  temperature: float = 0.0, top_k: Optional[int] = None,
                  top_p: Optional[float] = None, seed: int = 0,
                  prefill_budget: int = 0, overlap: bool = False,
-                 queue_ttl: Optional[float] = None, device=None) -> None:
+                 queue_ttl: Optional[float] = None, device=None,
+                 mesh=None) -> None:
         self.cfg = cfg
         self.params = params
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self._groups = None
+        if mesh is not None:
+            self._groups = _serving_groups(cfg, mesh)
+            if queue_ttl is not None:
+                raise ValueError(
+                    "a meshed server refuses queue_ttl: an expiry read off "
+                    "each rank's clock would differ between ranks, and a "
+                    "rank that skipped a step would wait in a collective "
+                    "its peers never enter")
+            from kubetpu_torch.jobs.train import shard_model
+
+            self.params = shard_model(params, cfg, mesh)
         if temperature < 0:
             raise ValueError("temperature must be >= 0")
         if top_k is not None and top_k <= 0:
@@ -397,6 +429,9 @@ class SlotServerBase:
         past it the request finishes with no tokens and
         ``expire_reason(rid)`` says why."""
         self._check_prompt(prompt)
+        if ttl is not None and self.mesh is not None:
+            raise ValueError("a meshed server refuses a queue ttl (see "
+                             "queue_ttl)")
         rid = self._next_rid
         self._next_rid += 1
         self._rid_sampling[rid] = self._normalize_sampling(sampling)
@@ -1074,6 +1109,33 @@ class SlotServerBase:
             self._stream_origin[rid] = tuple(snap["origin"])
         return rid
 
+    # -- meshed serving -------------------------------------------------------
+
+    def _host_state(self) -> list:
+        """The host scheduler's state every rank of a meshed server must
+        hold alike (the paged server adds its table and free list)."""
+        return [self.pos.tolist(), self.active.tolist(), self._slot_rid,
+                [q[0] for q in self._queue], sorted(self._prefills),
+                self._next_rid, sorted(self._done.items())]
+
+    def check_lockstep(self) -> None:
+        """On a mesh: every rank's host state (``_host_state``) equal to
+        rank 0's, compared by a digest gathered over the whole mesh (four
+        16-bit words as f32, exact); AssertionError naming the ranks that
+        differ. A no-op without a mesh."""
+        if self.mesh is None:
+            return
+        digest = hashlib.sha256(repr(self._host_state()).encode()).digest()
+        words = [int.from_bytes(digest[i:i + 2], "little")
+                 for i in range(0, 8, 2)]
+        mine = torch.tensor(words, dtype=torch.float32, device=self.device)
+        every = col.all_gather(
+            mine[None], self._groups.over(*self.mesh.mesh_dim_names),
+            "lockstep").cpu()
+        off = [r for r in range(every.shape[0])
+               if not torch.equal(every[r], every[0])]
+        assert not off, f"ranks {off} hold host state unlike rank 0's"
+
     # -- results -------------------------------------------------------------
 
     def finished(self, rid: int) -> bool:
@@ -1128,6 +1190,19 @@ class SlotServerBase:
         raise RuntimeError("drain did not converge")
 
 
+def _serving_groups(cfg: ModelConfig, mesh) -> col.MeshGroups:
+    """*mesh*'s groups for a server: its axes are dp, tp and (for experts)
+    ep; sp and pp are training axes."""
+    from kubetpu_torch.jobs.train import check_mesh
+
+    check_mesh(cfg, mesh)
+    for axis in ("sp", "dcn"):
+        if col.axis_size(mesh, axis) > 1:
+            raise ValueError(f"a server's mesh takes dp, tp and ep, not "
+                             f"{axis}")
+    return col.groups_of(mesh)
+
+
 def _build_dense_legs(cfg: ModelConfig, cache_io, lora_scale: float = 1.0):
     """(prefill_chunk, step_all) for the contiguous-cache server; the server
     samples from the logits they return. The trailing (lora, aid / aids)
@@ -1177,7 +1252,15 @@ class DecodeServer(SlotServerBase):
     ``restore_slot`` raise ``NotImplementedError``, which the wire layer
     treats as a per-stream skip. The attention is plain PyTorch (the JAX
     package's dense path has no Pallas kernel); ``device`` defaults to the
-    card and raises without CUDA."""
+    card and raises without CUDA.
+
+    ``mesh=``: the parameters are cut by ``train.param_specs``, the cache
+    holds the rank's ``H_kv/tp`` heads, and when dp divides ``n_slots``
+    the rank's ``n_slots/dp`` slots (slot s on dp rank ``s // (n_slots /
+    dp)``), else every slot (replicated over dp). With slots on dp a rank
+    runs its own slots' prefill chunks and step rows; the first token of a
+    prefill is broadcast from its owner, and each step's tokens and
+    logprobs are gathered over dp, before routing."""
 
     def __init__(self, cfg: ModelConfig, params: Transformer,
                  n_slots: int = 8, max_seq: int = 512,
@@ -1186,7 +1269,7 @@ class DecodeServer(SlotServerBase):
                  top_p: Optional[float] = None, seed: int = 0,
                  kv_int8: bool = False, prefill_budget: int = 0,
                  overlap: bool = False, queue_ttl: Optional[float] = None,
-                 device=None) -> None:
+                 device=None, mesh=None) -> None:
         device = resolve_device(device)
         for p in params.state_dict().values():   # int8 buffers too
             if p.device.type != device.type:
@@ -1196,13 +1279,24 @@ class DecodeServer(SlotServerBase):
                          eos_id, temperature=temperature, top_k=top_k,
                          top_p=top_p, seed=seed,
                          prefill_budget=prefill_budget, overlap=overlap,
-                         queue_ttl=queue_ttl, device=device)
+                         queue_ttl=queue_ttl, device=device, mesh=mesh)
         self.kv_int8 = bool(kv_int8)
+        # this rank's slots [lo, hi): its dp block when dp divides n_slots
+        dp = col.axis_size(mesh, "dp")
+        self._dp_group = None
+        self._lo, self._hi = 0, n_slots
+        if dp > 1 and n_slots % dp == 0:
+            self._dp_group = self._groups.over("dp")
+            n_local = n_slots // dp
+            self._lo = col.axis_index(mesh, "dp") * n_local
+            self._hi = self._lo + n_local
+        tp = col.axis_size(mesh, "tp")
+        rows = self._hi - self._lo
         if kv_int8:
-            self.cache = init_kv_cache_int8(cfg, n_slots, max_seq, device)
+            self.cache = init_kv_cache_int8(cfg, rows, max_seq, device, tp)
             cache_io = _int8_cache_io(cfg.window)
         else:
-            self.cache = init_kv_cache(cfg, n_slots, max_seq, device)
+            self.cache = init_kv_cache(cfg, rows, max_seq, device, tp)
             cache_io = _dense_cache_io(cfg.window)
         self._prefill_chunk, self._step_all = _build_dense_legs(
             cfg, cache_io, self._lora_scale)
@@ -1237,34 +1331,61 @@ class DecodeServer(SlotServerBase):
         chunks are exact bucket-grid sizes, final chunks bucket-pad (pad
         positions are rewritten before any read). The first token and its
         logprob (device scalars) for the final chunk, True otherwise; the
-        draw at position q is seeded from (request, q - 1)."""
-        bucket = self._chunk_bucket(pos, take, final)
-        chunk = prompt[pos:pos + take] + [0] * (bucket - take)
-        logits = self._prefill_chunk(
-            self.params, self.cache,
-            self._upload(np.asarray([chunk], np.int64)), slot, pos,
-            *self._admit_lora(slot))
+        draw at position q is seeded from (request, q - 1). With slots on
+        dp only the slot's owner runs the chunk, and the first token
+        reaches every rank by a broadcast over dp."""
+        owner = self._lo <= slot < self._hi
+        first = None
+        if owner:
+            bucket = self._chunk_bucket(pos, take, final)
+            chunk = prompt[pos:pos + take] + [0] * (bucket - take)
+            logits = self._prefill_chunk(
+                self.params, self.cache,
+                self._upload(np.asarray([chunk], np.int64)),
+                slot - self._lo, pos, *self._admit_lora(slot))
+            if final:
+                r = logits[0, take - 1]
+                temp, tk, tp = self._slot_sampling(slot)
+                tok = self._sampler(
+                    r, temp, tk, tp,
+                    row_seed(self._slot_reqkey[slot], pos + take - 1))
+                first = tok, chosen_logprob(r, tok)
         if not final:
             return True
-        r = logits[0, take - 1]
-        temp, tk, tp = self._slot_sampling(slot)
-        tok = self._sampler(r, temp, tk, tp,
-                            row_seed(self._slot_reqkey[slot], pos + take - 1))
-        return tok, chosen_logprob(r, tok)
+        if self._dp_group is None:
+            return first
+        # (token, logprob) as f32, exact: the dtypes gloo takes on CUDA
+        pair = (torch.stack([first[0].float(), first[1].float()]) if owner
+                else torch.zeros(2, dtype=torch.float32, device=self.device))
+        src = torch.distributed.get_global_rank(
+            self._dp_group, slot // (self._hi - self._lo))
+        col.broadcast_(pair, src, self._dp_group, "dp_tokens")
+        return pair[0].long(), pair[1]
 
     def _device_step(self):
-        active = self._upload(self.active)
-        logits = self._step_all(self.params, self.cache, self.last,
-                                self._upload(self.pos.astype(np.int32)),
-                                active, *self._step_lora())
+        lo, hi = self._lo, self._hi
+        active = self._upload(self.active[lo:hi])
+        lora, aids = self._step_lora()
+        last = self.last[lo:hi]
+        logits = self._step_all(self.params, self.cache, last,
+                                self._upload(self.pos[lo:hi].astype(
+                                    np.int32)),
+                                active, lora,
+                                None if aids is None else aids[lo:hi])
         seeds = None                       # all-greedy: no draw needs one
-        if (self._slot_temp > 0).any():
+        if (self._slot_temp[lo:hi] > 0).any():
             seeds = [row_seed(self._slot_reqkey[s], int(self.pos[s]))
-                     for s in range(self.n_slots)]
-        nxt = self._sampler(logits, self._slot_temp, self._slot_topk,
-                            self._slot_topp, seeds)
-        nxt = torch.where(active, nxt, self.last)   # inactive slots hold
+                     for s in range(lo, hi)]
+        nxt = self._sampler(logits, self._slot_temp[lo:hi],
+                            self._slot_topk[lo:hi], self._slot_topp[lo:hi],
+                            seeds)
+        nxt = torch.where(active, nxt, last)   # inactive slots hold
         lp = chosen_logprob(logits, nxt)
+        if self._dp_group is not None:
+            # every slot's (token, logprob) on every rank, as f32 (exact)
+            both = col.all_gather(torch.stack([nxt.float(), lp.float()]),
+                                  self._dp_group, "dp_tokens", dim=1)
+            nxt, lp = both[0].long(), both[1]
         self.pos += self.active
         self.last = nxt
         return nxt, lp
@@ -1275,13 +1396,15 @@ class DecodeServer(SlotServerBase):
         so the allocator holds its blocks and every library handle exists
         before the first request. Only valid on an idle server: the dummy
         prefill rewrites slot 0's cache rows."""
+        lo, hi = self._lo, self._hi
         self._warmup_buckets(lambda padded: self._prefill_chunk(
             self.params, self.cache,
             self._upload(np.zeros((1, len(padded)), np.int64)), 0, 0,
-            *self._admit_lora(0)))
-        self._step_all(self.params, self.cache, self.last,
-                       self._upload(np.zeros((self.n_slots,), np.int32)),
-                       self._upload(np.zeros((self.n_slots,), bool)),
-                       *self._step_lora())
+            *self._admit_lora(lo)))
+        lora, aids = self._step_lora()
+        self._step_all(self.params, self.cache, self.last[lo:hi],
+                       self._upload(np.zeros((hi - lo,), np.int32)),
+                       self._upload(np.zeros((hi - lo,), bool)), lora,
+                       None if aids is None else aids[lo:hi])
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)

@@ -361,7 +361,11 @@ class PagedSpeculativeDecodeServer(_SpecRoundsMixin, PagedDecodeServer):
       overrides and ``overlap`` (a round emits a variable burst).
     - Live migration ships the target's pages and the slot's adaptive
       gamma and EMA; the draft's rows do not ship (stale draft KV can only
-      lower acceptance)."""
+      lower acceptance).
+    - ``mesh=``: the target is sharded as the plain paged server's (its
+      verify chunk runs the chunk kernel on the rank's heads); the draft
+      stays whole on every rank, as the JAX package places only the
+      target."""
 
     def __init__(self, target_cfg: ModelConfig, draft_cfg: ModelConfig,
                  target_params: Transformer, draft_params: Transformer,
@@ -372,7 +376,7 @@ class PagedSpeculativeDecodeServer(_SpecRoundsMixin, PagedDecodeServer):
                  prefill_budget: int = 0, queue_ttl: Optional[float] = None,
                  prefix_cache_pages: int = 0, gamma_max: int = 4,
                  adaptive_gamma: bool = True, overlap: bool = False,
-                 device=None) -> None:
+                 device=None, mesh=None) -> None:
         if target_cfg.vocab != draft_cfg.vocab:
             raise ValueError("target and draft must share a vocabulary")
         if target_cfg.window > 0 or draft_cfg.window > 0:
@@ -396,7 +400,7 @@ class PagedSpeculativeDecodeServer(_SpecRoundsMixin, PagedDecodeServer):
             max_new_tokens=max_new_tokens, page_size=page_size,
             n_pages=n_pages, eos_id=eos_id, seed=seed, kv_int8=kv_int8,
             prefill_budget=prefill_budget, queue_ttl=queue_ttl,
-            prefix_cache_pages=prefix_cache_pages, device=device)
+            prefix_cache_pages=prefix_cache_pages, device=device, mesh=mesh)
         for p in draft_params.state_dict().values():
             if p.device.type != self.device.type:
                 raise ValueError(f"draft params live on {p.device}, the "

@@ -6,16 +6,19 @@ hand-written flash kernels (``attention="flash"``: forward, dQ and dK/dV,
 through ``kubetpu_torch.ops.flash_attention``), the plain
 ``dense_attention``, or on a mesh the rings (``"ring"``, ``"ring_flash"``:
 ``ring_attention``); all honor ``cfg.window``. Mixture-of-experts configs
-train on one card, with the load-balance term in the loss.
+train with the load-balance term in the loss.
 
-With ``mesh=`` (a ``meshjob`` DeviceMesh over dp, sp, tp and dcn) every
-rank runs its shard of the step: ``param_specs`` / ``batch_spec`` say
-which dimension shards on which axis, ``shard_model`` cuts a rank's
+With ``mesh=`` (a ``meshjob`` DeviceMesh over dp, sp, tp, ep and dcn)
+every rank runs its shard of the step: ``param_specs`` / ``batch_spec``
+say which dimension shards on which axis, ``shard_model`` cuts a rank's
 shard, the blocks run tensor-parallel through autograd-aware collectives
-(``collectives``) and the loss tail is vocab-parallel. Not taken here yet
-(the last multi-device slice, ROADMAP queue 1 item 8): the expert axis
-``ep`` (MoE over a mesh), the other families' sharded steps, and
-``prefetch_to_mesh``. ``pipeline`` adds the pp axis.
+(``collectives``), a MoE block runs the rank's experts (``ep``; tokens are
+replicated over ep, so the expert exchange is a sum) with its capacity
+dispatch and load-balance term over the global batch, and the loss tail
+is vocab-parallel. ``data.prefetch_to_mesh`` feeds the step each rank's
+block ahead of time; ``pipeline`` adds the pp axis. The other families'
+sharded steps wait for the last multi-device slice (ROADMAP queue 1 item
+8).
 
 Where JAX returns a new state, the port updates the parameters and the
 optimizer state in place (no second copy of the weights) and returns the
@@ -36,8 +39,8 @@ from torch.utils.checkpoint import checkpoint
 
 from kubetpu_torch.jobs import collectives as col
 from kubetpu_torch.jobs import model as model_lib
-from kubetpu_torch.jobs.model import (ModelConfig, Transformer, repeat_kv,
-                                      resolve_device, rms_norm, rope)
+from kubetpu_torch.jobs.model import (ModelConfig, Transformer,
+                                      resolve_device, rms_norm)
 from kubetpu_torch.jobs.quant import require_unquantized
 from kubetpu_torch.jobs.ring_attention import make_ring_attention
 
@@ -322,6 +325,11 @@ def _entry_index(mesh, entry) -> Tuple[int, int]:
     return idx, count
 
 
+# a tensor that already is this rank's block of a global batch carries
+# this attribute (``data.prefetch_to_mesh``): ``local_batch`` keeps it
+LOCAL_BLOCK = "_kubetpu_local_block"
+
+
 def _take(x, spec, mesh):
     """This rank's block of *x* (a numpy array or a tensor) under *spec*:
     each dimension cut into its axis's count of equal parts."""
@@ -338,18 +346,18 @@ def _take(x, spec, mesh):
 
 def check_mesh(cfg: ModelConfig, mesh, pp: bool = False) -> None:
     """Raise on what the sharded step does not take: axes other than
-    dcn/dp/sp/tp (and pp under *pp*), mixture-of-experts blocks (the
-    expert axis ep waits for the last slice, ROADMAP.md queue 1 item 8),
-    and tp that does not divide heads, K/V heads, d_ff and vocab."""
-    allowed = {"dcn", "dp", "sp", "tp"} | ({"pp"} if pp else set())
+    dcn/dp/sp/tp/ep (and pp under *pp*), ep that does not divide the
+    experts, and tp that does not divide heads, K/V heads, d_ff and
+    vocab."""
+    allowed = {"dcn", "dp", "sp", "tp", "ep"} | ({"pp"} if pp else set())
     extra = set(mesh.mesh_dim_names) - allowed
     if extra:
         raise ValueError(f"mesh axes {sorted(extra)} are not taken here "
                          f"(allowed: {sorted(allowed)})")
-    if cfg.n_experts > 0:
-        raise NotImplementedError(
-            "mixture-of-experts blocks over a mesh (the expert axis ep) wait "
-            "for the last multi-device slice (ROADMAP.md, queue 1, item 8)")
+    ep = col.axis_size(mesh, "ep")
+    if cfg.n_experts > 0 and cfg.n_experts % ep:
+        raise ValueError(f"ep={ep} does not divide n_experts "
+                         f"({cfg.n_experts})")
     tp = col.axis_size(mesh, "tp")
     for name, n in (("n_heads", cfg.n_heads), ("kv heads", cfg.kv_heads),
                     ("d_ff", cfg.d_ff), ("vocab", cfg.vocab)):
@@ -368,16 +376,30 @@ def stage_layers(cfg: ModelConfig, mesh) -> range:
     return range(first, first + n)
 
 
+def local_model(cfg: ModelConfig, mesh, device,
+                pp: bool = False) -> Transformer:
+    """An uninitialized ``Transformer`` of this rank's shard shapes (its
+    heads, ff and vocab shards, its experts, its stage's layers) on
+    *device*."""
+    return Transformer(cfg, device, tp=col.axis_size(mesh, "tp"),
+                       layers=len(stage_layers(cfg, mesh)),
+                       ep=col.axis_size(mesh, "ep"))
+
+
 def shard_model(full: Transformer, cfg: ModelConfig, mesh,
                 pp: bool = False) -> Transformer:
     """This rank's shard of *full* (``param_specs``), as a new
-    ``Transformer`` of local shapes on *full*'s device; gradients off, as
-    ``init_params`` leaves them."""
+    ``Transformer`` of local shapes on *full*'s device carrying its
+    ``ModelShard`` (so ``forward`` and the decode paths run it through its
+    collectives); gradients off, as ``init_params`` leaves them. An int8
+    model is refused: its ``QTensor`` leaves have no sharding here, as the
+    JAX package's ``param_specs`` have none for them."""
     check_mesh(cfg, mesh, pp)
+    require_unquantized(full, "shard_model")
     specs = param_specs(cfg, pp)
     layers = stage_layers(cfg, mesh)
-    local = Transformer(cfg, torch.device("meta"),
-                        tp=col.axis_size(mesh, "tp"), layers=len(layers))
+    local = local_model(cfg, mesh, torch.device("meta"), pp)
+    local.shard = col.model_shard(mesh, moe=cfg.n_experts > 0)
 
     def put(module, name, value):
         delattr(module, name)
@@ -400,10 +422,13 @@ class GradSync:
     summed over the axes whose ranks each hold a part of it (the data axes
     and sp always: every rank's loss is the global mean, so its gradient
     is its own tokens' share; pp too for a leaf only one stage computes),
-    in f32 buckets; a leaf replicated over tp is never summed over tp
-    (every tp rank computed all of it). The squared global norm sums each
-    leaf's squares over the axes it is sharded on and counts a replicated
-    leaf once; the finite check holds on every rank or on none."""
+    in f32 buckets; a leaf replicated over tp or ep is never summed over
+    them (every such rank computed all of it: tokens are replicated over
+    ep, and the router's gradient through the experts' combine is summed
+    inside the block). The squared global norm sums each leaf's squares
+    over the axes it is sharded on (an expert leaf's over ep) and counts a
+    replicated leaf once; the finite check holds on every rank or on
+    none."""
 
     BUCKET = 1 << 26      # f32 elements a reduction carries (256 MiB)
 
@@ -470,9 +495,7 @@ def grad_sync(cfg: ModelConfig, groups: col.MeshGroups,
     specs = param_specs(cfg, pp)
     data_sp = tuple(a for a in ("dcn", "dp", "sp")
                     if a in mesh.mesh_dim_names)
-    shard = Transformer(cfg, torch.device("meta"),
-                        tp=col.axis_size(mesh, "tp"),
-                        layers=len(stage_layers(cfg, mesh)))
+    shard = local_model(cfg, mesh, torch.device("meta"), pp)
     reduce_axes, shard_axes = [], []
     for name, _ in shard.named_parameters():
         leaf = name.split(".")[-1]
@@ -490,26 +513,6 @@ def _positions(sp_index: int, s_local: int, device) -> torch.Tensor:
     positions ``sp_index * s_local ...``."""
     return torch.arange(sp_index * s_local, (sp_index + 1) * s_local,
                         dtype=torch.int32, device=device)
-
-
-def _tp_block(cfg: ModelConfig, attn_fn, positions, x, layer, tp_group):
-    """One block on this rank's shard -> (x, 0.0): q/k/v and gate/up
-    column-parallel behind ``copy_to``, wo and w_down row-parallel into
-    ``reduce_from`` (the all-reduce over tp)."""
-    h = col.copy_to(rms_norm(x, layer.ln1), tp_group)
-    q = torch.einsum("bsd,dhk->bshk", h, layer.wq)
-    k = torch.einsum("bsd,dhk->bshk", h, layer.wk)
-    v = torch.einsum("bsd,dhk->bshk", h, layer.wv)
-    q = rope(q, positions, cfg.rope_theta, cfg.rope_llama3_scaling)
-    k = rope(k, positions, cfg.rope_theta, cfg.rope_llama3_scaling)
-    n_rep = cfg.n_heads // cfg.kv_heads
-    attn = attn_fn(q, repeat_kv(k, n_rep), repeat_kv(v, n_rep))
-    x = x + col.reduce_from(torch.einsum("bshk,hkd->bsd", attn, layer.wo),
-                            tp_group)
-    h = col.copy_to(rms_norm(x, layer.ln2), tp_group)
-    delta = (torch.nn.functional.silu(h @ layer.w_gate)
-             * (h @ layer.w_up)) @ layer.w_down
-    return x + col.reduce_from(delta, tp_group), 0.0
 
 
 def _vocab_parallel_sums(x, head, targets, weights, cfg: ModelConfig,
@@ -578,13 +581,25 @@ def sharded_loss_tail(x, head, targets, weights, cfg: ModelConfig,
 
 def local_batch(x, mesh):
     """This rank's block of a global (B, S) batch array: rows on the data
-    axes, columns on sp (``batch_spec``)."""
+    axes, columns on sp (``batch_spec``). A block ``prefetch_to_mesh``
+    already cut (``LOCAL_BLOCK``) comes back as it is."""
+    if getattr(x, LOCAL_BLOCK, False):
+        return x
     return _take(x, batch_spec(mesh), mesh)
+
+
+def step_shard(cfg: ModelConfig, groups: col.MeshGroups,
+               data_axes=("dcn", "dp", "sp")) -> col.ModelShard:
+    """The ``ModelShard`` a sharded step's blocks run under: a MoE
+    capacity dispatch and the load-balance term span *data_axes* (the
+    global batch, as GSPMD computes them)."""
+    return col.model_shard(groups.mesh, moe=cfg.n_experts > 0,
+                           data_axes=data_axes)
 
 
 def _mesh_loss_fn(cfg: ModelConfig, attn_fn, groups: col.MeshGroups):
     mesh = groups.mesh
-    body = partial(_tp_block, tp_group=groups.over("tp"))
+    body = partial(model_lib._block_output, shard=step_shard(cfg, groups))
     sp_index = col.axis_index(mesh, "sp")
 
     def loss_fn(params, tokens, targets, weights=None):
@@ -593,12 +608,17 @@ def _mesh_loss_fn(cfg: ModelConfig, attn_fn, groups: col.MeshGroups):
         if weights is not None:
             weights = local_batch(weights, mesh)
         positions = _positions(sp_index, tokens.shape[1], tokens.device)
-        x, _aux = model_lib.run_blocks(cfg, attn_fn, positions,
-                                       params.embed[tokens], params.blocks,
-                                       body=body)
+        x, aux = model_lib.run_blocks(cfg, attn_fn, positions,
+                                      params.embed[tokens], params.blocks,
+                                      body=body)
         x = rms_norm(x, params.ln_f)
-        return sharded_loss_tail(x, params.head, targets, weights, cfg,
+        loss = sharded_loss_tail(x, params.head, targets, weights, cfg,
                                  groups)
+        if cfg.n_experts > 0 and cfg.moe_aux_coeff > 0:
+            # the term is global (its means span the data axes) and alike
+            # on every rank: counted once, as the one-card loss counts it
+            loss = loss + cfg.moe_aux_coeff * aux
+        return loss
 
     return loss_fn
 
@@ -641,7 +661,10 @@ def refuse_mesh(mesh, what: str) -> None:
 def _uploader(device: torch.device):
     def up(x, dtype=None):
         t = torch.as_tensor(np.asarray(x)) if not torch.is_tensor(x) else x
-        return t.to(device=device, dtype=dtype, non_blocking=True)
+        out = t.to(device=device, dtype=dtype, non_blocking=True)
+        if out is not t and getattr(t, LOCAL_BLOCK, False):
+            setattr(out, LOCAL_BLOCK, True)
+        return out
 
     return up
 
@@ -675,7 +698,7 @@ def make_train_step(cfg: ModelConfig, optimizer: Optional[AdamW] = None,
         sync = None
     else:
         check_mesh(cfg, mesh)
-        groups = col.MeshGroups(mesh)
+        groups = col.groups_of(mesh)
         loss_fn = _mesh_loss_fn(cfg, attn_fn, groups)
         sync = grad_sync(cfg, groups)
 
@@ -703,7 +726,7 @@ def make_eval_step(cfg: ModelConfig, attention: str = "flash", device=None,
     attn_fn = _resolve_attention(attention, cfg.window, mesh)
     if mesh is not None:
         check_mesh(cfg, mesh)
-        mesh_loss = _mesh_loss_fn(cfg, attn_fn, col.MeshGroups(mesh))
+        mesh_loss = _mesh_loss_fn(cfg, attn_fn, col.groups_of(mesh))
 
     @torch.no_grad()
     def eval_step(params, tokens, targets):

@@ -1559,3 +1559,51 @@ def test_sharded_step_on_one_card_matches_the_one_card_step(cuda, tmp_path):
         assert c["losses"] == got["losses"]
         assert c["staged_bytes"] > 0
         assert all(c["axis_bytes"].get(a, 0) > 0 for a in ("sp", "tp", "dp"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form", ["decode", "chunk"])
+def test_tp4_rank_shapes_match_plain_version(cuda, form):
+    """Phase 36's shapes at a tp-4 rank of the flagship (H = H_kv = 4,
+    D 128, bf16, pages of 16): the decode step over 8 ragged slots on the
+    split route and the T=256 chunk at 768 on the wgmma route, each
+    against the plain version."""
+    ragged = [2048, 1717, 1403, 1111, 877, 530, 301, 96]
+    if form == "decode":
+        case = _case(cuda, torch.bfloat16, False, 8, 1, 4, 4, 128, 16,
+                     ragged, holes=False)
+        _run_paged(case, 0, "split")
+    else:
+        case = _case(cuda, torch.bfloat16, False, 1, 256, 4, 4, 128, 16,
+                     [1024], holes=False)
+        _run_paged(case, 0, "wgmma")
+
+
+@pytest.mark.gpu
+def test_two_rank_meshed_paged_server_on_one_card_matches_the_one_card_server(
+        cuda, tmp_path):
+    """A 2-rank {tp 2} ``PagedDecodeServer`` world on cuda:0 (gloo) emits
+    the one-card server's greedy tokens on both ranks at a small f32 width
+    (staggered lifecycle, chunked prefill), each rank launching the split
+    and combine kernels on its 2 of 4 heads for every decode step."""
+    from kubetpu_torch.jobs.model import ModelConfig
+    from torch_mesh_worlds import port_models, serve_case, spawn
+
+    kw = dict(vocab=128, d_model=128, n_layers=2, n_heads=4, d_ff=256,
+              max_seq=128)
+    payload = {"cfg": kw, "params": _small_tree(ModelConfig(**kw))}
+    case = dict(name="paged", kind="paged",
+                kw=dict(n_slots=2, max_seq=64, max_new_tokens=8,
+                        page_size=8, prefill_budget=8),
+                prompts=[list(range(1, 18)), [5, 6, 7, 9, 11], [9, 10, 3]])
+    res = spawn("serving", 2, tmp_path, dict(payload, device="cuda",
+                                             mesh={"tp": 2}, cases=[case]))
+    one = serve_case(case, port_models(payload, "cuda"), None, "cuda")
+    for r in res:
+        assert r["foreign"] == []
+        got = r["paged"]
+        assert got["tokens"] == one["tokens"]
+        assert got["steps"] == one["steps"]
+        n = got["launches"]
+        assert n["split_launches"] > 0 and n["simt_launches"] > 0
+        assert n["split_launches"] == n["combine_launches"]

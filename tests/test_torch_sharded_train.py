@@ -236,10 +236,10 @@ def test_mesh_refusals():
     with pytest.raises(ValueError, match="ring"):
         ttrain._resolve_attention("flash", 0, _FakeMesh({"sp": 2}))
     with pytest.raises(ValueError, match="not taken"):
-        ttrain.check_mesh(cfg, _FakeMesh({"ep": 2}))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        ttrain.check_mesh(dataclasses.replace(cfg, n_experts=2),
-                          _FakeMesh({"dp": 2}))
+        ttrain.check_mesh(cfg, _FakeMesh({"pp": 2}))
+    with pytest.raises(ValueError, match="does not divide n_experts"):
+        ttrain.check_mesh(dataclasses.replace(cfg, n_experts=3),
+                          _FakeMesh({"ep": 2}))
     with pytest.raises(ValueError, match="does not divide"):
         ttrain.check_mesh(dataclasses.replace(cfg, n_kv_heads=1),
                           _FakeMesh({"tp": 2}))

@@ -277,6 +277,234 @@ def pipeline(payload):
     return results
 
 
+def _servers():
+    from kubetpu_torch.jobs import multi_lora, paged, serving, spec_serving
+
+    return {"dense": serving.DecodeServer,
+            "paged": paged.PagedDecodeServer,
+            "spec": spec_serving.PagedSpeculativeDecodeServer,
+            "lora_dense": multi_lora.MultiLoraDecodeServer,
+            "lora_paged": multi_lora.PagedMultiLoraDecodeServer}
+
+
+def build_server(case, models, mesh, device):
+    """The case's server (``case["kind"]`` of ``_servers``) over *models*
+    (``port_models``) on *mesh* (None: one device)."""
+    from kubetpu_torch.jobs.lora import LoraConfig
+    from kubetpu_torch.jobs.multi_lora import stack_adapters
+
+    kind, kw = case["kind"], dict(case["kw"], device=device, mesh=mesh)
+    cls = _servers()[kind]
+    cfg, params = models["cfg"], models["params"]
+    if kind == "spec":
+        return cls(cfg, models["dcfg"], params, models["draft"], **kw)
+    if kind.startswith("lora"):
+        lcfg = LoraConfig(**models["lcfg"])
+        ads = models["adapters"]
+        if kind == "lora_dense":
+            return cls(cfg, params, lcfg, stack_adapters(lcfg, ads), **kw)
+        return cls(cfg, params, lcfg, ads, **kw)
+    return cls(cfg, params, **kw)
+
+
+def staggered(server, case):
+    """``_dryrun_serving``'s lifecycle: two requests submitted (or
+    enqueued), one step, a third enqueued, drain -> the results in order
+    and each step's emissions."""
+    prompts, picks = case["prompts"], case.get("picks")
+    extra = [] if picks is None else [{"adapter": a} for a in picks]
+    extra = extra or [{}] * len(prompts)
+    put = server.submit if case.get("submit", True) else server.enqueue
+    rids = [put(p, **x) for p, x in zip(prompts[:2], extra[:2])]
+    steps = [server.step()]
+    rids.append(server.enqueue(prompts[2], **extra[2]))
+    while not server._idle():
+        steps.append(server.step())
+    return {"tokens": [server.result(r) for r in rids],
+            "steps": [{int(k): v for k, v in st.items()} for st in steps]}
+
+
+def port_models(payload, device):
+    """The payload's numpy trees as the port's models on *device*."""
+    from kubetpu_torch.jobs.convert import lora_from_numpy, params_from_numpy
+
+    cfg = _cfg(payload["cfg"])
+    out = {"cfg": cfg,
+           "params": params_from_numpy(payload["params"], cfg,
+                                       device=device)}
+    if "draft" in payload:
+        out["dcfg"] = _cfg(payload["dcfg"])
+        out["draft"] = params_from_numpy(payload["draft"], out["dcfg"],
+                                         device=device)
+    if "adapters" in payload:
+        out["lcfg"] = payload["lcfg"]
+        out["adapters"] = [lora_from_numpy(a, device=device)
+                           for a in payload["adapters"]]
+    return out
+
+
+def serve_case(case, models, mesh, device):
+    """One serving case -> its results: a server's staggered lifecycle,
+    a snapshot of a decoding slot (then the server's continuation), or
+    ``make_generate``'s tokens."""
+    import dataclasses
+
+    import torch
+
+    from kubetpu_torch.jobs.decode import make_generate
+
+    if case["kind"] == "generate":
+        cfg = dataclasses.replace(models["cfg"], window=case["window"])
+        gen = make_generate(cfg, mesh=mesh)
+        out = gen(models["params"], torch.from_numpy(np.array(
+            case["prompt"], np.int64)).to(device), case["seed"],
+            case["steps"])
+        return {"tokens": out.cpu().numpy()}
+    server = build_server(case, models, mesh, device)
+    if case.get("snapshot"):
+        rid = server.submit(case["prompts"][0])
+        for _ in range(case["snapshot"]):
+            server.step()
+        snap = server.snapshot_slot(rid)
+        server.drain()
+        return {"snap": snap, "tokens": [server.result(rid)]}
+    out = staggered(server, case)
+    server.check_lockstep()
+    if hasattr(server, "check_invariants"):
+        server.check_invariants()
+        out["prefix_hits"] = server.prefix_cache_stats().get(
+            "requests_hit", 0)
+    return out
+
+
+def _paged_counts():
+    from kubetpu_torch.ops import paged_attention as pa
+
+    return {c: getattr(pa.paged_attention, c) for c in (
+        "split_launches", "combine_launches", "wgmma_launches",
+        "wgmma_int8_launches", "simt_launches")}
+
+
+def serving(payload):
+    """Every serving case of the payload on its mesh (dp x tp): each
+    case's ``serve_case`` results on this rank, with the paged kernels'
+    launches during it (nonzero only on the card)."""
+    device = payload.get("device", "cpu")
+    mesh = _mesh(payload["mesh"], device)
+    models = port_models(payload, device)
+    out = {}
+    for case in payload["cases"]:
+        before = _paged_counts()
+        out[case["name"]] = serve_case(case, models, mesh, device)
+        out[case["name"]]["launches"] = {
+            k: n - before[k] for k, n in _paged_counts().items()}
+    return out
+
+
+def _prefetch(case, device="cpu"):
+    """``prefetch_to_mesh`` over the case's batches on its mesh: the
+    blocks it yields and ``local_batch``'s blocks of the same batches."""
+    from kubetpu_torch.jobs.data import prefetch_to_mesh
+    from kubetpu_torch.jobs.train import local_batch
+
+    mesh = _mesh(case["mesh"], device)
+    got = [[t.cpu().numpy() for t in b] for b in prefetch_to_mesh(
+        iter(case["batches"]), mesh, depth=case.get("depth", 2),
+        device=device)]
+    want = [[np.asarray(local_batch(np.asarray(x), mesh)) for x in b]
+            for b in case["batches"]]
+    return {"got": got, "want": want}
+
+
+def _prefetched_step(case, device="cpu"):
+    """The sharded step fed by ``prefetch_to_mesh`` -> its losses."""
+    from kubetpu_torch.jobs import train as ttrain
+    from kubetpu_torch.jobs.convert import shard_params
+    from kubetpu_torch.jobs.data import prefetch_to_mesh
+
+    cfg = _cfg(case["cfg"])
+    mesh = _mesh(case["mesh"], device)
+    opt = ttrain.make_optimizer(**case.get("opt", {}))
+    state = ttrain.state_from_params(
+        shard_params(case["params"], cfg, mesh, device=device), opt)
+    step = ttrain.make_train_step(cfg, opt, attention=case["attention"],
+                                  device=device, mesh=mesh)
+    losses = []
+    for tokens, targets in prefetch_to_mesh(iter(case["batches"]), mesh,
+                                            device=device):
+        state, loss = step(state, tokens, targets)
+        losses.append(float(loss))
+    return losses
+
+
+def moe_ep(payload):
+    """The expert-axis cases: the sharded steps (``train``), the
+    pipelined ones (``pipeline``), ``prefetch_to_mesh``'s blocks and the
+    step it feeds."""
+    return {"train": train(dict(payload, cases=payload["train"])),
+            "pipeline": pipeline(dict(payload, cases=payload["pipeline"])),
+            "prefetch": [_prefetch(c) for c in payload["prefetch"]],
+            "prefetched_step": _prefetched_step(payload["prefetched_step"])}
+
+
+def lora_train(payload):
+    """The sharded LoRA step from the payload's base and adapter: each
+    step's loss, the adapter gathered whole after the steps, and the
+    gradient ``lora_grad_sync`` hands the optimizer at the first batch
+    (gathered) with its global norm."""
+    import torch
+
+    from kubetpu_torch.jobs import collectives as col
+    from kubetpu_torch.jobs import lora as tlora
+    from kubetpu_torch.jobs import train as ttrain
+    from kubetpu_torch.jobs.convert import lora_from_numpy, shard_params
+
+    cfg = _cfg(payload["cfg"])
+    lcfg = tlora.LoraConfig(**payload["lcfg"])
+    mesh = _mesh(payload["mesh"])
+    base = shard_params(payload["params"], cfg, mesh, device="cpu")
+    lora = tlora.shard_lora(lora_from_numpy(payload["lora"], device="cpu"),
+                            mesh)
+    for v in lora["blocks"].values():
+        v.requires_grad_(True)
+    opt = ttrain.make_optimizer(**payload.get("opt", {}))
+    state = ttrain.TrainState(lora, opt.init(ttrain._trained_leaves(lora)))
+
+    def whole(tree):
+        out = {}
+        for k, v in tree["blocks"].items():
+            spec = tlora._leaf_spec(k)
+            t = v.detach()
+            if "tp" in spec:
+                t = col.all_gather(t, col.group_of(mesh, "tp"), "gather",
+                                   spec.index("tp"))
+            out[k] = t.float().numpy()
+        return {"blocks": out}
+
+    attn = ttrain._resolve_attention(payload["attention"], cfg.window, mesh)
+    mesh_loss = ttrain._mesh_loss_fn(cfg, attn, col.groups_of(mesh))
+    sync = tlora.lora_grad_sync(lora, mesh)
+    tokens, targets = (torch.as_tensor(x).long()
+                       for x in payload["batches"][0])
+    leaves = ttrain._trained_leaves(lora)
+    grads = sync.reduce(list(torch.autograd.grad(mesh_loss(
+        tlora._merged_view(base, lora, lcfg), tokens, targets), leaves)))
+    norm = float(torch.sqrt(sync.sq_norm(grads)))
+    probe = whole({"blocks": dict(zip(sorted(lora["blocks"]), grads))})
+    step = tlora.make_lora_train_step(cfg, lcfg, opt,
+                                      attention=payload["attention"],
+                                      device="cpu", mesh=mesh)
+    before = _flash_counts()
+    losses = []
+    for batch in payload["batches"]:
+        state, loss = step(state, base, *batch)
+        losses.append(float(loss))
+    return {"losses": losses, "lora": whole(state.params),
+            "probe": {"grads": probe, "norm": norm},
+            "launches": {k: n - before[k] for k, n in
+                         _flash_counts().items()}}
+
+
 def meshes(payload):
     """Each mesh spec built over the world: its rank grid, axis names, and
     this rank's sub-group of every axis (global ranks)."""
