@@ -260,16 +260,29 @@ Phases, one line each, any failure exits non-zero:
 34. mesh_train (after phase 31): the flagship at max_seq 4096 trained on a
    {dp 2, sp 2, tp 2} world of 8 spawned ranks sharing the card (gloo; the
    hops' CUDA tensors staged through pinned host memory),
-   ``attention="ring_flash"``, batch 4 x 4096, remat, AdamW, three steps,
-   against the one-card flash step on the same weights and batch (its own
-   process, first). Gates and readings in ``phase_mesh_train``'s
+   ``attention="ring_flash"``, batch 4 x 4096, remat, AdamW, two steps,
+   against the one-card flash step on the same weights and batch (world
+   rank 0, first). Gates and readings in ``phase_mesh_train``'s
    docstring: step 1's loss within ``MESH_LOSS_TOL`` and the planted fault
    beyond it, each rank's flash launches a step, the flash ring against
    the dense ring on every rank; step ms, bytes a step by axis and staged,
    peak memory a rank and the card's total, the weights' gap after step 1;
-35. mesh_axes: the other legs of ``dryrun_multichip`` in one 8-rank world
-   at a small f32 width, then ``run_gang_worker`` on 2 ranks
+   then the sharded checkpoint (``mesh_checkpoint`` line): the state saved
+   by the world, restored onto {dp 4, tp 2} into a state drawn leaf by
+   leaf, one step against the one-card restore of the same file (a
+   process after the world); save and restore s and GB/s, a rank's peak
+   while it draws its shard and what the restore adds;
+35. mesh_axes: the other legs of ``dryrun_multichip`` in phase 34's
+   8-rank world at a small f32 width, then ``run_gang_worker`` on 2 ranks
    (``phase_mesh_axes``'s docstring);
+36. mesh_serve: the four flagship servers over {dp 2, tp 4} (four of
+   phase 6's requests), each rank's shard drawn leaf by leaf (``mesh_serve_build``: its peak against the
+   shard plus one leaf), against the one-card servers
+   (``phase_mesh_serve``'s docstring);
+37. mesh_families: the encoder, ViT-B/16, seq2seq, beam 4 and the
+   distillation of a quarter draft, each on its mesh in phase 36's 8-rank
+   world (after its servers) at full widths and 2 layers, against the
+   one-card runs on its rank 0 (``phase_mesh_families``'s docstring);
 14. the ``kernels`` JSON line, 17 kernels (launches: the paged split,
    combine and wgmma chunk kernels' — dense and int8 instances — over
    phases 6, 8, 9, 12, 15, 16, 17, 19, 20, 21, 26, 27 and 28, the SIMT
@@ -280,15 +293,19 @@ Phases, one line each, any failure exits non-zero:
    from phase 30's timed steps and no-grad calls; and the three at the
    flash ring's per-step shape, B=2, S=2048, H=8, D=128, timed in phase 4
    (``ring_step`` non-causal, ``ring_diag`` causal), launches from phase
-   34's three steps on all 8 ranks), the script's wall time, then the
-   result line.
+   34's steps on all 8 ranks; the split and the wgmma chunk at a tp-4
+   rank's heads, launches from phase 36; the three flash kernels at a
+   meshed rank's shapes in phase 37, the encoder's, ViT's and the
+   distillation target's), the script's wall time, then the result
+   line.
 
 Nothing of JAX or of the ``kubetpu`` package is imported. ``--record PATH``
 also writes every measured number as one JSON file. ``--phases 29-33``
 runs phases 1, 2 and 4, then only the other families (29, 33, 30, 31, and
 32 on a random-weight flagship with ``SyntheticCorpus`` prompts) in a few
-minutes, and prints no ``kernels`` line. ``--phases 34-35`` runs phases 1,
-2 and 4, then 34 and 35, and prints their three ``kernels`` entries.
+minutes, and prints no ``kernels`` line. ``--phases 34-37`` runs phases 1,
+2 and 4 (and phase 3's tp-4 cases), then 34, 35, 36 and 37, and prints
+their ``kernels`` entries.
 """
 
 from __future__ import annotations
@@ -579,7 +596,7 @@ def _tp4_cases() -> list:
     """Phase 36's shapes at a tp-4 rank of the flagship (16 heads over tp
     4: H = H_kv = 4 a rank): the decode step over phase 3's ragged 8085
     keys and the T=256 chunk at 768, drawn from their own generator so
-    that ``--phases 34-36`` runs them on the same data."""
+    that ``--phases 34-37`` runs them on the same data."""
     gen = torch.Generator(device="cuda").manual_seed(1236)
     ragged = [2048, 1717, 1403, 1111, 877, 530, 301, 96]
     return [("decode_bf16_tp4", _paged_case(gen, ragged, 1, 0, False,
@@ -806,6 +823,14 @@ VIT_FLASH_SHAPE = dict(B=128, S=196, H=12, D=64)
 # S_local = 4096 / sp, H = 16 / tp; the diagonal step is causal, each
 # visiting block's step non-causal
 RING_FLASH_SHAPE = dict(B=2, S=2048, H=8, D=128)
+# a meshed rank's shapes in phase 37: the encoder on {dp 2, sp 2, tp 2}
+# runs the whole sequence at B = 4 / dp and H = 16 / tp, RING_FLASH_SHAPE
+# non-causal (the ring_step case); ViT-B/16 on {dp 4, tp 2} at B = 128 /
+# dp and H = 12 / tp
+VIT_MESH_FLASH_SHAPE = dict(B=32, S=196, H=6, D=64)
+# and the distillation target's causal calls on {dp 4, tp 2}: B = 4 / dp,
+# H = 16 / tp (its quarter draft's run at H = 4 / tp beside them)
+DISTILL_MESH_FLASH_SHAPE = dict(B=1, S=2048, H=8, D=128)
 
 
 def _visible_pairs(s: int, causal: bool, window: int) -> int:
@@ -872,7 +897,9 @@ FLASH_CASES = (("causal", True, 0, FLASH_SHAPE),
                ("noncausal", False, 0, FLASH_SHAPE),
                ("vit_noncausal", False, 0, VIT_FLASH_SHAPE),
                ("ring_diag", True, 0, RING_FLASH_SHAPE),
-               ("ring_step", False, 0, RING_FLASH_SHAPE))
+               ("ring_step", False, 0, RING_FLASH_SHAPE),
+               ("vit_mesh_noncausal", False, 0, VIT_MESH_FLASH_SHAPE),
+               ("mesh_distill_causal", True, 0, DISTILL_MESH_FLASH_SHAPE))
 
 
 def _err_ok(x, ref, tol):
@@ -4437,8 +4464,8 @@ def phase_moe_train(smi) -> dict:
 LIFE_DIR = os.path.join(ROOT, "build", "chip_smoke")   # git-ignored
 CORPUS_BYTES = 64 << 20     # at least 64 MB of text
 LIFE_BATCH, LIFE_SEQ = 4, 2048
-LIFE_STEPS = 200            # phase 25's training steps
-LIFE_SAVE_AT = 100          # the checkpoints, mid-run
+LIFE_STEPS = 120            # phase 25's training steps (200 until phase
+LIFE_SAVE_AT = 60           # 37 came); the checkpoints, mid-run
 LIFE_RESUMED = 3            # steps compared after the restore
 RESUME_TOL = 1e-4           # relative, the resumed losses
 DISTILL_STEPS = 200
@@ -5762,6 +5789,19 @@ def phase_seq2seq(smi: str) -> dict:
     return row
 
 
+def _unreordered(real_one, held: dict):
+    """Beam search's planted fault: ``beam._forward_one`` forwarding each
+    step through the caches as the last step left them (kept in *held*),
+    not as the parent gather reordered them."""
+    def forward(cfg_, params_, token, k_cache, v_cache, pos, **kw):
+        k_cache, v_cache = held.get("kv", (k_cache, v_cache))
+        out = real_one(cfg_, params_, token, k_cache, v_cache, pos, **kw)
+        held["kv"] = out[1:]
+        return out
+
+    return forward
+
+
 def _teacher_forced_scores(model, cfg, seqs, s_p, eos_id, alpha) -> list:
     """Each row's sum of generated-token log-probs from one forward over
     the whole sequence (f32 head), up to and including its first EOS,
@@ -5844,14 +5884,7 @@ def phase_beam(model, cfg, files, smi: str,
     # the planted fault: each step forwards through the caches as the last
     # step left them, not as the parent gather reordered them
     real_one, held = beam._forward_one, {}
-
-    def unreordered(cfg_, params_, token, k_cache, v_cache, pos):
-        k_cache, v_cache = held.get("kv", (k_cache, v_cache))
-        out = real_one(cfg_, params_, token, k_cache, v_cache, pos)
-        held["kv"] = out[1:]
-        return out
-
-    beam._forward_one = unreordered
+    beam._forward_one = _unreordered(real_one, held)
     try:
         seqs, scores = beam.make_beam_search(cfg, BEAM_K, device="cuda")(
             model, prompts, BEAM_STEPS)
@@ -5953,8 +5986,15 @@ def phase_beam(model, cfg, files, smi: str,
 
 MESH_AXES = {"dp": 2, "sp": 2, "tp": 2}     # dryrun_multichip's mesh at n=8
 MESH_BATCH, MESH_SEQ = 4, 4096              # bench_model.py's flagship shape
-MESH_STEPS = 3
+MESH_STEPS = 2
 MESH_SEED = 34
+# the sharded checkpoint's restore layout (phase 34): the same 8 ranks as
+# {dp 4, tp 2}, the flash core (no sp ring)
+MESH_RESTORE_AXES = {"dp": 4, "tp": 2}
+# a rank's device memory while it builds its shard (drawn leaf by leaf, or
+# restored into): at most the bytes built plus one whole leaf, plus this
+# share for the allocator's rounding
+BUILD_PEAK_SLACK = 0.1
 # |loss of the 8-rank ring_flash step - the one-card flash step's|, in
 # nats, at step 1 (the forward) and at step 2 (after one update): bf16
 # rounds the tp partial sums and the ring's merges in other places than
@@ -6061,8 +6101,9 @@ def _run_world(target, world: int, args, tag: str,
 
 
 def _mesh_ref_rank(_rank, _world, args):
-    """The one-card reference: phase 34's weights and batch, the flash
-    step; the weights after step 1 saved for the world to compare."""
+    """The one-card reference (on world rank 0): phase 34's weights and
+    batch, the flash step; the weights after step 1 saved for the world
+    to compare."""
     from kubetpu_torch.jobs import train as train_lib
     from kubetpu_torch.jobs.model import init_params
 
@@ -6149,6 +6190,123 @@ def _step_gaps(params, init, after1, ref_sd, cfg, mesh):
     return gap, upd
 
 
+def _largest_leaf_bytes(cfg) -> int:
+    from kubetpu_torch.jobs.model import Transformer
+
+    return max(p.numel() * p.element_size()
+               for p in Transformer(cfg, torch.device("meta")).parameters())
+
+
+def _tensor_bytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _mesh_save(state, path: str) -> dict:
+    """Phase 34's sharded save of the stepped {dp 2, sp 2, tp 2} state:
+    every rank gathers to the writer, which writes; seconds on this
+    rank's clock and the file's bytes."""
+    import torch.distributed as dist
+
+    from kubetpu_torch.jobs import checkpoint as ckpt
+
+    torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.perf_counter()
+    ckpt.save_checkpoint(path, state)
+    save_s = time.perf_counter() - t0
+    return {"save_s": save_s, "file_bytes": os.path.getsize(
+        os.path.join(path, ckpt.STATE_FILE))}
+
+
+def _mesh_restore_leg(cfg, batch, path: str) -> dict:
+    """Phase 34's restore onto MESH_RESTORE_AXES: a fresh shard drawn
+    leaf by leaf there (``train.init_shard``: its peak over what was
+    allocated before, read before the optimizer state exists, against the
+    shard's bytes plus one whole leaf), a state over it, the checkpoint
+    restored into that (seconds, the peak it adds over the state it
+    fills), one flash step's loss; then the planted
+    fault, every rank restoring tp rank 0's slices (the behaviour before
+    the sharded save: each rank wrote its own slices to one path), and
+    the loss at those weights."""
+    import torch.distributed as dist
+
+    from kubetpu_torch.jobs import checkpoint as ckpt
+    from kubetpu_torch.jobs import train as train_lib
+    from kubetpu_torch.jobs.meshjob import make_mesh
+
+    mesh = make_mesh(MESH_RESTORE_AXES, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    shard = train_lib.init_shard(
+        torch.Generator(device="cuda").manual_seed(MESH_SEED + 1), cfg, mesh,
+        "cuda")
+    torch.cuda.synchronize()
+    init_peak = torch.cuda.max_memory_allocated() - base
+    opt = train_lib.make_optimizer()
+    state = train_lib.state_from_params(shard, opt)
+    del shard
+    state_bytes = _tensor_bytes(ckpt._leaves(state))
+    dist.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    ckpt.restore_checkpoint(path, state)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    restore_peak = torch.cuda.max_memory_allocated() - base
+    restore_extra = torch.cuda.max_memory_allocated() - held
+    dist.barrier()
+    restore_wall = time.perf_counter() - t0
+    restored_step = state.step
+    step = train_lib.make_train_step(cfg, opt, attention="flash",
+                                     device="cuda", mesh=mesh)
+    _, loss = step(state, *batch)
+    loss = float(loss)
+    sound = train_lib._region
+    train_lib._region = lambda shape, spec, m, coords=None: sound(
+        shape, spec, m, {})
+    try:
+        ckpt.restore_checkpoint(path, state)
+    finally:
+        train_lib._region = sound
+    # the fault's reading: the loss at the restored weights (the step's
+    # forward alone)
+    fault = train_lib.make_eval_step(cfg, "flash", "cuda", mesh)(
+        state.params, *batch)
+    return {"restore_s": restore_s, "restore_wall_s": restore_wall,
+            "loss": loss, "fault_loss": float(fault),
+            "restored_step": restored_step,
+            "init_peak_gb": init_peak / 1e9,
+            "restore_peak_gb": restore_peak / 1e9,
+            "restore_extra_gb": restore_extra / 1e9,
+            "state_gb": state_bytes / 1e9,
+            "shard_gb": _tensor_bytes(state.params.parameters()) / 1e9,
+            "largest_leaf_gb": _largest_leaf_bytes(cfg) / 1e9}
+
+
+def _one_card_restore(path: str) -> dict:
+    """The one-card reference of phase 34's restore (world rank 0, the
+    other ranks waiting): the sharded file restored into a one-card
+    state, one flash step on the same batch."""
+    from kubetpu_torch.jobs import checkpoint as ckpt
+    from kubetpu_torch.jobs import train as train_lib
+
+    cfg = _mesh_train_cfg()
+    state, opt = train_lib.init_state(
+        torch.Generator(device="cuda").manual_seed(MESH_SEED + 1), cfg,
+        device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ckpt.restore_checkpoint(path, state)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    step = train_lib.make_train_step(cfg, opt, attention="flash",
+                                     device="cuda")
+    _, loss = step(state, *_mesh_batch(cfg))
+    return {"loss": float(loss), "restore_s": restore_s}
+
+
 def _sync_without_sp(sound):
     """The planted backward fault: ``train.grad_sync`` whose gradients are
     not summed over sp (each sp rank updates with its own tokens' part)."""
@@ -6163,15 +6321,21 @@ def _sync_without_sp(sound):
 
 def _mesh_train_rank(rank, world, args):
     """Phase 34 on one rank: the ring check (and its planted fault), the
-    planted RoPE fault's loss, the three main-path steps (counts zeroed
-    just before, read just after), the weights after step 1 against the
-    reference's; then two steps with the planted backward fault."""
+    planted RoPE fault's loss, the main-path steps (counts zeroed just
+    before, read just after), the weights after step 1 against the
+    reference's; the sharded save and the restore onto another layout;
+    one step with the planted backward fault and the loss at its weights;
+    on rank 0, the one-card restore of the same file."""
     import torch.distributed as dist
 
     from kubetpu_torch.jobs import collectives as col
     from kubetpu_torch.jobs import train as train_lib
     from kubetpu_torch.jobs.meshjob import make_mesh
 
+    # the one-card reference first, on rank 0 (the others wait)
+    ref = _mesh_ref_rank(rank, 1, args) if rank == 0 else None
+    torch.cuda.empty_cache()
+    dist.barrier()
     cfg = _mesh_train_cfg()
     mesh = make_mesh(MESH_AXES, device="cuda")
     sp_idx = col.axis_index(mesh, "sp")
@@ -6226,10 +6390,16 @@ def _mesh_train_rank(rank, world, args):
     dist.barrier()
     ref_sd = torch.load(args["ref_path"], mmap=True)
     gap, upd = _step_gaps(state.params, init, after1, ref_sd, cfg, mesh)
-    # the planted backward fault, from the same weights: two steps whose
-    # gradients are not summed over sp
+    # the sharded checkpoint: save this state, restore it onto another
+    # layout
+    ckpt = _mesh_save(state, args["ckpt_path"])
     del state, step, init, after1
     torch.cuda.empty_cache()
+    ckpt.update(_mesh_restore_leg(cfg, batch, args["ckpt_path"]))
+    torch.cuda.empty_cache()
+    # the planted backward fault, from the same weights: one step whose
+    # gradients are not summed over sp, then step 2's loss at its weights
+    # (the eval step: the forward that step 2 would run first)
     fstate, fopt = train_lib.init_state(
         torch.Generator(device="cuda").manual_seed(MESH_SEED), cfg,
         device="cuda", mesh=mesh)
@@ -6240,10 +6410,17 @@ def _mesh_train_rank(rank, world, args):
                                       device="cuda", mesh=mesh)
     train_lib.grad_sync = sound_sync
     fstate, _ = fstep(fstate, *batch)
-    fafter1 = [p.detach().clone() for p in fstate.params.parameters()]
-    fstate, floss2 = fstep(fstate, *batch)
-    fgap, fupd = _step_gaps(fstate.params, finit, fafter1, ref_sd, cfg,
-                            mesh)
+    fgap, fupd = _step_gaps(fstate.params, finit,
+                            [p.detach() for p in fstate.params.parameters()],
+                            ref_sd, cfg, mesh)
+    floss2 = float(train_lib.make_eval_step(cfg, "ring_flash", "cuda", mesh)(
+        fstate.params, *batch))
+    del fstate, fstep, finit
+    torch.cuda.empty_cache()
+    dist.barrier()
+    ckpt["one_card"] = (_one_card_restore(args["ckpt_path"]) if rank == 0
+                        else None)
+    dist.barrier()
     expected = (2 * cfg.n_layers * (1 + sp_idx), cfg.n_layers * (1 + sp_idx),
                 cfg.n_layers * (1 + sp_idx)) * 2
     return {"losses": losses, "step_ms": ms, "fault_loss": fault,
@@ -6252,38 +6429,66 @@ def _mesh_train_rank(rank, world, args):
             "expected_per_step": list(expected), "launches": list(counts),
             "axis_bytes": axis, "staged_bytes": staged, "peak_mem_gb": peak,
             "nvidia_smi_mem": smi_mem, "param_gap": gap, "update_gap": upd,
-            "bwd_fault_loss2": float(floss2), "bwd_fault_param_gap": fgap,
+            "bwd_fault_loss2": floss2, "bwd_fault_param_gap": fgap,
             "bwd_fault_update_gap": fupd,
             "sp_index": sp_idx, "tp_index": col.axis_index(mesh, "tp"),
-            "dp_index": col.axis_index(mesh, "dp")}
+            "dp_index": col.axis_index(mesh, "dp"), "checkpoint": ckpt,
+            "ref": ref}
 
 
-def phase_mesh_train(smi: str) -> dict:
-    """Phase 34: the flagship at full width trained three steps on a
+def _mesh_train_axes_rank(rank, world, args):
+    """Phases 34 and 35 on one rank of one world: phase 34's legs, then
+    phase 35's (``_mesh_axes_rank``)."""
+    out = _mesh_train_rank(rank, world, args)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["axes"], out["axes_wall_s"] = _timed(_mesh_axes_rank, rank, world,
+                                             args)
+    return out
+
+
+def phase_mesh_train(smi: str):
+    """Phase 34: the flagship at full width trained two steps on a
     {dp 2, sp 2, tp 2} world of 8 ranks sharing the card,
     ``attention="ring_flash"`` (the flash kernels in every ring step),
     batch 4 x 4096, against the one-card flash step on the same weights
-    and batch (its own process, before the world). Gates: step 1's loss
+    and batch (world rank 0, before the others start). Gates: step 1's loss
     within ``MESH_LOSS_TOL`` of the reference's, the planted fault (RoPE
     positions not offset by the sp rank) beyond it; step 2's loss within
     ``MESH_LOSS_TOL``, and the weights after step 1 and their change over
     it within ``MESH_PARAM_GAP_TOL`` and ``MESH_UPDATE_GAP_TOL`` of the
-    reference's, the planted backward fault (gradients not summed over sp)
-    beyond all three; every rank's flash launches a step as its ring
+    reference's, the planted backward fault (gradients not summed over sp;
+    one step, then step 2's loss at its weights by the eval step) beyond
+    all three; every rank's flash launches a step as its ring
     position says (2 x 12 x (1 + sp index) forward under remat,
     12 x (1 + sp index) dQ and dK/dV), all on the wgmma instances; the
     flash ring against the dense ring on every rank at the step's kernel
     shape within ``MESH_RING_TOL``, the ring that drops its last visiting
-    block beyond it; one loss on every rank, finite."""
+    block beyond it; one loss on every rank, finite. Then the sharded
+    checkpoint (the ``mesh_checkpoint`` line): the stepped state saved
+    (gathered to one writer), restored in the same world onto
+    ``MESH_RESTORE_AXES`` into a state drawn leaf by leaf there, one flash
+    step: its loss within ``MESH_LOSS_TOL`` of the one-card step restored
+    from the same file (world rank 0, after every rank's legs), every
+    rank restoring tp rank 0's slices beyond it (read by the eval step);
+    each rank's peak while it drew its shard (``train.init_shard``, before
+    the optimizer state exists) at most the shard's bytes plus one whole
+    leaf, and what the restore added over the state it fills at most one
+    whole leaf (``BUILD_PEAK_SLACK`` above each); save and restore seconds
+    and GB/s."""
     cfg = _mesh_train_cfg()
     ref_path = os.path.join(LIFE_DIR, "mesh_ref.pt")
+    ckpt_path = os.path.join(LIFE_DIR, "mesh_ckpt")
     os.makedirs(LIFE_DIR, exist_ok=True)
     t0 = time.perf_counter()
-    (ref,) = _run_world(_mesh_ref_rank, 1, {"ref_path": ref_path},
-                        "mesh_train_ref")
-    ranks = _run_world(_mesh_train_rank, 8, {"ref_path": ref_path},
+    ranks = _run_world(_mesh_train_axes_rank, 8, {"ref_path": ref_path,
+                                                  "ckpt_path": ckpt_path},
                        "mesh_train")
+    axes = {"ranks": [r.pop("axes") for r in ranks],
+            "wall_s": ranks[0]["axes_wall_s"]}
+    ref = ranks[0]["ref"]
     os.remove(ref_path)
+    shutil.rmtree(ckpt_path, ignore_errors=True)
     wall = time.perf_counter() - t0
     r0 = ranks[0]
     bad = []
@@ -6328,10 +6533,52 @@ def phase_mesh_train(smi: str) -> dict:
     if not ring_fault > MESH_RING_TOL:
         bad.append(f"the ring without its last visiting block reads "
                    f"{ring_fault}, within {MESH_RING_TOL}")
+    ck = [r["checkpoint"] for r in ranks]
+    ckpt_ref = ck[0]["one_card"]
+    restore_gap = max(abs(c["loss"] - ckpt_ref["loss"]) for c in ck)
+    restore_fault_gap = min(abs(c["fault_loss"] - ckpt_ref["loss"])
+                            for c in ck)
+    if not restore_gap <= MESH_LOSS_TOL:
+        bad.append(f"the step after the restore onto {MESH_RESTORE_AXES}: "
+                   f"loss gap {restore_gap} to the one-card restore's")
+    if not restore_fault_gap > MESH_LOSS_TOL:
+        bad.append(f"every rank restoring one rank's slices reads "
+                   f"{restore_fault_gap}, within {MESH_LOSS_TOL}")
+    if any(c["restored_step"] != MESH_STEPS for c in ck):
+        bad.append("the restored step count is not the saved one")
+    for rank, c in enumerate(ck):
+        limit = (1 + BUILD_PEAK_SLACK) * (c["shard_gb"]
+                                          + c["largest_leaf_gb"])
+        if not c["init_peak_gb"] <= limit:
+            bad.append(f"rank {rank}: drawing its shard peaked at "
+                       f"{c['init_peak_gb']} GB, over {limit}")
+        limit = (1 + BUILD_PEAK_SLACK) * c["largest_leaf_gb"]
+        if not c["restore_extra_gb"] <= limit:
+            bad.append(f"rank {rank}: restoring into its state added "
+                       f"{c['restore_extra_gb']} GB, over {limit}")
+    save_s = max(c["save_s"] for c in ck)
+    restore_s = max(c["restore_wall_s"] for c in ck)
+    file_gb = ck[0]["file_bytes"] / 1e9
+    checkpoint = dict(
+        file_gb=file_gb, save_s=save_s, save_gb_s=file_gb / save_s,
+        restore_s=restore_s, restore_gb_s=file_gb / restore_s,
+        restore_rank_s=[c["restore_s"] for c in ck],
+        one_card_restore_s=ckpt_ref["restore_s"],
+        restore_axes=MESH_RESTORE_AXES, loss=ck[0]["loss"],
+        one_card_loss=ckpt_ref["loss"], loss_gap=restore_gap,
+        fault_loss=ck[0]["fault_loss"], fault_gap=restore_fault_gap,
+        state_gb_rank=ck[0]["state_gb"], shard_gb_rank=ck[0]["shard_gb"],
+        largest_leaf_gb=ck[0]["largest_leaf_gb"],
+        init_peak_gb_rank_max=max(c["init_peak_gb"] for c in ck),
+        restore_peak_gb_rank_max=max(c["restore_peak_gb"] for c in ck),
+        restore_extra_gb_rank_max=max(c["restore_extra_gb"] for c in ck))
+    line("mesh_checkpoint", card=torch.cuda.get_device_name(0),
+         nvidia_smi=smi, **checkpoint)
     launches = [sum(r["launches"][i] for r in ranks) for i in range(3)]
     row = dict(
         card=torch.cuda.get_device_name(0), nvidia_smi=smi,
         setting="8 ranks time-sharing one card; gloo, host-staged",
+        checkpoint=checkpoint,
         mesh=MESH_AXES, batch=MESH_BATCH, seq=MESH_SEQ, layers=cfg.n_layers,
         attention="ring_flash", remat="full",
         losses=r0["losses"], ref_losses=ref["losses"], loss_gap=gap,
@@ -6363,7 +6610,7 @@ def phase_mesh_train(smi: str) -> dict:
     line("mesh_train", **row)
     if bad:
         raise SystemExit("mesh_train: " + "; ".join(bad))
-    return row
+    return row, axes
 
 
 SMALL_MESH_KW = dict(vocab=512, d_model=256, n_layers=4, n_heads=4,
@@ -6702,7 +6949,7 @@ def _gang_rank(rank, world, args):
                                         [0]), "gloo", local_rank=0, seed=0)
 
 
-def phase_mesh_axes(smi: str) -> dict:
+def phase_mesh_axes(smi: str, axes: dict) -> dict:
     """Phase 35: the other legs of ``dryrun_multichip`` in one 8-rank world
     at a small f32 width (vocab 512, d 256, 4 layers, 4 heads, batch
     4 x 256): the dense and the flash ring step on {dp 2, sp 2, tp 2}
@@ -6720,11 +6967,12 @@ def phase_mesh_axes(smi: str) -> dict:
     tp 2} with ``ring_flash`` (``_lora_leg``), each against the one-card
     step, its loss and each weight's change as the pipeline's; then
     ``run_gang_worker`` on 2 ranks joined through a tcp coordinator.
-    Losses within ``SMALL_MESH_TOL`` relative."""
+    Losses within ``SMALL_MESH_TOL`` relative. The 8-rank legs run in
+    phase 34's world, after its legs (``phase_mesh_train``'s *axes*)."""
     import socket
 
     t0 = time.perf_counter()
-    ranks = _run_world(_mesh_axes_rank, 8, {}, "mesh_axes")
+    ranks = axes["ranks"]
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
@@ -6804,7 +7052,7 @@ def phase_mesh_axes(smi: str) -> dict:
                five_axis_update_gap_steps=r0["five_axis_update_gap"],
                lora=r0["lora"], ref_lora=r0["ref_lora"],
                lora_update_gap_steps=r0["lora_update_gap"],
-               wall_s=time.perf_counter() - t0, ok=not bad)
+               wall_s=axes["wall_s"] + time.perf_counter() - t0, ok=not bad)
     line("mesh_axes", **row)
     if bad:
         raise SystemExit("mesh_axes: " + "; ".join(bad))
@@ -6819,6 +7067,8 @@ SERVE_MESH_AXES = {"dp": 2, "tp": 4}
 SERVE_MESH_KINDS = ("paged", "dense", "spec", "lora")
 SERVE_MESH_TENANTS = (0, 9)            # two of phase 17's rank-8 adapters
 SERVE_MESH_NEW = 8                     # new tokens a request (phase 6: 32)
+# requests: the first of phase 6's prompts (its 8 until phase 37 came)
+SERVE_MESH_PROMPTS = 4
 SERVE_FAULT_PROMPTS = 3                # the planted fault's requests
 GEN_MESH_STEPS = 8
 
@@ -6831,9 +7081,17 @@ def _serve_cfg():
                                  dtype=torch.bfloat16)
 
 
-def _serve_models() -> dict:
-    """Phase 6's flagship (seed 0), phase 16's quarter draft (seed 7) and
-    two of phase 17's rank-8 adapters, all on the card."""
+# phase 36's prediction of a rank's peak while it builds its tp-4 shard
+# (PERF.md §6): the shard (0.47 GB) plus the largest leaf (0.13 GB); the
+# peak a rank read 4.77-5.47 GB when every rank drew the whole model
+MESH_BUILD_PREDICTED_GB = 0.60
+WHOLE_MODEL_SERVE_PEAK_GB = (4.77, 5.47)
+
+
+def _serve_models(model=None) -> dict:
+    """Phase 6's flagship (seed 0; *model*, its shard, where the caller
+    built it), phase 16's quarter draft (seed 7) and two of phase 17's
+    rank-8 adapters, all on the card."""
     from kubetpu_torch.jobs import model as model_lib
     from kubetpu_torch.jobs.lora import LoraConfig
 
@@ -6848,7 +7106,8 @@ def _serve_models() -> dict:
             torch.Generator(device="cuda").manual_seed(seed), c,
             device="cuda")
 
-    return dict(cfg=cfg, model=init(cfg, 0), qcfg=qcfg, quarter=init(qcfg, 7),
+    return dict(cfg=cfg, model=init(cfg, 0) if model is None else model,
+                qcfg=qcfg, quarter=init(qcfg, 7),
                 lcfg=lcfg,
                 ads=_tenant_adapters(cfg, lcfg, SERVE_MESH_TENANTS))
 
@@ -7017,18 +7276,33 @@ def _host_mem_gb() -> dict:
             "available_gb": field("/proc/meminfo", "MemAvailable:")}
 
 
-def _mesh_serve_rank(rank, world, args):
-    """Phase 36 on one rank (*world* 1: the one-card reference, with the
-    top-2 logits the near-tie rule reads): the four servers' lifecycles,
-    the planted fault (meshed only), the generate legs, peak memory."""
+def _mesh_serve_leg(rank, mesh):
+    """Phase 36's servers on one rank (*mesh* None: the one-card
+    reference, with the top-2 logits the near-tie rule reads): the four
+    servers' lifecycles, the planted fault (meshed only), the generate
+    legs, peak memory."""
     import torch.distributed as dist
 
     from kubetpu_torch.jobs import decode, paged
-    from kubetpu_torch.jobs.meshjob import make_mesh
 
-    mesh = make_mesh(SERVE_MESH_AXES, device="cuda") if world > 1 else None
-    m = _serve_models()
-    prompts = _serve_prompts(m["cfg"])
+    shard, build = None, None
+    if mesh is not None:
+        # the rank's shard drawn leaf by leaf (seed 0, as the one card's
+        # whole model): never the whole model on a rank
+        from kubetpu_torch.jobs import train as train_lib
+
+        cfg = _serve_cfg()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        shard = train_lib.init_shard(
+            torch.Generator(device="cuda").manual_seed(0), cfg, mesh, "cuda")
+        torch.cuda.synchronize()
+        build = dict(peak_gb=(torch.cuda.max_memory_allocated() - base) / 1e9,
+                     shard_gb=_tensor_bytes(shard.parameters()) / 1e9,
+                     largest_leaf_gb=_largest_leaf_bytes(cfg) / 1e9)
+    m = _serve_models(shard)
+    prompts = _serve_prompts(m["cfg"])[:SERVE_MESH_PROMPTS]
     torch.cuda.reset_peak_memory_stats()
     out = {}
     for kind in SERVE_MESH_KINDS:
@@ -7051,6 +7325,7 @@ def _mesh_serve_rank(rank, world, args):
             decode.col = paged.col = sound
     out["generate"] = _generate_legs(mesh)
     out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["build"] = build
     out["host"] = _host_mem_gb()
     if mesh is not None:
         dist.barrier()
@@ -7063,15 +7338,49 @@ def _mesh_serve_rank(rank, world, args):
     return out
 
 
-def phase_mesh_serve(smi: str) -> dict:
+def _timed(fn, *a):
+    t0 = time.perf_counter()
+    out = fn(*a)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, time.perf_counter() - t0
+
+
+def _mesh_serve_rank(rank, world, args):
+    """Phases 36 and 37 on one rank of one world: rank 0 runs the one-card
+    references first (the others wait), then every rank its meshed legs:
+    phase 36's servers, then phase 37's families
+    (``_mesh_families_rank``)."""
+    import torch.distributed as dist
+
+    from kubetpu_torch.jobs.meshjob import make_mesh
+
+    out = {}
+    if rank == 0:
+        out["ref"], out["ref_wall_s"] = _timed(_mesh_serve_leg, rank, None)
+    dist.barrier()
+    serve, out["wall_s"] = _timed(_mesh_serve_leg, rank, make_mesh(
+        SERVE_MESH_AXES, device="cuda"))
+    out.update(serve)
+    if rank == 0:
+        out["families_ref"], out["families_ref_wall_s"] = _timed(
+            _mesh_families_rank, rank, 1, args)
+    dist.barrier()
+    out["families"], out["families_wall_s"] = _timed(
+        _mesh_families_rank, rank, world, args)
+    return out
+
+
+def phase_mesh_serve(smi: str):
     """Phase 36: the servers over {dp 2, tp 4} (``dryrun_multichip``'s
     serving mesh at n = 8 for the flagship) in an 8-rank world sharing the
-    card, against the one-card servers on the same weights, run first in
-    a process of their own. Each of ``PagedDecodeServer``,
+    card, against the one-card servers on the same weights, run first on
+    the world's rank 0. Each of ``PagedDecodeServer``,
     ``DecodeServer`` (slots on dp), the paged speculative server (phase
     16's quarter draft, whole on every rank) and
     ``PagedMultiLoraDecodeServer`` (two rank-8 adapters) runs phase 6's
-    settings and prompts, ``SERVE_MESH_NEW`` new tokens a request, in
+    settings and first ``SERVE_MESH_PROMPTS`` prompts, ``SERVE_MESH_NEW``
+    new tokens a request, in
     ``_dryrun_serving``'s staggered lifecycle.
 
     Gates: every rank emits the same tokens; each server's tokens equal
@@ -7089,14 +7398,28 @@ def phase_mesh_serve(smi: str) -> dict:
     8, returns the one-card call's tokens exactly on every rank. Readings:
     decode tokens/s and step ms of the world and the one card, host syncs
     and collective calls a step, bytes a step by axis, paged launches a
-    rank, peak memory a rank and the card's total."""
+    rank, peak memory a rank and the card's total. Each rank draws its
+    shard of the flagship leaf by leaf (``train.init_shard``, seed 0 as
+    the one card's whole model): its peak while building it (the
+    ``mesh_serve_build`` line, beside the whole-model peak and the
+    prediction) at most the shard plus one whole leaf. The reference
+    process and the world then go on to phase 37's legs
+    (``_mesh_families_rank``) -> (row, their results for
+    ``phase_mesh_families``)."""
     t0 = time.perf_counter()
     host_before = _host_mem_gb()
     line("mesh_serve_start", host=host_before)
-    ref = _run_world(_mesh_serve_rank, 1, {}, "mesh_serve_ref")[0]
-    t_ref = time.perf_counter() - t0
-    ranks = _run_world(_mesh_serve_rank, 8, {}, "mesh_serve")
-    all_prompts = _serve_prompts(_serve_cfg())
+    args = {"dir": LIFE_DIR}
+    os.makedirs(LIFE_DIR, exist_ok=True)
+    ranks = _run_world(_mesh_serve_rank, 8, args, "mesh_serve")
+    ref, t_ref = ranks[0].pop("ref"), ranks[0]["ref_wall_s"]
+    for name in FAM_TRAIN:
+        os.remove(os.path.join(LIFE_DIR, f"fam_{name}.pt"))
+    fam = {"ref": ranks[0].pop("families_ref"),
+           "ranks": [r.pop("families") for r in ranks],
+           "ref_wall_s": ranks[0]["families_ref_wall_s"],
+           "wall_s": ranks[0]["families_wall_s"]}
+    all_prompts = _serve_prompts(_serve_cfg())[:SERVE_MESH_PROMPTS]
     layers = _serve_cfg().n_layers
     bad, rows = [], {}
     r0 = ranks[0]
@@ -7153,6 +7476,18 @@ def phase_mesh_serve(smi: str) -> dict:
         if r["generate"] != ref["generate"]:
             bad.append(f"make_generate rank {rank}: tokens differ from the "
                        f"one card's")
+        b = r["build"]
+        limit = (1 + BUILD_PEAK_SLACK) * (b["shard_gb"] + b["largest_leaf_gb"])
+        if not b["peak_gb"] <= limit:
+            bad.append(f"rank {rank}: building its shard peaked at "
+                       f"{b['peak_gb']} GB, over {limit}")
+    build = dict(peak_gb_rank_max=max(r["build"]["peak_gb"] for r in ranks),
+                 shard_gb=r0["build"]["shard_gb"],
+                 largest_leaf_gb=r0["build"]["largest_leaf_gb"],
+                 predicted_gb=MESH_BUILD_PREDICTED_GB,
+                 whole_model_peak_gb_rank=WHOLE_MODEL_SERVE_PEAK_GB)
+    line("mesh_serve_build", card=torch.cuda.get_device_name(0),
+         nvidia_smi=smi, **build)
     total = {c: sum(r[k]["launches"][c] for r in ranks
                     for k in ("paged", "spec", "lora"))
              for c in _PAGED_COUNTERS}
@@ -7187,6 +7522,7 @@ def phase_mesh_serve(smi: str) -> dict:
                                / max(paged_r0["chunks"], 1)),
         launches_all_ranks=total,
         peak_mem_gb_per_rank=max(r["peak_mem_gb"] for r in ranks),
+        build=build,
         one_card_peak_mem_gb=ref["peak_mem_gb"],
         smi_memory_used_mb=r0["smi_used_mb"],
         host_per_rank=[r["host"] for r in ranks], host_before=host_before,
@@ -7195,7 +7531,489 @@ def phase_mesh_serve(smi: str) -> dict:
     line("mesh_serve", **row)
     if bad:
         raise SystemExit("mesh_serve: " + "; ".join(bad))
+    return row, fam
+
+
+# -- phase 37: the other families over a mesh ---------------------------------
+# One 8-rank world on the card, each family at its full widths with its
+# depth cut to FAM_LAYERS layers, against its one-card step (a process of
+# its own, first) on the same weights: every rank draws its shard from the
+# seed the one card draws the whole model from.
+
+FAM_LAYERS = 2
+FAM_SEED = 37
+FAM_AXES = {"encoder": {"dp": 2, "sp": 2, "tp": 2},
+            "vit": {"dp": 4, "tp": 2},
+            "seq2seq": {"dp": 2, "sp": 2, "tp": 2},
+            "beam": {"dp": 2, "tp": 4},
+            "distill": {"dp": 4, "tp": 2}}
+FAM_TRAIN = ("encoder", "vit", "seq2seq", "distill")
+FAM_ENC_BATCH, FAM_ENC_SEQ = 4, 2048       # phase 29's
+FAM_VIT_BATCH = 128                        # phase 30's
+FAM_S2S_BATCH, FAM_S2S_LEN = 4, 512        # phase 31's 1024 cut to 512
+FAM_BEAM_K, FAM_BEAM_BATCH, FAM_BEAM_PROMPT, FAM_BEAM_STEPS = 4, 4, 128, 8
+FAM_DISTILL_BATCH, FAM_DISTILL_SEQ = 4, 2048
+# |a family's loss - the one card's|, nats, bf16: the masked LM's mean runs
+# over its ~15% masked positions only (1.2k a batch), a noisier mean than
+# phase 34's 16k positions
+FAM_LOSS_TOL = 5e-3
+# |the global gradient norm (GradSync.sq_norm) - the one-card gradient's| /
+# the one card's, bf16: the gradients' partial sums round in other places
+FAM_NORM_TOL = 0.02
+# |beam score - the one card's|, nats over FAM_BEAM_STEPS tokens, f32
+FAM_BEAM_TOL = 1e-2
+
+
+def _fam_cfgs() -> dict:
+    """The families' configs: the flagship (phase 11's, ``_flagship_train
+    _cfg``) for the encoder, seq2seq and the distillation target,
+    ViT-B/16 (``_vit_cfg``), the flagship in f32 for beam search (the
+    dense decode path, no kernel: f32 keeps its gate tight), phase 16's
+    quarter draft; every depth cut to FAM_LAYERS."""
+    from kubetpu_torch.jobs.model import ModelConfig
+
+    flag = dataclasses.replace(_flagship_train_cfg(), n_layers=FAM_LAYERS)
+    vit = _vit_cfg()
+    return dict(
+        flag=flag,
+        vit=dataclasses.replace(vit, model=dataclasses.replace(
+            vit.model, n_layers=FAM_LAYERS)),
+        beam=dataclasses.replace(flag, dtype=torch.float32, remat=False),
+        draft=ModelConfig(vocab=flag.vocab, d_model=512, n_layers=FAM_LAYERS,
+                          n_heads=4, d_ff=1408, max_seq=2048,
+                          dtype=torch.bfloat16))
+
+
+def _fam_batch(c, name):
+    """Family *name*'s batch, the same in every process (seeded)."""
+    from kubetpu_torch.jobs.data import SyntheticCorpus, mlm_batches
+
+    vocab = c["flag"].vocab
+    if name == "encoder":
+        return next(mlm_batches(SyntheticCorpus(vocab, seed=FAM_SEED),
+                                FAM_ENC_BATCH, FAM_ENC_SEQ, seed=FAM_SEED))
+    if name == "vit":
+        vit = c["vit"]
+        gen = torch.Generator().manual_seed(FAM_SEED)
+        return (torch.randn((FAM_VIT_BATCH, vit.image_size, vit.image_size,
+                             vit.channels), generator=gen).numpy(),
+                torch.randint(0, vit.n_classes, (FAM_VIT_BATCH,),
+                              generator=gen).numpy())
+    if name == "seq2seq":
+        src = next(SyntheticCorpus(vocab, seed=FAM_SEED).batches(
+            FAM_S2S_BATCH, FAM_S2S_LEN, seed=FAM_SEED))[0]
+        tgt_in = np.concatenate([np.ones_like(src[:, :1]), src[:, :-1]], 1)
+        return src, tgt_in, src
+    if name == "beam":
+        return next(SyntheticCorpus(vocab, seed=FAM_SEED + 1).batches(
+            FAM_BEAM_BATCH, FAM_BEAM_PROMPT, seed=FAM_SEED + 1))[0]
+    return next(SyntheticCorpus(vocab, seed=FAM_SEED + 2).batches(
+        FAM_DISTILL_BATCH, FAM_DISTILL_SEQ, seed=FAM_SEED + 2))
+
+
+def _fam_gen(offset=0):
+    return torch.Generator(device="cuda").manual_seed(FAM_SEED + offset)
+
+
+def _fam_norm(loss_fn, sync, params, batch) -> float:
+    """The gradient's global norm at *params* on *batch*: summed by the
+    step's ``GradSync`` on a mesh, the plain sum of squares on one
+    card."""
+    leaves = list(params.parameters())
+    grads = list(torch.autograd.grad(loss_fn(params, *batch), leaves))
+    if sync is None:
+        return float(torch.sqrt(sum((g.float() ** 2).sum() for g in grads)))
+    return float(torch.sqrt(sync.sq_norm(sync.reduce(grads))))
+
+
+def _fam_update_gap(params, init, after1, ref_sd, specs, mesh) -> float:
+    """Over this rank's leaves, the largest relative L2 gap of their change
+    over step 1 to the one card's change (its slice of it)."""
+    from kubetpu_torch.jobs import train as train_lib
+
+    upd = 0.0
+    for (name, _p), a, p0 in zip(params.named_parameters(), after1, init):
+        ref = train_lib._take(ref_sd[name], train_lib.local_spec(
+            specs, name), mesh).to("cuda").float()
+        d_ref = ref - p0.float()
+        upd = max(upd, float((a.float() - p0.float() - d_ref).norm()
+                             / d_ref.norm().clamp(min=1e-30)))
+    return upd
+
+
+def _fam_parts(name, c, mesh, target=None):
+    """(init state, step, loss_fn, sync, specs, batch on the card, fault)
+    of a training family on *mesh* (None: one card); *fault* reads the
+    family's planted fault at the initial weights (meshed only)."""
+    from functools import partial
+
+    from kubetpu_torch.jobs import collectives as col
+    from kubetpu_torch.jobs import distill, encoder, seq2seq, vision
+    from kubetpu_torch.jobs import model as model_lib
+    from kubetpu_torch.jobs import train as train_lib
+    from kubetpu_torch.ops.flash_attention import flash_attention
+
+    b = _fam_batch(c, name)
+    flag, opt = c["flag"], train_lib.make_optimizer()
+    bidir = partial(flash_attention, causal=False)
+    if name == "encoder":
+        mask_id = flag.vocab - 1
+        state, _ = train_lib.init_state(_fam_gen(), flag, opt, "cuda",
+                                        mesh=mesh)
+        step = encoder.make_mlm_train_step(flag, mask_id, opt, "flash",
+                                           mesh=mesh, device="cuda")
+        batch = (torch.from_numpy(b[0]).long().cuda(),
+                 torch.from_numpy(b[1]).cuda())
+        specs = train_lib.param_specs(flag)
+        if mesh is None:
+            return state, step, (lambda p, t, m: encoder.masked_lm_loss(
+                p, t, m, mask_id, flag, attn_fn=bidir)), None, specs, \
+                batch, None
+        loss_fn, sync = encoder.mlm_mesh_parts(flag, mask_id, bidir, mesh)
+
+        def fault(params):       # the gradient summed over sp as well
+            return _fam_norm(loss_fn, train_lib.grad_sync(
+                flag, col.groups_of(mesh)), params, batch)
+    elif name == "vit":
+        cfg = c["vit"]
+        state, _ = vision.init_vit_state(_fam_gen(1), cfg, opt, mesh=mesh,
+                                         device="cuda")
+        step = vision.make_vit_train_step(cfg, opt, "flash", mesh=mesh,
+                                          device="cuda")
+        batch = (torch.from_numpy(b[0]).cuda(),
+                 torch.from_numpy(b[1]).long().cuda())
+        specs = vision.vit_param_specs(cfg)
+        if mesh is None:
+            return state, step, (lambda p, x, y: vision.vit_loss(
+                p, x, y, cfg, attn_fn=bidir)), None, specs, batch, None
+        loss_fn, sync = vision.vit_mesh_parts(cfg, bidir, mesh)
+
+        @torch.no_grad()
+        def fault(params):       # wo's and the MLP's partial sums unreduced
+            sound = model_lib.col
+            model_lib.col = _NoWoReduce(sound)
+            try:
+                return float(loss_fn(params, *batch))
+            finally:
+                model_lib.col = sound
+    elif name == "seq2seq":
+        state, _ = seq2seq.init_seq2seq_state(_fam_gen(2), flag, opt,
+                                              mesh=mesh, device="cuda")
+        step = seq2seq.make_seq2seq_train_step(flag, opt, mesh=mesh,
+                                               device="cuda")
+        batch = tuple(torch.from_numpy(x).long().cuda() for x in b)
+        specs = seq2seq.seq2seq_param_specs(flag)
+        if mesh is None:
+            return state, step, (lambda p, s, ti, to: seq2seq.seq2seq_loss(
+                p, s, ti, to, flag)), None, specs, batch, None
+        loss_fn, sync = seq2seq.seq2seq_mesh_parts(flag, mesh)
+
+        def fault(_params):      # the source's other sp blocks never seen
+            sound = seq2seq.make_ring_attention   # by the encoder and the
+            seq2seq.make_ring_attention = (       # cross branch: one step
+                lambda m, impl="dense", causal=True, window=0: sound(
+                    m if causal else None, impl=impl, causal=causal,
+                    window=window))
+            try:
+                fstep = seq2seq.make_seq2seq_train_step(flag, opt, mesh=mesh,
+                                                        device="cuda")
+            finally:
+                seq2seq.make_ring_attention = sound
+            fstate, _ = seq2seq.init_seq2seq_state(_fam_gen(2), flag, opt,
+                                                   mesh=mesh, device="cuda")
+            init = [p.detach().clone() for p in fstate.params.parameters()]
+            fstep(fstate, *batch)
+            return init, [p.detach().clone()
+                          for p in fstate.params.parameters()]
+    else:
+        dcfg = c["draft"]
+        state, _ = train_lib.init_state(_fam_gen(4), dcfg, opt, "cuda",
+                                        mesh=mesh)
+        step, _ = distill.make_distill_step(flag, dcfg, opt, device="cuda",
+                                            mesh=mesh)
+        tokens, targets = (torch.from_numpy(x).long().cuda() for x in b)
+        specs = train_lib.param_specs(dcfg)
+        if mesh is None:
+            causal = partial(flash_attention, causal=True)
+            t_logits = model_lib.forward(target, tokens, flag, causal)
+            return state, (lambda st, *xs: step(st, target, *xs)), (
+                lambda p, tk, tg: distill.distill_loss(
+                    dcfg, p, t_logits, tk, tg, attn_fn=causal)), None, \
+                specs, (tokens, targets), None
+        teacher, t_loss, sync = distill.distill_mesh_parts(
+            flag, dcfg, 1.0, 0.5, mesh, "flash")
+        t_logits = teacher(target, tokens)
+
+        def loss_fn(p, tk, tg):
+            return t_loss(p, tk, tg, t_logits)
+
+        def fault(_params):      # the vocab gradient sliced at tp rank 0's
+            sound = distill.gather_vocab   # columns on every rank: one step
+            fstate, _ = train_lib.init_state(_fam_gen(4), dcfg, opt, "cuda",
+                                             mesh=mesh)
+            init = [p.detach().clone() for p in fstate.params.parameters()]
+            distill.gather_vocab = lambda x, g, _i: sound(x, g, 0)
+            try:
+                step(fstate, target, tokens, targets)
+            finally:
+                distill.gather_vocab = sound
+            return init, [p.detach().clone()
+                          for p in fstate.params.parameters()]
+        return state, (lambda st, *xs: step(st, target, *xs)), loss_fn, \
+            sync, specs, (tokens, targets), fault
+    return state, step, loss_fn, sync, specs, batch, fault
+
+
+def _fam_train_leg(name, c, mesh, ref_path):
+    """One training family: the gradient norm and the planted fault at the
+    initial weights, then two steps (flash counts zeroed just before, read
+    just after), their losses and ms; the one card saves its weights
+    after step 1 to *ref_path*, a mesh rank reads its slices back for the
+    update gap."""
+    import torch.distributed as dist
+
+    from kubetpu_torch.jobs import train as train_lib
+    from kubetpu_torch.jobs.model import init_params
+
+    target = None
+    if name == "distill":
+        target = (init_params(_fam_gen(3), c["flag"], "cuda") if mesh is None
+                  else train_lib.init_shard(_fam_gen(3), c["flag"], mesh,
+                                            "cuda"))
+    state, step, loss_fn, sync, specs, batch, fault = _fam_parts(
+        name, c, mesh, target)
+    out = {"norm": _fam_norm(loss_fn, sync, state.params, batch)}
+    fault_out = fault(state.params) if fault is not None else None
+    init = [p.detach().clone() for p in state.params.parameters()]
+    torch.cuda.synchronize()
+    if mesh is not None:
+        dist.barrier()
+    _zero_flash_counts()                              # zero just before
+    losses, ms = [], []
+    for i in range(2):
+        t0 = time.perf_counter()
+        state, loss = step(state, *batch)
+        losses.append(float(loss))
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            after1 = [p.detach().clone() for p in state.params.parameters()]
+    counts = _flash_counts()                          # read just after
+    out["launches"], out["wgmma"] = list(counts[:3]), list(counts[3:])
+    out.update(losses=losses, step_ms=ms)
+    if mesh is None:
+        torch.save({n: p.detach().cpu() for n, p in zip(
+            (n for n, _ in state.params.named_parameters()), after1)},
+            ref_path)
+        return out
+    ref_sd = torch.load(ref_path, mmap=True)
+    out["update_gap"] = _fam_update_gap(state.params, init, after1, ref_sd,
+                                        specs, mesh)
+    if name in ("seq2seq", "distill"):
+        finit, fafter = fault_out
+        out["fault"] = _fam_update_gap(state.params, finit, fafter, ref_sd,
+                                       specs, mesh)
+    else:
+        out["fault"] = fault_out
+    return out
+
+
+def _fam_beam_leg(c, mesh) -> dict:
+    """Beam search on the f32 flagship: the meshed search from the rank's
+    shard (and, meshed, with unreordered caches: the planted fault)."""
+    from kubetpu_torch.jobs import beam
+    from kubetpu_torch.jobs import train as train_lib
+    from kubetpu_torch.jobs.model import init_params
+
+    cfg = c["beam"]
+    model = (init_params(_fam_gen(5), cfg, "cuda") if mesh is None else
+             train_lib.init_shard(_fam_gen(5), cfg, mesh, "cuda"))
+    prompt = torch.from_numpy(_fam_batch(c, "beam")).long().cuda()
+    search = beam.make_beam_search(cfg, FAM_BEAM_K, mesh=mesh, device="cuda")
+    t0 = time.perf_counter()
+    seqs, scores = search(model, prompt, FAM_BEAM_STEPS)
+    out = {"seqs": seqs.cpu().tolist(), "scores": scores.cpu().tolist(),
+           "wall_s": time.perf_counter() - t0}
+    if mesh is not None:
+        real_one = beam._forward_one
+        beam._forward_one = _unreordered(real_one, {})
+        try:
+            out["fault_scores"] = search(model, prompt,
+                                         FAM_BEAM_STEPS)[1].cpu().tolist()
+        finally:
+            beam._forward_one = real_one
+    return out
+
+
+def _mesh_families_rank(rank, world, args):
+    """Phase 37 on one rank (*world* 1: the one-card references)."""
+    from kubetpu_torch.jobs.meshjob import make_mesh
+
+    c = _fam_cfgs()
+    out = {}
+    for name in FAM_TRAIN + ("beam",):
+        mesh = (make_mesh(FAM_AXES[name], device="cuda") if world > 1
+                else None)
+        torch.cuda.reset_peak_memory_stats()
+        if name == "beam":
+            out[name] = _fam_beam_leg(c, mesh)
+        else:
+            out[name] = _fam_train_leg(
+                name, c, mesh, os.path.join(args["dir"], f"fam_{name}.pt"))
+        out[name]["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _fam_expected_launches(name, c) -> list:
+    """(forward, dQ, dK/dV) flash launches a rank a step: a layer's
+    forward twice under remat (its recompute), once more per layer for
+    the distillation target's no-grad forward; none for seq2seq (dense
+    rings) and beam."""
+    if name == "seq2seq":
+        return [0, 0, 0]
+    cfg = c["vit"].model if name == "vit" else (
+        c["draft"] if name == "distill" else c["flag"])
+    fwd = cfg.n_layers * (2 if cfg.remat else 1)
+    if name == "distill":
+        fwd += c["flag"].n_layers
+    return [fwd, cfg.n_layers, cfg.n_layers]
+
+
+def phase_mesh_families(smi: str, fam: dict) -> dict:
+    """Phase 37: the masked-LM encoder ({dp 2, sp 2, tp 2}, flash at the
+    rank's heads over the whole sequence), ViT-B/16 ({dp 4, tp 2}),
+    seq2seq ({dp 2, sp 2, tp 2}, dense rings), beam 4 ({dp 2, tp 4}, f32)
+    and distillation of phase 16's quarter draft ({dp 4, tp 2}) in one
+    8-rank world sharing the card, each at its full widths with
+    FAM_LAYERS layers, against the one-card runs on the same weights (on
+    the world's rank 0, first). Gates, per training family: steps 1 and
+    2's losses within FAM_LOSS_TOL of the one card's, the change over
+    step 1 within MESH_UPDATE_GAP_TOL, the gradient's global norm within
+    FAM_NORM_TOL; every rank the same losses; each rank's flash launches a
+    step as the family's layers say, all on the wgmma instances. Each
+    planted fault beyond its gate: the encoder's gradient summed over sp
+    too (norm), ViT's blocks without their tp reductions (loss), seq2seq's
+    cross branch and encoder without the non-causal ring (update gap of
+    one step: on random weights its loss moved only 0.0076), the
+    distillation's vocab gradient sliced at tp rank 0's columns on every
+    rank (update gap). Beam: every rank's scores within FAM_BEAM_TOL of
+    the one card's, the search with unreordered caches beyond it. The legs
+    run in phase 36's world, after its servers (``phase_mesh_serve``'s
+    *fam*)."""
+    ref, ranks = fam["ref"], fam["ranks"]
+    c = _fam_cfgs()
+    r0, bad, rows = ranks[0], [], {}
+    for name in FAM_TRAIN:
+        got, want = r0[name], ref[name]
+        if any(r[name]["losses"] != got["losses"] for r in ranks):
+            bad.append(f"{name}: ranks disagree on the loss")
+        gaps = [abs(a - b) for a, b in zip(got["losses"], want["losses"])]
+        norm_gap = max(abs(r[name]["norm"] - want["norm"]) / want["norm"]
+                       for r in ranks)
+        update_gap = max(r[name]["update_gap"] for r in ranks)
+        if name == "encoder":
+            fault = ("norm_gap", min(abs(r[name]["fault"] - want["norm"])
+                                     / want["norm"] for r in ranks),
+                     FAM_NORM_TOL)
+        elif name in ("seq2seq", "distill"):
+            fault = ("update_gap", max(r[name]["fault"] for r in ranks),
+                     MESH_UPDATE_GAP_TOL)
+        else:
+            fault = ("loss_gap", abs(got["fault"] - want["losses"][0]),
+                     FAM_LOSS_TOL)
+        for what, val, tol in (("step-1 loss gap", gaps[0], FAM_LOSS_TOL),
+                               ("step-2 loss gap", gaps[1], FAM_LOSS_TOL),
+                               ("update gap", update_gap,
+                                MESH_UPDATE_GAP_TOL),
+                               ("gradient norm gap", norm_gap,
+                                FAM_NORM_TOL)):
+            if not val <= tol:
+                bad.append(f"{name}: {what} {val} > {tol}")
+        if not fault[1] > fault[2]:
+            bad.append(f"{name}: the planted fault's {fault[0]} {fault[1]} "
+                       f"within {fault[2]}")
+        expected = [2 * n for n in _fam_expected_launches(name, c)]
+        for rank, r in enumerate(ranks):
+            if r[name]["launches"] != expected or (
+                    r[name]["wgmma"] != expected):
+                bad.append(f"{name} rank {rank}: flash launches "
+                           f"{r[name]['launches']} (wgmma "
+                           f"{r[name]['wgmma']}) != {expected} (2 steps)")
+        rows[name] = dict(
+            axes=FAM_AXES[name], losses=got["losses"],
+            one_card_losses=want["losses"], loss_gaps=gaps,
+            update_gap=update_gap, norm=got["norm"],
+            one_card_norm=want["norm"], norm_gap=norm_gap,
+            fault=dict(zip(("reads", "value", "tol"), fault)),
+            launches_rank0=got["launches"], expected_launches=expected,
+            launches_all_ranks=[sum(r[name]["launches"][i] for r in ranks)
+                                for i in range(3)],
+            step_ms=got["step_ms"], one_card_step_ms=want["step_ms"],
+            peak_mem_gb_rank_max=max(r[name]["peak_mem_gb"] for r in ranks),
+            one_card_peak_mem_gb=want["peak_mem_gb"])
+    want = np.array(ref["beam"]["scores"])
+    beam_gap = max(float(np.abs(np.array(r["beam"]["scores"]) - want).max())
+                   for r in ranks)
+    beam_fault = min(float(np.abs(np.array(r["beam"]["fault_scores"])
+                                  - want).max()) for r in ranks)
+    if not beam_gap <= FAM_BEAM_TOL:
+        bad.append(f"beam: scores {beam_gap} from the one card's")
+    if not beam_fault > FAM_BEAM_TOL:
+        bad.append(f"beam: unreordered caches read {beam_fault}, within "
+                   f"{FAM_BEAM_TOL}")
+    if any(r["beam"]["seqs"] != r0["beam"]["seqs"] for r in ranks):
+        bad.append("beam: ranks return different sequences")
+    rows["beam"] = dict(
+        axes=FAM_AXES["beam"], k=FAM_BEAM_K, steps=FAM_BEAM_STEPS,
+        score_gap=beam_gap, tol=FAM_BEAM_TOL, fault_score_gap=beam_fault,
+        seqs_equal_one_card=r0["beam"]["seqs"] == ref["beam"]["seqs"],
+        wall_s=r0["beam"]["wall_s"], one_card_wall_s=ref["beam"]["wall_s"],
+        peak_mem_gb_rank_max=max(r["beam"]["peak_mem_gb"] for r in ranks))
+    row = dict(card=torch.cuda.get_device_name(0), nvidia_smi=smi,
+               setting="8 ranks time-sharing one card; gloo",
+               reduced=(f"depth: every family cut to {FAM_LAYERS} layers; "
+                        f"seq2seq's source and target to {FAM_S2S_LEN} "
+                        "tokens (phase 31: 1024)"),
+               families=rows, ref_wall_s=fam["ref_wall_s"],
+               wall_s=fam["wall_s"], ok=not bad)
+    line("mesh_families", **row)
+    if bad:
+        raise SystemExit("mesh_families: " + "; ".join(bad))
     return row
+
+
+def _family_kernel_rows(flash, fam) -> list:
+    """The three flash kernels at a meshed rank's shapes in phase 37: the
+    encoder's (RING_FLASH_SHAPE non-causal, phase 4's ring_step case),
+    ViT's (VIT_MESH_FLASH_SHAPE) and the distillation target's
+    (DISTILL_MESH_FLASH_SHAPE, causal; its draft's calls at 2 heads
+    counted beside them), launches summed over the 8 ranks' two steps."""
+    rows = []
+    for family, case in (("encoder", "ring_step"),
+                         ("vit", "vit_mesh_noncausal"),
+                         ("distill", "mesh_distill_causal")):
+        launches = fam["families"][family]["launches_all_ranks"]
+        for i, (kind, name, replaces) in enumerate((
+                ("forward", "flash_forward",
+                 "kubetpu/ops/flash_attention.py:41"),
+                ("dq", "flash_backward_dq",
+                 "kubetpu/ops/flash_attention.py:141"),
+                ("dkv", "flash_backward_dkv",
+                 "kubetpu/ops/flash_attention.py:195"))):
+            r = next(r for r in flash if r["kernel"] == kind
+                     and r["case"] == case)
+            rows.append({
+                "name": f"{name}_mesh_{family}", "route": "cuda",
+                "instances": r["route"],
+                "source": "kubetpu_torch/ops/csrc/flash_attention.cu",
+                "replaces": replaces, "launches": launches[i],
+                "launches_from": f"phase 37 {family}, 8 ranks x 2 steps",
+                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                "ok": r["ok"], "shape": r["shape"]})
+    return rows
 
 
 def _tp4_kernel_rows(kern, mesh_serve) -> list:
@@ -7253,7 +8071,7 @@ def _mesh_kernel_rows(flash, mesh_train) -> list:
             "source": "kubetpu_torch/ops/csrc/flash_attention.cu",
             "replaces": replaces,
             "launches": mesh_train["flash_launches"][kind],
-            "launches_from": "phase 34, 8 ranks x 3 steps",
+            "launches_from": f"phase 34, 8 ranks x {MESH_STEPS} steps",
             "max_abs_err": max(step["max_abs_err"], diag["max_abs_err"]),
             "ms": step["ms"], "plain_ms": step["plain_ms"],
             "bound_ms": step["bound_ms"], "bound_by": step["bound_by"],
@@ -7361,9 +8179,10 @@ def main(argv) -> int:
     seq2seq = phase_seq2seq(dev["nvidia_smi"])
     torch.cuda.empty_cache()
     # the multi-device training path: worlds of ranks sharing the card
-    mesh_train = phase_mesh_train(dev["nvidia_smi"])
-    mesh_axes = phase_mesh_axes(dev["nvidia_smi"])
-    mesh_serve = phase_mesh_serve(dev["nvidia_smi"])
+    mesh_train, axes = phase_mesh_train(dev["nvidia_smi"])
+    mesh_axes = phase_mesh_axes(dev["nvidia_smi"], axes)
+    mesh_serve, fam = phase_mesh_serve(dev["nvidia_smi"])
+    mesh_families = phase_mesh_families(dev["nvidia_smi"], fam)
     shutil.rmtree(LIFE_DIR, ignore_errors=True)
 
     # the paged kernels at the main path's cases (launches: phases 6, 8, 9,
@@ -7488,6 +8307,7 @@ def main(argv) -> int:
             })
     kernels += _mesh_kernel_rows(flash, mesh_train)
     kernels += _tp4_kernel_rows(kern, mesh_serve)
+    kernels += _family_kernel_rows(flash, mesh_families)
     record = {"device": dev, "build": build, "kernel_cases": kern,
               "flash_cases": flash, "parity": parity, "serve": serve,
               "profile": prof, "prefix": prefix, "window": window,
@@ -7503,7 +8323,7 @@ def main(argv) -> int:
               "encoder": encoder, "profiling": profiling, "vit": vit,
               "seq2seq": seq2seq, "mesh_train": mesh_train,
               "mesh_axes": mesh_axes, "mesh_serve": mesh_serve,
-              "kernels": kernels}
+              "mesh_families": mesh_families, "kernels": kernels}
     return finish(record, t_script, record_path)
 
 
@@ -7554,26 +8374,29 @@ def run_families(smi: str) -> dict:
 
 
 def run_mesh(smi: str) -> dict:
-    """``--phases 34-36``: phase 4 (with the ring's cases) and phase 3's
-    tp-4 cases, then 34, 35 and 36 as the whole run drives them, and their
-    five ``kernels`` entries."""
+    """``--phases 34-37``: phase 4 (with the ring's and the meshed
+    families' cases) and phase 3's tp-4 cases, then 34, 35, 36 and 37 as
+    the whole run drives them, and their ``kernels`` entries."""
     record = {"flash_cases": phase_flash(),
               "kernel_cases": phase_kernels(
                   names=[n for n, _ in _tp4_cases()])}
     torch.cuda.empty_cache()
-    record["mesh_train"] = phase_mesh_train(smi)
-    record["mesh_axes"] = phase_mesh_axes(smi)
-    record["mesh_serve"] = phase_mesh_serve(smi)
+    record["mesh_train"], axes = phase_mesh_train(smi)
+    record["mesh_axes"] = phase_mesh_axes(smi, axes)
+    record["mesh_serve"], fam = phase_mesh_serve(smi)
+    record["mesh_families"] = phase_mesh_families(smi, fam)
     shutil.rmtree(LIFE_DIR, ignore_errors=True)
     record["kernels"] = (
         _mesh_kernel_rows(record["flash_cases"], record["mesh_train"])
-        + _tp4_kernel_rows(record["kernel_cases"], record["mesh_serve"]))
+        + _tp4_kernel_rows(record["kernel_cases"], record["mesh_serve"])
+        + _family_kernel_rows(record["flash_cases"],
+                              record["mesh_families"]))
     return record
 
 
 # ``--phases`` ranges: each runs phases 1, 2 and its own, then the shared
 # tail
-PHASE_RANGES = {"29-33": run_families, "34-36": run_mesh}
+PHASE_RANGES = {"29-33": run_families, "34-37": run_mesh}
 
 
 if __name__ == "__main__":

@@ -20,6 +20,14 @@ EOS semantics: a finished beam is pinned — its only continuation is EOS at
 log-probability 0, so its score freezes while shapes stay static. The
 final ranking applies the GNMT length penalty ``((5 + len) / 6) ** alpha``
 when ``length_penalty > 0``.
+
+Over a mesh (``mesh=``: dp and tp) every rank passes the whole prompt
+batch and the model (whole, cut here, or its shard): the prompt rows go on
+dp, each rank's caches hold its rows' beams at its ``H_kv/tp`` heads
+((L, B·K/dp, S, H_kv/tp, D), the JAX package's ``kv_cache_specs``), the
+logits are gathered over tp before the log-softmax and the top-k, the
+parent reorder stays within the rank's own rows, and the sequences and
+scores are gathered over dp, so every rank returns the whole result.
 """
 
 from __future__ import annotations
@@ -28,10 +36,10 @@ from typing import Optional
 
 import torch
 
+from kubetpu_torch.jobs import collectives as col
 from kubetpu_torch.jobs.decode import _forward_one, init_kv_cache, prefill
 from kubetpu_torch.jobs.model import (NEG_INF, ModelConfig, _top_k,
                                       resolve_device)
-from kubetpu_torch.jobs.train import refuse_mesh
 
 
 def _gnmt_penalty(length: torch.Tensor, alpha: float) -> torch.Tensor:
@@ -49,17 +57,40 @@ def make_beam_search(cfg: ModelConfig, beam_size: int, mesh=None,
     default."""
     if beam_size < 1:
         raise ValueError(f"beam_size must be >= 1, got {beam_size}")
-    refuse_mesh(mesh, "make_beam_search")
     dev = resolve_device(device)
     k = beam_size
+    tp, groups = 1, None
+    if mesh is not None:
+        from kubetpu_torch.jobs.train import check_mesh
+
+        check_mesh(cfg, mesh)
+        if col.axis_size(mesh, "sp") > 1:
+            raise ValueError("beam search over a mesh takes dp and tp "
+                             "(sp is a training axis)")
+        groups = col.groups_of(mesh)
+        tp = col.axis_size(mesh, "tp")
 
     @torch.no_grad()
     def beam_search(params, prompt, num_steps: int):
         prompt = torch.as_tensor(prompt).to(dev)
+        shard = None
+        if mesh is not None:
+            from kubetpu_torch.jobs.train import shard_model
+
+            params = shard_model(params, cfg, mesh)
+            shard = params.shard.with_data(groups, ("dp",))
+            dp = col.axis_size(mesh, "dp")
+            if prompt.shape[0] % dp:
+                raise ValueError(f"dp={dp} does not divide the batch "
+                                 f"({prompt.shape[0]})")
+            rows = prompt.shape[0] // dp
+            r0 = col.axis_index(mesh, "dp") * rows
+            prompt = prompt[r0:r0 + rows]
         b, s_p = prompt.shape
-        k_cache, v_cache = init_kv_cache(cfg, b, s_p + num_steps, device=dev)
+        k_cache, v_cache = init_kv_cache(cfg, b, s_p + num_steps, device=dev,
+                                         tp=tp)
         logits, k_cache, v_cache = prefill(cfg, params, prompt, k_cache,
-                                           v_cache)
+                                           v_cache, shard=shard)
         # the beam axis rides inside the batch axis: (L, B*K, ...)
         k_cache = k_cache.repeat_interleave(k, dim=1)
         v_cache = v_cache.repeat_interleave(k, dim=1)
@@ -99,7 +130,7 @@ def make_beam_search(cfg: ModelConfig, beam_size: int, mesh=None,
                 v_cache = v_cache.index_select(1, src)
                 logits, k_cache, v_cache = _forward_one(
                     cfg, params, token.reshape(b * k), k_cache, v_cache,
-                    s_p + i)
+                    s_p + i, shard=shard)
         # backtrack: tokens[t] were chosen for step t's beams, and later
         # steps reorder the ancestry: walk the parents from the last step
         beam_idx = torch.arange(k, device=dev).expand(b, k)
@@ -116,6 +147,15 @@ def make_beam_search(cfg: ModelConfig, beam_size: int, mesh=None,
         seq = torch.gather(seq, 1, order[:, :, None].expand_as(seq))
         final = torch.gather(final, 1, order)
         prompt_k = prompt[:, None].expand(b, k, s_p)
-        return torch.cat([prompt_k, seq], dim=-1), final
+        seq = torch.cat([prompt_k, seq], dim=-1)
+        if groups is not None:
+            # token ids ride as f32 (exact below 2**24: the dtypes gloo
+            # takes on CUDA tensors)
+            dp_group = groups.over("dp")
+            seq = col.all_gather(seq.float(), dp_group, "dp_tokens",
+                                 dim=0).to(prompt.dtype)
+            final = col.all_gather(final.contiguous(), dp_group, "dp_tokens",
+                                   dim=0)
+        return seq, final
 
     return beam_search

@@ -22,6 +22,20 @@ resume logic can fall back to an older step.
 result lands on the target's device in the target's dtypes: a checkpoint
 written from the card restores onto the CPU and back.
 
+On a mesh (a state whose model carries a ``ModelShard``: ``init_state(...,
+mesh=)``, ``init_vit_state``, ``init_seq2seq_state``, the pipeline's) the
+file is the same: the whole model's leaves under the whole model's names
+(a pipeline stage's local block ``i`` is global layer ``stage_layers[i]``).
+``save_checkpoint`` gathers it leaf by leaf, in the stored dtype, to one
+writer rank (the mesh's first): each distinct slice of a leaf comes from
+one rank (dp and sp replicas send nothing), no card holds a whole sharded
+leaf, the writer's host holds the checkpoint as the one-device save does;
+the writer commits, then every rank learns the outcome. A restore maps the
+file (``torch.load(mmap=True)``), checks the whole model's names and
+shapes against the target's, and copies into each of the target's tensors
+only its rank's slice, so one-device and meshed checkpoints restore into
+each other and into any mesh layout (tp, ep, pp).
+
 Saves and restores are spanned (``checkpoint.save``,
 ``checkpoint.restore``) and logged (``checkpoint_save``,
 ``checkpoint_restore``) through the port's ``obs.trace`` and
@@ -34,10 +48,14 @@ import os
 import shutil
 import threading
 import warnings
-from typing import List, Optional
+from typing import List, Optional, Tuple
+
+import itertools
 
 import torch
 
+from kubetpu_torch.jobs import collectives as col
+from kubetpu_torch.jobs import train as train_lib
 from kubetpu_torch.jobs.train import TrainState
 
 FORMAT = "kubetpu_torch.checkpoint/1"
@@ -86,14 +104,177 @@ def _leaves(state: TrainState) -> List[torch.Tensor]:
             + [opt.count] + list(opt.mu) + list(opt.nu))
 
 
-def _payload(state: TrainState, host: List[torch.Tensor]) -> dict:
+def _payload(state: TrainState, host: List[torch.Tensor],
+             names: Optional[List[str]] = None) -> dict:
     """The object ``torch.save`` writes, over host copies *host* of
-    ``_leaves(state)``."""
-    names = [n for n, _p in state.params.named_parameters()]
+    ``_leaves(state)`` (a meshed state's gathered whole leaves under the
+    whole model's *names*)."""
+    if names is None:
+        names = [n for n, _p in state.params.named_parameters()]
     n = len(names)
     return {"format": FORMAT, "step": int(state.step),
             "params": dict(zip(names, host[:n])), "count": host[n],
             "mu": host[n + 1:2 * n + 1], "nu": host[2 * n + 1:]}
+
+
+# -- the layout of a state's model: one device, or a mesh's shard --------------
+
+
+class _Layout:
+    """Where the leaves of a state's model live: ``mesh`` (None on one
+    device), and for every parameter of the whole model, in its order,
+    its whole name, whole shape and dtype, its local spec (block leaves
+    without their layer entry), the pipeline stage that holds it (None:
+    every stage) and this rank's tensor (None where another stage holds
+    it)."""
+
+    def __init__(self, model: torch.nn.Module) -> None:
+        shard = getattr(model, "shard", None)
+        self.mesh = None if shard is None else shard.mesh
+        local = dict(model.named_parameters())
+        if self.mesh is None:
+            self.leaves = [(n, tuple(p.shape), p.dtype,
+                            (None,) * p.dim(), None, p)
+                           for n, p in local.items()]
+            return
+        specs = shard.specs
+        if specs is None:
+            raise CheckpointError("the model's ModelShard names no spec "
+                                  "tree: a shard is cut by its family's "
+                                  "param_specs")
+        whole = _whole_meta(model)
+        pp = shard.pp
+        n_local = len(model.blocks) if pp else 0
+        stage = col.axis_index(self.mesh, "pp")
+        by_global = {train_lib.global_name(n, stage * n_local): n
+                     for n in local}
+        self.leaves = []
+        for name, p in whole.named_parameters():
+            layer = _layer_of(name)
+            mine = by_global.get(name)
+            self.leaves.append((
+                name, tuple(p.shape), p.dtype,
+                train_lib.local_spec(specs, name),
+                layer // n_local if pp and layer is not None else None,
+                None if mine is None else local[mine]))
+
+    @property
+    def names(self) -> List[str]:
+        return [leaf[0] for leaf in self.leaves]
+
+
+def _layer_of(name: str) -> Optional[int]:
+    parts = name.split(".")
+    return int(parts[parts.index("blocks") + 1]) if "blocks" in parts \
+        else None
+
+
+def _whole_meta(model: torch.nn.Module) -> torch.nn.Module:
+    """A meta-device model of the whole model's shapes, of *model*'s
+    family (its parameter names and order are the file's)."""
+    return type(model)(model.cfg, torch.device("meta"))
+
+
+def _owners(mesh, spec, stage) -> List[Tuple[int, dict]]:
+    """(global rank, coords) of the ranks that hold the distinct slices
+    of a leaf with local *spec* (held by pipeline *stage*, or every stage
+    when None): any index on the axes the spec names, 0 on the others
+    (dp and sp replicas are not asked twice), in the grid's order."""
+    names = list(mesh.mesh_dim_names)
+    used = {a for entry in spec if entry is not None
+            for a in ((entry,) if isinstance(entry, str) else entry)}
+    ranges = []
+    for i, a in enumerate(names):
+        if a in used:
+            ranges.append(range(mesh.size(i)))
+        elif a == "pp" and stage is not None:
+            ranges.append(range(stage, stage + 1))
+        else:
+            ranges.append(range(1))
+    out = []
+    for at in itertools.product(*ranges):
+        out.append((int(mesh.mesh[at]), dict(zip(names, at))))
+    return out
+
+
+def _writer(mesh) -> int:
+    return int(mesh.mesh.reshape(-1)[0])
+
+
+def _mesh_group(mesh):
+    return col.groups_of(mesh).over(*mesh.mesh_dim_names)
+
+
+def _gather_leaf(layout: _Layout, i: int, tensor_of, group):
+    """Leaf *i* of a meshed model (``tensor_of(local tensor)`` picks the
+    parameter itself or one of its moments) gathered whole into the
+    writer's host memory, in its stored dtype -> the whole CPU tensor on
+    the writer, None elsewhere. Every rank calls it for every leaf in the
+    same order: an owner other than the writer sends its slice, the
+    writer takes its own and receives the others', one at a time."""
+    import torch.distributed as dist
+
+    mesh = layout.mesh
+    name, shape, dtype, spec, stage, local = layout.leaves[i]
+    me, writer = dist.get_rank(), _writer(mesh)
+    owners = _owners(mesh, spec, stage)
+    if me != writer:
+        if local is not None and any(r == me for r, _c in owners):
+            col.send_to(tensor_of(local).detach().contiguous(), writer,
+                        group, "checkpoint")
+        return None
+    whole = torch.empty(shape, dtype=dtype)
+    for rank, coords in owners:
+        index = train_lib._region(shape, spec, mesh, coords)
+        if rank == me:
+            piece = tensor_of(local).detach()
+        else:
+            like = torch.empty(whole[index].shape, dtype=dtype,
+                               device=_device(layout))
+            piece = col.recv_from(like, rank, group)
+        whole[index] = piece.cpu()
+    return whole
+
+
+def _device(layout: _Layout) -> torch.device:
+    return next(leaf[5] for leaf in layout.leaves
+                if leaf[5] is not None).device
+
+
+def _gather_state(state: TrainState, layout: _Layout):
+    """A meshed state's leaves gathered whole to the writer, in the file's
+    order (parameters, count, mu, nu) -> the list on the writer, None
+    elsewhere."""
+    import torch.distributed as dist
+
+    group = _mesh_group(layout.mesh)
+    opt = state.opt_state
+    index = {id(p): j for j, p in enumerate(state.params.parameters())}
+
+    def pick(moments):
+        if moments is None:
+            return lambda t: t
+        return lambda t: moments[index[id(t)]]
+
+    params, mu, nu = ([_gather_leaf(layout, i, pick(which), group)
+                       for i in range(len(layout.leaves))]
+                      for which in (None, opt.mu, opt.nu))
+    if dist.get_rank() != _writer(layout.mesh):
+        return None
+    return params + [opt.count.detach().cpu()] + mu + nu
+
+
+def _settle(layout: _Layout, ok: bool) -> None:
+    """Every rank of the mesh learns whether the writer's part succeeded
+    (a MIN over the mesh); the ranks other than the writer raise when it
+    failed (the writer raises its own error)."""
+    import torch.distributed as dist
+
+    flag = torch.tensor([1.0 if ok else 0.0], device=_device(layout))
+    col.all_reduce_(flag, _mesh_group(layout.mesh), "checkpoint",
+                    op=dist.ReduceOp.MIN)
+    if flag[0] < 1 and dist.get_rank() != _writer(layout.mesh):
+        raise CheckpointError("the checkpoint's writer rank failed")
 
 
 def _host_copies(leaves: List[torch.Tensor],
@@ -135,24 +316,46 @@ def _emit(kind: str, **fields) -> None:
     event_log().emit(kind, **fields)
 
 
+def _write_and_commit(path: str, payload: dict) -> None:
+    tmp = _tmp_path(path)
+    if os.path.isdir(tmp):  # stale orphan from a crashed writer: replace
+        shutil.rmtree(tmp)
+    try:
+        _write(tmp, payload)
+        _commit(tmp, path)
+        _emit("checkpoint_save", path=path)
+    finally:
+        if os.path.isdir(tmp):  # failed before commit: no orphan leak
+            shutil.rmtree(tmp, ignore_errors=True)
+
+
 def save_checkpoint(path: str, state: TrainState) -> None:
     """Write a TrainState to *path* (created if needed): temp-write +
     atomic rename, so a crash mid-save never leaves a torn checkpoint at
-    the real path. Spanned (``checkpoint.save``)."""
+    the real path. Spanned (``checkpoint.save``). A meshed state is saved
+    by every rank of its mesh together (each calls this with the same
+    *path*): its leaves are gathered to the writer rank, which writes and
+    commits; every rank returns once the outcome is known, and raises if
+    the write failed."""
     from kubetpu_torch.obs import trace as obs_trace
 
     path = os.path.abspath(path)
+    layout = _Layout(state.params)
     with obs_trace.span("checkpoint.save", path=path):
-        tmp = _tmp_path(path)
-        if os.path.isdir(tmp):  # stale orphan from a crashed writer: replace
-            shutil.rmtree(tmp)
-        try:
-            _write(tmp, _payload(state, _host_copies(_leaves(state))))
-            _commit(tmp, path)
-            _emit("checkpoint_save", path=path)
-        finally:
-            if os.path.isdir(tmp):  # failed before commit: no orphan leak
-                shutil.rmtree(tmp, ignore_errors=True)
+        if layout.mesh is None:
+            _write_and_commit(path, _payload(
+                state, _host_copies(_leaves(state))))
+            return
+        host = _gather_state(state, layout)
+        err = None
+        if host is not None:
+            try:
+                _write_and_commit(path, _payload(state, host, layout.names))
+            except BaseException as e:  # noqa: BLE001 — re-raised below
+                err = e
+        _settle(layout, err is None)
+        if err is not None:
+            raise err
 
 
 class AsyncCheckpointer:
@@ -172,6 +375,11 @@ class AsyncCheckpointer:
     previous one (bounding dirty state at one checkpoint). Use as a
     context manager or call ``close()`` — pending writes flush on exit.
 
+    A meshed state: every rank calls ``save``, ``wait`` and ``close``
+    together. ``save`` gathers the snapshot collectively (``save_checkpoint``'s
+    gather, finished before it returns); only the writer rank's thread
+    writes, and ``wait`` settles the outcome on every rank.
+
     Crash safety: the background write lands in a ``.tmp-*`` sibling and
     is renamed into place only once finished (at the next ``save``/
     ``wait``/``close``) — a crash mid-write leaves an ignored orphan,
@@ -183,6 +391,7 @@ class AsyncCheckpointer:
         self._error: Optional[BaseException] = None
         self._pending: Optional[tuple] = None  # (tmp, final) awaiting commit
         self._buffers: Optional[List[torch.Tensor]] = None
+        self._layout: Optional[_Layout] = None   # a meshed save to settle
 
     def _run(self, tmp: str, payload: dict) -> None:
         try:
@@ -216,23 +425,40 @@ class AsyncCheckpointer:
             raise err
 
     def save(self, path: str, state: TrainState) -> None:
-        self._await_writer()  # at most one in flight
-        self._finalize()
+        self.wait()  # at most one in flight
         path = os.path.abspath(path)
         tmp = _tmp_path(path)
+        layout = _Layout(state.params)
+        if layout.mesh is None:
+            host = _host_copies(_leaves(state), self._buffers)
+            self._buffers = host
+            payload = _payload(state, host)
+        else:
+            host = _gather_state(state, layout)
+            self._layout = layout
+            if host is None:          # not the writer: nothing to write
+                return
+            payload = _payload(state, host, layout.names)
         if os.path.isdir(tmp):  # stale orphan, crashed writer
             shutil.rmtree(tmp)
-        host = _host_copies(_leaves(state), self._buffers)
-        self._buffers = host
         self._pending = (tmp, path)
         self._thread = threading.Thread(
-            target=self._run, args=(tmp, _payload(state, host)),
+            target=self._run, args=(tmp, payload),
             name="checkpoint-writer", daemon=True)
         self._thread.start()
 
     def wait(self) -> None:
-        self._await_writer()
-        self._finalize()
+        err = None
+        try:
+            self._await_writer()
+            self._finalize()
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            err = e
+        if self._layout is not None:
+            layout, self._layout = self._layout, None
+            _settle(layout, err is None)
+        if err is not None:
+            raise err
 
     def close(self) -> None:
         self.wait()
@@ -264,7 +490,7 @@ def restore_checkpoint(path: str, target: TrainState) -> TrainState:
 def _load(path: str) -> dict:
     try:
         obj = torch.load(os.path.join(path, STATE_FILE), map_location="cpu",
-                         weights_only=True)
+                         weights_only=True, mmap=True)
     except Exception as e:  # noqa: BLE001 — torch / pickle / zip / OS
         # errors for truncation and mangling surface as ONE typed error
         raise CorruptCheckpointError(
@@ -276,30 +502,39 @@ def _load(path: str) -> dict:
     return obj
 
 
-def _check(path: str, obj: dict, target: TrainState) -> List[torch.Tensor]:
-    """The checkpoint's tensors in ``_leaves(target)``'s order, after
-    checking names, counts and shapes against *target*."""
+def _check(path: str, obj: dict, target: TrainState, layout: _Layout):
+    """(source, target tensor, local spec) for every tensor of *target*
+    (its rank's leaves, their moments, the count), after checking the
+    whole model's names, counts and shapes against the checkpoint."""
     def bad(what: str):
         return CorruptCheckpointError(
             f"checkpoint at {path} does not match the target state: {what}")
 
-    named = list(target.params.named_parameters())
+    names = layout.names
     params = obj.get("params")
-    if not isinstance(params, dict) or list(params) != [n for n, _ in named]:
+    if not isinstance(params, dict) or list(params) != names:
         raise bad("parameter names differ")
-    n = len(named)
+    n = len(names)
     mu, nu, count = obj.get("mu"), obj.get("nu"), obj.get("count")
     if (not isinstance(mu, list) or not isinstance(nu, list)
             or len(mu) != n or len(nu) != n
             or not torch.is_tensor(count) or count.dim() != 0
             or not isinstance(obj.get("step"), int)):
         raise bad("optimizer state or step malformed")
-    loaded = list(params.values()) + [count] + mu + nu
-    for i, (src, dst) in enumerate(zip(loaded, _leaves(target))):
-        if not torch.is_tensor(src) or src.shape != dst.shape:
-            raise bad(f"leaf {i}: shape "
-                      f"{getattr(src, 'shape', None)} != {tuple(dst.shape)}")
-    return loaded
+    opt = target.opt_state
+    index = {id(p): j for j, p in enumerate(target.params.parameters())}
+    pairs = [(count, opt.count, ())]
+    for i, (name, shape, _dtype, spec, _stage, local) in enumerate(
+            layout.leaves):
+        for src in (params[name], mu[i], nu[i]):
+            if not torch.is_tensor(src) or tuple(src.shape) != shape:
+                raise bad(f"{name}: shape {getattr(src, 'shape', None)} "
+                          f"!= {shape}")
+        if local is not None:
+            j = index[id(local)]
+            pairs += [(params[name], local, spec), (mu[i], opt.mu[j], spec),
+                      (nu[i], opt.nu[j], spec)]
+    return pairs
 
 
 def _restore_inner(path: str, target: TrainState) -> TrainState:
@@ -319,11 +554,13 @@ def _restore_inner(path: str, target: TrainState) -> TrainState:
                 f"leaves only a .tmp-* orphan; resume from an older step)"
             )
     obj = _load(path)
-    loaded = _check(path, obj, target)
+    layout = _Layout(target.params)
+    pairs = _check(path, obj, target, layout)
     with torch.no_grad():
-        for src, dst in zip(loaded, _leaves(target)):
-            dst.copy_(src)
+        for src, dst, spec in pairs:
+            dst.copy_(src[train_lib._region(src.shape, spec, layout.mesh)])
     target.step = obj["step"]
+    del obj, pairs                 # unmap the file
     return target
 
 

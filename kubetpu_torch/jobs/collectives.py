@@ -338,7 +338,11 @@ class ModelShard:
     - ``data``: the group over the data axes one MoE capacity dispatch
       spans (the JAX package dispatches over the global batch), its ranks
       ordered batch block-major: ``data_blocks`` = (batch blocks,
-      sequence blocks). None where every call dispatches on its own rows.
+      sequence blocks). None where every call dispatches on its own rows;
+    - ``mesh``, ``specs`` and ``pp``: the mesh the shard was cut on, the
+      spec tree it was cut by (its family's ``param_specs``), and whether
+      its layers are a pipeline stage's (what a sharded checkpoint reads
+      to name each leaf and cut it).
     """
 
     tp: object = None
@@ -347,6 +351,9 @@ class ModelShard:
     ep_size: int = 1
     data: object = None
     data_blocks: Tuple[int, int] = (1, 1)
+    mesh: object = dataclasses.field(default=None, compare=False)
+    specs: object = dataclasses.field(default=None, compare=False)
+    pp: bool = False
 
     def __deepcopy__(self, memo):
         return self         # process groups are shared, never copied
@@ -364,16 +371,19 @@ class ModelShard:
                                    data_blocks=(total // seq, seq))
 
 
-def model_shard(mesh, moe: bool = False,
-                data_axes: Sequence[str] = ()) -> ModelShard:
-    """The ``ModelShard`` of *mesh* (a mixture-of-experts model's when
-    *moe*), its groups made now: every rank calls this at the same point.
-    *data_axes*: the axes one MoE capacity dispatch spans."""
+def model_shard(mesh, specs=None, moe: bool = False,
+                data_axes: Sequence[str] = (), pp: bool = False
+                ) -> ModelShard:
+    """The ``ModelShard`` of *mesh* for a model cut by the spec tree
+    *specs* (a mixture-of-experts model's when *moe*; a pipeline stage's
+    when *pp*), its groups made now: every rank calls this at the same
+    point. *data_axes*: the axes one MoE capacity dispatch spans."""
     groups = groups_of(mesh)
     shard = ModelShard(
         tp=groups.over("tp"),
         moe=groups.over("tp", "ep") if moe else None,
-        ep_index=axis_index(mesh, "ep"), ep_size=axis_size(mesh, "ep"))
+        ep_index=axis_index(mesh, "ep"), ep_size=axis_size(mesh, "ep"),
+        mesh=mesh, specs=specs, pp=pp)
     return shard.with_data(groups, data_axes) if data_axes else shard
 
 

@@ -18,7 +18,10 @@ kept: the port's adapters are stacked like the reference's) the same way.
 rank's shard on a mesh (``train.param_specs``).
 ``vit_params_from_numpy`` / ``vit_params_to_numpy`` and
 ``seq2seq_params_from_numpy`` / ``seq2seq_params_to_numpy`` carry the ViT
-and encoder-decoder trees, un-stacking their blocks as above.
+and encoder-decoder trees, un-stacking their blocks as above, and
+``shard_vit_params`` / ``gather_vit_params`` and ``shard_seq2seq_params`` /
+``gather_seq2seq_params`` carry them to and from a rank's shard
+(``vision.vit_param_specs``, ``seq2seq.seq2seq_param_specs``).
 """
 
 from __future__ import annotations
@@ -143,23 +146,16 @@ def shard_params(np_tree: Mapping, cfg: ModelConfig, mesh, device=None,
     ep; under *pp* the stage's layers), as a ``Transformer`` of local
     shapes on *device* (the card by default) carrying its ``ModelShard``,
     gradients off."""
+    from kubetpu_torch.jobs import collectives as col
     from kubetpu_torch.jobs import train as train_lib
 
     device = resolve_device(device)
     train_lib.check_mesh(cfg, mesh, pp)
-    specs = train_lib.param_specs(cfg, pp)
-    top = ("embed", "ln_f", "head")
-    local = {name: train_lib._take(np.asarray(np_tree[name]), specs[name],
-                                   mesh) for name in top}
-    local["blocks"] = {
-        name: train_lib._take(np.asarray(np_tree["blocks"][name]), spec,
-                              mesh)
-        for name, spec in specs["blocks"].items()}
-    from kubetpu_torch.jobs import collectives as col
-
     model = train_lib.local_model(cfg, mesh, torch.device("meta"), pp)
-    _put_all(model, local, top, block_leaves(cfg), cfg, device)
-    model.shard = col.model_shard(mesh, moe=cfg.n_experts > 0)
+    specs = train_lib.param_specs(cfg, pp)
+    _shard_module(model, np_tree, specs, mesh, cfg.dtype, device,
+                  train_lib.stage_layers(cfg, mesh).start)
+    model.shard = col.model_shard(mesh, specs, moe=cfg.n_experts > 0, pp=pp)
     return model
 
 
@@ -167,26 +163,9 @@ def gather_params(model: Transformer, cfg: ModelConfig, mesh,
                   pp: bool = False) -> dict:
     """The inverse of ``shard_params``: every rank's shards of *model*
     gathered into the whole model's numpy tree (float32), on every rank."""
-    from kubetpu_torch.jobs import collectives as col
     from kubetpu_torch.jobs import train as train_lib
 
-    specs = train_lib.param_specs(cfg, pp)
-
-    def whole(t, spec):
-        t = t.detach()
-        for dim, entry in enumerate(spec):
-            if isinstance(entry, str):
-                t = col.all_gather(t, col.group_of(mesh, entry), "gather",
-                                   dim)
-        return t.float().cpu().numpy()
-
-    tree = {name: whole(getattr(model, name), specs[name])
-            for name in ("embed", "ln_f", "head")}
-    tree["blocks"] = {
-        name: whole(torch.stack([getattr(blk, name) for blk in
-                                 model.blocks]), spec)
-        for name, spec in specs["blocks"].items()}
-    return tree
+    return _gather_module(model, train_lib.param_specs(cfg, pp), mesh)
 
 
 _VIT_TOP = ("patch_proj", "pos_embed", "ln_f", "head_cls")
@@ -264,3 +243,133 @@ def lora_to_numpy(lora: Mapping) -> dict:
     float32 (numpy has no bfloat16)."""
     return {"blocks": {k: v.detach().float().cpu().numpy()
                        for k, v in lora["blocks"].items()}}
+
+
+def _tree_leaf(np_tree: Mapping, name: str):
+    """The numpy leaf of parameter *name* (a whole model's
+    ``named_parameters`` name): a block leaf's one layer of the stacked
+    array."""
+    node, layer = np_tree, None
+    for part in name.split("."):
+        if part.isdigit():
+            layer = int(part)
+        else:
+            if part not in node:
+                raise KeyError(f"{name}: missing from the tree")
+            node = node[part]
+    arr = np.asarray(node)
+    return arr if layer is None else arr[layer]
+
+
+def _shard_module(local: nn.Module, np_tree: Mapping, specs: dict, mesh,
+                  dtype: torch.dtype, device, first_layer: int = 0) -> None:
+    """Fill the meta-device shard *local* with this rank's slice of every
+    leaf of the whole model's numpy tree (its spec in *specs*; a pipeline
+    stage's blocks are layers *first_layer* on)."""
+    from kubetpu_torch.jobs import train as train_lib
+
+    for name, p in list(local.named_parameters()):
+        arr = train_lib._take(
+            _tree_leaf(np_tree, train_lib.global_name(name, first_layer)),
+            train_lib.local_spec(specs, name), mesh)
+        if tuple(arr.shape) != tuple(p.shape):
+            raise ValueError(f"{name}: shape {tuple(arr.shape)} does not "
+                             f"match the shard's {tuple(p.shape)}")
+        train_lib.set_param(local, name, torch.from_numpy(np.array(
+            arr, dtype=np.float32)).to(device=device, dtype=dtype))
+
+
+def _gather_module(model: nn.Module, specs: dict, mesh) -> dict:
+    """Every rank's shards of *model* gathered into the whole model's
+    numpy tree (float32, blocks stacked on the layer axis), on every
+    rank."""
+    from kubetpu_torch.jobs import collectives as col
+    from kubetpu_torch.jobs import train as train_lib
+
+    stacks: dict = {}
+    tree: dict = {}
+    for name, p in model.named_parameters():
+        parts = name.split(".")
+        if "blocks" in parts:
+            i = parts.index("blocks")
+            key = tuple(parts[:i + 1]) + (parts[-1],)
+            stacks.setdefault(key, (name, []))[1].append(p.detach())
+            continue
+        node = tree
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = (name, p.detach())
+
+    def whole(name, t):
+        for dim, entry in enumerate(train_lib.leaf_spec(specs, name)):
+            if isinstance(entry, str):
+                t = col.all_gather(t, col.group_of(mesh, entry), "gather",
+                                   dim)
+        return t.float().cpu().numpy()
+
+    def walk(node):
+        return {k: walk(v) if isinstance(v, dict) else whole(*v)
+                for k, v in node.items()}
+
+    out = walk(tree)
+    for key, (name, layers) in stacks.items():
+        node = out
+        for part in key[:-1]:
+            node = node.setdefault(part, {})
+        node[key[-1]] = whole(name, torch.stack(layers))
+    return out
+
+
+def shard_vit_params(np_tree: Mapping, cfg: VitConfig, mesh,
+                     device=None) -> VisionTransformer:
+    """This rank's shard of the JAX package's ViT tree on *mesh*
+    (``vision.vit_param_specs``), on *device* (the card by default),
+    carrying its ``ModelShard``, gradients off."""
+    from kubetpu_torch.jobs import collectives as col
+    from kubetpu_torch.jobs import train as train_lib
+    from kubetpu_torch.jobs.vision import vit_param_specs
+
+    device = resolve_device(device)
+    train_lib.check_mesh(cfg.model, mesh, vocab=False)
+    local = VisionTransformer(cfg, torch.device("meta"),
+                              tp=col.axis_size(mesh, "tp"),
+                              ep=col.axis_size(mesh, "ep"))
+    specs = vit_param_specs(cfg)
+    _shard_module(local, np_tree, specs, mesh, cfg.model.dtype, device)
+    local.shard = col.model_shard(mesh, specs,
+                                  moe=cfg.model.n_experts > 0)
+    return local
+
+
+def gather_vit_params(model: VisionTransformer, cfg: VitConfig,
+                      mesh) -> dict:
+    """The inverse of ``shard_vit_params``, on every rank."""
+    from kubetpu_torch.jobs.vision import vit_param_specs
+
+    return _gather_module(model, vit_param_specs(cfg), mesh)
+
+
+def shard_seq2seq_params(np_tree: Mapping, cfg: ModelConfig, mesh,
+                         device=None) -> Seq2Seq:
+    """This rank's shard of the JAX package's seq2seq tree on *mesh*
+    (``seq2seq.seq2seq_param_specs``), on *device* (the card by default),
+    carrying its ``ModelShard``, gradients off."""
+    from kubetpu_torch.jobs import collectives as col
+    from kubetpu_torch.jobs import train as train_lib
+    from kubetpu_torch.jobs.seq2seq import seq2seq_param_specs
+
+    device = resolve_device(device)
+    train_lib.check_mesh(cfg, mesh)
+    local = Seq2Seq(cfg, torch.device("meta"), tp=col.axis_size(mesh, "tp"),
+                    ep=col.axis_size(mesh, "ep"))
+    specs = seq2seq_param_specs(cfg)
+    _shard_module(local, np_tree, specs, mesh, cfg.dtype, device)
+    local.shard = col.model_shard(mesh, specs, moe=cfg.n_experts > 0)
+    return local
+
+
+def gather_seq2seq_params(model: Seq2Seq, cfg: ModelConfig, mesh) -> dict:
+    """The inverse of ``shard_seq2seq_params``, on every rank."""
+    from kubetpu_torch.jobs.seq2seq import seq2seq_param_specs
+
+    return _gather_module(model, seq2seq_param_specs(cfg), mesh)

@@ -312,23 +312,24 @@ def _head(params: Transformer, x: torch.Tensor, shard=None) -> torch.Tensor:
 
 def forward_chunk(cfg: ModelConfig, params: Transformer, tokens, k_cache,
                   v_cache, pos, lora=None, adapter_ids=None,
-                  lora_scale: float = 1.0):
+                  lora_scale: float = 1.0, shard=None):
     """Logits (B, T, V) f32 for a T-token chunk at pos..pos+T-1 through the
     dense cache, which takes the chunk's K/V -> (logits, k_cache,
     v_cache)."""
     logits, _ = forward_chunk_io(cfg, params, tokens, (k_cache, v_cache),
                                  pos, _dense_cache_io(cfg.window), lora,
-                                 adapter_ids, lora_scale)
+                                 adapter_ids, lora_scale, shard=shard)
     return logits, k_cache, v_cache
 
 
 def _forward_one(cfg: ModelConfig, params: Transformer, token, k_cache,
-                 v_cache, pos):
+                 v_cache, pos, shard=None):
     """Logits (B, V) f32 for one new token a row (token (B,)) at *pos*,
     through the dense cache -> (logits, k_cache, v_cache): a T=1
     ``forward_chunk``."""
     logits, k_cache, v_cache = forward_chunk(cfg, params, token[:, None],
-                                             k_cache, v_cache, pos)
+                                             k_cache, v_cache, pos,
+                                             shard=shard)
     return logits[:, 0], k_cache, v_cache
 
 
@@ -433,10 +434,9 @@ def make_generate(cfg: ModelConfig, temperature: float = 0.0,
                  num_steps: int) -> torch.Tensor:
         shard, r0 = None, 0
         if mesh is not None:
-            if getattr(params, "shard", None) is None:
-                from kubetpu_torch.jobs.train import shard_model
+            from kubetpu_torch.jobs.train import shard_model
 
-                params = shard_model(params, cfg, mesh)
+            params = shard_model(params, cfg, mesh)
             shard = params.shard.with_data(groups, ("dp",))
             r0, dp = col.axis_index(mesh, "dp"), col.axis_size(mesh, "dp")
             if prompt.shape[0] % dp:

@@ -8,8 +8,14 @@ train step. On the card the bidirectional core is the flash kernels with
 ``causal=False`` (``kubetpu_torch.ops.flash_attention``: forward, dQ and
 dK/dV), the same kernels as the decoder's causal training step.
 
-Not ported yet: the mesh (the JAX step shards its batch over dp); the port
-trains on one card (ROADMAP queue 1 item 8).
+Over a mesh (``make_mlm_train_step(..., mesh=)``, the state from
+``train.init_state(..., mesh=)``) the batch goes on dp only and the
+sequence is replicated over sp, as the JAX step shards it: there is no
+causal ring for an encoder, so each rank runs the bidirectional core over
+the whole sequence at its ``H/tp`` heads. The loss tail is vocab-parallel
+(``train.sharded_loss_tail``, weighted by the masked positions) and its
+sums, like the gradients, run over dp only: the sp ranks hold the same
+tokens, so a sum over sp would count each of them sp times.
 """
 
 from __future__ import annotations
@@ -19,10 +25,16 @@ from typing import Optional
 
 import torch
 
+from kubetpu_torch.jobs import collectives as col
 from kubetpu_torch.jobs import model as model_lib
+from kubetpu_torch.jobs import train as train_lib
 from kubetpu_torch.jobs.model import ModelConfig, Transformer, resolve_device
 from kubetpu_torch.jobs.train import (AdamW, _uploader, make_optimizer,
-                                      make_update_step, refuse_mesh)
+                                      make_update_step)
+
+# the axes whose ranks hold other rows of an encoder's batch: the sequence
+# is replicated over sp
+ENCODER_DATA = ("dcn", "dp")
 
 
 def dense_bidirectional_attention(q, k, v):
@@ -72,6 +84,43 @@ def masked_lm_loss(params: Transformer, tokens: torch.Tensor,
     return loss
 
 
+def rows_spec(mesh) -> tuple:
+    """A (B, S) batch with its rows on the data axes and the sequence
+    replicated (``train.batch_spec`` without sp)."""
+    return (train_lib.batch_spec(mesh)[0], None)
+
+
+def mlm_mesh_parts(cfg: ModelConfig, mask_id: int, attn_fn, mesh):
+    """(loss_fn, sync) of the sharded masked-LM step on *mesh*: the loss
+    of this rank's rows through its shard (``ENCODER_DATA`` for the loss
+    tail's sums, a MoE capacity dispatch and the gradients), and the
+    ``GradSync`` that sums the gradients over those axes only."""
+    groups = col.groups_of(mesh)
+    body = partial(model_lib._block_output, shard=train_lib.step_shard(
+        cfg, groups, data_axes=ENCODER_DATA))
+    spec = rows_spec(mesh)
+
+    def loss_fn(params, tokens, mask_positions):
+        tokens = train_lib._take(tokens, spec, mesh)
+        mask_positions = train_lib._take(mask_positions, spec, mesh)
+        corrupted = torch.where(mask_positions, mask_id, tokens)
+        positions = torch.arange(tokens.shape[1], dtype=torch.int32,
+                                 device=tokens.device)
+        x, aux = model_lib.run_blocks(cfg, attn_fn, positions,
+                                      params.embed[corrupted], params.blocks,
+                                      body=body)
+        x = model_lib.rms_norm(x, params.ln_f)
+        loss = train_lib.sharded_loss_tail(
+            x, params.head, tokens, mask_positions, cfg, groups,
+            data_axes=ENCODER_DATA)
+        if cfg.n_experts > 0 and cfg.moe_aux_coeff > 0:
+            loss = loss + cfg.moe_aux_coeff * aux
+        return loss
+
+    return loss_fn, train_lib.grad_sync(cfg, groups,
+                                        data_axes=ENCODER_DATA)
+
+
 def make_mlm_train_step(cfg: ModelConfig, mask_id: int,
                         optimizer: Optional[AdamW] = None,
                         attention: str = "dense", mesh=None, device=None):
@@ -79,17 +128,22 @@ def make_mlm_train_step(cfg: ModelConfig, mask_id: int,
     masked-LM loss -> gradients -> AdamW, in place, on *device* (the card
     by default). ``attention``: 'dense' or 'flash' (the flash kernels with
     ``causal=False``). Batches may be numpy arrays (uploaded) or tensors
-    already on the device."""
-    refuse_mesh(mesh, "make_mlm_train_step")
+    already on the device. With *mesh* every rank passes the GLOBAL batch
+    and ``train.init_state(..., mesh=)``'s state, and gets the global
+    loss (``mlm_mesh_parts``)."""
     optimizer = optimizer or make_optimizer()
     up = _uploader(resolve_device(device))
     attn_fn = bidirectional_attention(attention, "encoder")
+    sync = None
+    if mesh is None:
+        def loss_fn(params, tokens, mask_positions):
+            return masked_lm_loss(params, tokens, mask_positions, mask_id,
+                                  cfg, attn_fn=attn_fn)
+    else:
+        train_lib.check_mesh(cfg, mesh)
+        loss_fn, sync = mlm_mesh_parts(cfg, mask_id, attn_fn, mesh)
 
-    def loss_fn(params, tokens, mask_positions):
-        return masked_lm_loss(params, tokens, mask_positions, mask_id, cfg,
-                              attn_fn=attn_fn)
-
-    step = make_update_step(loss_fn, optimizer)
+    step = make_update_step(loss_fn, optimizer, sync=sync)
 
     def train_step(state, tokens, mask_positions):
         return step(state, up(tokens, torch.int64),

@@ -119,12 +119,16 @@ def config_from_hf(hf_config, **overrides) -> ModelConfig:
 
 def params_from_hf(model_or_state_dict, cfg: Optional[ModelConfig] = None,
                    dtype: Optional[torch.dtype] = None,
-                   device=None) -> Tuple[Transformer, ModelConfig]:
+                   device=None, mesh=None) -> Tuple[Transformer, ModelConfig]:
     """Convert a llama model (anything with ``.config`` and
     ``.state_dict()``) or a state dict into ``(model, cfg)`` on *device*
     (the card by default). ``dtype`` overrides the parameter dtype (e.g.
     ``torch.bfloat16`` for serving); it defaults to ``cfg.dtype``, and the
-    returned cfg carries the dtype the weights have."""
+    returned cfg carries the dtype the weights have. With *mesh* the model
+    is this rank's shard (``train.param_specs``, carrying its
+    ``ModelShard``): each leaf is laid out where the state dict holds it,
+    cut to the rank's slice and only that slice moved to *device*, one
+    leaf at a time; the whole ``Transformer`` is never built."""
     if hasattr(model_or_state_dict, "state_dict"):
         if cfg is None:
             cfg = config_from_hf(model_or_state_dict.config)
@@ -141,6 +145,12 @@ def params_from_hf(model_or_state_dict, cfg: Optional[ModelConfig] = None,
         cfg = dataclasses.replace(cfg, dtype=dtype)
     d, h, hd, kv, f = (cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.kv_heads,
                        cfg.d_ff)
+    specs = None
+    if mesh is not None:
+        from kubetpu_torch.jobs import train as train_lib
+
+        train_lib.check_mesh(cfg, mesh)
+        specs = train_lib.param_specs(cfg)
 
     consumed = set()
 
@@ -150,29 +160,35 @@ def params_from_hf(model_or_state_dict, cfg: Optional[ModelConfig] = None,
             raise KeyError(f"checkpoint is missing {name!r}")
         return key
 
-    def tensor(key):
+    def source(key):
         t = sd[key]
         if not torch.is_tensor(t):
             t = torch.from_numpy(np.ascontiguousarray(t))
-        out = t.detach().to(device=device, dtype=dtype)
-        # already on the device in the dtype: copy, so that training the
-        # converted model never writes into the caller's checkpoint
-        return out.clone() if out.data_ptr() == t.data_ptr() else out
+        return t.detach()
 
     def get(name):
         key = key_of(name)
         consumed.add(key)
-        return tensor(key)
+        return source(key)
 
-    def put(module, attr, value, what):
+    def put(module, attr, value, what, spec):
         want = tuple(getattr(module, attr).shape)
+        if mesh is not None:
+            want = train_lib.whole_shape(want, spec, mesh)
         if tuple(value.shape) != want:
             raise ValueError(
                 f"{what}: checkpoint shape {tuple(value.shape)} != config "
                 f"{want} — config/checkpoint mismatch")
+        if mesh is not None:
+            value = train_lib._take(value, spec, mesh)
+        out = value.to(device=device, dtype=dtype).contiguous()
+        # already on the device in the dtype: copy, so that training the
+        # converted model never writes into the caller's checkpoint
+        if out.untyped_storage().data_ptr() == \
+                value.untyped_storage().data_ptr():
+            out = out.clone()
         delattr(module, attr)
-        setattr(module, attr, nn.Parameter(value.contiguous(),
-                                           requires_grad=False))
+        setattr(module, attr, nn.Parameter(out, requires_grad=False))
 
     def linear(name, *shape, out_first=False):
         """A torch Linear's (out, in) weight -> the port's (in, *shape), or
@@ -186,7 +202,17 @@ def params_from_hf(model_or_state_dict, cfg: Optional[ModelConfig] = None,
                              f"does not fit the config — config/checkpoint "
                              f"mismatch") from e
 
-    model = Transformer(cfg, torch.device("meta"))
+    if mesh is None:
+        model = Transformer(cfg, torch.device("meta"))
+    else:
+        model = train_lib.local_model(cfg, mesh, torch.device("meta"))
+    block_specs = specs["blocks"] if specs else {}
+
+    def spec_of(attr, top=False):
+        if specs is None:
+            return None
+        return specs[attr] if top else block_specs[attr][1:]
+
     for i, blk in enumerate(model.blocks):
         p = f"layers.{i}."
         for attr, value in (
@@ -200,15 +226,15 @@ def params_from_hf(model_or_state_dict, cfg: Optional[ModelConfig] = None,
                 ("w_gate", linear(p + "mlp.gate_proj.weight", f)),
                 ("w_up", linear(p + "mlp.up_proj.weight", f)),
                 ("w_down", linear(p + "mlp.down_proj.weight", d))):
-            put(blk, attr, value, f"layers.{i}.{attr}")
+            put(blk, attr, value, f"layers.{i}.{attr}", spec_of(attr))
     embed = get("embed_tokens.weight")
-    put(model, "embed", embed, "embed")
+    put(model, "embed", embed, "embed", spec_of("embed", True))
     if "lm_head.weight" in sd:
-        head = tensor("lm_head.weight").t()
+        head = source("lm_head.weight").t()
     else:  # tied embeddings
         head = embed.t()
-    put(model, "head", head, "head")
-    put(model, "ln_f", get("norm.weight"), "ln_f")
+    put(model, "head", head, "head", spec_of("head", True))
+    put(model, "ln_f", get("norm.weight"), "ln_f", spec_of("ln_f", True))
     consumed.add("lm_head.weight")
     # Anything left unmapped means the converted model would NOT reproduce
     # the reference (dropped bias terms, extra adapters, ...). Rotary
@@ -223,4 +249,8 @@ def params_from_hf(model_or_state_dict, cfg: Optional[ModelConfig] = None,
             f"conversion would silently drop: {leftover[:6]}"
             f"{'...' if len(leftover) > 6 else ''}"
         )
+    if mesh is not None:
+        from kubetpu_torch.jobs import collectives as col
+
+        model.shard = col.model_shard(mesh, specs)
     return model, cfg

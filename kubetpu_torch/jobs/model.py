@@ -271,53 +271,76 @@ def init_params(generator: torch.Generator, cfg: ModelConfig,
     ``(H*hd)**-0.5`` for ``wo``, ``d_ff**-0.5`` for ``w_down``; norms at 1;
     the MoE router and experts by the same rule, the router drawn last in
     each block so that a dense config's draws do not move),
-    drawn from *generator*, which must live on *device*. The numbers differ
-    from ``jax.random``'s; tests that compare the two packages convert one
-    tree with ``params_from_numpy`` instead."""
+    drawn from *generator*, which must live on *device*, in
+    ``model_plan``'s order. The numbers differ from ``jax.random``'s; tests
+    that compare the two packages convert one tree with
+    ``params_from_numpy`` instead."""
     device = resolve_device(device)
-    normal_ = normal_filler(generator, cfg.dtype, device)
     model = Transformer(cfg, device)
-    scale = cfg.d_model ** -0.5
-    with torch.no_grad():
-        init_blocks_(model.blocks, cfg, normal_)
-        normal_(model.embed, scale)
-        model.ln_f.fill_(1.0)
-        normal_(model.head, scale)
+    fill_plan(model_plan(model), normal_filler(generator, cfg.dtype, device))
     return model
 
 
-def normal_filler(generator: torch.Generator, dtype: torch.dtype, device):
-    """``normal_(p, s)``: fill *p* in place with normal draws from
-    *generator* (which must live on *device*) in *dtype*, times *s*."""
+def normal_draw(generator: torch.Generator, dtype: torch.dtype, device):
+    """``draw(shape, s)``: a new tensor of normal draws from *generator*
+    (which must live on *device*) in *dtype*, times *s*: the one rule every
+    random init draws by, whole (``normal_filler``) or leaf by leaf into a
+    shard (``train.draw_shard``)."""
+    device = torch.device(device)
     if generator.device.type != device.type:
         raise ValueError(f"generator lives on {generator.device}, weights "
                          f"on {device}")
 
+    def draw(shape, s: float) -> torch.Tensor:
+        return torch.randn(shape, generator=generator, device=device,
+                           dtype=dtype).mul_(s)
+
+    return draw
+
+
+def normal_filler(generator: torch.Generator, dtype: torch.dtype, device):
+    """``normal_(p, s)``: fill *p* in place with ``normal_draw``'s draws."""
+    draw = normal_draw(generator, dtype, device)
+
     def normal_(p: torch.Tensor, s: float) -> None:
-        p.copy_(torch.randn(p.shape, generator=generator, device=device,
-                            dtype=dtype) * s)
+        p.copy_(draw(p.shape, s))
 
     return normal_
 
 
-def init_blocks_(blocks, cfg: ModelConfig, normal_) -> None:
-    """``init_params``'s rule for each block, in place and in its draw
-    order: norms at 1, the projections and the MLP normal, the MoE router
-    drawn last."""
+def blocks_plan(blocks, cfg: ModelConfig):
+    """``init_params``'s rule for each block, in its draw order: (leaf,
+    scale), scale None for a norm at 1; the projections and the MLP
+    normal, the MoE router drawn last."""
     d, h, hd, f = cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.d_ff
     scale = d ** -0.5
     for blk in blocks:
-        blk.ln1.fill_(1.0)
-        blk.ln2.fill_(1.0)
-        normal_(blk.wq, scale)
-        normal_(blk.wk, scale)
-        normal_(blk.wv, scale)
-        normal_(blk.wo, (h * hd) ** -0.5)
-        normal_(blk.w_gate, scale)
-        normal_(blk.w_up, scale)
-        normal_(blk.w_down, f ** -0.5)
+        yield from ((blk.ln1, None), (blk.ln2, None), (blk.wq, scale),
+                    (blk.wk, scale), (blk.wv, scale),
+                    (blk.wo, (h * hd) ** -0.5), (blk.w_gate, scale),
+                    (blk.w_up, scale), (blk.w_down, f ** -0.5))
         if cfg.n_experts > 0:
-            normal_(blk.moe_router, scale)
+            yield blk.moe_router, scale
+
+
+def model_plan(model: Transformer):
+    """Every leaf of a whole *model* with its scale, in ``init_params``'
+    draw order: the blocks, then embed, ln_f and head."""
+    scale = model.cfg.d_model ** -0.5
+    yield from blocks_plan(model.blocks, model.cfg)
+    yield from ((model.embed, scale), (model.ln_f, None),
+                (model.head, scale))
+
+
+def fill_plan(plan, normal_) -> None:
+    """Fill every (leaf, scale) of *plan* in its order: normal draws times
+    the scale, or ones where the scale is None."""
+    with torch.no_grad():
+        for p, scale in plan:
+            if scale is None:
+                p.fill_(1.0)
+            else:
+                normal_(p, scale)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,

@@ -17,25 +17,36 @@ position reads the encoder's memory:
   (``decoder_forward_chunk`` over ``decode._decode_block``), pinned
   against a full-recompute reference (``cached=False``).
 
-Not ported yet: ``seq2seq_param_specs`` and the sharded step (ROADMAP
-queue 1 item 8).
+Over a mesh (``init_seq2seq_state(..., mesh=)``,
+``make_seq2seq_train_step(..., mesh=)``) both stacks take training's specs
+and the cross branch shards its heads on tp like self-attention
+(``seq2seq_param_specs``: ``wo_x`` row-parallel, a ``reduce_from`` after
+it). The batch goes on dp and both sequences on sp, so a rank holds a block
+of the source and of the target: the encoder's bidirectional attention and
+the cross branch read every source position through a non-causal ring,
+the decoder's self-attention through the causal ring (both the dense ring:
+the seq2seq attention is dense on one card too).
 """
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Optional
 
 import torch
 from torch import nn
 
+from kubetpu_torch.jobs import collectives as col
 from kubetpu_torch.jobs import decode as decode_lib
 from kubetpu_torch.jobs import model as model_lib
+from kubetpu_torch.jobs import train as train_lib
 from kubetpu_torch.jobs.encoder import dense_bidirectional_attention
 from kubetpu_torch.jobs.model import (ModelConfig, Transformer, _param,
                                       resolve_device)
+from kubetpu_torch.jobs.ring_attention import make_ring_attention
 from kubetpu_torch.jobs.train import (AdamW, TrainState, _uploader,
                                       make_optimizer, make_update_step,
-                                      refuse_mesh, state_from_params)
+                                      state_from_params)
 
 CROSS_LEAVES = ("ln_x", "wq_x", "wk_x", "wv_x", "wo_x")
 
@@ -43,11 +54,14 @@ CROSS_LEAVES = ("ln_x", "wq_x", "wk_x", "wv_x", "wo_x")
 class CrossBlock(model_lib.Block):
     """A decoder block: ``model.Block``'s leaves plus the cross branch's
     ``ln_x (d,)``, ``wq_x (d, H, hd)``, ``wk_x``/``wv_x (d, H_kv, hd)`` and
-    ``wo_x (H, hd, d)``, in the JAX package's layouts."""
+    ``wo_x (H, hd, d)``, in the JAX package's layouts (a tp rank's
+    ``H/tp`` and ``H_kv/tp`` of the heads with ``tp > 1``)."""
 
-    def __init__(self, cfg: ModelConfig, device) -> None:
-        super().__init__(cfg, device)
-        d, h, hd, kv = cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.kv_heads
+    def __init__(self, cfg: ModelConfig, device, tp: int = 1,
+                 ep: int = 1) -> None:
+        super().__init__(cfg, device, tp, ep)
+        d, h, hd, kv = (cfg.d_model, cfg.n_heads // tp, cfg.head_dim,
+                        cfg.kv_heads // tp)
         self.ln_x = _param((d,), cfg, device)
         self.wq_x = _param((d, h, hd), cfg, device)
         self.wk_x = _param((d, kv, hd), cfg, device)
@@ -60,16 +74,36 @@ class Seq2Seq(nn.Module):
     ln_f); ``decoder``: a ``Transformer`` whose blocks are
     ``CrossBlock``s. Constructed with uninitialized weights;
     ``init_seq2seq_params`` or ``convert.seq2seq_params_from_numpy`` fill
-    them."""
+    them. With ``tp``/``ep`` > 1 it holds one rank's shard
+    (``seq2seq_param_specs``), and ``shard`` is its
+    ``collectives.ModelShard``."""
 
-    def __init__(self, cfg: ModelConfig, device) -> None:
+    shard: Optional[col.ModelShard] = None
+
+    def __init__(self, cfg: ModelConfig, device, tp: int = 1,
+                 ep: int = 1) -> None:
         super().__init__()
         self.cfg = cfg
-        self.encoder = Transformer(cfg, device)
+        self.encoder = Transformer(cfg, device, tp=tp, ep=ep)
         del self.encoder.head                  # memory, not logits
-        self.decoder = Transformer(cfg, device)
+        self.decoder = Transformer(cfg, device, tp=tp, ep=ep)
         self.decoder.blocks = nn.ModuleList(
-            [CrossBlock(cfg, device) for _ in range(cfg.n_layers)])
+            [CrossBlock(cfg, device, tp, ep) for _ in range(cfg.n_layers)])
+
+
+def seq2seq_plan(model: Seq2Seq):
+    """Every leaf of a whole ``Seq2Seq`` with its scale, in
+    ``init_seq2seq_params``' draw order (``model.fill_plan``)."""
+    cfg = model.cfg
+    scale = cfg.d_model ** -0.5
+    for stack in (model.encoder, model.decoder):
+        yield from model_lib.blocks_plan(stack.blocks, cfg)
+        yield from ((stack.embed, scale), (stack.ln_f, None))
+    yield model.decoder.head, scale
+    for blk in model.decoder.blocks:
+        yield from ((blk.ln_x, None), (blk.wq_x, scale), (blk.wk_x, scale),
+                    (blk.wv_x, scale),
+                    (blk.wo_x, (cfg.n_heads * cfg.head_dim) ** -0.5))
 
 
 def init_seq2seq_params(generator: torch.Generator, cfg: ModelConfig,
@@ -80,22 +114,42 @@ def init_seq2seq_params(generator: torch.Generator, cfg: ModelConfig,
     at 1, ``d**-0.5``, ``(H*hd)**-0.5`` for ``wo_x``); drawn from
     *generator*, which must live on *device* (the card by default)."""
     device = resolve_device(device)
-    normal_ = model_lib.normal_filler(generator, cfg.dtype, device)
     model = Seq2Seq(cfg, device)
-    scale = cfg.d_model ** -0.5
-    with torch.no_grad():
-        for stack in (model.encoder, model.decoder):
-            model_lib.init_blocks_(stack.blocks, cfg, normal_)
-            normal_(stack.embed, scale)
-            stack.ln_f.fill_(1.0)
-        normal_(model.decoder.head, scale)
-        for blk in model.decoder.blocks:
-            blk.ln_x.fill_(1.0)
-            normal_(blk.wq_x, scale)
-            normal_(blk.wk_x, scale)
-            normal_(blk.wv_x, scale)
-            normal_(blk.wo_x, (cfg.n_heads * cfg.head_dim) ** -0.5)
+    model_lib.fill_plan(seq2seq_plan(model), model_lib.normal_filler(
+        generator, cfg.dtype, device))
     return model
+
+
+def seq2seq_param_specs(cfg: ModelConfig) -> dict:
+    """The axis each dimension of each leaf shards on: training's specs
+    for both stacks (``train.param_specs``, the encoder without a head),
+    the cross projections' heads on tp like self-attention's."""
+    enc = train_lib.param_specs(cfg)
+    del enc["head"]
+    dec = train_lib.param_specs(cfg)
+    dec["blocks"] = dict(dec["blocks"], ln_x=(None, None),
+                         wq_x=(None, None, "tp", None),
+                         wk_x=(None, None, "tp", None),
+                         wv_x=(None, None, "tp", None),
+                         wo_x=(None, "tp", None, None))
+    return {"encoder": enc, "decoder": dec}
+
+
+def init_seq2seq_shard(generator: torch.Generator, cfg: ModelConfig, mesh,
+                       device=None) -> Seq2Seq:
+    """This rank's shard of ``init_seq2seq_params(generator, cfg)``, drawn
+    leaf by leaf (``train.draw_shard``: the shard plus one whole leaf at
+    a time, equal bit for bit to cutting the whole model)."""
+    device = resolve_device(device)
+    train_lib.check_mesh(cfg, mesh)
+    local = Seq2Seq(cfg, device, tp=col.axis_size(mesh, "tp"),
+                    ep=col.axis_size(mesh, "ep"))
+    whole = Seq2Seq(cfg, torch.device("meta"))
+    specs = seq2seq_param_specs(cfg)
+    train_lib.draw_shard(seq2seq_plan(whole), train_lib.shard_routes(
+        whole, local, specs, mesh), generator, cfg.dtype, device, mesh)
+    local.shard = col.model_shard(mesh, specs, moe=cfg.n_experts > 0)
+    return local
 
 
 def _cross_attend(cfg: ModelConfig, h: torch.Tensor, layer: CrossBlock,
@@ -184,19 +238,85 @@ def seq2seq_loss(params: Seq2Seq, src: torch.Tensor, tgt_in: torch.Tensor,
     return loss
 
 
+def seq2seq_mesh_parts(cfg: ModelConfig, mesh):
+    """(loss_fn, sync) of the sharded seq2seq step on *mesh*: this rank's
+    block of source and target (rows on the data axes, positions on sp,
+    RoPE at their global positions), the encoder under the non-causal
+    ring, the decoder's self-attention under the causal ring and its
+    cross branch over every source position through the non-causal ring,
+    the vocab-parallel loss tail; gradients summed over the data axes and
+    sp."""
+    groups = col.groups_of(mesh)
+    shard = train_lib.step_shard(cfg, groups)
+    tp = shard.tp
+    spec = train_lib.batch_spec(mesh)
+    sp_index = col.axis_index(mesh, "sp")
+    causal = make_ring_attention(mesh, impl="dense", window=cfg.window)
+    bidir = make_ring_attention(mesh, impl="dense", causal=False)
+    n_rep = cfg.n_heads // cfg.kv_heads
+
+    def cross_block(cfg, attn_fn, positions, x, layer_and_memory):
+        layer, mem_k, mem_v = layer_and_memory
+        x, aux, _k, _v = model_lib._block_with_aux(cfg, attn_fn, positions,
+                                                   x, layer, shard)
+        h = col.copy_to(model_lib.rms_norm(x, layer.ln_x), tp)
+        q = torch.einsum("btd,dhk->bthk", h, layer.wq_x)
+        attn = bidir(q, model_lib.repeat_kv(mem_k, n_rep),
+                     model_lib.repeat_kv(mem_v, n_rep))
+        return x + col.reduce_from(
+            torch.einsum("bthk,hkd->btd", attn, layer.wo_x), tp), aux
+
+    def loss_fn(params, src, tgt_in, tgt_out):
+        src, tgt_in, tgt_out = (train_lib._take(x, spec, mesh)
+                                for x in (src, tgt_in, tgt_out))
+        enc, dec = params.encoder, params.decoder
+        memory, aux_enc = model_lib.run_blocks(
+            cfg, bidir, train_lib._positions(sp_index, src.shape[1],
+                                             src.device),
+            enc.embed[src], enc.blocks,
+            body=partial(model_lib._block_output, shard=shard))
+        memory = col.copy_to(model_lib.rms_norm(memory, enc.ln_f), tp)
+        mem_k, mem_v = memory_projections(cfg, dec.blocks, memory)
+        x, aux_dec = model_lib.run_blocks(
+            cfg, causal, train_lib._positions(sp_index, tgt_in.shape[1],
+                                              tgt_in.device),
+            dec.embed[tgt_in], zip(dec.blocks, mem_k, mem_v),
+            body=cross_block)
+        x = model_lib.rms_norm(x, dec.ln_f)
+        loss = train_lib.sharded_loss_tail(x, dec.head, tgt_out, None, cfg,
+                                           groups)
+        if cfg.moe_aux_coeff > 0:
+            loss = loss + cfg.moe_aux_coeff * (aux_enc + aux_dec)
+        return loss
+
+    specs = seq2seq_param_specs(cfg)
+    local = Seq2Seq(cfg, torch.device("meta"), tp=col.axis_size(mesh, "tp"),
+                    ep=col.axis_size(mesh, "ep"))
+    sync = train_lib.sync_for([(n, train_lib.leaf_spec(specs, n))
+                               for n, _ in local.named_parameters()], groups)
+    return loss_fn, sync
+
+
 def make_seq2seq_train_step(cfg: ModelConfig,
                             optimizer: Optional[AdamW] = None,
                             accum_steps: int = 1, mesh=None, device=None):
     """``step(state, src, tgt_in, tgt_out) -> (state, loss)`` on *device*
     (the card by default); ``accum_steps > 1`` sums the gradients of that
     many microbatches (``train.make_update_step``). Batches may be numpy
-    arrays (uploaded) or tensors already on the device."""
-    refuse_mesh(mesh, "make_seq2seq_train_step")
+    arrays (uploaded) or tensors already on the device. With *mesh* every
+    rank passes the GLOBAL batch and ``init_seq2seq_state(...,
+    mesh=)``'s state (``seq2seq_mesh_parts``)."""
     optimizer = optimizer or make_optimizer()
     up = _uploader(resolve_device(device))
-    step = make_update_step(
-        lambda p, s, ti, to: seq2seq_loss(p, s, ti, to, cfg), optimizer,
-        accum_steps=accum_steps)
+    sync = None
+    if mesh is None:
+        def loss_fn(p, s, ti, to):
+            return seq2seq_loss(p, s, ti, to, cfg)
+    else:
+        train_lib.check_mesh(cfg, mesh)
+        loss_fn, sync = seq2seq_mesh_parts(cfg, mesh)
+    step = make_update_step(loss_fn, optimizer, accum_steps=accum_steps,
+                            sync=sync)
 
     def train_step(state: TrainState, src, tgt_in, tgt_out):
         return step(state, up(src, torch.int64), up(tgt_in, torch.int64),
@@ -209,10 +329,13 @@ def init_seq2seq_state(generator: torch.Generator, cfg: ModelConfig,
                        optimizer: Optional[AdamW] = None, mesh=None,
                        device=None):
     """-> (TrainState, optimizer): random weights from *generator* on
-    *device* (the card by default) and a zero AdamW state."""
-    refuse_mesh(mesh, "init_seq2seq_state")
+    *device* (the card by default) and a zero AdamW state; with *mesh*,
+    this rank's shard of them (``init_seq2seq_shard``)."""
     optimizer = optimizer or make_optimizer()
-    params = init_seq2seq_params(generator, cfg, resolve_device(device))
+    if mesh is not None:
+        params = init_seq2seq_shard(generator, cfg, mesh, device)
+    else:
+        params = init_seq2seq_params(generator, cfg, resolve_device(device))
     return state_from_params(params, optimizer), optimizer
 
 

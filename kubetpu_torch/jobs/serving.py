@@ -53,8 +53,10 @@ is SPMD, one process a rank: every rank builds the same server and
 receives the same calls (``submit``, ``enqueue``, ``step``, ``drain``, the
 migration legs), every rank runs the whole host scheduler (admission,
 buckets, pages, the prefix tree), and the device work is sharded. The
-parameters are cut by ``train.param_specs`` (``train.shard_model``), the
-blocks run tensor-parallel, and the logits reach every rank of a tp group
+parameters are cut by ``train.param_specs`` (``train.shard_model``; a
+model that already is a shard of the mesh, ``train.init_shard``'s, is
+taken as it is, so no rank need ever hold the whole model), the blocks
+run tensor-parallel, and the logits reach every rank of a tp group
 whole, so every rank samples the same tokens. ``DecodeServer`` puts slots
 on dp when dp divides ``n_slots`` (a rank runs its own slots' legs and
 each step's tokens, and each prefill's first token, are shared over dp

@@ -16,9 +16,10 @@ shard, the blocks run tensor-parallel through autograd-aware collectives
 replicated over ep, so the expert exchange is a sum) with its capacity
 dispatch and load-balance term over the global batch, and the loss tail
 is vocab-parallel. ``data.prefetch_to_mesh`` feeds the step each rank's
-block ahead of time; ``pipeline`` adds the pp axis. The other families'
-sharded steps wait for the last multi-device slice (ROADMAP queue 1 item
-8).
+block ahead of time; ``pipeline`` adds the pp axis. ``init_shard`` draws a
+rank's shard leaf by leaf (``draw_shard``), never the whole model; the
+encoder, ViT, seq2seq and distillation steps build on the same pieces
+(``sync_for``, ``sharded_loss_tail``, ``step_shard``).
 
 Where JAX returns a new state, the port updates the parameters and the
 optimizer state in place (no second copy of the weights) and returns the
@@ -187,13 +188,15 @@ def init_state(generator: torch.Generator, cfg: ModelConfig,
                pp: bool = False):
     """-> (TrainState, optimizer): random weights from *generator* (which
     lives on *device*, the card by default) and a zero optimizer state.
-    With *mesh*, every rank draws the whole model from the same seed and
-    keeps its shard (``shard_model``; *pp*: its pipeline stage's layers),
-    so the shards are those of the one-card model of that seed."""
+    With *mesh*, every rank draws the model leaf by leaf from the same seed
+    and keeps its shard of each leaf (``init_shard``; *pp*: its pipeline
+    stage's layers), so the shards are those of the one-card model of that
+    seed and no rank ever holds the whole model."""
     optimizer = optimizer or make_optimizer()
-    params = model_lib.init_params(generator, cfg, resolve_device(device))
     if mesh is not None:
-        params = shard_model(params, cfg, mesh, pp)
+        params = init_shard(generator, cfg, mesh, device, pp)
+    else:
+        params = model_lib.init_params(generator, cfg, resolve_device(device))
     return state_from_params(params, optimizer), optimizer
 
 
@@ -313,15 +316,18 @@ def batch_spec(mesh=None) -> tuple:
     return ("dp", "sp")
 
 
-def _entry_index(mesh, entry) -> Tuple[int, int]:
-    """(this rank's index, count) along a spec entry: an axis name, a
-    tuple of names (flattened, outermost first) or None."""
+def _entry_index(mesh, entry, coords=None) -> Tuple[int, int]:
+    """(index, count) along a spec entry (an axis name, a tuple of names
+    flattened outermost first, or None): this rank's, or that of the rank
+    at *coords* (axis name -> index)."""
     names = (() if entry is None else
              (entry,) if isinstance(entry, str) else tuple(entry))
     idx, count = 0, 1
     for name in names:
         n = col.axis_size(mesh, name)
-        idx, count = idx * n + col.axis_index(mesh, name), count * n
+        at = (col.axis_index(mesh, name) if coords is None
+              else coords.get(name, 0))
+        idx, count = idx * n + at, count * n
     return idx, count
 
 
@@ -330,25 +336,68 @@ def _entry_index(mesh, entry) -> Tuple[int, int]:
 LOCAL_BLOCK = "_kubetpu_local_block"
 
 
+def _region(shape, spec, mesh, coords=None) -> tuple:
+    """The index of the block of a *shape* array that the rank at *coords*
+    (this rank by default) holds under *spec*: each dimension cut into its
+    axis's count of equal parts."""
+    index = []
+    for dim, entry in enumerate(spec):
+        i, n = _entry_index(mesh, entry, coords)
+        if shape[dim] % n:
+            raise ValueError(f"dimension {dim} of size {shape[dim]} does "
+                             f"not split over {entry!r} ({n})")
+        size = shape[dim] // n
+        index.append(slice(i * size, (i + 1) * size))
+    return tuple(index)
+
+
 def _take(x, spec, mesh):
     """This rank's block of *x* (a numpy array or a tensor) under *spec*:
     each dimension cut into its axis's count of equal parts."""
-    index = []
-    for dim, entry in enumerate(spec):
-        i, n = _entry_index(mesh, entry)
-        if x.shape[dim] % n:
-            raise ValueError(f"dimension {dim} of size {x.shape[dim]} does "
-                             f"not split over {entry!r} ({n})")
-        size = x.shape[dim] // n
-        index.append(slice(i * size, (i + 1) * size))
-    return x[tuple(index)]
+    return x[_region(x.shape, spec, mesh)]
 
 
-def check_mesh(cfg: ModelConfig, mesh, pp: bool = False) -> None:
+def whole_shape(shape, spec, mesh) -> tuple:
+    """The whole leaf's shape from a block's *shape* under *spec*."""
+    return tuple(n * _entry_index(mesh, entry, {})[1]
+                 for n, entry in zip(shape, spec))
+
+
+def leaf_spec(specs: dict, name: str) -> tuple:
+    """The spec of parameter *name* (a ``named_parameters`` name) in
+    *specs*' tree, a block leaf's with its leading layer entry (the axes
+    its gradient and its norm span)."""
+    node = specs
+    for part in name.split("."):
+        if not part.isdigit():
+            node = node[part]
+    return tuple(node)
+
+
+def local_spec(specs: dict, name: str) -> tuple:
+    """The spec of parameter *name* as the module holds it: one layer of
+    a block leaf, without the layer entry."""
+    spec = leaf_spec(specs, name)
+    return spec[1:] if any(p.isdigit() for p in name.split(".")) else spec
+
+
+def global_name(name: str, first_layer: int) -> str:
+    """The whole model's name of a shard's parameter *name*: a pipeline
+    stage's local block ``i`` is global layer ``first_layer + i``."""
+    parts = name.split(".")
+    if not first_layer or "blocks" not in parts:
+        return name
+    i = parts.index("blocks") + 1
+    parts[i] = str(int(parts[i]) + first_layer)
+    return ".".join(parts)
+
+
+def check_mesh(cfg: ModelConfig, mesh, pp: bool = False,
+               vocab: bool = True) -> None:
     """Raise on what the sharded step does not take: axes other than
     dcn/dp/sp/tp/ep (and pp under *pp*), ep that does not divide the
-    experts, and tp that does not divide heads, K/V heads, d_ff and
-    vocab."""
+    experts, and tp that does not divide heads, K/V heads, d_ff and (for
+    a model with an LM head, *vocab*) the vocabulary."""
     allowed = {"dcn", "dp", "sp", "tp", "ep"} | ({"pp"} if pp else set())
     extra = set(mesh.mesh_dim_names) - allowed
     if extra:
@@ -360,7 +409,8 @@ def check_mesh(cfg: ModelConfig, mesh, pp: bool = False) -> None:
                          f"({cfg.n_experts})")
     tp = col.axis_size(mesh, "tp")
     for name, n in (("n_heads", cfg.n_heads), ("kv heads", cfg.kv_heads),
-                    ("d_ff", cfg.d_ff), ("vocab", cfg.vocab)):
+                    ("d_ff", cfg.d_ff)) + ((("vocab", cfg.vocab),)
+                                           if vocab else ()):
         if n % tp:
             raise ValueError(f"tp={tp} does not divide {name} ({n})")
     if pp and cfg.n_layers % col.axis_size(mesh, "pp"):
@@ -391,29 +441,97 @@ def shard_model(full: Transformer, cfg: ModelConfig, mesh,
     """This rank's shard of *full* (``param_specs``), as a new
     ``Transformer`` of local shapes on *full*'s device carrying its
     ``ModelShard`` (so ``forward`` and the decode paths run it through its
-    collectives); gradients off, as ``init_params`` leaves them. An int8
-    model is refused: its ``QTensor`` leaves have no sharding here, as the
-    JAX package's ``param_specs`` have none for them."""
+    collectives); gradients off, as ``init_params`` leaves them. A model
+    that already is a shard of *mesh* (``init_shard``, ``shard_params``,
+    ``restore_checkpoint``'s target) comes back as it is. An int8 model is
+    refused: its ``QTensor`` leaves have no sharding here, as the JAX
+    package's ``param_specs`` have none for them."""
     check_mesh(cfg, mesh, pp)
+    shard = getattr(full, "shard", None)
+    if shard is not None:
+        if shard.mesh is mesh and shard.pp == pp:
+            return full
+        raise ValueError("the model already is a shard of another mesh "
+                         "or pipeline split")
     require_unquantized(full, "shard_model")
     specs = param_specs(cfg, pp)
-    layers = stage_layers(cfg, mesh)
+    first = stage_layers(cfg, mesh).start
+    wholes = dict(full.named_parameters())
     local = local_model(cfg, mesh, torch.device("meta"), pp)
-    local.shard = col.model_shard(mesh, moe=cfg.n_experts > 0)
-
-    def put(module, name, value):
-        delattr(module, name)
-        setattr(module, name, torch.nn.Parameter(
-            value.detach().clone(memory_format=torch.contiguous_format),
-            requires_grad=False))
-
     with torch.no_grad():
-        for name in ("embed", "ln_f", "head"):
-            put(local, name, _take(getattr(full, name), specs[name], mesh))
-        for blk, i in zip(local.blocks, layers):
-            for name, spec in specs["blocks"].items():
-                put(blk, name, _take(getattr(full.blocks[i], name),
-                                     spec[1:], mesh))
+        for name, _p in list(local.named_parameters()):
+            set_param(local, name, _take(wholes[global_name(name, first)],
+                                         local_spec(specs, name), mesh)
+                      .clone(memory_format=torch.contiguous_format))
+    local.shard = col.model_shard(mesh, specs, moe=cfg.n_experts > 0, pp=pp)
+    return local
+
+
+def set_param(model: torch.nn.Module, name: str,
+              value: torch.Tensor) -> None:
+    """Replace parameter *name* of *model* (a meta-device placeholder) by
+    *value*, gradients off."""
+    *path, attr = name.split(".")
+    module = model.get_submodule(".".join(path))
+    delattr(module, attr)
+    setattr(module, attr, torch.nn.Parameter(value.detach(),
+                                             requires_grad=False))
+
+
+def shard_routes(whole: torch.nn.Module, local: torch.nn.Module, specs,
+                 mesh, first_layer: int = 0) -> dict:
+    """``id(whole leaf) -> (the shard's leaf, its local spec)`` for every
+    leaf the shard *local* holds, matched by name (a pipeline stage's
+    blocks from *first_layer* on)."""
+    wholes = dict(whole.named_parameters())
+    return {id(wholes[global_name(name, first_layer)]):
+            (p, local_spec(specs, name))
+            for name, p in local.named_parameters()}
+
+
+def draw_shard(plan, routes: dict, generator: torch.Generator,
+               dtype: torch.dtype, device, mesh) -> None:
+    """Fill a shard from the whole model's draw *plan* ((whole leaf,
+    scale) in ``fill_plan``'s order, the whole leaves on any device, the
+    meta device included) without ever holding the whole model: each leaf
+    is drawn whole on *device* from *generator*, scaled in place, cut
+    (``_take``) into its shard leaf (``routes``) and freed before the next
+    is drawn, so a rank holds its shard plus one whole leaf and the shards
+    equal those of ``fill_plan`` with the same generator bit for bit (both
+    draw by ``model.normal_draw``). A leaf the shard does not hold
+    (another stage's layer) is drawn all the same: the draws that follow
+    it must not move."""
+    draw = model_lib.normal_draw(generator, dtype, device)
+    with torch.no_grad():
+        for p, scale in plan:
+            route = routes.get(id(p))
+            if scale is None:
+                if route is not None:
+                    route[0].fill_(1.0)
+                continue
+            x = draw(p.shape, scale)
+            if route is not None:
+                route[0].copy_(_take(x, route[1], mesh))
+            del x
+
+
+def init_shard(generator: torch.Generator, cfg: ModelConfig, mesh,
+               device=None, pp: bool = False) -> Transformer:
+    """This rank's shard of ``init_params(generator, cfg)`` (*pp*: its
+    pipeline stage's layers), carrying its ``ModelShard``, gradients off,
+    drawn leaf by leaf (``draw_shard``): equal bit for bit to
+    ``shard_model(init_params(generator, cfg), cfg, mesh, pp)``, at a peak
+    of the shard plus the largest leaf."""
+    device = resolve_device(device)
+    check_mesh(cfg, mesh, pp)
+    local = local_model(cfg, mesh, device, pp)
+    whole = Transformer(cfg, torch.device("meta"))
+    specs = param_specs(cfg, pp)
+    draw_shard(model_lib.model_plan(whole),
+               shard_routes(whole, local, specs, mesh,
+                            stage_layers(cfg, mesh).start),
+               generator, cfg.dtype, device, mesh)
+    local.shard = col.model_shard(mesh, specs, moe=cfg.n_experts > 0, pp=pp)
     return local
 
 
@@ -486,26 +604,38 @@ class GradSync:
         return flag[0] > 0
 
 
-def grad_sync(cfg: ModelConfig, groups: col.MeshGroups,
-              pp: bool = False) -> GradSync:
+DATA_SP = ("dcn", "dp", "sp")
+
+
+def sync_for(leaf_specs, groups: col.MeshGroups,
+             data_axes: Sequence[str] = DATA_SP,
+             pp: bool = False) -> GradSync:
+    """The ``GradSync`` of a shard whose leaves, in ``parameters()``
+    order, are *leaf_specs* ((name, ``leaf_spec``) pairs): every gradient
+    summed over the mesh's *data_axes* (the axes whose ranks hold other
+    tokens; under *pp* the embedding's over pp too: only the first stage
+    embeds), each leaf's squares over the axes it is sharded on."""
+    names = groups.mesh.mesh_dim_names
+    data = tuple(a for a in data_axes if a in names)
+    reduce_axes, shard_axes = [], []
+    for name, spec in leaf_specs:
+        extra = ("pp",) if pp and name.split(".")[-1] == "embed" else ()
+        reduce_axes.append(data + extra)
+        shard_axes.append(tuple(a for a in spec if a in names))
+    return GradSync(groups, reduce_axes, shard_axes)
+
+
+def grad_sync(cfg: ModelConfig, groups: col.MeshGroups, pp: bool = False,
+              data_axes: Sequence[str] = DATA_SP) -> GradSync:
     """The ``GradSync`` of a rank's shard (``shard_model``), its leaves in
     the order of ``Transformer.parameters()``, read off a meta-device
-    model of the shard's shapes."""
-    mesh = groups.mesh
+    model of the shard's shapes. *data_axes*: the axes whose ranks hold
+    other tokens (the encoder's replicated sequence leaves sp out)."""
     specs = param_specs(cfg, pp)
-    data_sp = tuple(a for a in ("dcn", "dp", "sp")
-                    if a in mesh.mesh_dim_names)
-    shard = local_model(cfg, mesh, torch.device("meta"), pp)
-    reduce_axes, shard_axes = [], []
-    for name, _ in shard.named_parameters():
-        leaf = name.split(".")[-1]
-        spec = specs["blocks"][leaf] if "." in name else specs[leaf]
-        sharded = tuple(a for a in spec if a in mesh.mesh_dim_names)
-        # only the first stage embeds: the others' embed gradients are 0
-        extra = ("pp",) if pp and leaf == "embed" else ()
-        reduce_axes.append(data_sp + extra)
-        shard_axes.append(sharded)
-    return GradSync(groups, reduce_axes, shard_axes)
+    shard = local_model(cfg, groups.mesh, torch.device("meta"), pp)
+    return sync_for([(name, leaf_spec(specs, name))
+                     for name, _ in shard.named_parameters()], groups,
+                    data_axes, pp)
 
 
 def _positions(sp_index: int, s_local: int, device) -> torch.Tensor:
@@ -545,12 +675,14 @@ def _vocab_parallel_sums(x, head, targets, weights, cfg: ModelConfig,
 
 
 def sharded_loss_tail(x, head, targets, weights, cfg: ModelConfig,
-                      groups: col.MeshGroups):
+                      groups: col.MeshGroups,
+                      data_axes: Sequence[str] = DATA_SP):
     """The global mean loss from this rank's final-norm hidden states
     (B_local, S_local, D): the vocab-parallel per-position losses
     (streamed over ``cfg.loss_chunk`` positions at a time when set, each
     chunk recomputed in the backward), numerator and denominator summed
-    over the data axes and sp. Identical on every rank."""
+    over *data_axes* (the data axes and sp; the encoder's replicated
+    sequence leaves sp out). Identical on every rank."""
     tp_group = groups.over("tp")
     vocab_start = col.axis_index(groups.mesh, "tp") * head.shape[1]
     if weights is None:
@@ -573,7 +705,7 @@ def sharded_loss_tail(x, head, targets, weights, cfg: ModelConfig,
         else:
             n, w = _vocab_parallel_sums(*args)
         num, den = num + n, den + w
-    data_sp = groups.over("dcn", "dp", "sp")
+    data_sp = groups.over(*data_axes)
     num = col.reduce_from(num, data_sp, "dp")
     den = col.reduce_from(den.detach(), data_sp, "dp")
     return num / torch.clamp(den, min=1.0)
@@ -646,16 +778,6 @@ def _resolve_attention(attention: str, window: int = 0, mesh=None):
     if attention == "dense":
         return partial(model_lib.dense_attention, causal=True, window=window)
     raise ValueError(f"unknown attention {attention!r}")
-
-
-def refuse_mesh(mesh, what: str) -> None:
-    """Raise for a *mesh*: this entry point takes a ``device``; its
-    sharded form waits for the last multi-device slice (ROADMAP.md, queue
-    1, item 8)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            f"{what} over a mesh waits for the last multi-device slice "
-            "(ROADMAP.md, queue 1, item 8): pass device= instead")
 
 
 def _uploader(device: torch.device):

@@ -15,6 +15,7 @@ from kubetpu.jobs import beam as jbeam
 from kubetpu_torch.jobs import beam, decode
 from kubetpu_torch.jobs import model as tmodel
 from kubetpu_torch.jobs.convert import params_from_numpy
+from torch_mesh_worlds import MeshStub
 
 torch.set_num_threads(1)
 
@@ -134,5 +135,6 @@ def test_beam_refuses_what_it_cannot_run(both):
     _jcfg, _params, cfg, _model, _prompt = both
     with pytest.raises(ValueError, match="beam_size"):
         beam.make_beam_search(cfg, 0, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        beam.make_beam_search(cfg, 2, mesh=object(), device="cpu")
+    # a mesh is taken; one whose tp does not divide the heads is refused
+    with pytest.raises(ValueError, match="does not divide n_heads"):
+        beam.make_beam_search(cfg, 2, mesh=MeshStub(tp=3), device="cpu")

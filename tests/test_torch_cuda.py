@@ -1607,3 +1607,55 @@ def test_two_rank_meshed_paged_server_on_one_card_matches_the_one_card_server(
         n = got["launches"]
         assert n["split_launches"] > 0 and n["simt_launches"] > 0
         assert n["split_launches"] == n["combine_launches"]
+
+
+# the flash kernels at a meshed rank's shapes (phase 37): the encoder's on
+# {dp 2, sp 2, tp 2} (batch 4 / dp, the whole 2048 sequence, 16 / tp
+# heads) and ViT-B/16's on {dp 4, tp 2} (batch 128 / dp, 196 patches,
+# 12 / tp heads), bf16, non-causal
+MESH_FLASH_SHAPES = {"encoder": (2, 2048, 8, 128), "vit": (32, 196, 6, 64)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", list(MESH_FLASH_SHAPES))
+def test_flash_kernels_at_a_meshed_ranks_shapes(cuda, family):
+    """Forward out and lse, dQ, dK and dV of the wgmma instances against
+    their plain versions at a rank's shape, non-causal bf16."""
+    from kubetpu_torch.ops import flash_attention as fa
+
+    q, k, v, g = _flash_inputs(cuda, torch.bfloat16,
+                               *MESH_FLASH_SHAPES[family])
+    before = _flash_counts(fa)
+    out, lse = fa.flash_forward(q, k, v, False, 0)
+    grads = fa.flash_backward(q, k, v, out, lse, g, False, 0)
+    torch.cuda.synchronize()
+    assert _flash_counts(fa) == tuple(x + 1 for x in before)
+    ref_out, ref_lse = fa.flash_forward_reference(q, k, v, False, 0)
+    tol = FLASH_TOL[torch.bfloat16]
+    torch.testing.assert_close(out.float(), ref_out.float(), atol=tol,
+                               rtol=tol)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-4)
+    refs = fa.flash_backward_reference(q, k, v, out, lse, g, False, 0)
+    for name, x, ref in zip(("dq", "dk", "dv"), grads, refs):
+        torch.testing.assert_close(x.float(), ref.float(), atol=tol,
+                                   rtol=tol, msg=lambda m: f"{name}: {m}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("build", ["init", "restore"])
+def test_a_ranks_shard_build_peaks_at_the_shard_plus_one_leaf(cuda, tmp_path,
+                                                              build):
+    """A 2-rank {tp 2} world on cuda:0 at a wide bf16 config: the device
+    memory a rank allocates while it builds its shard, drawn leaf by leaf
+    (``init_shard``) or restored from a meshed checkpoint into a meshed
+    train state, peaks within 10% of the bytes it built plus the model's
+    largest whole leaf (the whole model is ~1.6x a rank's shard)."""
+    from torch_mesh_worlds import spawn
+
+    kw = dict(vocab=32000, d_model=1024, n_layers=4, n_heads=8, d_ff=2816,
+              max_seq=512, dtype=torch.bfloat16)
+    res = spawn("shard_memory", 2, tmp_path, {
+        "device": "cuda", "cfg": kw, "mesh": {"tp": 2}, "build": build,
+        "path": str(tmp_path / "ckpt")})
+    for r in res:
+        assert 0 < r["peak"] <= 1.1 * (r["built"] + r["largest"]), r

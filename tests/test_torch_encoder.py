@@ -24,6 +24,7 @@ from kubetpu_torch.jobs import model as tmodel
 from kubetpu_torch.jobs import train as ttrain
 from kubetpu_torch.jobs.convert import params_from_numpy, params_to_numpy
 from kubetpu_torch.ops.flash_attention import flash_attention
+from torch_mesh_worlds import MeshStub
 
 torch.set_num_threads(1)
 
@@ -157,9 +158,10 @@ def test_mlm_refuses_an_unknown_attention_and_a_mesh():
     with pytest.raises(ValueError, match="unknown encoder attention"):
         encoder.make_mlm_train_step(port_cfg(JCFG), MASK_ID,
                                     attention="falsh", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
+    # a mesh is taken; one whose tp does not divide the heads is refused
+    with pytest.raises(ValueError, match="does not divide n_heads"):
         encoder.make_mlm_train_step(port_cfg(JCFG), MASK_ID,
-                                    mesh=object(), device="cpu")
+                                    mesh=MeshStub(tp=3), device="cpu")
 
 
 def assert_updates_match(before, after, jbefore, jafter, jgrads,

@@ -23,6 +23,7 @@ from kubetpu_torch.jobs import train as ttrain
 from kubetpu_torch.jobs.convert import (seq2seq_params_from_numpy,
                                         seq2seq_params_to_numpy)
 from test_torch_encoder import STEP_LR, assert_updates_match
+from torch_mesh_worlds import MeshStub
 
 torch.set_num_threads(1)
 
@@ -177,11 +178,13 @@ def test_train_step_matches_the_reference(accum_steps):
         assert float(loss) == pytest.approx(float(jloss), rel=1e-5)
     assert_updates_match(before, seq2seq_params_to_numpy(state.params),
                          jbefore, jstate.params, jgrads)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        seq2seq.make_seq2seq_train_step(cfg, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        seq2seq.init_seq2seq_state(torch.Generator(), cfg, mesh=object(),
-                                   device="cpu")
+    # a mesh is taken; one whose tp does not divide the heads is refused
+    with pytest.raises(ValueError, match="does not divide n_heads"):
+        seq2seq.make_seq2seq_train_step(cfg, mesh=MeshStub(tp=3),
+                                        device="cpu")
+    with pytest.raises(ValueError, match="does not divide n_heads"):
+        seq2seq.init_seq2seq_state(torch.Generator(), cfg,
+                                   mesh=MeshStub(tp=3), device="cpu")
 
 
 @pytest.fixture(scope="module", params=[0, 3], ids=["dense", "window3"])

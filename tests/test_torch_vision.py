@@ -28,6 +28,7 @@ from kubetpu_torch.jobs.convert import (vit_params_from_numpy,
                                         vit_params_to_numpy)
 from kubetpu_torch.ops.flash_attention import flash_attention
 from test_torch_encoder import STEP_LR, assert_updates_match
+from torch_mesh_worlds import MeshStub
 
 torch.set_num_threads(1)
 
@@ -144,12 +145,13 @@ def test_vit_refuses_an_unknown_attention_and_a_mesh():
     with pytest.raises(ValueError, match="unknown vit attention"):
         vision.make_vit_train_step(port_cfg(JCFG), attention="falsh",
                                    device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        vision.make_vit_train_step(port_cfg(JCFG), mesh=object(),
+    # a mesh is taken; one whose tp does not divide the heads is refused
+    with pytest.raises(ValueError, match="does not divide n_heads"):
+        vision.make_vit_train_step(port_cfg(JCFG), mesh=MeshStub(tp=3),
                                    device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(ValueError, match="does not divide n_heads"):
         vision.init_vit_state(torch.Generator(), port_cfg(JCFG),
-                              mesh=object(), device="cpu")
+                              mesh=MeshStub(tp=3), device="cpu")
 
 
 @pytest.mark.parametrize("attention,remat", [("dense", False),

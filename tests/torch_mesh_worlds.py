@@ -66,6 +66,18 @@ def spawn(name: str, world: int, tmp_path, payload, timeout: float = 240.0,
     return out
 
 
+class MeshStub:
+    """Stands in for a DeviceMesh where only its axes and their sizes are
+    read (``train.check_mesh``): ``MeshStub(tp=3)``."""
+
+    def __init__(self, **axes) -> None:
+        self.mesh_dim_names = tuple(axes)
+        self._sizes = tuple(axes.values())
+
+    def size(self, dim: int) -> int:
+        return self._sizes[dim]
+
+
 # -- the workers (each runs on every rank of its world) -----------------------
 
 
@@ -503,6 +515,417 @@ def lora_train(payload):
             "probe": {"grads": probe, "norm": norm},
             "launches": {k: n - before[k] for k, n in
                          _flash_counts().items()}}
+
+
+# -- the other families on a mesh (tests/test_torch_mesh_families.py) ---------
+
+
+def _probe(loss_fn, sync, params, batch, gather):
+    """The gradient a sharded family step hands its optimizer at *params*
+    on *batch* (*loss_fn*'s gradient summed by *sync*), gathered whole by
+    *gather* (a function of a shard-shaped module), and the clip's global
+    norm (``GradSync.sq_norm``)."""
+    import copy
+
+    import torch
+
+    leaves = list(params.parameters())
+    grads = sync.reduce(list(torch.autograd.grad(loss_fn(params, *batch),
+                                                 leaves)))
+    norm = float(torch.sqrt(sync.sq_norm(grads)))
+    holder = copy.deepcopy(params)
+    with torch.no_grad():
+        for p, g in zip(holder.parameters(), grads):
+            p.copy_(g)
+    return {"grads": gather(holder), "norm": norm}
+
+
+def _steps(step, state, batches, *extra):
+    losses = []
+    for batch in batches:
+        state, loss = step(state, *extra, *batch)
+        losses.append(float(loss))
+    return state, losses
+
+
+def _vit_cfg(kw):
+    from kubetpu_torch.jobs.vision import VitConfig
+
+    kw = dict(kw)
+    return VitConfig(model=_cfg(kw.pop("model")), **kw)
+
+
+def _fam_mlm(case, device):
+    """The sharded masked-LM step: losses, weights after, the probe, and
+    the probe under the sync that also sums over sp (the planted fault)."""
+    import torch
+
+    from kubetpu_torch.jobs import collectives as col
+    from kubetpu_torch.jobs import encoder
+    from kubetpu_torch.jobs import train as ttrain
+    from kubetpu_torch.jobs.convert import gather_params, shard_params
+
+    cfg, mesh = _cfg(case["cfg"]), _mesh(case["mesh"], device)
+    opt = ttrain.make_optimizer(**case["opt"])
+    state = ttrain.state_from_params(
+        shard_params(case["params"], cfg, mesh, device=device), opt)
+    attn = encoder.bidirectional_attention(case["attention"], "encoder")
+    loss_fn, sync = encoder.mlm_mesh_parts(cfg, case["mask_id"], attn, mesh)
+    tokens, mask = case["batches"][0]
+    batch = (torch.as_tensor(tokens).long().to(device),
+             torch.as_tensor(mask).bool().to(device))
+    gather = lambda m: gather_params(m, cfg, mesh)          # noqa: E731
+    probe = _probe(loss_fn, sync, state.params, batch, gather)
+    fault = _probe(loss_fn, ttrain.grad_sync(cfg, col.groups_of(mesh)),
+                   state.params, batch, gather)["norm"]
+    step = encoder.make_mlm_train_step(cfg, case["mask_id"], opt,
+                                       attention=case["attention"],
+                                       mesh=mesh, device=device)
+    state, losses = _steps(step, state, case["batches"])
+    return {"losses": losses, "params": gather(state.params),
+            "probe": probe, "fault_norm": fault}
+
+
+def _fam_vit(case, device):
+    import torch
+
+    from kubetpu_torch.jobs import encoder, vision
+    from kubetpu_torch.jobs import train as ttrain
+    from kubetpu_torch.jobs.convert import gather_vit_params, shard_vit_params
+
+    cfg, mesh = _vit_cfg(case["cfg"]), _mesh(case["mesh"], device)
+    opt = ttrain.make_optimizer(**case["opt"])
+    state = ttrain.state_from_params(
+        shard_vit_params(case["params"], cfg, mesh, device=device), opt)
+    attn = encoder.bidirectional_attention(case["attention"], "vit")
+    loss_fn, sync = vision.vit_mesh_parts(cfg, attn, mesh)
+    images, labels = case["batches"][0]
+    batch = (torch.as_tensor(images).float().to(device),
+             torch.as_tensor(labels).long().to(device))
+    gather = lambda m: gather_vit_params(m, cfg, mesh)      # noqa: E731
+    probe = _probe(loss_fn, sync, state.params, batch, gather)
+    step = vision.make_vit_train_step(cfg, opt, attention=case["attention"],
+                                      mesh=mesh, device=device)
+    state, losses = _steps(step, state, case["batches"])
+    return {"losses": losses, "params": gather(state.params),
+            "probe": probe}
+
+
+def _fam_seq2seq(case, device):
+    import torch
+
+    from kubetpu_torch.jobs import seq2seq
+    from kubetpu_torch.jobs import train as ttrain
+    from kubetpu_torch.jobs.convert import (gather_seq2seq_params,
+                                            shard_seq2seq_params)
+
+    cfg, mesh = _cfg(case["cfg"]), _mesh(case["mesh"], device)
+    opt = ttrain.make_optimizer(**case["opt"])
+    state = ttrain.state_from_params(
+        shard_seq2seq_params(case["params"], cfg, mesh, device=device), opt)
+    loss_fn, sync = seq2seq.seq2seq_mesh_parts(cfg, mesh)
+    batch = tuple(torch.as_tensor(x).long().to(device)
+                  for x in case["batches"][0])
+    gather = lambda m: gather_seq2seq_params(m, cfg, mesh)  # noqa: E731
+    probe = _probe(loss_fn, sync, state.params, batch, gather)
+    step = seq2seq.make_seq2seq_train_step(
+        cfg, opt, accum_steps=case["accum_steps"], mesh=mesh, device=device)
+    state, losses = _steps(step, state, case["batches"])
+    return {"losses": losses, "params": gather(state.params),
+            "probe": probe}
+
+
+def _fam_distill(case, device):
+    import torch
+
+    from kubetpu_torch.jobs import collectives as col
+    from kubetpu_torch.jobs import distill
+    from kubetpu_torch.jobs import train as ttrain
+    from kubetpu_torch.jobs.convert import gather_params, shard_params
+
+    tcfg, dcfg = _cfg(case["tcfg"]), _cfg(case["dcfg"])
+    mesh = _mesh(case["mesh"], device)
+    target = shard_params(case["target"], tcfg, mesh, device=device)
+    opt = ttrain.make_optimizer(**case["opt"])
+    state = ttrain.state_from_params(
+        shard_params(case["draft"], dcfg, mesh, device=device), opt)
+    kw = dict(temperature=case["temperature"],
+              hard_weight=case["hard_weight"])
+    attention = "ring_flash" if col.axis_size(mesh, "sp") > 1 else "flash"
+    teacher, loss_fn, sync = distill.distill_mesh_parts(
+        tcfg, dcfg, kw["temperature"], kw["hard_weight"], mesh, attention)
+    tokens, targets = (torch.as_tensor(x).long().to(device)
+                       for x in case["batches"][0])
+    gather = lambda m: gather_params(m, dcfg, mesh)          # noqa: E731
+    probe = _probe(loss_fn, sync, state.params,
+                   (tokens, targets, teacher(target, tokens)), gather)
+    step, _ = distill.make_distill_step(tcfg, dcfg, opt, device=device,
+                                        mesh=mesh, **kw)
+    state, losses = _steps(step, state, case["batches"], target)
+    return {"losses": losses, "params": gather(state.params),
+            "probe": probe}
+
+
+def _fam_beam(case, device):
+    """Beam search on the mesh from the whole model and from its shard."""
+    import torch
+
+    from kubetpu_torch.jobs import beam
+    from kubetpu_torch.jobs.convert import params_from_numpy, shard_params
+
+    cfg, mesh = _cfg(case["cfg"]), _mesh(case["mesh"], device)
+    search = beam.make_beam_search(cfg, case["k"], mesh=mesh,
+                                   device=device, **case["kw"])
+    prompt = torch.as_tensor(case["prompt"]).long()
+    out = {}
+    for name, model in (
+            ("whole", params_from_numpy(case["params"], cfg, device=device)),
+            ("shard", shard_params(case["params"], cfg, mesh,
+                                   device=device))):
+        seq, scores = search(model, prompt, case["steps"])
+        out[name] = {"seq": seq.cpu().numpy(),
+                     "scores": scores.cpu().numpy()}
+    return out
+
+
+def _same_as_cut(local, whole, specs, mesh, first_layer=0) -> list:
+    """The names of *local*'s leaves that differ, bit for bit, from this
+    rank's cut of *whole*'s."""
+    from kubetpu_torch.jobs import train as ttrain
+
+    wholes = dict(whole.named_parameters())
+    return [name for name, p in local.named_parameters()
+            if not torch_equal(p, ttrain._take(
+                wholes[ttrain.global_name(name, first_layer)],
+                ttrain.local_spec(specs, name), mesh))]
+
+
+def torch_equal(a, b) -> bool:
+    import torch
+
+    return a.shape == b.shape and a.dtype == b.dtype and bool(
+        torch.equal(a.detach(), b.detach()))
+
+
+def _fam_init(case, device):
+    """Every sharded init against cutting the whole model of the same seed
+    (the names of the leaves that differ), and ``shard_model`` of a shard
+    returning it as it is."""
+    import torch
+
+    from kubetpu_torch.jobs import pipeline as tpipe
+    from kubetpu_torch.jobs import seq2seq, vision
+    from kubetpu_torch.jobs import train as ttrain
+    from kubetpu_torch.jobs.hf_import import params_from_hf
+    from kubetpu_torch.jobs.model import init_params
+
+    def gen():
+        return torch.Generator(device=device).manual_seed(case["seed"])
+
+    out = {}
+    for name, kw, axes, pp in case["models"]:
+        cfg, mesh = _cfg(kw), _mesh(axes, device)
+        if pp:
+            local = tpipe.init_pipeline_state(gen(), cfg, mesh,
+                                              device=device)[0].params
+        else:
+            local = ttrain.init_state(gen(), cfg, device=device,
+                                      mesh=mesh)[0].params
+        whole = init_params(gen(), cfg, device)
+        cut = ttrain.shard_model(whole, cfg, mesh, pp)
+        out[name] = {
+            "differ": _same_as_cut(local, whole, ttrain.param_specs(cfg, pp),
+                                   mesh, ttrain.stage_layers(cfg,
+                                                             mesh).start),
+            "differ_cut": [n for (n, a), b in zip(
+                local.named_parameters(), cut.parameters())
+                if not torch_equal(a, b)],
+            "kept": ttrain.shard_model(local, cfg, mesh, pp) is local}
+    vcfg, mesh = _vit_cfg(case["vit"]), _mesh(case["vit_mesh"], device)
+    out["vit"] = {"differ": _same_as_cut(
+        vision.init_vit_state(gen(), vcfg, mesh=mesh, device=device)[0]
+        .params, vision.init_vit_params(gen(), vcfg, device),
+        vision.vit_param_specs(vcfg), mesh)}
+    scfg, mesh = _cfg(case["seq2seq"]), _mesh(case["seq2seq_mesh"], device)
+    out["seq2seq"] = {"differ": _same_as_cut(
+        seq2seq.init_seq2seq_state(gen(), scfg, mesh=mesh, device=device)[0]
+        .params, seq2seq.init_seq2seq_params(gen(), scfg, device),
+        seq2seq.seq2seq_param_specs(scfg), mesh)}
+    hcfg, mesh = _cfg(case["hf_cfg"]), _mesh(case["hf_mesh"], device)
+    sd = {k: torch.from_numpy(v) for k, v in case["hf_sd"].items()}
+    local, _ = params_from_hf(sd, hcfg, device=device, mesh=mesh)
+    whole, _ = params_from_hf(sd, hcfg, device=device)
+    out["hf"] = {"differ": _same_as_cut(local, whole,
+                                        ttrain.param_specs(hcfg), mesh),
+                 "kept": ttrain.shard_model(local, hcfg, mesh) is local}
+    return out
+
+
+def _fam_server(case, device):
+    """A paged and a dense server built from ``init_shard``'s shard and
+    from the whole model of the same seed: their tokens."""
+    import torch
+
+    from kubetpu_torch.jobs import train as ttrain
+    from kubetpu_torch.jobs.model import init_params
+
+    cfg, mesh = _cfg(case["cfg"]), _mesh(case["mesh"], device)
+    models = {
+        "whole": init_params(torch.Generator(device=device).manual_seed(
+            case["seed"]), cfg, device),
+        "shard": ttrain.init_shard(torch.Generator(device=device).manual_seed(
+            case["seed"]), cfg, mesh, device)}
+    out = {}
+    for kind in ("paged", "dense"):
+        for name, model in models.items():
+            server = build_server(dict(case, kind=kind), {"cfg": cfg,
+                                                         "params": model},
+                                  mesh, device)
+            out[f"{kind}_{name}"] = staggered(server, case)["tokens"]
+    return out
+
+
+def families(payload):
+    """Each case of the payload, by its kind (``_fam_<kind>``), on this
+    rank."""
+    device = payload.get("device", "cpu")
+    return [globals()["_fam_" + case["kind"]](case, device)
+            for case in payload["cases"]]
+
+
+# -- sharded checkpoints (tests/test_torch_sharded_checkpoint.py) -------------
+
+
+def _state_tree(state, cfg, mesh, pp=False):
+    """A meshed train state gathered whole: parameters, moments (as trees
+    of the parameters' shape), count and step, on every rank; copies (a
+    replicated CPU leaf's array would share the live tensor's memory)."""
+    import copy
+
+    import torch
+
+    from kubetpu_torch.jobs.convert import gather_params
+
+    out = {"params": gather_params(state.params, cfg, mesh, pp=pp),
+           "count": int(state.opt_state.count), "step": int(state.step)}
+    for which in ("mu", "nu"):
+        holder = copy.deepcopy(state.params)
+        with torch.no_grad():
+            for p, m in zip(holder.parameters(),
+                            getattr(state.opt_state, which)):
+                p.copy_(m)
+        out[which] = gather_params(holder, cfg, mesh, pp=pp)
+    return copy.deepcopy(out)
+
+
+def _ckpt_run(cfg, mesh, seed, batches, attention="ring", pp=False,
+              micro=2):
+    """A fresh meshed state of *seed* (a pipeline stage's under *pp*) and
+    its step; the state after *batches*."""
+    import torch
+
+    from kubetpu_torch.jobs import pipeline as tpipe
+    from kubetpu_torch.jobs import train as ttrain
+
+    gen = torch.Generator().manual_seed(seed)
+    opt = ttrain.make_optimizer(lr=1e-2)
+    if pp:
+        state, opt = tpipe.init_pipeline_state(gen, cfg, mesh, opt,
+                                               device="cpu")
+        step = tpipe.make_pipeline_train_step(cfg, mesh, micro, opt,
+                                              device="cpu")
+    else:
+        state, opt = ttrain.init_state(gen, cfg, opt, device="cpu",
+                                       mesh=mesh)
+        step = ttrain.make_train_step(cfg, opt, attention=attention,
+                                      device="cpu", mesh=mesh)
+    losses = []
+    for tokens, targets in batches:
+        state, loss = step(state, tokens, targets)
+        losses.append(float(loss))
+    return state, step, losses
+
+
+def checkpoint(payload):
+    """Every sharded-checkpoint case of the payload: what was saved and
+    what came back, each gathered whole (``_state_tree``)."""
+    import os
+
+    from kubetpu_torch.jobs import checkpoint as ckpt
+
+    tmp = payload["dir"]
+    out = {}
+    for case in payload["cases"]:
+        cfg, name = _cfg(case["cfg"]), case["name"]
+        pp = case.get("pp", False)
+        path = os.path.join(tmp, name)
+        res = {}
+        if "restore_from" not in case:
+            mesh = _mesh(case["mesh"])
+            state, step, losses = _ckpt_run(cfg, mesh, 0, case["batches"],
+                                            pp=pp)
+            res["losses"] = losses
+            if case.get("async"):
+                saver = ckpt.AsyncCheckpointer()
+                saver.save(path, state)
+                res["saved"] = _state_tree(state, cfg, mesh, pp)
+                state, _ = step(state, *case["batches"][0])  # in place
+                saver.close()
+            else:
+                ckpt.save_checkpoint(path, state)
+                res["saved"] = _state_tree(state, cfg, mesh, pp)
+        else:
+            path = case["restore_from"]
+        tmesh = _mesh(case.get("target_mesh", case.get("mesh")))
+        tpp = case.get("target_pp", pp)
+        fresh, step, _ = _ckpt_run(cfg, tmesh, 9, [], pp=tpp)
+        ckpt.restore_checkpoint(path, fresh)
+        res["restored"] = _state_tree(fresh, cfg, tmesh, tpp)
+        if case.get("next_batch") is not None:
+            _, loss = step(fresh, *case["next_batch"])
+            res["next_loss"] = float(loss)
+        out[name] = res
+    return out
+
+
+def shard_memory(payload):
+    """Peak device memory (over what was allocated before) while this
+    rank builds its shard: ``init_shard``'s parameters, or a meshed train
+    state restored from a checkpoint the world saved first; with the
+    bytes built and the model's largest whole leaf."""
+    import torch
+
+    from kubetpu_torch.jobs import checkpoint as ckpt
+    from kubetpu_torch.jobs import train as ttrain
+    from kubetpu_torch.jobs.model import Transformer
+
+    device = payload["device"]
+    cfg, mesh = _cfg(payload["cfg"]), _mesh(payload["mesh"], device)
+
+    def gen(seed):
+        return torch.Generator(device=device).manual_seed(seed)
+
+    largest = max(p.numel() * p.element_size() for p in Transformer(
+        cfg, torch.device("meta")).parameters())
+    if payload["build"] == "restore":
+        state, _ = ttrain.init_state(gen(0), cfg, device=device, mesh=mesh)
+        ckpt.save_checkpoint(payload["path"], state)
+        del state
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    if payload["build"] == "init":
+        built = list(ttrain.init_shard(gen(0), cfg, mesh, device)
+                     .parameters())
+    else:
+        state, _ = ttrain.init_state(gen(1), cfg, device=device, mesh=mesh)
+        ckpt.restore_checkpoint(payload["path"], state)
+        built = ckpt._leaves(state)
+    torch.cuda.synchronize()
+    return {"peak": torch.cuda.max_memory_allocated() - base,
+            "built": sum(t.numel() * t.element_size() for t in built),
+            "largest": largest}
 
 
 def meshes(payload):
