@@ -71,12 +71,13 @@ Phases, one line each, any failure exits non-zero:
 12. wire (runs after phase 9; its servers are freed before phase 10): the
    flagship behind the port's own ``ReplicaServer``s, two in this process
    on ``127.0.0.1:0`` sharing the one model, phase 6's server settings and
-   prompts. Arms: routed (8 generates, serially over ``POST /generate``;
+   prompts (``WIRE_STREAMS`` of them, 4, in the first four arms). Arms:
+   routed (4 generates, serially over ``POST /generate``;
    tokens equal a quiet direct serial run on a fresh server); fork over a
-   bf16 and an int8 pool (8 streams mid-decode on A, each frozen,
+   bf16 and an int8 pool (4 streams mid-decode on A, each frozen,
    snapshot, through the codec, restored on B and unfrozen; B's pages
    byte-identical to A's, pos and last equal, then both run to the end
-   with equal tokens); drain (8 concurrent generates on A, ``POST /drain
+   with equal tokens); drain (4 concurrent generates on A, ``POST /drain
    {"migrate_to": B}`` once all are mid-decode: every generate answers
    409 -> B, B finishes each with all 32 tokens, A's pool ends free; the
    drain's wall time, MB shipped, MB/s and the handoff gap against the
@@ -103,7 +104,7 @@ Phases, one line each, any failure exits non-zero:
 16. spec: ``PagedSpeculativeDecodeServer`` with the flagship as target,
    a quarter-size random draft and the target as its own draft, over bf16
    and int8 pools (and the self draft over an f32 pool with the weights in
-   f32), gamma_max 4, adaptive gamma, phase 6's prompts with 64 new tokens:
+   f32), gamma_max 4, adaptive gamma, phase 6's prompts with 46 new tokens:
    tokens/s, rounds, mean tokens per round, the gamma histogram, TTFT p50,
    one profiled round (device busy, idle share, draft and verify device
    ms). Gates in ``phase_spec``'s docstring, among them the near-tie rule:
@@ -125,7 +126,7 @@ Phases, one line each, any failure exits non-zero:
    0 / 1 host syncs a dispatched / routed step, the paged launches;
 19. router (after phase 17): the port's ``RouterServer`` in front of port
    ``ReplicaServer``s on the flagship, in this process, phase 6's settings
-   with a prefix tree. Arms: affinity (4 families x 4 members, a
+   with a prefix tree. Arms: affinity (3 families x 3 members, a
    512-token system prompt and 64-token tails, 32 new tokens, serially
    through the router with ``head_quantum`` 16: tokens against a quiet
    direct serial run under phase 16's near-tie rule, each family on one
@@ -137,7 +138,7 @@ Phases, one line each, any failure exits non-zero:
    meets burns: ``batch`` 503, ``interactive`` routed); scale_down (a
    ``ReplicaAutoscaler`` scales up on a hot policy through a launcher
    that builds a port replica, then down, migrate-then-remove, from a
-   replica with 2 streams of 64 new tokens mid-decode: they finish on the
+   replica with 2 streams of 32 new tokens mid-decode: they finish on the
    survivor, near-tie rule against a quiet run, events scale_up <
    scale_down_migrate < drain < scale_down; the scale-down ms); profile
    (one storm replica's profiler, enabled before its warm-up, every 8th
@@ -273,12 +274,23 @@ Phases, one line each, any failure exits non-zero:
    process after the world); save and restore s and GB/s, a rank's peak
    while it draws its shard and what the restore adds;
 35. mesh_axes: the other legs of ``dryrun_multichip`` in phase 34's
-   8-rank world at a small f32 width, then ``run_gang_worker`` on 2 ranks
-   (``phase_mesh_axes``'s docstring);
+   8-rank world at a small f32 width, then the gang-launch CLI
+   (``python -m kubetpu_torch.cli.gang_launch``) against a stub
+   controller whose two pods name this card by its UUID: two workers
+   sharing it over gloo (``phase_mesh_axes``'s docstring);
 36. mesh_serve: the four flagship servers over {dp 2, tp 4} (four of
-   phase 6's requests), each rank's shard drawn leaf by leaf (``mesh_serve_build``: its peak against the
-   shard plus one leaf), against the one-card servers
-   (``phase_mesh_serve``'s docstring);
+   phase 6's requests: the paged server's enqueued together, the others'
+   staggered, two admitted whole), each rank's shard drawn leaf
+   by leaf (``mesh_serve_build``: its peak against the shard plus one
+   leaf), against the one-card servers (``phase_mesh_serve``'s
+   docstring);
+38. mesh_replica (in phase 36's world, after its servers, before phase
+   37): phase 36's meshed paged server behind the port's
+   ``ReplicaServer`` on world rank 0, ranks 1-7 following: the four
+   requests as concurrent generates against phase 36's direct tokens, a
+   fifth canceled mid-decode, a drain to the one-card reference server,
+   ``check_lockstep`` on every rank (``phase_mesh_replica``'s
+   docstring);
 37. mesh_families: the encoder, ViT-B/16, seq2seq, beam 4 and the
    distillation of a quarter draft, each on its mesh in phase 36's 8-rank
    world (after its servers) at full widths and 2 layers, against the
@@ -294,7 +306,7 @@ Phases, one line each, any failure exits non-zero:
    flash ring's per-step shape, B=2, S=2048, H=8, D=128, timed in phase 4
    (``ring_step`` non-causal, ``ring_diag`` causal), launches from phase
    34's steps on all 8 ranks; the split and the wgmma chunk at a tp-4
-   rank's heads, launches from phase 36; the three flash kernels at a
+   rank's heads, launches from phases 36 and 38; the three flash kernels at a
    meshed rank's shapes in phase 37, the encoder's, ViT's and the
    distillation target's), the script's wall time, then the result
    line.
@@ -303,9 +315,9 @@ Nothing of JAX or of the ``kubetpu`` package is imported. ``--record PATH``
 also writes every measured number as one JSON file. ``--phases 29-33``
 runs phases 1, 2 and 4, then only the other families (29, 33, 30, 31, and
 32 on a random-weight flagship with ``SyntheticCorpus`` prompts) in a few
-minutes, and prints no ``kernels`` line. ``--phases 34-37`` runs phases 1,
-2 and 4 (and phase 3's tp-4 cases), then 34, 35, 36 and 37, and prints
-their ``kernels`` entries.
+minutes, and prints no ``kernels`` line. ``--phases 34-38`` runs phases 1,
+2 and 4 (and phase 3's tp-4 cases), then 34, 35, 36, 38 and 37, and
+prints their ``kernels`` entries.
 """
 
 from __future__ import annotations
@@ -596,7 +608,7 @@ def _tp4_cases() -> list:
     """Phase 36's shapes at a tp-4 rank of the flagship (16 heads over tp
     4: H = H_kv = 4 a rank): the decode step over phase 3's ragged 8085
     keys and the T=256 chunk at 768, drawn from their own generator so
-    that ``--phases 34-37`` runs them on the same data."""
+    that ``--phases 34-38`` runs them on the same data."""
     gen = torch.Generator(device="cuda").manual_seed(1236)
     ragged = [2048, 1717, 1403, 1111, 877, 530, 301, 96]
     return [("decode_bf16_tp4", _paged_case(gen, ragged, 1, 0, False,
@@ -1664,6 +1676,9 @@ def phase_profile(server) -> dict:
 # -- phase 12: the paged server on the wire ----------------------------------
 
 WIRE_NEW = 32        # new tokens a request, phase 6's
+# every arm's streams but the prefix and disaggregated ones (phase 6's 8
+# until phase 38 came)
+WIRE_STREAMS = 4
 
 
 def _wire_server(model, cfg, max_new_tokens=WIRE_NEW, **kw):
@@ -1722,16 +1737,18 @@ class _Hold:
     """Gate a replica's step loop for a handoff arm: it steps nothing until
     *count* requests have arrived (so they are admitted together, in one
     order, however the handler threads were scheduled), then runs until
-    each is migratable with at least 3 tokens, and from then on steps
-    nothing again. A parked step waits on the replica's condition
-    (releasing it) and advances nothing, so a handoff started after
-    ``wait()`` finds every stream mid-flight, and none decodes on the
-    source meanwhile."""
+    *park* of them (default: each) are migratable with at least 3 tokens,
+    and from then on steps nothing again (``park=0``: never). A parked
+    step waits on the replica's condition (releasing it) and advances
+    nothing, so a handoff started after ``wait()`` finds every stream
+    mid-flight, and none decodes on the source meanwhile; a parked meshed
+    replica sends its followers no step."""
 
-    def __init__(self, rep, count: int) -> None:
+    def __init__(self, rep, count: int, park=None) -> None:
         import threading
 
         self.rep, self.count = rep, count
+        self.park = count if park is None else park
         self.arrived = False
         self.held = threading.Event()
         self._step = rep.server.step
@@ -1741,9 +1758,9 @@ class _Hold:
         srv = self.rep.server
         self.arrived = (self.arrived
                         or len(srv.unfinished_rids()) >= self.count)
-        if not self.arrived or self.held.is_set() or sum(
+        if not self.arrived or self.held.is_set() or (self.park and sum(
                 len(srv._emitted.get(r, ())) >= 3
-                for r in srv.migratable_rids()) >= self.count:
+                for r in srv.migratable_rids()) >= self.park):
             if self.arrived:
                 self.held.set()
             self.rep._cv.wait(timeout=0.005)
@@ -1752,7 +1769,7 @@ class _Hold:
 
     def wait(self, what: str) -> None:
         if not self.held.wait(300):
-            raise SystemExit(f"wire {what}: streams never reached "
+            raise SystemExit(f"{what}: streams never reached "
                              f"mid-decode")
 
     def release(self) -> None:
@@ -1815,7 +1832,7 @@ def _counter(server, name, **labels) -> float:
 
 
 def _wire_routed(model, cfg, prompts, quiet, smi) -> dict:
-    """8 generates, serially over POST /generate to one replica."""
+    """The generates, serially over POST /generate to one replica."""
     from kubetpu_torch.router import ReplicaServer
 
     a = _wire_server(model, cfg)
@@ -1855,7 +1872,7 @@ def _live_pages(server, rid) -> dict:
 
 
 def _wire_fork(model, cfg, prompts, smi, arm, **kw) -> dict:
-    """8 streams mid-decode on A, each forked onto B through the codec
+    """Streams mid-decode on A, each forked onto B through the codec
     (freeze, snapshot, encode, decode, restore, unfreeze); then both
     servers run to the end."""
     from kubetpu_torch.router.migration import (decode_snapshot,
@@ -1922,7 +1939,7 @@ def _wire_fork(model, cfg, prompts, smi, arm, **kw) -> dict:
 
 
 def _wire_drain(model, cfg, prompts, quiet, smi) -> dict:
-    """8 concurrent streams on A; POST /drain {"migrate_to": B} once they
+    """Concurrent streams on A; POST /drain {"migrate_to": B} once they
     are mid-decode; every generate on A answers 409 -> B, and B finishes
     each stream with all its tokens."""
     from concurrent.futures import ThreadPoolExecutor
@@ -1939,7 +1956,7 @@ def _wire_drain(model, cfg, prompts, quiet, smi) -> dict:
     rep_b.start()
     with ThreadPoolExecutor(1) as pool:
         fut = pool.submit(_generate_all, rep_a.address, prompts, "drain")
-        hold.wait("drain")
+        hold.wait("wire drain")
         itl_before = float(np.median(_gaps(sa["emits"].values())))
         t0 = time.perf_counter()
         request_json(rep_a.address + "/drain",
@@ -2013,7 +2030,7 @@ def _wire_prefix(model, cfg, smi) -> dict:
     with ThreadPoolExecutor(1) as pool:
         fut = pool.submit(_generate_all, rep_a.address, prompts[1:],
                           "prefix")
-        hold.wait("prefix")
+        hold.wait("wire prefix")
         with rep_a._cv:
             rids = a.migratable_rids()
             full = {r: len(encode_snapshot(
@@ -2112,11 +2129,12 @@ def phase_wire(model, cfg, smi, launches) -> dict:
     for c in _PAGED_COUNTERS:
         setattr(pa.paged_attention, c, 0)
     t0 = time.perf_counter()
-    quiet = _serial(_wire_server(model, cfg), prompts)
-    rows = {"routed": _wire_routed(model, cfg, prompts, quiet, smi)}
+    few = prompts[:WIRE_STREAMS]
+    quiet = _serial(_wire_server(model, cfg), few)
+    rows = {"routed": _wire_routed(model, cfg, few, quiet, smi)}
     for arm, kw in (("fork_bf16", {}), ("fork_int8", {"kv_int8": True})):
-        rows[arm] = _wire_fork(model, cfg, prompts, smi, arm, **kw)
-    rows["drain"] = _wire_drain(model, cfg, prompts, quiet, smi)
+        rows[arm] = _wire_fork(model, cfg, few, smi, arm, **kw)
+    rows["drain"] = _wire_drain(model, cfg, few, quiet, smi)
     rows["prefix"] = _wire_prefix(model, cfg, smi)
     rows["disagg"] = _wire_disagg(model, cfg, smi)
     torch.cuda.synchronize()
@@ -2341,7 +2359,10 @@ def phase_dense(model, cfg, smi, launches) -> dict:
 
 # -- phase 16: speculative decoding on the paged server ----------------------
 
-SPEC_NEW = 64        # new tokens a request
+# new tokens a request (64 until phase 38 came): the first from the
+# prefill, then 45 = 9 full rounds at gamma_max 4, so a self draft that
+# accepts everything reads 5.0 tokens a round and one rejection 4.5
+SPEC_NEW = 46
 GAMMA_MAX = 4
 
 
@@ -2648,7 +2669,7 @@ def phase_spec(model, cfg, smi, launches) -> dict:
     drafts: "quarter" (d 512, 3 layers, 4 heads, d_ff 1408, random from
     seed 7: the acceptance floor) and "self" (the target: the ceiling),
     each over bf16 and int8 pools, gamma_max 4 with adaptive gamma, phase
-    6's prompts with 64 new tokens each; then the self draft once more
+    6's prompts with SPEC_NEW new tokens each; then the self draft once more
     with the flagship's weights in f32 over an f32 pool. Beside each the
     plain ``PagedDecodeServer`` over the same pool and prompts.
 
@@ -3240,16 +3261,19 @@ def phase_multilora(model, cfg, smi, launches) -> dict:
 
 # -- phase 19: the router side -------------------------------------------------
 
-ROUTER_FAMILIES = 4      # prompt families of the affinity storm
-ROUTER_MEMBERS = 4       # members a family
-ROUTER_SCALE_NEW = 64    # new tokens of each scale-down stream
+ROUTER_FAMILIES = 3      # prompt families of the affinity storm (4 until
+                         # phase 38 came)
+ROUTER_MEMBERS = 3       # members a family (4 until phase 38 came)
+ROUTER_SCALE_NEW = 32    # new tokens of each scale-down stream (64 until
+                         # phase 38 came)
 ROUTER_TREE_PAGES = 256  # a replica's prefix tree: every family's 32 pages
 
 
 def _router_storm(cfg) -> list:
-    """4 families x 4 members: a 512-token system prompt a family and a
-    64-token tail a member, in rounds (member j of every family, then
-    member j + 1), so each family's first member arrives cold."""
+    """ROUTER_FAMILIES families x ROUTER_MEMBERS members: a 512-token
+    system prompt a family and a 64-token tail a member, in rounds (member
+    j of every family, then member j + 1), so each family's first member
+    arrives cold."""
     rng = np.random.default_rng(19)
     heads = [rng.integers(1, cfg.vocab, 512).tolist()
              for _ in range(ROUTER_FAMILIES)]
@@ -3437,8 +3461,9 @@ def _owned_prompts(router, cfg, names, per_replica, n_tokens=256) -> list:
 def _router_scale_down(model, cfg, smi) -> dict:
     """The autoscaler on port replicas: a hot policy (TTFT over a 1 us
     ceiling) scales one replica up to two through a launcher that builds a
-    port replica on the shared model; then, with two streams of 64 new
-    tokens mid-decode on each, a relaxed policy scales down,
+    port replica on the shared model; then, with two streams of
+    ROUTER_SCALE_NEW new tokens mid-decode on each, a relaxed policy
+    scales down,
     migrate-then-remove: the victim's streams finish on the survivor
     (the router re-pins each) under the near-tie rule against a quiet
     run, and the router's events read scale_up < scale_down_migrate <
@@ -3484,7 +3509,7 @@ def _router_scale_down(model, cfg, smi) -> dict:
             futs = [pool.submit(_generate, router.address, p, f"scale-{i}")
                     for i, p in enumerate(prompts)]
             for hold in holds.values():
-                hold.wait("scale")
+                hold.wait("wire scale")
             scaler.policy = ScalePolicy(
                 min_replicas=1, max_replicas=2, up_after=99, down_after=1,
                 cooldown_s=0.0, cold_active_frac=1.01,
@@ -4972,7 +4997,7 @@ def phase_distill(target, cfg, files, prompts, smi, launches) -> dict:
     greedy agreement on held-out windows before and after, beside a
     3-layer ``truncated_draft``'s; then ``PagedSpeculativeDecodeServer``
     (target + distilled draft, gamma_max 4, adaptive) against the plain
-    ``PagedDecodeServer`` on phase 26's prompts with 64 new tokens,
+    ``PagedDecodeServer`` on phase 26's prompts with SPEC_NEW new tokens,
     DISTILL_PAIRS pairs alternated: tokens/s and its ratio over the whole
     run and over the steps that ran no prefill chunk, tokens per round,
     accepted share; then one profiled round beside ten profiled plain
@@ -6942,11 +6967,50 @@ def _bidir_vs_one_card(mesh, rank, world) -> dict:
             "ok": all(o for _, o in errs)}
 
 
-def _gang_rank(rank, world, args):
-    from kubetpu_torch.jobs.launch import LaunchConfig, run_gang_worker
+def _gang_cli() -> dict:
+    """The gang-launch CLI as a process (``python -m
+    kubetpu_torch.cli.gang_launch``) against a stdlib stub of the
+    controller's ``GET /pods/<name>``, whose two pods both name this card
+    by its UUID (``nvidia-smi``), as the device manager writes it: two
+    workers share the card over gloo -> its exit code, its report (None
+    where it failed), the UUID and the end of its errors."""
+    import threading
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
-    return run_gang_worker(LaunchConfig(args["coordinator"], world, rank,
-                                        [0]), "gloo", local_rank=0, seed=0)
+    uid = subprocess.run(["nvidia-smi", "--query-gpu=uuid",
+                          "--format=csv,noheader", "-i", "0"],
+                         capture_output=True, text=True).stdout.strip()
+
+    class Pods(BaseHTTPRequestHandler):
+        def log_message(self, *a):
+            pass
+
+        def do_GET(self):  # noqa: N802 (stdlib name)
+            body = json.dumps({"pod": self.path.rsplit("/", 1)[-1],
+                               "containers": {"main": {
+                                   "mounts": [], "devices": [],
+                                   "env": {"NVIDIA_VISIBLE_DEVICES": uid}}}})
+            self.send_response(200)
+            self.send_header("Content-Type", "application/json")
+            self.end_headers()
+            self.wfile.write(body.encode())
+
+    stub = ThreadingHTTPServer(("127.0.0.1", 0), Pods)
+    threading.Thread(target=stub.serve_forever, daemon=True).start()
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-m", "kubetpu_torch.cli.gang_launch",
+             "--controller", f"http://127.0.0.1:{stub.server_address[1]}",
+             "--timeout", "240", "w0", "w1"],
+            cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
+            capture_output=True, text=True, timeout=300)
+    finally:
+        stub.shutdown()
+        stub.server_close()
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    return {"rc": proc.returncode, "uuid": uid,
+            "out": json.loads(lines[-1]) if proc.returncode == 0 and lines
+            else None, "stderr": proc.stderr[-1500:]}
 
 
 def phase_mesh_axes(smi: str, axes: dict) -> dict:
@@ -6965,19 +7029,19 @@ def phase_mesh_axes(smi: str, axes: dict) -> dict:
     dispatch, also fed by ``prefetch_to_mesh``, and the five-axis pipeline
     {dp 2, pp 2, ep 2, sp 1}) and the sharded LoRA step on {dp 2, sp 2,
     tp 2} with ``ring_flash`` (``_lora_leg``), each against the one-card
-    step, its loss and each weight's change as the pipeline's; then
-    ``run_gang_worker`` on 2 ranks joined through a tcp coordinator.
-    Losses within ``SMALL_MESH_TOL`` relative. The 8-rank legs run in
-    phase 34's world, after its legs (``phase_mesh_train``'s *axes*)."""
-    import socket
-
+    step, its loss and each weight's change as the pipeline's; then the
+    gang-launch CLI (``_gang_cli``): two pods naming this card by its
+    UUID, two workers sharing it over gloo, exit 0, one finite loss equal
+    on both, process count 2 and global devices 2 on each, each worker
+    seeing the card by the UUID. Losses within ``SMALL_MESH_TOL``
+    relative. The 8-rank legs run in phase 34's world, after its legs
+    (``phase_mesh_train``'s *axes*)."""
     t0 = time.perf_counter()
     ranks = axes["ranks"]
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
-    gang = _run_world(_gang_rank, 2, {"coordinator": f"127.0.0.1:{port}"},
-                      "mesh_gang", init=False)
+    t_gang = time.perf_counter()
+    cli = _gang_cli()
+    t_gang = time.perf_counter() - t_gang
+    gang = (cli["out"] or {}).get("workers", [])
     r0 = ranks[0]
     bad = []
 
@@ -7011,10 +7075,16 @@ def phase_mesh_axes(smi: str, axes: dict) -> dict:
         if not r["bidir"]["ok"]:
             bad.append(f"rank {rank} bidir_one_card: "
                        f"{r['bidir']['max_abs_err']}")
-    if not (gang[0]["loss"] == gang[1]["loss"]
+    if not (cli["rc"] == 0 and len(gang) == 2
+            and gang[0]["loss"] == gang[1]["loss"]
             and np.isfinite(gang[0]["loss"])
-            and [g["process_count"] for g in gang] == [2, 2]):
-        bad.append(f"gang {gang}")
+            and [g["process_index"] for g in gang] == [0, 1]
+            and all(g["process_count"] == 2 and g["global_devices"] == 2
+                    and g["backend"] == "gloo"
+                    and g["device_names"] == [cli["uuid"]] for g in gang)
+            and cli["uuid"].startswith("GPU-")):
+        bad.append(f"gang CLI: exit {cli['rc']}, {gang}, uuid "
+                   f"{cli['uuid']!r}: {cli['stderr'][-600:]}")
     for key in ("ep", "ep_prefetch", "five_axis", "lora"):
         if any(r[key] != r0[key] for r in ranks):
             bad.append(f"{key}: ranks disagree")
@@ -7044,6 +7114,11 @@ def phase_mesh_axes(smi: str, axes: dict) -> dict:
                                       for c in r["ring_check"].values()),
                bidir_max_err=max(r["bidir"]["max_abs_err"] for r in ranks),
                gang_losses=[g["loss"] for g in gang],
+               gang_cli=dict(rc=cli["rc"], uuid=cli["uuid"],
+                             backend=[g.get("backend") for g in gang],
+                             device_names=[g.get("device_names")
+                                           for g in gang],
+                             wall_s=t_gang),
                ep_cfg=EP_KW, ep_axes=EP_AXES, ep=r0["ep"],
                ref_ep=r0["ref_ep"], ep_prefetch=r0["ep_prefetch"],
                ep_update_gap_steps=r0["ep_update_gap"],
@@ -7162,13 +7237,31 @@ class _Collectives:
         return self.n
 
 
+def _ttft_tap(server) -> list:
+    """The TTFT samples (s) the server records from now on."""
+    got, record = [], server._metrics.record
+
+    def tap(op, seconds):
+        if op == "ttft":
+            got.append(seconds)
+        record(op, seconds)
+
+    server._metrics.record = tap
+    return got
+
+
 def _serve_lifecycle(kind, server, prompts, top2=False,
-                     logits=False) -> dict:
+                     logits=False, together=False) -> dict:
     """``_dryrun_serving``'s staggered lifecycle at phase 6's prompts: two
-    submitted, one step, the others enqueued, drain. Paged counters,
-    per-axis bytes and collective calls are zeroed just before and read
-    just after; each step's wall ms and whether it ran a prefill chunk
-    are kept; with *logits* each prompt's first-token logits too."""
+    submitted (each prefilled whole, its first token read at once), one
+    step, the others enqueued while those decode, drain. With *together*
+    every prompt is enqueued before the first step instead, so each
+    prompt's prefill chunks fall where they fall for the same requests
+    queued behind a replica (phase 38), and the two runs compute the same
+    sums. Paged counters, per-axis bytes and collective calls are zeroed
+    just before and read just after; each step's wall ms and whether it
+    ran a prefill chunk are kept, and the TTFT samples; with *logits* each
+    prompt's first-token logits too."""
     from kubetpu_torch.jobs import collectives as col
     from kubetpu_torch.ops import paged_attention as pa
 
@@ -7193,10 +7286,16 @@ def _serve_lifecycle(kind, server, prompts, top2=False,
                       sum(len(v) for v in out.values()),
                       st["chunks"] > chunks))
 
+    ttft = _ttft_tap(server)
     t_start = time.perf_counter()
-    rids = [server.submit(p, **x) for p, x in zip(prompts[:2], picks[:2])]
-    step()
-    rids += [server.enqueue(p, **x) for p, x in zip(prompts[2:], picks[2:])]
+    if together:
+        rids = [server.enqueue(p, **x) for p, x in zip(prompts, picks)]
+    else:
+        rids = [server.submit(p, **x)
+                for p, x in zip(prompts[:2], picks[:2])]
+        step()
+        rids += [server.enqueue(p, **x)
+                 for p, x in zip(prompts[2:], picks[2:])]
     while not server._idle():
         step()
         if len(steps) > 10_000:
@@ -7219,6 +7318,7 @@ def _serve_lifecycle(kind, server, prompts, top2=False,
                                if decode else None),
                 step_ms=float(np.median([ms for ms, _ in decode]))
                 if decode else None,
+                ttft_ms_p50=float(np.median(ttft)) * 1e3,
                 launches=launches,
                 bytes_per_step={k: v / len(steps)
                                 for k, v in axis_bytes.items()},
@@ -7276,11 +7376,12 @@ def _host_mem_gb() -> dict:
             "available_gb": field("/proc/meminfo", "MemAvailable:")}
 
 
-def _mesh_serve_leg(rank, mesh):
+def _mesh_serve_leg(rank, mesh, keep=None):
     """Phase 36's servers on one rank (*mesh* None: the one-card
     reference, with the top-2 logits the near-tie rule reads): the four
     servers' lifecycles, the planted fault (meshed only), the generate
-    legs, peak memory."""
+    legs, peak memory. The paged server stays in *keep* (phase 38 serves
+    it behind the wire)."""
     import torch.distributed as dist
 
     from kubetpu_torch.jobs import decode, paged
@@ -7309,9 +7410,14 @@ def _mesh_serve_leg(rank, mesh):
         server = _serve_server(kind, m, mesh)
         if kind == "paged":
             server.warmup()
+        # the paged server's requests queued together, as phase 38 sends
+        # them; the other servers' staggered, two admitted whole
         out[kind] = _serve_lifecycle(kind, server, prompts,
                                      top2=mesh is None and kind != "spec",
-                                     logits=kind == "paged")
+                                     logits=kind == "paged",
+                                     together=kind == "paged")
+        if kind == "paged" and keep is not None:
+            keep["server"] = server
         del server
         torch.cuda.empty_cache()
     if mesh is not None:
@@ -7320,7 +7426,7 @@ def _mesh_serve_leg(rank, mesh):
         try:
             out["fault"] = _serve_lifecycle(
                 "paged", _serve_server("paged", m, mesh),
-                prompts[:SERVE_FAULT_PROMPTS], logits=True)
+                prompts[:SERVE_FAULT_PROMPTS], logits=True, together=True)
         finally:
             decode.col = paged.col = sound
     out["generate"] = _generate_legs(mesh)
@@ -7347,21 +7453,30 @@ def _timed(fn, *a):
 
 
 def _mesh_serve_rank(rank, world, args):
-    """Phases 36 and 37 on one rank of one world: rank 0 runs the one-card
-    references first (the others wait), then every rank its meshed legs:
-    phase 36's servers, then phase 37's families
+    """Phases 36, 38 and 37 on one rank of one world: rank 0 runs the
+    one-card references first (the others wait), then every rank its
+    meshed legs: phase 36's servers, phase 38's replica over the paged
+    one (``_mesh_replica_leg``), then phase 37's families
     (``_mesh_families_rank``)."""
     import torch.distributed as dist
 
     from kubetpu_torch.jobs.meshjob import make_mesh
 
-    out = {}
+    out, keep, keep_ref = {}, {}, {}
     if rank == 0:
-        out["ref"], out["ref_wall_s"] = _timed(_mesh_serve_leg, rank, None)
+        out["ref"], out["ref_wall_s"] = _timed(_mesh_serve_leg, rank, None,
+                                               keep_ref)
     dist.barrier()
     serve, out["wall_s"] = _timed(_mesh_serve_leg, rank, make_mesh(
-        SERVE_MESH_AXES, device="cuda"))
+        SERVE_MESH_AXES, device="cuda"), keep)
     out.update(serve)
+    # phase 38: the meshed paged server behind the wire, then gone
+    out["replica"], out["replica_wall_s"] = _timed(
+        _mesh_replica_leg, rank, keep.pop("server"), keep_ref.pop(
+            "server", None), serve["paged"])
+    del keep, keep_ref
+    gc.collect()
+    torch.cuda.empty_cache()
     if rank == 0:
         out["families_ref"], out["families_ref_wall_s"] = _timed(
             _mesh_families_rank, rank, 1, args)
@@ -7380,8 +7495,12 @@ def phase_mesh_serve(smi: str):
     16's quarter draft, whole on every rank) and
     ``PagedMultiLoraDecodeServer`` (two rank-8 adapters) runs phase 6's
     settings and first ``SERVE_MESH_PROMPTS`` prompts, ``SERVE_MESH_NEW``
-    new tokens a request, in
-    ``_dryrun_serving``'s staggered lifecycle.
+    new tokens a request (``_serve_lifecycle``): the paged server's (and
+    the planted fault's) all enqueued before the first step, as phase 38
+    sends them; the other three staggered, two submitted whole (a
+    whole-prompt prefill, the first token read at once, on dp its owner's
+    broadcast), one step, two more enqueued while those decode. The paged
+    servers stay for phase 38.
 
     Gates: every rank emits the same tokens; each server's tokens equal
     the one-card server's under phase 16's near-tie rule (the first
@@ -7403,9 +7522,9 @@ def phase_mesh_serve(smi: str):
     the one card's whole model): its peak while building it (the
     ``mesh_serve_build`` line, beside the whole-model peak and the
     prediction) at most the shard plus one whole leaf. The reference
-    process and the world then go on to phase 37's legs
-    (``_mesh_families_rank``) -> (row, their results for
-    ``phase_mesh_families``)."""
+    process and the world then go on to phase 38's and 37's legs
+    (``_mesh_replica_leg``, ``_mesh_families_rank``) -> (row, the
+    results for ``phase_mesh_replica`` and for ``phase_mesh_families``)."""
     t0 = time.perf_counter()
     host_before = _host_mem_gb()
     line("mesh_serve_start", host=host_before)
@@ -7415,6 +7534,8 @@ def phase_mesh_serve(smi: str):
     ref, t_ref = ranks[0].pop("ref"), ranks[0]["ref_wall_s"]
     for name in FAM_TRAIN:
         os.remove(os.path.join(LIFE_DIR, f"fam_{name}.pt"))
+    replica = {"ranks": [r.pop("replica") for r in ranks],
+               "wall_s": ranks[0]["replica_wall_s"]}
     fam = {"ref": ranks[0].pop("families_ref"),
            "ranks": [r.pop("families") for r in ranks],
            "ref_wall_s": ranks[0]["families_ref_wall_s"],
@@ -7531,7 +7652,273 @@ def phase_mesh_serve(smi: str):
     line("mesh_serve", **row)
     if bad:
         raise SystemExit("mesh_serve: " + "; ".join(bad))
-    return row, fam
+    return row, replica, fam
+
+
+# -- phase 38: a meshed server behind the replica wire ------------------------
+# Phase 36's meshed paged server (world rank 0 serves, ranks 1-7 follow)
+# and rank 0's one-card reference paged server as the drain's target B.
+
+REPLICA_CANCEL_STEPS = 12     # the fifth stream's deadline, in decode steps
+# the drain round's requests: the first and third of the four, whose
+# prefill chunks fall as in the first round ([0, 128) at once, then the
+# rest), so that what A decodes before the handoff is the direct run's
+REPLICA_DRAINED = (0, 2)
+
+
+def _send_in_order(rep, prompts, tag, pool, **extra) -> list:
+    """POST each prompt once the one before it is queued (a ``_Hold``
+    holds the loop): futures of (code, body), queued in prompt order."""
+    futs = []
+    for i, p in enumerate(prompts):
+        n = len(rep.server.unfinished_rids())
+        futs.append(pool.submit(_generate, rep.address, p, f"{tag}-{i}",
+                                **extra))
+        with rep._cv:
+            if not rep._cv.wait_for(
+                    lambda: len(rep.server.unfinished_rids()) > n, 120):
+                raise SystemExit(f"mesh_replica {tag}: request {i} never "
+                                 f"queued")
+    return futs
+
+
+def _mesh_replica_leg(rank, server, ref, direct):
+    """Phase 38 on one rank: rank 0 serves the meshed paged *server*
+    (``ReplicaServer``) and its one-card reference *ref* as B, the other
+    ranks follow (``follow_replica``); then ``check_lockstep`` on every
+    rank. Rank 0's rounds: phase 36's four prompts as concurrent
+    generates (queued in order, as phase 36 enqueued them; *direct* is
+    phase 36's run), the fifth prompt canceled mid-decode by its
+    deadline, then ``REPLICA_DRAINED`` of the four again, drained to B
+    once one stream is mid-decode -> each rank's launches of its meshed
+    server (counters set to 0 just before; on rank 0, which also runs B,
+    the sum of each meshed step's own, B's steps serialised with them on
+    one lock), ticks and answers."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    from kubetpu_torch.ops import paged_attention as pa
+    from kubetpu_torch.router.replica import ReplicaServer, follow_replica
+
+    for c in _PAGED_COUNTERS:
+        setattr(pa.paged_attention, c, 0)
+    out = {}
+    if rank != 0:
+        out["lockstep"] = follow_replica(server)
+        mesh_launches = {c: getattr(pa.paged_attention, c)
+                         for c in _PAGED_COUNTERS}
+    else:
+        prompts = _serve_prompts(server.cfg)[:SERVE_MESH_PROMPTS + 1]
+        st = _instrument(server)
+        ttft = _ttft_tap(server)
+        steps, step_leg, b_step = [], server.step, ref.step
+        mesh_launches = dict.fromkeys(_PAGED_COUNTERS, 0)
+        serial = threading.Lock()
+
+        def timed_step():
+            chunks = st["chunks"]
+            with serial:
+                n0 = {c: getattr(pa.paged_attention, c)
+                      for c in _PAGED_COUNTERS}
+                t0 = time.perf_counter()
+                got = step_leg()
+                ms = (time.perf_counter() - t0) * 1e3
+                for c in _PAGED_COUNTERS:
+                    mesh_launches[c] += getattr(pa.paged_attention, c) - n0[c]
+            steps.append((ms, sum(len(v) for v in got.values()),
+                          st["chunks"] > chunks))
+            return got
+
+        def serial_b_step():
+            with serial:
+                return b_step()
+
+        server.step = timed_step
+        ref.step = serial_b_step
+        b_top2 = _record_top2(ref)
+        rep = ReplicaServer(server, "mesh", idle_wait=0.002)
+        rep_b = ReplicaServer(ref, "one-card", idle_wait=0.002)
+        rep.start()
+        rep_b.start()
+        n4 = SERVE_MESH_PROMPTS
+        with ThreadPoolExecutor(n4) as pool:
+            # round 1: the four prompts, as phase 36 enqueued them
+            gate = _Hold(rep, n4, park=0)
+            lock0 = rep.lockstep_stats()
+            answers = [f.result() for f in _send_in_order(
+                rep, prompts[:n4], "wire", pool)]
+            gate.release()
+            lock1 = rep.lockstep_stats()
+            decode = [(ms, n) for ms, n, chunk in steps if not chunk and n]
+            out["wire"] = dict(
+                codes=[c for c, _ in answers],
+                tokens=[b.get("tokens") for _, b in answers],
+                ttft_ms_p50=float(np.median(ttft)) * 1e3,
+                decode_toks_s=(sum(n for _, n in decode)
+                               / (sum(ms for ms, _ in decode) / 1e3)),
+                step_ms=float(np.median([ms for ms, _ in decode])),
+                steps=len(steps), decode_steps=len(decode),
+                ticks={k: lock1["ticks"][k] - lock0["ticks"][k]
+                       for k in lock1["ticks"]},
+                calls=lock1["calls"] - lock0["calls"],
+                bytes=lock1["bytes"] - lock0["bytes"])
+            # round 2: the fifth stream, canceled by its deadline while
+            # the loop holds it mid-decode
+            gate = _Hold(rep, 1)
+            t_cancel = REPLICA_CANCEL_STEPS * out["wire"]["step_ms"] / 1e3
+            code, body = _generate(rep.address, prompts[n4], "cancel",
+                                   timeout=t_cancel)
+            out["cancel"] = dict(code=code, error=body.get("error"),
+                                 mid_decode=gate.held.is_set(),
+                                 deadline_s=t_cancel)
+            gate.release()
+            # round 3: two of the four again, drained to B mid-decode
+            shipped0 = _counter(server,
+                                "kubetpu_migration_bytes_shipped_total")
+            drained = [prompts[i] for i in REPLICA_DRAINED]
+            gate = _Hold(rep, len(drained), park=1)
+            futs = _send_in_order(rep, drained, "drain", pool)
+            gate.wait("mesh_replica drain")
+            t0 = time.perf_counter()
+            drain_answer = request_drain(rep.address, rep_b.address)
+            gate.release()
+            with rep._cv:
+                if not rep._cv.wait_for(rep.server._idle, timeout=600):
+                    raise SystemExit("mesh_replica drain: never idle")
+            drain_s = time.perf_counter() - t0
+            answers = [f.result() for f in futs]
+        finals, hops = [], []
+        for i, (p, (code, body)) in enumerate(zip(drained, answers)):
+            hop = "mesh"
+            if code == 409 and body["migrated"]["replica"] == "one-card":
+                code, body = _generate(rep_b.address, p, f"drain-{i}")
+                hop = "one-card"
+            finals.append(body.get("tokens") if code == 200 else None)
+            hops.append(hop)
+        shipped = (_counter(server, "kubetpu_migration_bytes_shipped_total")
+                   - shipped0)
+        out["drain"] = dict(
+            answer=drain_answer, tokens=finals, hops=hops,
+            migrated=int(_counter(server, "kubetpu_migrations_total",
+                                  reason="drain", result="committed")),
+            drain_ms=drain_s * 1e3, mb_shipped=shipped / 1e6,
+            mb_s=shipped / 1e6 / drain_s,
+            b_gaps=_top2_gaps(b_top2))
+        rep.shutdown()
+        rep_b.shutdown()
+        out["lockstep"] = rep.lockstep_stats()
+        out["prompts"] = prompts
+        out["direct"] = {k: direct[k] for k in (
+            "tokens", "ttft_ms_p50", "decode_toks_s", "step_ms")}
+        ref.step = b_step
+    server.check_lockstep()
+    out["lockstep_ok"] = True
+    out["launches"] = mesh_launches
+    return out
+
+
+def request_drain(addr, target) -> dict:
+    """POST /drain {"migrate_to": target} -> its answer."""
+    from kubetpu_torch.wire.httpcommon import request_json
+
+    return request_json(addr + "/drain", {"migrate_to": target,
+                                          "reason": "drain"}, timeout=60)
+
+
+def phase_mesh_replica(smi: str, replica: dict) -> dict:
+    """Phase 38: phase 36's meshed paged server on {dp 2, tp 4} behind the
+    port's ``ReplicaServer`` on world rank 0 (ranks 1-7 follow), on
+    ``127.0.0.1:0``, in phase 36's world after its servers
+    (``_mesh_replica_leg``). Gates: the four concurrent generates answer
+    phase 36's direct meshed tokens exactly (queued in one order, every
+    prompt's prefill chunks fall as in the direct run); the fifth stream
+    answers 503, canceled by its deadline while mid-decode; after
+    ``POST /drain {"migrate_to": B}`` (B: the one-card reference paged
+    server on rank 0; ``REPLICA_DRAINED`` of the four requests sent
+    again) every stream ends with the undrained tokens, where
+    B decoded a stream's tail the first divergence only at a near-tie of
+    B's own top-2 logits (``LOGIT_TOL``: one card against tp 4 sums in
+    another order); ``check_lockstep`` holds on all 8 ranks. Readings:
+    TTFT p50 and decode tokens/s through the wire against phase 36's
+    direct run, ticks and broadcast bytes a decode step, the drain's ms,
+    MB shipped and MB/s, the split and chunk launches a rank. 8 ranks
+    share one card over gloo: what a step does, not NVLink's speed."""
+    ranks = replica["ranks"]
+    r0 = ranks[0]
+    wire, cancel, drain = r0["wire"], r0["cancel"], r0["drain"]
+    prompts, direct = r0["prompts"], r0["direct"]
+    want = direct["tokens"]
+    bad = []
+    if wire["codes"] != [200] * len(want) or wire["tokens"] != want:
+        bad.append(f"wire tokens differ from phase 36's direct run: codes "
+                   f"{wire['codes']}, equal "
+                   f"{[a == b for a, b in zip(wire['tokens'], want)]}")
+    if cancel["code"] != 503 or not cancel["mid_decode"]:
+        bad.append(f"cancel: {cancel}")
+    gaps = drain["b_gaps"]
+    tie = []
+    drained = [(prompts[i], want[i]) for i in REPLICA_DRAINED]
+    for (p, w), got, hop in zip(drained, drain["tokens"], drain["hops"]):
+        if got is None:
+            bad.append(f"drain: a request of {len(p)} tokens failed")
+            continue
+        if got == w:
+            continue
+        n = len(p)
+        j = next((i for i, (x, y) in enumerate(zip(got[n:], w[n:]))
+                  if x != y), min(len(got), len(w)) - n)
+        gap = gaps.get((tuple(p), j))
+        tie.append({"prompt_len": n, "index": j, "gap": gap, "hop": hop})
+        if hop != "one-card" or gap is None or gap > LOGIT_TOL:
+            bad.append(f"drain: tokens diverge away from a near-tie of B's "
+                       f"logits: {tie[-1]}")
+    if not drain["migrated"]:
+        bad.append("drain: no stream migrated")
+    launches = [r["launches"] for r in ranks]
+    for rank, n in enumerate(launches):
+        if not n["split_launches"] or not n["wgmma_launches"] \
+                or n["simt_launches"]:
+            bad.append(f"rank {rank}: paged launches {n}")
+    for rank, r in enumerate(ranks[1:], 1):
+        if r["lockstep"] != r0["lockstep"]:
+            bad.append(f"rank {rank}: lockstep {r['lockstep']} vs rank 0's "
+                       f"{r0['lockstep']}")
+    decode_steps = max(wire["decode_steps"], 1)
+    row = dict(
+        card=torch.cuda.get_device_name(0), nvidia_smi=smi,
+        setting="8 ranks time-sharing one card; gloo (what a step does, "
+                "not NVLink's speed)",
+        axes=SERVE_MESH_AXES, requests=len(want),
+        tokens_equal=sum(a == b for a, b in zip(wire["tokens"], want)),
+        ttft_ms_p50=wire["ttft_ms_p50"],
+        direct_ttft_ms_p50=direct["ttft_ms_p50"],
+        decode_toks_s=wire["decode_toks_s"],
+        direct_decode_toks_s=direct["decode_toks_s"],
+        step_ms=wire["step_ms"], direct_step_ms=direct["step_ms"],
+        ticks_per_step=sum(wire["ticks"].values()) / wire["steps"],
+        ticks=wire["ticks"], calls=wire["calls"], steps=wire["steps"],
+        decode_steps=decode_steps,
+        broadcast_bytes_per_step=wire["bytes"] / wire["steps"],
+        cancel=cancel,
+        drain_ms=drain["drain_ms"], drain_mb_shipped=drain["mb_shipped"],
+        drain_mb_s=drain["mb_s"], drain_migrated=drain["migrated"],
+        drain_hops=drain["hops"],
+        drain_tokens_equal=sum(a == w for a, (_, w) in zip(drain["tokens"],
+                                                           drained)),
+        drain_near_ties=tie,
+        # each rank's meshed server's own (rank 0's without B's)
+        launches_per_rank={c: [n[c] for n in launches] for c in (
+            "split_launches", "combine_launches", "wgmma_launches")},
+        launches_ranks_equal=all(n == launches[0] for n in launches),
+        launches_all_ranks={c: sum(n[c] for n in launches)
+                            for c in _PAGED_COUNTERS},
+        lockstep=r0["lockstep"],
+        lockstep_ok=all(r["lockstep_ok"] for r in ranks),
+        wall_s=replica["wall_s"], ok=not bad)
+    line("mesh_replica", **row)
+    if bad:
+        raise SystemExit("mesh_replica: " + "; ".join(bad))
+    return row
 
 
 # -- phase 37: the other families over a mesh ---------------------------------
@@ -8016,17 +8403,23 @@ def _family_kernel_rows(flash, fam) -> list:
     return rows
 
 
-def _tp4_kernel_rows(kern, mesh_serve) -> list:
+def _tp4_kernel_rows(kern, mesh_serve, mesh_replica) -> list:
     """The split and the wgmma chunk kernels at a tp-4 rank's heads (phase
-    3's tp4 cases), launches summed over phase 36's 8 ranks and its paged
-    servers' main-path runs."""
+    3's tp4 cases), launches summed over the 8 ranks of phase 36's paged
+    servers' main-path runs and of phase 38's meshed replica."""
     case = {r["case"]: r for r in kern}
     dec, chunk = case["decode_bf16_tp4"], case["chunk_bf16_T256_tp4"]
-    launches = mesh_serve["launches_all_ranks"]
+    launches = {c: mesh_serve["launches_all_ranks"][c]
+                + mesh_replica["launches_all_ranks"][c]
+                for c in _PAGED_COUNTERS}
     paged = dict(route="cuda",
                  source="kubetpu_torch/ops/csrc/paged_attention.cu",
                  replaces="kubetpu/ops/paged_attention.py:65",
-                 launches_from="phase 36, 8 ranks")
+                 launches_from="phases 36 and 38, 8 ranks",
+                 launches_phase_38={
+                     c: mesh_replica["launches_all_ranks"][c]
+                     for c in ("split_launches", "combine_launches",
+                               "wgmma_launches")})
     return [
         dict(paged, name="paged_attention_split_tp4", instances="split",
              launches=launches["split_launches"],
@@ -8181,7 +8574,8 @@ def main(argv) -> int:
     # the multi-device training path: worlds of ranks sharing the card
     mesh_train, axes = phase_mesh_train(dev["nvidia_smi"])
     mesh_axes = phase_mesh_axes(dev["nvidia_smi"], axes)
-    mesh_serve, fam = phase_mesh_serve(dev["nvidia_smi"])
+    mesh_serve, replica, fam = phase_mesh_serve(dev["nvidia_smi"])
+    mesh_replica = phase_mesh_replica(dev["nvidia_smi"], replica)
     mesh_families = phase_mesh_families(dev["nvidia_smi"], fam)
     shutil.rmtree(LIFE_DIR, ignore_errors=True)
 
@@ -8306,7 +8700,7 @@ def main(argv) -> int:
                 "ok": r["ok"], "shape": r["shape"],
             })
     kernels += _mesh_kernel_rows(flash, mesh_train)
-    kernels += _tp4_kernel_rows(kern, mesh_serve)
+    kernels += _tp4_kernel_rows(kern, mesh_serve, mesh_replica)
     kernels += _family_kernel_rows(flash, mesh_families)
     record = {"device": dev, "build": build, "kernel_cases": kern,
               "flash_cases": flash, "parity": parity, "serve": serve,
@@ -8323,6 +8717,7 @@ def main(argv) -> int:
               "encoder": encoder, "profiling": profiling, "vit": vit,
               "seq2seq": seq2seq, "mesh_train": mesh_train,
               "mesh_axes": mesh_axes, "mesh_serve": mesh_serve,
+              "mesh_replica": mesh_replica,
               "mesh_families": mesh_families, "kernels": kernels}
     return finish(record, t_script, record_path)
 
@@ -8374,21 +8769,23 @@ def run_families(smi: str) -> dict:
 
 
 def run_mesh(smi: str) -> dict:
-    """``--phases 34-37``: phase 4 (with the ring's and the meshed
-    families' cases) and phase 3's tp-4 cases, then 34, 35, 36 and 37 as
-    the whole run drives them, and their ``kernels`` entries."""
+    """``--phases 34-38``: phase 4 (with the ring's and the meshed
+    families' cases) and phase 3's tp-4 cases, then 34, 35, 36, 38 and 37
+    as the whole run drives them, and their ``kernels`` entries."""
     record = {"flash_cases": phase_flash(),
               "kernel_cases": phase_kernels(
                   names=[n for n, _ in _tp4_cases()])}
     torch.cuda.empty_cache()
     record["mesh_train"], axes = phase_mesh_train(smi)
     record["mesh_axes"] = phase_mesh_axes(smi, axes)
-    record["mesh_serve"], fam = phase_mesh_serve(smi)
+    record["mesh_serve"], replica, fam = phase_mesh_serve(smi)
+    record["mesh_replica"] = phase_mesh_replica(smi, replica)
     record["mesh_families"] = phase_mesh_families(smi, fam)
     shutil.rmtree(LIFE_DIR, ignore_errors=True)
     record["kernels"] = (
         _mesh_kernel_rows(record["flash_cases"], record["mesh_train"])
-        + _tp4_kernel_rows(record["kernel_cases"], record["mesh_serve"])
+        + _tp4_kernel_rows(record["kernel_cases"], record["mesh_serve"],
+                           record["mesh_replica"])
         + _family_kernel_rows(record["flash_cases"],
                               record["mesh_families"]))
     return record
@@ -8396,7 +8793,7 @@ def run_mesh(smi: str) -> dict:
 
 # ``--phases`` ranges: each runs phases 1, 2 and its own, then the shared
 # tail
-PHASE_RANGES = {"29-33": run_families, "34-37": run_mesh}
+PHASE_RANGES = {"29-33": run_families, "34-38": run_mesh}
 
 
 if __name__ == "__main__":

@@ -67,7 +67,12 @@ def launch_config(env: Mapping[str, str], gang_hosts: Sequence[str],
     env's TPU_WORKER_ID, which equals the gang rank only when the gang
     spans a full slice in host order: a partial-slice gang (hosts {0, 2})
     must pass it. The local devices come from ``TPU_VISIBLE_DEVICES``, or
-    ``NVIDIA_VISIBLE_DEVICES`` for a GPU container."""
+    ``NVIDIA_VISIBLE_DEVICES`` for a GPU container. A list of ordinals
+    ("2,3") names them as they are; a list of GPU ids or UUIDs, as the
+    device manager writes them ("GPU-…"), names devices that the container
+    runtime exposes as ordinals 0 .. n-1: one local rank each
+    (``visible_device_names`` returns the ids, for a launcher with no such
+    runtime to put in ``CUDA_VISIBLE_DEVICES``)."""
     if not gang_hosts:
         raise ValueError("gang_hosts must name at least the coordinator host")
     process_id = int(env.get("TPU_WORKER_ID", "0")) if rank is None else rank
@@ -75,14 +80,33 @@ def launch_config(env: Mapping[str, str], gang_hosts: Sequence[str],
         raise ValueError(
             f"process_id {process_id} outside [0, {len(gang_hosts)}); pass "
             "the gang rank explicitly for partial-slice gangs")
-    visible = (env.get("TPU_VISIBLE_DEVICES")
-               or env.get("NVIDIA_VISIBLE_DEVICES", ""))
-    local_device_ids = [int(x) for x in visible.split(",") if x != ""]
+    visible = visible_devices(env)
+    if visible_device_names(env):
+        local_device_ids = list(range(len(visible)))
+    else:
+        local_device_ids = [int(x) for x in visible]
     return LaunchConfig(
         coordinator_address=f"{gang_hosts[0]}:{coordinator_port}",
         num_processes=len(gang_hosts),
         process_id=process_id,
         local_device_ids=local_device_ids)
+
+
+def visible_devices(env: Mapping[str, str]) -> List[str]:
+    visible = (env.get("TPU_VISIBLE_DEVICES")
+               or env.get("NVIDIA_VISIBLE_DEVICES", ""))
+    return [x.strip() for x in visible.split(",") if x.strip() != ""]
+
+
+def visible_device_names(env: Mapping[str, str]) -> List[str]:
+    """The env's visible devices when it names them by id rather than by
+    ordinal (``GPU02``, ``GPU-<uuid>``), else []: the list a launcher
+    puts in ``CUDA_VISIBLE_DEVICES`` where no container runtime maps the
+    ids to ordinals."""
+    visible = visible_devices(env)
+    if all(x.isdigit() for x in visible):
+        return []
+    return visible
 
 
 def select_device_env(envs: Sequence[Mapping[str, str]]) -> Dict[str, str]:
@@ -143,8 +167,9 @@ def run_gang_worker(config: Optional[LaunchConfig], backend: str,
     identical on every rank, proves the env contract end to end
     (coordinator reachability, rank order, device visibility). *device*:
     the rank's card (``cuda:<local device id>``) by default, or "cpu".
-    Returns {"process_index", "process_count", "global_devices", "loss"}.
-    """
+    Returns the JAX package's report, {"process_index": the worker's gang
+    rank, "process_count": the gang size, "global_devices": the world's
+    ranks, "loss"}, with this rank's "rank" and the "backend"."""
     import torch
     import torch.distributed as dist
 
@@ -175,5 +200,88 @@ def run_gang_worker(config: Optional[LaunchConfig], backend: str,
     loss = float(loss)
     if not np.isfinite(loss):  # not assert: python -O must not skip this
         raise RuntimeError(f"non-finite gang loss {loss}")
-    return {"process_index": rank, "process_count": world,
-            "global_devices": world, "loss": loss}
+    return {"process_index": 0 if config is None else config.process_id,
+            "process_count": 1 if config is None else config.num_processes,
+            "global_devices": world, "rank": rank, "backend": backend,
+            "loss": loss}
+
+
+# a gang member's wall-clock limit for all its local ranks' reports (the
+# launcher's shared deadline is usually the shorter one)
+MEMBER_TIMEOUT_S = 600.0
+
+
+def _member_rank(config, backend, device, local_rank, seed, q) -> None:
+    """One local rank of a gang member, in a process of its own: its
+    ``run_gang_worker`` report (or its failure) goes to *q*."""
+    try:
+        q.put((local_rank, run_gang_worker(config, backend, device=device,
+                                           local_rank=local_rank,
+                                           seed=seed)))
+    except BaseException as e:
+        q.put((local_rank, {"error": f"{type(e).__name__}: {e}"}))
+        raise
+
+
+def run_gang_member(config: LaunchConfig, backend: str, device=None,
+                    seed: int = 0) -> Dict:
+    """One gang member, the port's idiom of one process a device: a member
+    that names n devices runs its n local ranks, each in a process of its
+    own (one runs here when n is 1), and reports once, as the JAX
+    package's worker does: its gang rank, the gang size, the world's ranks
+    and the all-reduced loss, which every local rank must agree on. A
+    local rank that fails, or a member past ``MEMBER_TIMEOUT_S``, raises; every
+    process it starts is stopped. *device*: "cpu", or None for each local
+    rank's ``cuda:<local device id>``."""
+    import multiprocessing as mp
+    import queue
+    import time
+
+    n = config.ranks_per_process()
+    if n == 1:
+        reports = [run_gang_worker(config, backend, device=device,
+                                   seed=seed)]
+    else:
+        ctx = mp.get_context("spawn")
+        q = ctx.Queue()
+        procs = [ctx.Process(target=_member_rank,
+                             args=(config, backend, device, i, seed, q),
+                             daemon=True) for i in range(n)]
+        for p in procs:
+            p.start()
+        got: Dict[int, dict] = {}
+        deadline = time.monotonic() + MEMBER_TIMEOUT_S
+        try:
+            while len(got) < n and time.monotonic() < deadline:
+                try:
+                    i, rep = q.get(timeout=0.5)
+                except queue.Empty:
+                    if any(p.exitcode not in (None, 0) for p in procs):
+                        break
+                    continue
+                got[i] = rep
+        finally:
+            for p in procs:
+                p.join(timeout=max(0.1, deadline - time.monotonic())
+                       if len(got) == n else 0.1)
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        errors = [f"local rank {i}: {got[i]['error']}" for i in sorted(got)
+                  if "error" in got[i]]
+        missing = sorted(set(range(n)) - set(got))
+        if missing:
+            errors.append(f"local ranks {missing}: no report (exit codes "
+                          f"{[p.exitcode for p in procs]})")
+        if errors:
+            raise RuntimeError("gang member failed: " + "; ".join(errors))
+        reports = [got[i] for i in range(n)]
+    losses = {r["loss"] for r in reports}
+    if len(losses) != 1:
+        raise RuntimeError(f"local ranks disagree on the all-reduced loss: "
+                           f"{sorted(losses)}")
+    return {"process_index": config.process_id,
+            "process_count": config.num_processes,
+            "global_devices": config.world_size(), "loss": reports[0]["loss"],
+            "backend": backend, "local_ranks": n,
+            "ranks": [r["rank"] for r in reports]}

@@ -88,7 +88,11 @@ Robustness (the Round-7 contract, uniformly):
   would double-run the stream. Only a DEFINITIVE refusal (an HTTP
   error answer) unfreezes and resumes locally;
 - **fault injection**: ``faults=FaultInjector(...)`` chaos-tests the
-  surface like every other wire server.
+  surface like every other wire server;
+- **meshed servers**: a server built with ``mesh=`` is served by the
+  mesh's first rank while every other rank runs ``follow_replica``; the
+  calls that change the ranks' host state reach them in rank 0's order
+  (the last section below), and a follower that fails stops the replica.
 
 Threading: the slot servers are NOT thread-safe, so one condition
 variable serializes everything that touches the serving object — the
@@ -195,6 +199,17 @@ class ReplicaServer:
         if int(handoff_workers) < 1:
             raise ValueError("handoff_workers must be >= 1")
         self.handoff_workers = int(handoff_workers)
+        self._cv = threading.Condition()
+        # a meshed server: this rank serves, the others follow
+        # (``follow_replica``); every recorded call reaches them in order
+        self._lockstep: Optional[_Lockstep] = None
+        if getattr(server, "mesh", None) is not None:
+            self._lockstep = _Lockstep(server)
+            if not self._lockstep.leader:
+                raise ValueError("a meshed server's replica runs on the "
+                                 "mesh's first rank; the other ranks call "
+                                 "follow_replica")
+            server = _RecordedServer(server, self._lockstep, self._cv)
         self.server = server
         self.name = name
         # Round-20 boot-nonce fencing: a fresh identity every process
@@ -210,7 +225,6 @@ class ReplicaServer:
         self.events = EventLog(component=self.obs_component)
         self.draining = False
         self._inflight = InflightTracker()
-        self._cv = threading.Condition()
         self._running = False
         self._idle_wait = float(idle_wait)
         if drain_timeout_s is not None and drain_timeout_s < 0:
@@ -293,8 +307,9 @@ class ReplicaServer:
             def _do_get(self):
                 path = self.path.split("?")[0]
                 if path == "/healthz":
-                    write_json(self, 200, {
-                        "ok": True,
+                    failed = replica.lockstep_failed()
+                    write_json(self, 503 if failed else 200, {
+                        "ok": not failed,
                         "replica": replica.name,
                         "role": replica.role,
                         "draining": replica.draining,
@@ -324,7 +339,15 @@ class ReplicaServer:
                     write_json(self, 404, {"error": f"no route {self.path}"})
 
             def do_POST(self):  # noqa: N802
-                handle_guarded(replica, self, self._do_post)
+                handle_guarded(replica, self, self._do_post_guarded)
+
+            def _do_post_guarded(self):
+                try:
+                    self._do_post()
+                except LockstepError as e:
+                    # a meshed replica whose followers are gone serves
+                    # nothing: a retryable refusal, never one rank's answer
+                    write_json(self, 503, {"error": str(e)})
 
             def _do_post(self):
                 if not self._authorized():
@@ -1591,6 +1614,22 @@ class ReplicaServer:
         result reads interleave between steps, never during one. The
         drain-timeout check rides the same loop: a bounded drain whose
         deadline passed cancels what's left instead of wedging."""
+        try:
+            self._step_loop()
+        except Exception as e:
+            if self._lockstep is None:
+                raise
+            # a follower is gone or diverged, or a step's collective
+            # failed: stop serving, never go on with one rank (handlers
+            # answer 503, /healthz 503, shutdown raises)
+            with self._cv:
+                if self._lockstep.error is None:
+                    self._lockstep.error = e
+                self._running = False
+                self._cv.notify_all()
+
+    def _step_loop(self) -> None:
+        ls = self._lockstep
         while True:
             with self._cv:
                 if not self._running:
@@ -1603,6 +1642,12 @@ class ReplicaServer:
                 runnable = getattr(self.server, "_runnable", None)
                 if self.server._idle() or (runnable is not None
                                            and not runnable()):
+                    # a meshed server's followers take the calls of an
+                    # idle tick now, and a tick at least every keepalive
+                    if ls is not None and (ls.pending or (
+                            time.monotonic() - ls.last_tick
+                            >= LOCKSTEP_KEEPALIVE_S)):
+                        ls.send("idle")
                     self._cv.wait(timeout=self._idle_wait)
                     continue
                 self.server.step()
@@ -1620,8 +1665,12 @@ class ReplicaServer:
             # thread actually take the lock. Transfer-free replicas
             # skip it: the yield costs ~ms of TTFT per admission
             # (pinned by the bench gate's router_ttft_p50_ms ratchet)
-            # and buys nothing without a transfer to unblock.
-            if self._handoffs or self._mig_staging:
+            # and buys nothing without a transfer to unblock. A meshed
+            # replica yields every step too: its step is a world's
+            # collectives, beside which the yield costs nothing, and a
+            # handler's enqueue, cancel or timeout must not wait out a
+            # whole burst of them.
+            if self._handoffs or self._mig_staging or ls is not None:
                 time.sleep(0)
 
     def _check_drain_timeout_locked(self) -> None:
@@ -1741,8 +1790,10 @@ class ReplicaServer:
     def shutdown(self, graceful: bool = True, timeout: float = 10.0) -> None:
         """Stop the server. ``graceful`` drains, waits (bounded) for the
         serving object to go idle and for in-flight HTTP requests to
-        finish; False simulates abrupt death (chaos tests)."""
-        if graceful:
+        finish; False simulates abrupt death (chaos tests). A meshed
+        replica whose lockstep failed skips the wait (nothing can finish)
+        and raises ``LockstepError`` once stopped."""
+        if graceful and not self.lockstep_failed():
             self.drain()
             deadline = time.monotonic() + timeout
             with self._cv:
@@ -1767,3 +1818,281 @@ class ReplicaServer:
         if self._thread is not None:
             self._thread.join(timeout=5.0)
             self._thread = None
+        ls = self._lockstep
+        if ls is not None:
+            with self._cv:
+                if ls.error is None and not ls.stopped:
+                    ls.send("stop")      # the followers' loops return
+            if ls.error is not None:
+                raise LockstepError(
+                    f"replica {self.name}: a follower rank failed: "
+                    f"{ls.error}") from ls.error
+
+    def lockstep_failed(self) -> bool:
+        """A meshed replica whose follower died or diverged: it serves
+        nothing more (``/healthz`` answers 503)."""
+        return self._lockstep is not None and self._lockstep.error is not None
+
+    def lockstep_stats(self) -> Optional[dict]:
+        """A meshed replica's ticks by verb, calls and bytes broadcast to
+        its followers (None for a one-device server)."""
+        return None if self._lockstep is None else self._lockstep.stats()
+
+
+# -- a meshed server behind the wire ------------------------------------------
+#
+# A meshed server (``server.mesh`` not None) is SPMD: one process a rank,
+# every rank holding the same host scheduler and taking part in each
+# step's collectives, so every rank must receive the same calls in the
+# same order. Rank 0 of the mesh serves the wire (``ReplicaServer``); the
+# other ranks run ``follow_replica``. Rank 0 touches its server through
+# ``_RecordedServer``: each call that changes what ``check_lockstep``
+# digests, or that runs a collective, is appended to a call log, and the
+# log reaches the followers over a gloo group of the whole mesh (a CPU
+# group even where the model's tensors ride NCCL) before rank 0 runs the
+# call (a "call" tick, so every rank enters a call's collectives
+# together) and at each tick of rank 0's step loop, with the tick's verb:
+# step, idle or stop. A follower applies the calls in rank 0's order,
+# then steps, idles or returns. Every call's outcome (its plain result,
+# or the exception it raised) follows it in the log and each follower
+# checks its own against it: a follower that diverges raises, and
+# its death fails rank 0's next broadcast, which stops the replica (503s,
+# ``/healthz`` not ok, ``shutdown`` raises). No follower reads a clock:
+# the idle decision, the drain deadline and the generate timeouts are rank
+# 0's, and reach the others as verbs and calls.
+
+# calls that change the digested host state or run a collective
+RECORDED = frozenset((
+    "enqueue", "cancel", "cancel_expired", "pop_result", "freeze_slot",
+    "unfreeze_slot", "finish_migrated", "snapshot_slot", "snapshot_pages",
+    "restore_slot", "load_adapter", "evict_adapter", "export_prefix_span",
+    "inject_prefix", "prefix_local_pages", "migration_prefix_hint"))
+# a tick's frame: 8 bytes of length, then the first of the pickled log;
+# a longer log follows in a second broadcast
+LOCKSTEP_FRAME = 4096
+# an idle rank 0 still ticks this often, so a dead follower is seen
+LOCKSTEP_KEEPALIVE_S = 1.0
+# a follower waits this long for a tick before its broadcast raises
+LOCKSTEP_TIMEOUT_S = 300.0
+
+
+class LockstepError(RuntimeError):
+    """A follower's call came out unlike rank 0's, or the log's broadcast
+    failed: the mesh's ranks no longer hold the same server."""
+
+
+def _plain(x):
+    """What of a call's result every rank must agree on: plain values
+    (nested in lists, tuples and dicts) as they are, anything else (an
+    array, a tensor) by its type's name."""
+    if x is None or isinstance(x, (bool, int, float, str)):
+        return x
+    if isinstance(x, (list, tuple)):
+        return [_plain(v) for v in x]
+    if isinstance(x, dict):
+        return {str(k): _plain(v) for k, v in x.items()}
+    return type(x).__name__
+
+
+def _mesh_ranks(mesh) -> list:
+    return sorted(int(r) for r in mesh.mesh.flatten().tolist())
+
+
+class _Lockstep:
+    """The call log of one meshed server, on each rank: rank 0 records and
+    sends, the followers receive and apply. Joining builds a gloo group of
+    the whole world (a collective: rank 0's ``ReplicaServer`` and every
+    follower's ``follow_replica`` join at the same point of the program)."""
+
+    def __init__(self, server) -> None:
+        import datetime
+
+        import torch.distributed as dist
+
+        ranks = _mesh_ranks(server.mesh)
+        if ranks != list(range(dist.get_world_size())):
+            raise ValueError(
+                f"a meshed replica's mesh must span the process group "
+                f"(mesh ranks {ranks}, world {dist.get_world_size()})")
+        self.dist = dist
+        self.src = ranks[0]
+        self.group = dist.new_group(
+            backend="gloo",
+            timeout=datetime.timedelta(seconds=LOCKSTEP_TIMEOUT_S))
+        self.pending: list = []
+        self.last = None            # a follower's latest call outcome
+        self.last_name = None       # and that call's name
+        self.stopped = False
+        self.error: Optional[BaseException] = None
+        self.last_tick = time.monotonic() if self.leader else None
+        self.ticks = {"step": 0, "idle": 0, "call": 0, "stop": 0}
+        self.calls = 0
+        self.bytes = 0
+
+    @property
+    def leader(self) -> bool:
+        return self.dist.get_rank() == self.src
+
+    def stats(self) -> dict:
+        """Ticks by verb, calls carried and bytes broadcast so far."""
+        return {"ticks": dict(self.ticks), "calls": self.calls,
+                "bytes": self.bytes}
+
+    # -- rank 0 --------------------------------------------------------------
+
+    def send(self, verb: str) -> None:
+        """Broadcast the pending log with *verb*; caller holds the
+        replica's condition. A failed broadcast stops the lockstep for
+        good: every later call raises."""
+        import pickle
+
+        import numpy as np
+        import torch
+
+        if self.error is not None:
+            raise LockstepError(f"lockstep failed: {self.error}")
+        if self.stopped:
+            raise LockstepError("lockstep stopped")
+        calls, self.pending = self.pending, []
+        blob = pickle.dumps((verb, calls), protocol=pickle.HIGHEST_PROTOCOL)
+        n = len(blob)
+        head = np.zeros(LOCKSTEP_FRAME, np.uint8)
+        head[:8] = np.frombuffer(n.to_bytes(8, "little"), np.uint8)
+        first = min(n, LOCKSTEP_FRAME - 8)
+        head[8:8 + first] = np.frombuffer(blob[:first], np.uint8)
+        try:
+            self.dist.broadcast(torch.from_numpy(head), self.src,
+                                group=self.group)
+            if n > first:
+                self.dist.broadcast(torch.from_numpy(
+                    np.frombuffer(blob[first:], np.uint8).copy()),
+                    self.src, group=self.group)
+        except Exception as e:  # noqa: BLE001 — a peer is gone
+            self.error = e
+            raise LockstepError(f"lockstep broadcast failed: {e}") from e
+        self.ticks[verb] += 1
+        self.calls += sum(1 for c in calls if c[0] != "=")
+        self.bytes += LOCKSTEP_FRAME + max(0, n - first)
+        self.last_tick = time.monotonic()
+        if verb == "stop":
+            self.stopped = True
+
+    def call(self, cv, name: str, fn, args: tuple, kwargs: dict):
+        """Run recorded call *name* on rank 0 and log it (with its
+        outcome) for the followers."""
+        with cv:
+            if self.error is not None or self.stopped:
+                raise LockstepError(
+                    f"lockstep {'failed' if self.error else 'stopped'}: "
+                    f"{name} refused")
+            self.pending.append([name, args, kwargs])
+            self.send("call")
+            try:
+                out = fn(*args, **kwargs)
+            except Exception as e:
+                outcome = ("raise", type(e).__name__)
+                raise
+            else:
+                outcome = ("ok", _plain(out))
+                return out
+            finally:
+                self.pending.append(["=", outcome])
+
+    # -- the followers -------------------------------------------------------
+
+    def receive(self) -> tuple:
+        import pickle
+
+        import numpy as np
+        import torch
+
+        head = torch.empty(LOCKSTEP_FRAME, dtype=torch.uint8)
+        self.dist.broadcast(head, self.src, group=self.group)
+        raw = head.numpy()
+        n = int.from_bytes(raw[:8].tobytes(), "little")
+        first = min(n, LOCKSTEP_FRAME - 8)
+        blob = raw[8:8 + first].tobytes()
+        if n > first:
+            rest = torch.empty(n - first, dtype=torch.uint8)
+            self.dist.broadcast(rest, self.src, group=self.group)
+            blob += rest.numpy().tobytes()
+        self.bytes += LOCKSTEP_FRAME + max(0, n - first)
+        return pickle.loads(blob)
+
+    def apply(self, server, calls: list) -> None:
+        """Apply rank 0's calls in its order, each outcome (the "=" entry
+        that follows its call, in the same tick or a later one) held
+        against rank 0's."""
+        for entry in calls:
+            if entry[0] == "=":
+                if self.last != entry[1]:
+                    raise LockstepError(
+                        f"rank {self.dist.get_rank()}: {self.last_name} gave "
+                        f"{str(self.last)[:200]}, rank 0 "
+                        f"{str(entry[1])[:200]}")
+                continue
+            name, args, kwargs = entry
+            if name not in RECORDED:
+                raise LockstepError(f"call {name!r} is not recorded")
+            self.calls += 1
+            self.last_name = name
+            try:
+                self.last = ("ok", _plain(getattr(server, name)(
+                    *args, **kwargs)))
+            except Exception as e:  # noqa: BLE001 — compared at its "="
+                self.last = ("raise", type(e).__name__)
+
+class _RecordedServer:
+    """Rank 0's view of a meshed server: reads pass through; each recorded
+    call goes through the call log; ``step`` ticks the followers first."""
+
+    def __init__(self, server, lockstep: _Lockstep, cv) -> None:
+        self._server = server
+        self._lockstep = lockstep
+        self._cv = cv
+
+    def __getattr__(self, name):
+        attr = getattr(self._server, name)
+        if name not in RECORDED or not callable(attr):
+            return attr
+
+        def recorded(*args, **kwargs):
+            return self._lockstep.call(self._cv, name, attr, args, kwargs)
+
+        return recorded
+
+    def step(self):
+        with self._cv:
+            self._lockstep.send("step")
+            return self._server.step()
+
+
+def follow_replica(server) -> dict:
+    """A follower rank of a meshed server behind the wire: the step loop
+    of rank 0's ``ReplicaServer`` (on the mesh's first rank, built at the
+    same point of the program) without a socket. Receives each tick's
+    calls, applies them in rank 0's order, then steps, idles, or returns
+    at stop -> the ticks by verb, the calls applied and the bytes
+    received. Raises ``LockstepError`` where a call comes out unlike rank
+    0's; a failed broadcast raises too. Rank 0 serves, the rest follow::
+
+        if rank == 0:
+            rep = ReplicaServer(server, "r0"); rep.start(); ...
+            rep.shutdown()
+        else:
+            follow_replica(server)
+    """
+    if getattr(server, "mesh", None) is None:
+        raise ValueError("follow_replica takes a meshed server (mesh=)")
+    ls = _Lockstep(server)
+    if ls.leader:
+        raise ValueError("the mesh's first rank serves (ReplicaServer); "
+                         "only the other ranks follow")
+    while True:
+        verb, calls = ls.receive()
+        ls.ticks[verb] += 1
+        ls.apply(server, calls)
+        if verb == "step":
+            server.step()
+        elif verb == "stop":
+            return ls.stats()

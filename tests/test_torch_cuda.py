@@ -1609,6 +1609,90 @@ def test_two_rank_meshed_paged_server_on_one_card_matches_the_one_card_server(
         assert n["split_launches"] == n["combine_launches"]
 
 
+@pytest.mark.gpu
+def test_two_rank_meshed_paged_replica_on_one_card_matches_the_direct_run(
+        cuda, tmp_path):
+    """A 2-rank {tp 2} ``PagedDecodeServer`` world on cuda:0 behind the
+    port's ``ReplicaServer`` (rank 0 serves, rank 1 follows): concurrent
+    ``POST /generate`` answers the one-card server's greedy tokens
+    (monolithic admission, so no prefill plan differs), every rank steps
+    through the split and combine kernels, and the ranks' host state
+    agrees afterwards."""
+    from kubetpu_torch.jobs.model import ModelConfig
+    from torch_mesh_worlds import port_models, serve_case, spawn
+
+    kw = dict(vocab=128, d_model=128, n_layers=2, n_heads=4, d_ff=256,
+              max_seq=128)
+    payload = {"cfg": kw, "params": _small_tree(ModelConfig(**kw))}
+    case = dict(name="wire", kind="paged", script="generate",
+                kw=dict(n_slots=2, max_seq=64, max_new_tokens=8,
+                        page_size=8),
+                prompts=[list(range(1, 18)), [5, 6, 7, 9, 11], [9, 10, 3]])
+    res = spawn("mesh_replica", 2, tmp_path, dict(
+        payload, device="cuda", mesh={"tp": 2}, cases=[case]))
+    assert all(r["foreign"] == [] for r in res)
+    got = res[0]["wire"]["gens"]
+    assert all(g["code"] == 200 for g in got)
+    one = serve_case(dict(case, kind="paged"), port_models(payload, "cuda"),
+                     None, "cuda")
+    assert [g["tokens"] for g in got] == one["tokens"]
+    lead = res[0]["wire"]["lockstep"]
+    assert lead["ticks"]["step"] > 0 and res[1]["wire"]["lockstep"] == lead
+    for r in res:
+        n = r["wire"]["launches"]
+        assert n["split_launches"] > 0
+        assert n["split_launches"] == n["combine_launches"]
+
+
+@pytest.mark.gpu
+def test_gang_launch_on_the_card_shares_it_over_gloo(cuda):
+    """``launch_gang`` against a stub controller whose two pods both name
+    this card by its UUID: each worker sees it through
+    ``CUDA_VISIBLE_DEVICES``, the launcher picks gloo (one card, two
+    ranks), and both report the gang's meaning and one finite loss."""
+    import json
+    import math
+    import subprocess
+    import threading
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    from kubetpu_torch.cli.gang_launch import launch_gang
+
+    uid = subprocess.run(["nvidia-smi", "--query-gpu=uuid",
+                          "--format=csv,noheader", "-i", "0"],
+                         capture_output=True, text=True).stdout.strip()
+    assert uid.startswith("GPU-")
+
+    class Pods(BaseHTTPRequestHandler):
+        def log_message(self, *a):
+            pass
+
+        def do_GET(self):  # noqa: N802 (stdlib name)
+            body = json.dumps({"pod": self.path.rsplit("/", 1)[-1],
+                               "containers": {"main": {
+                                   "mounts": [], "devices": [],
+                                   "env": {"NVIDIA_VISIBLE_DEVICES": uid}}}})
+            self.send_response(200)
+            self.send_header("Content-Type", "application/json")
+            self.end_headers()
+            self.wfile.write(body.encode())
+
+    stub = ThreadingHTTPServer(("127.0.0.1", 0), Pods)
+    threading.Thread(target=stub.serve_forever, daemon=True).start()
+    try:
+        out = launch_gang(f"http://127.0.0.1:{stub.server_address[1]}",
+                          ["w0", "w1"], timeout=240)
+    finally:
+        stub.shutdown()
+        stub.server_close()
+    workers = out["workers"]
+    assert [w["process_index"] for w in workers] == [0, 1]
+    assert all(w["process_count"] == 2 and w["global_devices"] == 2
+               and w["backend"] == "gloo" for w in workers)
+    assert math.isfinite(out["loss"])
+    assert len({w["loss"] for w in workers}) == 1
+
+
 # the flash kernels at a meshed rank's shapes (phase 37): the encoder's on
 # {dp 2, sp 2, tp 2} (batch 4 / dp, the whole 2048 sequence, 16 / tp
 # heads) and ViT-B/16's on {dp 4, tp 2} (batch 128 / dp, 196 patches,

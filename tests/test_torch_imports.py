@@ -47,7 +47,8 @@ def test_fresh_import_loads_no_jax_and_no_kubetpu():
                  "jobs.profiling", "jobs.encoder", "jobs.vision",
                  "jobs.seq2seq", "jobs.meshjob", "jobs.launch",
                  "jobs.collectives", "jobs.ring_attention",
-                 "jobs.pipeline"):
+                 "jobs.pipeline", "cli", "cli.gang_launch",
+                 "cli.gang_worker"):
         assert f"kubetpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"
@@ -402,6 +403,35 @@ def test_family_entry_points_default_to_the_card_and_raise_without_it():
             lambda: seq2seq_params_from_numpy(s2s_tree, cfg)):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
+
+
+def test_gang_cli_loads_nothing_foreign_and_defaults_to_the_card():
+    """The gang-launch CLI in a fresh interpreter: its worker, run with
+    no ``--platform`` and no CUDA, raises rather than train on the CPU,
+    and neither module loads jax or kubetpu."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is usable here")
+    code = (
+        "import sys\n"
+        "from kubetpu_torch.cli import gang_launch, gang_worker\n"
+        "try:\n"
+        "    gang_worker.main(['--coordinator', '127.0.0.1:1',\n"
+        "                      '--num-processes', '1', '--rank', '0',\n"
+        "                      '--backend', 'nccl'])\n"
+        "except RuntimeError as e:\n"
+        "    assert 'CUDA' in str(e), e\n"
+        "else:\n"
+        "    raise AssertionError('the worker ran without a card')\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'kubetpu'))\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES="")
+    env.pop("NVIDIA_VISIBLE_DEVICES", None)
+    env.pop("TPU_VISIBLE_DEVICES", None)
+    proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-1500:]
 
 
 def test_spawned_mesh_worker_loads_neither_jax_nor_kubetpu(tmp_path):

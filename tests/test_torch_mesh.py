@@ -150,8 +150,13 @@ def test_gang_launch_configs_match_jax(n_workers, chips):
 ENVS = [
     [{}, {"TPU_VISIBLE_DEVICES": "0,1", "TPU_WORKER_ID": "1"}],
     [{"NVIDIA_VISIBLE_DEVICES": "2,3"}],
+    # the device manager's form: GPU ids, one local rank each
+    [{"NVIDIA_VISIBLE_DEVICES": "GPU02,GPU05"}],
     [{"X": "1"}, {}],
 ]
+# a GPU container's local devices for the port: ordinals as named, ids
+# as the ordinals 0 .. n-1 a container runtime exposes them at
+GPU_LOCAL = {"2,3": [2, 3], "GPU02,GPU05": [0, 1]}
 
 
 @pytest.mark.parametrize("envs", ENVS)
@@ -172,7 +177,7 @@ def test_select_device_env_and_launch_config_match_jax(envs):
     if "TPU_VISIBLE_DEVICES" in want:
         assert t.local_device_ids == j.local_device_ids
     else:       # a GPU container names its devices for the port
-        assert t.local_device_ids == [2, 3]
+        assert t.local_device_ids == GPU_LOCAL[want["NVIDIA_VISIBLE_DEVICES"]]
     with pytest.raises(ValueError, match="outside"):
         tlaunch.launch_config(want, hosts, rank=3)
     with pytest.raises(ValueError, match="outside"):

@@ -955,6 +955,336 @@ def gang(payload):
     return run_gang_worker(cfg, "gloo", device="cpu", seed=payload["seed"])
 
 
+# -- a meshed server behind the replica wire ---------------------------------
+
+
+def _http(url, path, body=None, key=None, timeout=60.0):
+    """(code, JSON answer) of one request to a replica (a POST when
+    *body* is given); an HTTP error answers with its code."""
+    import json
+    import urllib.error
+    import urllib.request
+
+    headers = {"Content-Type": "application/json"}
+    if key:
+        headers["Idempotency-Key"] = key
+    req = urllib.request.Request(
+        url + path, headers=headers,
+        data=None if body is None else json.dumps(body).encode(),
+        method="GET" if body is None else "POST")
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read() or b"{}")
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read() or b"{}")
+
+
+class Fleet:
+    """Replicas by name, in this process. ``generate`` chases a 409 (the
+    stream migrated) to the new owner with the same key, as a router
+    does."""
+
+    def __init__(self) -> None:
+        self.urls, self.reps = {}, {}
+
+    def add(self, rep):
+        self.urls[rep.name] = rep.start()
+        self.reps[rep.name] = rep
+        return rep
+
+    def generate(self, name, prompt, key, **extra) -> dict:
+        # the client waits past the replica's own deadline
+        wait = float(extra.get("timeout") or 30.0) + 60.0
+        code, body = _http(self.urls[name], "/generate",
+                           dict(extra, prompt=list(prompt)), key=key,
+                           timeout=wait)
+        hops = [name]
+        while code == 409 and "migrated" in body:
+            name = body["migrated"]["replica"]
+            hops.append(name)
+            code, body = _http(self.urls[name], "/generate",
+                               {"prompt": list(prompt)}, key=key)
+        return {"code": code, "tokens": body.get("tokens"), "hops": hops}
+
+    def post(self, name, path, body):
+        return _http(self.urls[name], path, body)
+
+    def wait_decoding(self, name, n, timeout=60.0) -> int:
+        """Until *n* streams of replica *name* may migrate (decoding,
+        first token out), or it has none left -> how many may."""
+        rep, end = self.reps[name], time.time() + timeout
+        while time.time() < end:
+            with rep._cv:
+                ready = len(rep.server.migratable_rids())
+                if ready >= n or (rep.server._idle()
+                                  and not rep.server.unfinished_rids()):
+                    return ready
+            time.sleep(0.001)
+        raise TimeoutError(f"{name}: {n} streams never decoding")
+
+    def shutdown(self) -> dict:
+        """Stop every replica -> the meshed one's lockstep stats."""
+        stats = None
+        for rep in self.reps.values():
+            rep.shutdown()
+            stats = stats or rep.lockstep_stats()
+        return stats
+
+
+class StepGate:
+    """Park a replica's step loop once *count* of its streams are
+    mid-decode (*n* tokens out), until ``release``: every further step
+    waits on the replica's condition (releasing it) and advances nothing,
+    so a handoff or a drain always lands mid-stream however loaded the
+    machine is (tests/test_torch_migration.py's gate). A parked meshed
+    replica sends its followers no step."""
+
+    def __init__(self, rep, count: int = 1, n: int = 3) -> None:
+        import threading
+
+        self.rep, self.count, self.n = rep, count, n
+        self.held = threading.Event()
+        self._released = False
+        self._step = rep.server.step
+        rep.server.step = self._gated
+
+    def _gated(self):
+        srv = self.rep.server
+        if not self._released and (self.held.is_set() or sum(
+                len(srv._emitted.get(r, ())) >= self.n
+                for r in srv.migratable_rids()) >= self.count):
+            self.held.set()
+            self.rep._cv.wait(timeout=0.005)
+            return {}
+        return self._step()
+
+    def wait(self, timeout: float = 60.0) -> None:
+        if not self.held.wait(timeout):
+            raise TimeoutError("streams never reached mid-decode")
+
+    def release(self, until_idle: bool = False) -> None:
+        """Open the gate (first, with *until_idle*, wait until every
+        stream left the replica, as a drain's handoffs do)."""
+        rep = self.rep
+        with rep._cv:
+            if until_idle and not rep._cv.wait_for(
+                    rep.server._idle, timeout=60.0):
+                raise TimeoutError("streams never left the replica")
+            self._released = True
+            rep.server.step = self._step
+            rep._cv.notify_all()
+
+
+def concurrently(*calls) -> list:
+    """Run ``(fn, args, kwargs)`` calls on threads -> results, in order."""
+    import threading
+
+    out, errors = [None] * len(calls), []
+
+    def run(i, fn, args, kwargs):
+        try:
+            out[i] = fn(*args, **kwargs)
+        except BaseException as e:  # noqa: BLE001 — raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(i, *c))
+               for i, c in enumerate(calls)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    return out
+
+
+def _call(fn, *args, **kwargs):
+    return fn, args, kwargs
+
+
+def _replica_script(case, fleet, server, models, device) -> dict:
+    """Rank 0's HTTP calls for one case; "mesh" is the meshed replica,
+    the others one-device port replicas of the same server."""
+    from kubetpu_torch.router.replica import ReplicaServer
+
+    P, gen = case["prompts"], fleet.generate
+    out = {}
+
+    def peer(name, role="both"):
+        one = build_server(case, models, None, device)
+        return fleet.add(ReplicaServer(one, name, role=role))
+
+    def midstream(name, count, path, body, *gens):
+        """Run *gens* on replica *name*; once *count* of its streams are
+        mid-decode (its loop parked), POST *path* there, then let it go
+        on (after its streams left, for a handoff) -> (the generates'
+        answers, the POST's answer)."""
+        gate = StepGate(fleet.reps[name], count)
+        box = {}
+
+        def act():
+            gate.wait()
+            box["answer"] = fleet.post(name, path, body)
+            gate.release(until_idle=path == "/migrate_out"
+                         or bool(body.get("migrate_to")))
+
+        answers = concurrently(_call(act), *gens)[1:]
+        return answers, box["answer"]
+
+    script = case["script"]
+    if script == "generate":
+        # a deadline past a first call's kernel build on the card
+        out["gens"] = concurrently(*[_call(gen, "mesh", p, f"g{i}",
+                                           timeout=600)
+                                     for i, p in enumerate(P)])
+    elif script == "prefix":
+        out["first"] = [gen("mesh", P[0], "p0")]
+        out["then"] = concurrently(_call(gen, "mesh", P[1], "p1"),
+                                   _call(gen, "mesh", P[2], "p2"))
+        out["hits"] = server.prefix_cache_stats()["requests_hit"]
+        code, body = fleet.post("mesh", "/prefix_fetch",
+                                {"prompt": P[2], "from_page": 0})
+        out["fetch"] = (code, body.get("matched_tokens"), body.get("n_pages"))
+        d = peer("D")
+        out["peer"] = gen("D", P[2], "d2", prefix_peer=fleet.urls["mesh"])
+        out["peer_hits"] = d.server.obs.counter(
+            "kubetpu_peer_prefix_fetch_total", result="hit").value
+    elif script == "int8":
+        out["all"] = concurrently(*[_call(gen, "mesh", p, f"a{i}")
+                                    for i, p in enumerate(P)])
+        # a deadline already past at its first check: canceled queued
+        out["cancel"] = gen("mesh", P[1], "c1", timeout=1e-6)["code"]
+        # a drain without a target: the stream in flight finishes here
+        out["drained"], out["drain_answer"] = midstream(
+            "mesh", 1, "/drain", {}, _call(gen, "mesh", P[0], "b0"))
+        out["after_drain"] = gen("mesh", P[1], "late")["code"]
+    elif script == "dense":
+        out["pair"] = concurrently(_call(gen, "mesh", P[0], "q0"),
+                                   _call(gen, "mesh", P[1], "q1"))
+        out["third"] = [gen("mesh", P[2], "q2")]
+        # the drain-timeout sweep (drain_timeout_s 0): the stream in
+        # flight is canceled as expired on every rank
+        swept, _ = midstream("mesh", 1, "/drain", {},
+                             _call(gen, "mesh", P[1], "x1"))
+        out["swept"] = swept[0]["code"]
+    elif script == "lora":
+        code, body = fleet.post("mesh", "/adapters", {
+            "action": "load", "name": "t3", "adapter": case["wire"]})
+        out["load"] = (code, body.get("resident"))
+        out["gens"] = concurrently(
+            _call(gen, "mesh", P[0], "l0", adapter="t3"),
+            _call(gen, "mesh", P[1], "l1", adapter=1),
+            _call(gen, "mesh", P[2], "l2", adapter=0))
+        code, body = fleet.post("mesh", "/adapters",
+                                {"action": "evict", "name": "t3"})
+        out["evict"] = (code, body.get("evicted"))
+    elif script == "migrate":
+        peer("B")
+        peer("C")
+        # a stream migrated IN: C hands its stream to the meshed replica
+        out["in"], (_, moved) = midstream(
+            "C", 1, "/migrate_out", {"target": fleet.urls["mesh"]},
+            _call(gen, "C", P[2], "m2"))
+        out["in_moved"] = moved.get("migrated")
+        # streams migrated OUT: /migrate_out, then a drain with a target
+        out["out"], (_, moved) = midstream(
+            "mesh", 2, "/migrate_out", {"target": fleet.urls["B"]},
+            _call(gen, "mesh", P[0], "m0"), _call(gen, "mesh", P[1], "m1"))
+        out["out_moved"] = moved.get("migrated")
+        out["drain"], _ = midstream(
+            "mesh", 1, "/drain", {"migrate_to": fleet.urls["B"]},
+            _call(gen, "mesh", P[0], "n0"))
+    elif script == "prefill":
+        peer("D", role="decode")
+        out["handoff"] = concurrently(*[
+            _call(gen, "mesh", P[i], f"h{i}", decode_target=fleet.urls["D"],
+                  decode_name="D") for i in (0, 2)])
+    return out
+
+
+def mesh_replica(payload):
+    """Each case's meshed server on the payload's mesh behind the port's
+    ``ReplicaServer`` on rank 0 (``_replica_script``'s HTTP calls), the
+    other ranks following (``follow_replica``); then ``check_lockstep``
+    on every rank -> each case's answers (rank 0) or follower stats."""
+    from kubetpu_torch.router.replica import ReplicaServer, follow_replica
+
+    device = payload.get("device", "cpu")
+    mesh = _mesh(payload["mesh"], device)
+    models = port_models(payload, device)
+    out = {}
+    for case in payload["cases"]:
+        server = build_server(case, models, mesh, device)
+        before = _paged_counts()
+        if payload["rank"] == 0:
+            fleet = Fleet()
+            fleet.add(ReplicaServer(server, "mesh", **case.get("replica",
+                                                              {})))
+            try:
+                res = _replica_script(case, fleet, server, models, device)
+            finally:
+                res_stats = fleet.shutdown()
+            res = dict(res, lockstep=res_stats)
+        else:
+            res = {"lockstep": follow_replica(server)}
+        server.check_lockstep()
+        # every launch of this rank in the case (rank 0's one-device
+        # replicas' too)
+        res["launches"] = {k: n - before[k]
+                           for k, n in _paged_counts().items()}
+        out[case["name"]] = res
+    return out
+
+
+def dead_follower(payload):
+    """A meshed paged server behind the wire whose last rank fails its
+    step ``fail_at`` and leaves the process group: rank 0's answers (a
+    generate before, one across the failure, ``/healthz``) and what its
+    ``shutdown`` raised."""
+    import torch.distributed as dist
+
+    from kubetpu_torch.router import replica
+    from kubetpu_torch.router.replica import ReplicaServer, follow_replica
+
+    replica.LOCKSTEP_TIMEOUT_S = 20.0
+    mesh = _mesh(payload["mesh"], "cpu")
+    models = port_models(payload, "cpu")
+    case = payload["case"]
+    server = build_server(case, models, mesh, "cpu")
+    rank, last = payload["rank"], payload["world"] - 1
+    if rank == last:
+        steps = []
+
+        def failing_step():
+            steps.append(1)
+            if len(steps) == payload["fail_at"]:
+                raise RuntimeError("planted rank failure")
+            return type(server).step(server)
+
+        server.step = failing_step
+    if rank == 0:
+        fleet = Fleet()
+        rep = fleet.add(ReplicaServer(server, "mesh"))
+        first = fleet.generate("mesh", case["prompts"][0], "g0")
+        second = fleet.generate("mesh", case["prompts"][1], "g1")
+        health = _http(fleet.urls["mesh"], "/healthz")
+        try:
+            rep.shutdown()
+            raised = None
+        except Exception as e:  # noqa: BLE001 — reported
+            raised = type(e).__name__
+        dist.destroy_process_group()
+        return {"first": first, "second": second, "healthz": health,
+                "shutdown_raised": raised}
+    try:
+        follow_replica(server)
+        raised = None
+    except Exception as e:  # noqa: BLE001 — reported
+        raised = type(e).__name__
+    dist.destroy_process_group()
+    return {"raised": raised}
+
+
 def _main(argv) -> None:
     name, rank, world, tmp, init = (argv[0], int(argv[1]), int(argv[2]),
                                     argv[3], bool(int(argv[4])))
